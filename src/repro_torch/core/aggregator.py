@@ -1,0 +1,203 @@
+"""GradientAggregator — the paper's technique as a composable module.
+
+Counterpart of ``repro/core/aggregator.py``: fusion ∘ reduction
+algorithm, applied post-backward to a gradient tree over the data
+process group, returning the MEAN gradient over all ranks.  Resolution
+goes through :func:`repro_torch.core.schedule.plan`; execution is
+stage by stage (:func:`repro_torch.core.reducers.execute_stages`).
+
+This slice covers the post-backward path on one data axis, with every
+codec, the fused-hop default and error feedback.  ``overlap=True`` and
+``strategy="auto"`` raise ``NotImplementedError`` until a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import torch
+
+from . import codec as codec_mod
+from . import dist as dist_mod
+from . import reducers, schedule as schedule_mod
+from .schedule import ReduceSchedule
+
+
+def _chunk_axis(group, ndim: int) -> int:
+    """First unsharded dim of a leaf whose fusion-group tag is its
+    tuple-ized PartitionSpec (None entries = unsharded)."""
+    if not isinstance(group, tuple) or ndim == 0:
+        return 0
+    for i in range(ndim):
+        if i >= len(group) or group[i] is None:
+            return i
+    return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatorConfig:
+    """The reference's fields and defaults (``repro/core/aggregator.py``)."""
+    strategy: str = "rhd_rsa"
+    fuse: bool = True
+    fusion_threshold_mb: float = 4.0
+    accum_dtype: str = "float32"
+    sharding_aware: bool = True
+    wire_dtype: str = ""
+    selector_mode: str = "analytic"
+    selector_table: str = ""
+    selector_link: str = "ici"
+    align_buckets: bool = True
+    overlap: bool = False
+    codec: str = "none"
+    error_feedback: bool = False
+    fused_hops: "bool | None" = None
+
+    @property
+    def threshold_bytes(self) -> int:
+        return int(self.fusion_threshold_mb * 2 ** 20)
+
+    @property
+    def placement(self) -> str:
+        return "in_backward" if self.overlap else "post_backward"
+
+    def validate(self):
+        if self.strategy == "auto":
+            raise NotImplementedError(
+                "strategy='auto' (the selector) is not ported yet")
+        if self.overlap:
+            raise NotImplementedError(
+                "overlap=True (in-backward reductions) is not ported yet")
+        schedule_mod.normalize_strategy(self.strategy, 1)
+        codec_mod.validate_spec(self.codec or "none")
+        if self.error_feedback and (self.codec or "none") == "none":
+            raise ValueError("error_feedback=True requires a wire codec "
+                             "(codec != 'none')")
+
+    def resolve_fused_hops(self) -> bool:
+        """``None`` means coded schedules fuse, uncoded ones do not."""
+        if self.fused_hops is None:
+            return (self.codec or "none") != "none"
+        return bool(self.fused_hops)
+
+
+class GradientAggregator:
+    """Mean-allreduces gradient trees over the data process group(s).
+
+    ``groups`` maps each name of ``dp_axes`` to its
+    :class:`~repro_torch.core.dist.Group`."""
+
+    def __init__(self, config: AggregatorConfig, dp_axes: Sequence[str],
+                 groups: Mapping[str, "dist_mod.Group"]):
+        config.validate()
+        self.config = config
+        self.dp_axes = tuple(dp_axes)
+        if len(self.dp_axes) != 1:
+            raise NotImplementedError(
+                f"dp axes {self.dp_axes}: multi-axis aggregation is not "
+                f"ported yet")
+        missing = [a for a in self.dp_axes if a not in groups]
+        if missing:
+            raise ValueError(f"no process group for dp axes {missing}")
+        self.groups = dict(groups)
+        self.last_schedule: ReduceSchedule | None = None
+
+    def _wire_dtype(self) -> str:
+        cfg = self.config
+        return cfg.wire_dtype or cfg.accum_dtype
+
+    def resolve(self, grads, axis_sizes: Sequence[int],
+                groups=None) -> ReduceSchedule:
+        """Resolve ``grads`` into the :class:`ReduceSchedule` IR without
+        running a reduction."""
+        cfg = self.config
+        if not cfg.sharding_aware:
+            groups = None
+        sched = schedule_mod.plan(
+            grads, axis_names=self.dp_axes,
+            axis_sizes=tuple(int(s) for s in axis_sizes),
+            strategy=cfg.strategy, threshold_bytes=cfg.threshold_bytes,
+            fuse=cfg.fuse, groups=groups, wire_dtype=self._wire_dtype(),
+            placement=cfg.placement, intra=cfg.selector_link,
+            codec=cfg.codec or "none", error_feedback=cfg.error_feedback,
+            fused_hops=cfg.fused_hops)
+        self.last_schedule = sched
+        return sched
+
+    def _context(self, grads, groups):
+        sizes = tuple(self.groups[ax].size for ax in self.dp_axes)
+        sched = self.resolve(grads, sizes, groups=groups)
+        dp_size = 1
+        for s in sizes:
+            dp_size *= s
+        return sched, 1.0 / dp_size
+
+    def _reduce_buffer(self, bucket, group, buf, scale, residual=None):
+        """Reduce ONE bucket's fused buffer: cast to the wire/accum dtype,
+        run its stages, apply the mean scale, cast back.  With
+        ``residual`` (error feedback) the bucket sends ``q(g + r)`` and
+        returns the new residual beside the reduced buffer."""
+        accum = schedule_mod.DTYPES[self._wire_dtype()]
+        orig = buf.dtype
+        new_residual = None
+        if residual is not None:
+            cname = next((st.codec for st in bucket.stages
+                          if st.codec != "none"), "none")
+            if cname != "none":
+                buf, new_residual = codec_mod.ef_quantize(cname, buf,
+                                                          residual)
+                buf = buf.to(orig)
+            else:
+                new_residual = residual
+        if orig != accum:
+            buf = buf.to(accum)
+        axis = _chunk_axis(group, buf.ndim)
+        if axis != 0:
+            buf = torch.movedim(buf, axis, 0).contiguous()
+        buf = reducers.execute_stages(buf, bucket.stages, self.groups)
+        if axis != 0:
+            buf = torch.movedim(buf, 0, axis)
+        out = (buf * scale).to(orig)
+        if residual is not None:
+            return out, new_residual
+        return out
+
+    def init_residuals(self, grads, groups=None):
+        """Zero error-feedback state: one float32 buffer per bucket."""
+        sched, _ = self._context(grads, groups)
+        return tuple(torch.zeros(buf.shape, dtype=torch.float32,
+                                 device=buf.device)
+                     for buf in sched.plan.flatten(grads))
+
+    def __call__(self, grads, groups=None, residuals=None):
+        """Mean-allreduce ``grads`` (post-backward).  ``groups``: a tree
+        of sharding-group tags matching ``grads``.  With ``residuals``
+        returns ``(reduced_grads, new_residuals)``."""
+        sched, scale = self._context(grads, groups)
+        plan = sched.plan
+        bufs = plan.flatten(grads)
+        if residuals is not None and len(residuals) != len(bufs):
+            raise ValueError(
+                f"{len(residuals)} residual buffers for {len(bufs)} "
+                f"fusion buckets — pass init_residuals() output")
+        reduced, new_residuals = [], []
+        for i, (bucket, buf) in enumerate(zip(sched.buckets, bufs)):
+            group = plan.buckets[bucket.index].group
+            if residuals is not None:
+                out, r = self._reduce_buffer(bucket, group, buf, scale,
+                                             residual=residuals[i])
+                new_residuals.append(r)
+            else:
+                out = self._reduce_buffer(bucket, group, buf, scale)
+            reduced.append(out)
+        if residuals is not None:
+            return plan.unflatten(reduced), tuple(new_residuals)
+        return plan.unflatten(reduced)
+
+    def mean_scalar(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean of a scalar metric over the data ranks."""
+        total = x
+        dp_size = 1
+        for ax in self.dp_axes:
+            total = dist_mod.psum(total, self.groups[ax])
+            dp_size *= self.groups[ax].size
+        return total / dp_size

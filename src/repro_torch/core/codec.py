@@ -1,0 +1,210 @@
+"""Per-stage wire codecs for the ReduceSchedule IR.
+
+Counterpart of ``repro/core/codec.py`` (see its docstring for the design
+and the derived tolerance bounds, which this module keeps unchanged).
+Each coded stage encodes the payload immediately before every
+``ppermute`` hop and decodes it immediately after, so accumulation stays
+in float32 while the wire carries 1-2 bytes per element:
+
+``none``       pass-through
+``bf16``       truncate to bfloat16 for the hop (2 bytes/elem, no scale)
+``int8``       ``q = round(x/s)``, ``s = absmax/127`` (+ one f32 scale)
+``fp8_e4m3``   ``x/s`` cast to ``float8_e4m3fn``, ``s = absmax/448``
+
+Payloads travel as their raw bytes (``.view(torch.uint8)``): the process
+group moves opaque bytes, so nothing can convert them on the way — the
+reference's XLA bitcast pinning has no counterpart to keep.
+
+``encode``/``decode`` are the plain torch arithmetic of the fused-hop
+kernels (``kernels/fused_hop.py``); the ``fused`` permuter runs the
+kernels themselves.
+
+Coded forwarding hops (no accumulate) also hand back the value their
+receivers decode — see :func:`permuter` — so the rank that sent a
+reduced chunk can keep exactly what its peers hold (fault F2 in
+ROADMAP.md: the reference keeps the owner's unquantized copy, and data-
+parallel replicas drift apart by a quantum).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels import fused_hop
+from . import dist as dist_mod
+
+# Algorithms whose hops are explicit ppermutes we can encode around.
+CODED_ALGORITHMS = ("ring_rsa", "rhd_rsa")
+
+# f32 scale scalar shipped per hop for absmax-scaled codecs.
+SCALE_BYTES = 4
+
+CODEC_EPS = {
+    "bf16": 2.0 ** -8,
+    "fp8_e4m3": 2.0 ** -3,
+    "int8": 1.0 / 254.0,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Codec:
+    """One wire codec: identity + closed-form byte accounting."""
+    name: str
+    itemsize: int          # encoded bytes per element on the wire
+    scaled: bool           # ships a per-hop f32 absmax scale scalar
+    short: str             # render() suffix
+
+    @property
+    def hop_overhead_bytes(self) -> int:
+        return SCALE_BYTES if self.scaled else 0
+
+
+_REGISTRY = {
+    "none": Codec("none", itemsize=0, scaled=False, short=""),
+    "bf16": Codec("bf16", itemsize=2, scaled=False, short="bf16"),
+    "int8": Codec("int8", itemsize=1, scaled=True, short="int8"),
+    "fp8_e4m3": Codec("fp8_e4m3", itemsize=1, scaled=True, short="fp8"),
+}
+
+CODECS = tuple(_REGISTRY)
+
+
+def get(name: str) -> Codec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown wire codec {name!r}; one of {CODECS}")
+
+
+def validate_spec(spec: str) -> None:
+    """Raise unless ``spec`` is a single codec name.  Per-level
+    ``"<inner>×<outer>"`` specs belong to composed schedules, which this
+    port does not plan yet."""
+    spec = spec or "none"
+    if spec in _REGISTRY:
+        return
+    if "×" in spec or "x" in spec:
+        raise NotImplementedError(
+            f"per-level codec spec {spec!r}: composed schedules are not "
+            f"ported yet")
+    raise ValueError(f"unknown wire codec {spec!r}; one of {CODECS}")
+
+
+def stage_codec(name: str, algorithm: str) -> str:
+    """Vendor collectives expose no ppermute hop, so they carry none."""
+    if name == "none" or algorithm in CODED_ALGORITHMS:
+        return name
+    return "none"
+
+
+# ---------------------------------------------------------------------------
+# Closed-form byte accounting
+# ---------------------------------------------------------------------------
+
+def encoded_bytes(name: str, n_bytes: int, wire_itemsize: int) -> int:
+    c = get(name)
+    if c.name == "none":
+        return int(n_bytes)
+    return (int(n_bytes) // int(wire_itemsize)) * c.itemsize
+
+
+def hop_bytes(name: str, n_hops: int) -> int:
+    return get(name).hop_overhead_bytes * int(n_hops)
+
+
+# ---------------------------------------------------------------------------
+# Derived tolerance bounds (relative to the bucket's input absmax)
+# ---------------------------------------------------------------------------
+
+def tolerance(name: str, p: int, hops: int | None = None) -> float | None:
+    """``hops · eps`` (times ``p`` for int8); ``hops`` defaults to the
+    ring's ``2(p-1)``.  ``none`` is 0.0; unknown codecs None."""
+    if name == "none":
+        return 0.0
+    eps = CODEC_EPS.get(name)
+    if eps is None:
+        return None
+    p = max(int(p), 1)
+    depth = float(2 * (p - 1) if hops is None else hops)
+    if name == "int8":
+        return depth * p * eps
+    return depth * eps
+
+
+# ---------------------------------------------------------------------------
+# Execution: encode / decode / coded ppermute
+# ---------------------------------------------------------------------------
+
+def encode(name: str, x: torch.Tensor):
+    """``(payload, scale)``; ``scale`` is None for unscaled codecs."""
+    get(name)
+    return fused_hop.encode_plain(name, x)
+
+
+def decode(name: str, payload: torch.Tensor, scale) -> torch.Tensor:
+    """Back to float32 (the accumulation dtype)."""
+    get(name)
+    return fused_hop.decode_add_plain(name, payload, scale)
+
+
+def roundtrip(name: str, x: torch.Tensor) -> torch.Tensor:
+    payload, scale = encode(name, x)
+    return decode(name, payload, scale)
+
+
+def _wire(payload, scale, group, perm):
+    """Ship ``payload`` as raw bytes and ``scale`` beside it."""
+    raw = dist_mod.ppermute(payload.reshape(-1).view(torch.uint8), group,
+                            perm)
+    recv = raw.view(payload.dtype).reshape(payload.shape)
+    if scale is not None:
+        scale = dist_mod.ppermute(scale.reshape(1), group, perm)[0]
+    return recv, scale
+
+
+def permuter(name: str, fused: bool = False):
+    """A drop-in replacement for ``dist.ppermute`` that encodes the
+    payload for the hop and decodes on receipt.
+
+    Coded permuters take the hop protocol ``hop(x, group, perm,
+    add=None, keep_sent=False)`` (``supports_add``): with ``add`` the
+    decode accumulates onto it, and ``keep_sent=True`` returns
+    ``(received, sent)`` where ``sent`` is this rank's own payload
+    decoded — the value its receivers hold.
+
+    ``fused=True`` runs the encode and the decode(+accumulate) as single
+    kernel passes (``kernels/fused_hop.py``) instead of staged torch ops;
+    the wire payload and scale are identical."""
+    c = get(name)
+    if c.name == "none" and not fused:
+        return dist_mod.ppermute
+    enc = fused_hop.hop_encode if fused else encode
+    dec = fused_hop.hop_decode_add if fused \
+        else fused_hop.decode_add_plain
+
+    def coded_ppermute(x, group, perm, add=None, keep_sent=False):
+        if c.name == "none":
+            recv = dist_mod.ppermute(x, group, perm)
+            out = recv if add is None else dec("none", recv, None, add)
+            return (out, x) if keep_sent else out
+        payload, scale = enc(c.name, x)
+        recv, rscale = _wire(payload, scale, group, perm)
+        out = dec(c.name, recv, rscale, add)
+        if keep_sent:
+            return out, dec(c.name, payload, scale)
+        return out
+
+    coded_ppermute.supports_add = True
+    return coded_ppermute
+
+
+# ---------------------------------------------------------------------------
+# Error feedback
+# ---------------------------------------------------------------------------
+
+def ef_quantize(name: str, x: torch.Tensor, residual: torch.Tensor):
+    """``(q(x + r), (x + r) - q(x + r))`` — the telescoping residual."""
+    z = x.to(torch.float32) + residual.to(torch.float32)
+    dq = roundtrip(name, z)
+    return dq, z - dq

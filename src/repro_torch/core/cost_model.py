@@ -1,0 +1,90 @@
+"""Alpha-beta-gamma cost model (the part the planner needs).
+
+Counterpart of ``repro/core/cost_model.py``: the same formulas and the
+same constants, so ``plan()``'s ``predicted_s`` — part of a schedule's
+JSON — is bit-identical to the reference's.  The constants model the
+reference's TPU target (``hw.V5E``); they are not H100 measurements.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from . import hw
+from .reducers import STRATEGIES, _pow2_core, allreduce_steps, wire_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkParams:
+    alpha_s: float
+    bandwidth: float          # bytes/s
+
+    @property
+    def beta(self) -> float:  # s/byte
+        return 1.0 / self.bandwidth
+
+
+ICI = LinkParams(hw.V5E.ici_alpha_s, hw.V5E.ici_link_bandwidth)
+DCN = LinkParams(hw.V5E.dcn_alpha_s, hw.V5E.dcn_bandwidth)
+PAPER_LINK = LinkParams(alpha_s=5e-6, bandwidth=8e9)
+
+LINK_PROFILES = {"ici": ICI, "dcn": DCN, "paper": PAPER_LINK}
+
+
+def resolve_link(link) -> LinkParams:
+    """A LinkParams, or a profile name from LINK_PROFILES."""
+    if isinstance(link, LinkParams):
+        return link
+    try:
+        return LINK_PROFILES[link]
+    except KeyError:
+        raise ValueError(
+            f"unknown link profile {link!r}; one of {sorted(LINK_PROFILES)}")
+
+
+GAMMA_S_PER_BYTE = 3.0 / hw.V5E.hbm_bandwidth
+QUANT_GAMMA_S_PER_BYTE = 2.5 / hw.V5E.hbm_bandwidth
+QUANT_GAMMA_FUSED_S_PER_BYTE = 1.0 / hw.V5E.hbm_bandwidth
+
+
+def quant_gamma(fused: bool = False) -> float:
+    """The codec compute toll per decoded wire byte."""
+    return QUANT_GAMMA_FUSED_S_PER_BYTE if fused \
+        else QUANT_GAMMA_S_PER_BYTE
+
+
+# alpha = 0, beta = 0: splits a latency into its wire and reduce parts.
+FREE_LINK = LinkParams(0.0, math.inf)
+
+
+def allreduce_latency(strategy: str, n_bytes: float, p: int,
+                      link: LinkParams = ICI,
+                      gamma: float = GAMMA_S_PER_BYTE,
+                      ps_shards: int = 1) -> float:
+    """Predicted latency (s) of a sum-allreduce of ``n_bytes`` over
+    ``p`` devices with ``strategy``."""
+    if p == 1:
+        return 0.0
+    a, b = link.alpha_s, link.beta
+    frac = (p - 1) / p
+    if strategy == "ring_rsa":
+        return 2 * (p - 1) * a + 2 * n_bytes * frac * b + n_bytes * frac * gamma
+    if strategy == "rhd_rsa":
+        core = _pow2_core(p)
+        frac_core = (core - 1) / core
+        extra_reduce = 0 if core == p else n_bytes
+        return allreduce_steps("rhd_rsa", p) * a \
+            + wire_bytes("rhd_rsa", int(n_bytes), p) * b \
+            + (n_bytes * frac_core + extra_reduce) * gamma
+    if strategy == "psum":
+        vendor_alpha = 5 * a
+        tree = 2 * math.ceil(math.log2(p)) * (vendor_alpha + n_bytes * b) \
+            + n_bytes * gamma
+        ring = 2 * (p - 1) * vendor_alpha + 2 * n_bytes * frac * b \
+            + n_bytes * frac * gamma
+        return min(tree, ring)
+    if strategy == "ps_gather":
+        s = max(1, ps_shards)
+        ingress = p * n_bytes / s
+        return 2 * a + 2 * ingress * b + p * n_bytes / s * gamma
+    raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")

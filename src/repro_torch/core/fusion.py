@@ -1,0 +1,132 @@
+"""Tensor Fusion — Horovod's bucketing, as a pure layout object.
+
+Counterpart of ``repro/core/fusion.py`` with the same packing rule:
+greedy first-fit in leaf order within each (dtype, sharding-group)
+class; leaves at or above the threshold, and leaves whose group tag is
+sharded, stay single-leaf buckets with their rank preserved, so the
+reducers chunk them along the leading dim exactly as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Hashable, Sequence
+
+import torch
+
+from .. import tree as tree_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafMeta:
+    index: int
+    shape: tuple[int, ...]
+    dtype: Any
+    group: Hashable
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= int(d)
+        return n
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    leaf_indices: tuple[int, ...]
+    dtype: Any
+    group: Hashable
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionPlan:
+    like: Any                  # the tree's structure, leaves set to None
+    leaves: tuple[LeafMeta, ...]
+    buckets: tuple[Bucket, ...]
+    threshold_bytes: int
+
+    def flatten_bucket(self, bucket: Bucket,
+                       leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        if len(bucket.leaf_indices) == 1:
+            leaf = leaves[0]
+            return leaf if leaf.ndim >= 1 else leaf.reshape(1)
+        return torch.cat([x.reshape(-1) for x in leaves])
+
+    def unflatten_bucket(self, bucket: Bucket,
+                         buf: torch.Tensor) -> list[torch.Tensor]:
+        if len(bucket.leaf_indices) == 1:
+            return [buf.reshape(self.leaves[bucket.leaf_indices[0]].shape)]
+        out, off = [], 0
+        for i in bucket.leaf_indices:
+            m = self.leaves[i]
+            out.append(buf[off:off + m.size].reshape(m.shape))
+            off += m.size
+        return out
+
+    def flatten(self, tree) -> list[torch.Tensor]:
+        """tree -> one fused buffer per bucket."""
+        flat = tree_mod.leaves(tree)
+        return [self.flatten_bucket(b, [flat[i] for i in b.leaf_indices])
+                for b in self.buckets]
+
+    def unflatten(self, buffers: Sequence[torch.Tensor]):
+        flat: list = [None] * len(self.leaves)
+        for b, buf in zip(self.buckets, buffers):
+            for i, leaf in zip(b.leaf_indices, self.unflatten_bucket(b, buf)):
+                flat[i] = leaf
+        return tree_mod.unflatten(self.like, flat)
+
+
+def _replicated(tag) -> bool:
+    return tag is None or (isinstance(tag, tuple)
+                           and all(t is None for t in tag))
+
+
+def build_plan(tree, threshold_bytes: int, groups=None,
+               fuse: bool = True) -> FusionPlan:
+    """Bucket the leaves of ``tree`` (anything with ``.shape`` and a
+    torch ``.dtype``).  ``groups``: a tree of the same structure holding
+    sharding-group tags (tuples; None = replicated).  The selector's
+    switch-point alignment is not ported (no ``auto`` strategy yet)."""
+    flat = tree_mod.leaves(tree)
+    tags = [None] * len(flat) if groups is None else tree_mod.leaves(groups)
+    if len(tags) != len(flat):
+        raise ValueError("groups tree must match gradient tree")
+    leaves = tuple(LeafMeta(i, tuple(int(d) for d in x.shape), x.dtype,
+                            tags[i])
+                   for i, x in enumerate(flat))
+
+    buckets: list[Bucket] = []
+    if not fuse:
+        buckets = [Bucket((m.index,), m.dtype, m.group, m.size)
+                   for m in leaves]
+    else:
+        open_buckets: dict = {}
+        for m in leaves:
+            key = (m.dtype, m.group)
+            if m.nbytes >= threshold_bytes or not _replicated(m.group):
+                buckets.append(Bucket((m.index,), m.dtype, m.group, m.size))
+                continue
+            cur = open_buckets.get(key)
+            if cur is not None \
+                    and cur["bytes"] + m.nbytes <= threshold_bytes:
+                cur["idx"].append(m.index)
+                cur["bytes"] += m.nbytes
+                cur["size"] += m.size
+            else:
+                if cur is not None:
+                    buckets.append(Bucket(tuple(cur["idx"]), key[0], key[1],
+                                          cur["size"]))
+                open_buckets[key] = {"idx": [m.index], "bytes": m.nbytes,
+                                     "size": m.size}
+        for key, cur in open_buckets.items():
+            buckets.append(Bucket(tuple(cur["idx"]), key[0], key[1],
+                                  cur["size"]))
+    return FusionPlan(like=tree_mod.tree_map(lambda _: None, tree),
+                      leaves=leaves, buckets=tuple(buckets),
+                      threshold_bytes=threshold_bytes)

@@ -1,0 +1,107 @@
+"""End-to-end data-parallel training launcher.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --world 4 --backend gloo --steps 20 --batch 8 --seq 128 \\
+        --strategy rhd_rsa --codec int8
+
+Spawns ``--world`` ranks with file rendezvous (``--world 1`` runs in
+this process without ``torch.distributed``).  ``--backend gloo`` may put
+several ranks on one card (payloads staged through host memory);
+``--backend nccl`` needs one card per rank.  Runs on CUDA unless
+``--device cpu``.  Keeps ``repro.launch.train``'s flags, except the
+JAX-only ``--mesh``/``--host-devices`` (the data axis is ``--world``)
+and the checkpoint flags (checkpoints are not ported yet).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import tempfile
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch (split evenly over the ranks)")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--world", type=int, default=1)
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--strategy", default="rhd_rsa")
+    ap.add_argument("--codec", default="none")
+    ap.add_argument("--fusion-mb", type=float, default=4.0)
+    ap.add_argument("--no-fuse", action="store_true")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", choices=("adamw", "sgd"),
+                    default="adamw")
+    ap.add_argument("--full", action="store_true",
+                    help="full (not reduced) architecture")
+    ap.add_argument("--dtype", default=None,
+                    help="compute dtype (default: the spec's, bfloat16)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def build_trainer(args, group=None, verbose: bool = True):
+    """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
+    for this rank (``group``: the data axis)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.core import AggregatorConfig
+    from repro_torch.data.synthetic import SyntheticText
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup, sgd
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+
+    spec = get_spec(args.arch)
+    if not args.full:
+        spec = spec.reduced()
+    if args.dtype:
+        spec = dataclasses.replace(spec, dtype=args.dtype)
+    data = SyntheticText(spec.vocab_size, batch=args.batch,
+                         seq_len=args.seq, seed=args.seed)
+    lr = cosine_warmup(args.lr, max(args.steps // 20, 1), args.steps)
+    opt = adamw(lr) if args.optimizer == "adamw" else sgd(lr)
+    cfg = TrainerConfig(
+        steps=args.steps, log_every=args.log_every,
+        step=TrainStepConfig(aggregator=AggregatorConfig(
+            strategy=args.strategy, codec=args.codec,
+            fusion_threshold_mb=args.fusion_mb, fuse=not args.no_fuse)))
+    return Trainer(build_model(spec), opt, data.batch_at, cfg, group=group,
+                   device=args.device, verbose=verbose)
+
+
+def _rank_main(rank: int, world: int, args):
+    from repro_torch.core import Group
+    trainer = build_trainer(args, group=Group(), verbose=rank == 0)
+    module, opt_state = trainer.init_state(args.seed)
+    _, _, history = trainer.run(module=module, opt_state=opt_state)
+    return history
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    print(f"arch={args.arch} world={args.world} backend={args.backend} "
+          f"strategy={args.strategy} codec={args.codec}", flush=True)
+    if args.world == 1:
+        history = _rank_main(0, 1, args)
+    else:
+        from repro_torch.core.dist import run_ranks
+        with tempfile.TemporaryDirectory() as rdv:
+            history = run_ranks(_rank_main, args.world, (args,),
+                                backend=args.backend, rendezvous_dir=rdv,
+                                threads=max(1, (os.cpu_count() or 1)
+                                            // args.world),
+                                timeout_s=24 * 3600)[0]
+    final = history[-1]["loss"] if history else float("nan")
+    print(f"final loss: {final:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,213 @@
+"""Shared model substrate: spec dataclass, norms, RoPE, init, loss.
+
+Counterpart of ``repro/models/common.py``.  ``ModelSpec`` keeps every
+field and default of the reference (so ``reduced()`` gives the same
+sizes); :class:`ParamTree` holds a nested dict of parameters as an
+``nn.Module`` under the reference's names.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Architecture hyper-parameters (the reference's fields)."""
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0
+    mlp_type: str = "swiglu"
+    norm_type: str = "rmsnorm"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    scale_embed: bool = False
+    attention_type: str = "gqa"
+    sliding_window: int = 0
+    attn_chunk: int = 1024
+    attn_full_seq_max: int = 2048
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 0
+    qk_nope_dim: int = 0
+    v_head_dim: int = 0
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_group_size: int = 4096
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+    ssm_chunk: int = 256
+    attn_every: int = 0
+    slstm_every: int = 0
+    mlstm_chunk: int = 0
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    num_image_tokens: int = 0
+    dtype: str = "bfloat16"        # compute dtype
+    param_dtype: str = "float32"
+    remat: bool = False
+    seq_parallel: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def reduced(self) -> "ModelSpec":
+        """Smoke-test variant: same family/code path, tiny sizes (the
+        reference's rule)."""
+        r = {
+            "name": self.name + "-reduced",
+            "num_layers": min(self.num_layers, 2),
+            "d_model": min(self.d_model, 256),
+            "num_heads": min(self.num_heads, 4),
+            "num_kv_heads": min(self.num_kv_heads, 2),
+            "d_ff": min(self.d_ff, 512) if self.d_ff else 0,
+            "vocab_size": min(self.vocab_size, 512),
+            "head_dim": 64 if self.head_dim else 0,
+            "attn_full_seq_max": 64,
+            "attn_chunk": 16,
+            "ssm_chunk": 16,
+        }
+        if self.num_experts:
+            r.update(num_experts=4, top_k=min(self.top_k, 2), moe_d_ff=64,
+                     first_dense_layers=min(self.first_dense_layers, 1),
+                     dense_d_ff=min(self.dense_d_ff, 256)
+                     if self.dense_d_ff else 0)
+        if self.kv_lora_rank:
+            r.update(kv_lora_rank=32, qk_rope_dim=16, qk_nope_dim=32,
+                     v_head_dim=32)
+        if self.ssm_heads:
+            r.update(ssm_heads=4, ssm_state=16, ssm_head_dim=32)
+        if self.attn_every:
+            r.update(attn_every=1, num_layers=2)
+        if self.slstm_every:
+            r.update(slstm_every=2, num_layers=2)
+        if self.encoder_layers:
+            r.update(encoder_layers=1, encoder_seq=32)
+        if self.num_image_tokens:
+            r.update(num_image_tokens=8)
+        if self.sliding_window:
+            r.update(sliding_window=32)
+        return dataclasses.replace(self, **r)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: one parameter per leaf, one
+    submodule per inner dict, under the dict's own keys."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def tree(self) -> dict:
+        out: dict = dict(self._parameters)
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+# ---------------------------------------------------------------------------
+# initializers (seeded torch.Generator; not jax.random's bits)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               device=None) -> torch.Tensor:
+    """LeCun-normal over the input dimension."""
+    fan_in = shape[in_axis]
+    return torch.randn(shape, generator=gen, device=device) \
+        / math.sqrt(fan_in)
+
+
+def embed_init(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device) * 0.02
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def norm(x, params, kind: str):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rmsnorm(x, params["scale"])
+
+
+def norm_params(d: int, kind: str, device=None) -> dict:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    dim = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(dim, theta)).to(x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask=None):
+    """Token-mean CE; logits (..., V) any dtype, stats in fp32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,0 +1,66 @@
+"""Model registry and the fusion-group tags of each parameter
+(counterpart of ``repro/models/registry.py``, dense family).
+
+``param_groups`` gives the reference's tuple-ized PartitionSpec per leaf
+(the model-axis rules), so the aggregator buckets gradients exactly as
+the reference does: leaves with a ``"model"`` entry stay single-leaf
+buckets, replicated leaves (tag ``()``) fuse.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from .. import tree as tree_mod
+from . import transformer
+from .common import ModelSpec
+
+_COL = (None, "model")
+_ROW = ("model", None)
+
+_RULES: dict[str, tuple] = {
+    "embed": ("model", None),
+    "lm_head": (None, "model"),
+    "wq": _COL, "wk": _COL, "wv": _COL, "wo": _ROW,
+    "w1": _COL, "w_gate": _COL, "w2": _ROW,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    """``init(generator, device) -> TransformerLM``;
+    ``loss(params_tree, batch) -> (loss, metrics)``."""
+    spec: ModelSpec
+    init: Callable
+    loss: Callable
+
+
+def build_model(spec: ModelSpec) -> ModelApi:
+    if spec.family != "dense":
+        raise NotImplementedError(
+            f"family {spec.family!r} is not ported yet (dense only)")
+    return ModelApi(
+        spec=spec,
+        init=lambda gen, device=None: transformer.TransformerLM(
+            spec, transformer.init_params(gen, spec, device)),
+        loss=lambda p, b: transformer.loss_fn(p, b, spec))
+
+
+def _spec_for(path: tuple, leaf) -> tuple:
+    name = path[-1] if path else ""
+    base = _RULES.get(name)
+    if base is None:
+        return ()
+    nd = leaf.ndim if hasattr(leaf, "ndim") else len(leaf.shape)
+    if nd == len(base):
+        return base
+    if nd == len(base) + 1:        # stacked over layers
+        return (None,) + base
+    return ()
+
+
+def param_groups(params) -> dict:
+    """Fusion group tag per leaf: the tuple-ized PartitionSpec."""
+    flat = tree_mod.leaves_with_path(params)
+    return tree_mod.unflatten(params, [_spec_for(path, leaf)
+                                       for path, leaf in flat])

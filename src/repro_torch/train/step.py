@@ -1,0 +1,91 @@
+"""The data-parallel train step — where the paper's technique plugs in.
+
+Counterpart of ``repro/train/step.py`` (its data-parallel path):
+
+    loss.backward()                  # this rank's shard of the batch
+    GradientAggregator(grads)        # ← the technique: fused buckets,
+                                     #   explicit RHD/ring hops, codecs
+    clip_by_global_norm              # on AGGREGATED grads (global norm)
+    optimizer.update                 # K5 AdamW, parameters in place
+
+Each rank holds a full replica.  The data axis is a process group
+(``core/dist.py``); the gradient sum over ranks happens only through the
+aggregator's explicit algorithm.  Metrics are means over the ranks.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import tree as tree_mod
+from ..core import AggregatorConfig, GradientAggregator
+from ..core import dist as dist_mod
+from ..kernels.backend import resolve_device
+from ..models import ModelApi, param_groups
+from ..optim import Optimizer, clip_by_global_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    aggregator: AggregatorConfig = AggregatorConfig()
+    clip_norm: float = 1.0
+    dp_axes: tuple = ("data",)
+
+
+def shard_batch(batch: dict, group: "dist_mod.Group") -> dict:
+    """This rank's rows of a GLOBAL batch (leading dim split evenly in
+    rank order, as the reference's batch sharding over the data axis)."""
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % group.size:
+            raise ValueError(f"batch[{k!r}] has {n} rows for "
+                             f"{group.size} ranks")
+        per = n // group.size
+        out[k] = v[group.rank * per:(group.rank + 1) * per]
+    return out
+
+
+def make_train_step(model: ModelApi, optimizer: Optimizer,
+                    cfg: TrainStepConfig, group: "dist_mod.Group | None" = None,
+                    device=None):
+    """Build the train step for this rank.
+
+    ``group``: the data axis's process group (default: the world group,
+    or a single rank without ``torch.distributed``).  ``device``: where
+    the parameters live; ``None`` is CUDA (raises without a card).
+    Returns ``(step_fn, extras)`` with ``step_fn(params, opt_state,
+    batch) -> (params, opt_state, metrics)``: ``params`` is the model's
+    parameter tree (updated in place), ``batch`` the GLOBAL batch, and
+    ``extras["aggregator"]`` the aggregator (its ``last_schedule`` is
+    the executed plan)."""
+    device = resolve_device(device)
+    if len(cfg.dp_axes) != 1:
+        raise NotImplementedError("multi-axis data parallelism is not "
+                                  "ported yet")
+    axis = cfg.dp_axes[0]
+    group = group if group is not None else dist_mod.Group(name=axis)
+    agg = GradientAggregator(cfg.aggregator, cfg.dp_axes, {axis: group})
+
+    def step_fn(params, opt_state, batch):
+        local = {k: v.to(device) for k, v in
+                 shard_batch(batch, group).items()}
+        leaves = tree_mod.leaves(params)
+        for p in leaves:
+            p.grad = None
+        loss, metrics = model.loss(params, local)
+        loss.backward()
+        grads = tree_mod.unflatten(params, [p.grad for p in leaves])
+        grads = agg(grads, groups=param_groups(params))    # ← the technique
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        opt_state = optimizer.update(grads, opt_state, params)
+        for p in leaves:
+            p.grad = None
+        metrics = {**metrics, "loss": loss, "grad_norm": gnorm}
+        names = sorted(metrics)
+        means = agg.mean_scalar(torch.stack(
+            [metrics[k].detach().to(torch.float32) for k in names]))
+        return params, opt_state, dict(zip(names, means.unbind(0)))
+
+    return step_fn, {"aggregator": agg}
