@@ -7,21 +7,31 @@ Phases (any failure exits non-zero; nothing is caught and excused):
 
 1. Build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one compiler per source, all at once.
-2. Hold each kernel against its plain torch version on the card — at a
-   1 Mi-element bucket, a ragged n and the largest main-path hop —
+2. Hold each kernel against its plain torch version on the card.  K1–K3
+   at a 1 Mi-element bucket, a ragged n and the largest main-path hop,
    bit for bit (K5: within 1 ulp), plus the subnormal regime against
    the plain version on a CPU copy under the flush-to-zero guard, and
-   e4m3 values that round up to exactly 448.  Times each kernel, its
+   e4m3 values that round up to exactly 448.  K6 at phase 4's
+   (4096, 960) rows and a ragged (37, 960), f32 within rtol 1e-5 and
+   bf16 within 1 ulp.  K7/K8 causal at phase 4's (1, 4096, 15, 64) in
+   f32 and bf16, plus window 100, non-causal and other head widths at
+   ragged S, at the reference's tolerances.  Times each kernel, its
    plain version and, where one exists, one PyTorch call computing the
    same function (a yardstick the port never calls).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
    batch 2 per rank, seq 512, ``rhd_rsa`` + ``int8`` fused hops and the
    K5 AdamW, for 3 steps through ``Trainer``.  Every launch count is
-   reset just before and read just after; every kernel must have run,
-   losses must be finite and parameters bit-identical on every rank.
-   Then the same 4 ranks train a small float32 model twice, on the card
-   and on the host's plain versions, and the two must agree.
+   reset just before and read just after; K1–K3, K5 and K6 must have
+   run, losses must be finite and parameters bit-identical on every
+   rank.  Then the same ranks train a small float32 model (seq 32) on
+   the card and on the host's plain versions, and the two must agree.
+4. Long context: the same model at seq 4096 (above its
+   ``attn_full_seq_max`` of 2048, so attention takes K7/K8) on 2 ranks
+   sharing the card over gloo, batch 1 per rank, 2 steps; K6/K7/K8 must
+   have run (K7 and K8 once per layer per step), losses finite and
+   parameters bit-identical; then a small float32 model at seq 128 (its
+   flash path) on the card and on the host must agree.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
@@ -40,6 +50,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 TRAIN_WORLD = 4
 TRAIN_STEPS = 3
+LONG_WORLD = 2
+LONG_STEPS = 2
+LONG_SEQ = 4096
+D_MODEL, HEADS, HEAD_DIM, LAYERS = 960, 15, 64, 32   # smollm-360m
+ATTN_SHAPE = (1, LONG_SEQ, HEADS, HEAD_DIM)          # one layer, phase 4
 CHECK_N = 1 << 20            # a main-path bucket size (1 Mi f32)
 RAGGED_N = 1_000_003
 HOP_SHAPE = (16, 960, 2560)  # first RHD hop of the d_ff bucket at p=4
@@ -73,10 +88,14 @@ def time_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, tensor_cores=False):
+    """The least time for the work: bytes over HBM bandwidth or
+    operations over the peak (f32 CUDA cores, or dense bf16 tensor
+    cores), whichever is larger."""
     from repro_torch.core.hw import H100_SXM
     t_bytes = n_bytes / H100_SXM.hbm_bandwidth
-    t_ops = n_flops / H100_SXM.peak_f32_flops
+    t_ops = n_flops / (H100_SXM.peak_bf16_flops if tensor_cores
+                       else H100_SXM.peak_f32_flops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
@@ -111,8 +130,21 @@ def require(cond, what):
         raise AssertionError(what)
 
 
-MAX_ERR = {"hop_absmax": 0.0, "hop_encode": 0.0, "hop_decode_add": 0.0,
-           "adamw_update": 0.0}
+KERNELS = {   # name -> (source, TPU kernel it replaces)
+    "hop_absmax": ("fused_hop.cu", "src/repro/kernels/fused_hop.py:144"),
+    "hop_encode": ("fused_hop.cu", "src/repro/kernels/fused_hop.py:153"),
+    "hop_decode_add": ("fused_hop.cu",
+                       "src/repro/kernels/fused_hop.py:164"),
+    "adamw_update": ("fused_adamw.cu",
+                     "src/repro/kernels/fused_adamw.py:21"),
+    "fused_rmsnorm": ("fused_rmsnorm.cu",
+                      "src/repro/kernels/fused_rmsnorm.py:19"),
+    "flash_attention_fwd": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:29"),
+    "flash_attention_bwd": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:129"),
+}
+MAX_ERR = {k: 0.0 for k in KERNELS}
 
 
 def agree(key, a, b, what):
@@ -232,10 +264,102 @@ def check_adamw(gen):
             f"{ulps}")
 
 
-def measure(gen):
-    """Per-kernel times at the main path's largest shapes."""
+def bf16_ulp(a, b):
     import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def check_rmsnorm(gen):
+    import torch
+    from repro_torch.kernels import fused_rmsnorm as frn
+    cuda = torch.device("cuda")
+    scale = torch.randn(D_MODEL, generator=gen, device=cuda) * 0.1
+    for rows in (LONG_SEQ, 37):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((rows, D_MODEL), generator=gen,
+                            device=cuda).to(dtype)
+            y, rstd = frn.fused_rmsnorm(x, scale)
+            yp, rp = frn.rmsnorm_plain(x, scale)
+            MAX_ERR["fused_rmsnorm"] = max(MAX_ERR["fused_rmsnorm"],
+                                           max_abs(y, yp))
+            rel = float(((rstd - rp).abs() / rp.abs()).max())
+            require(rel <= 1e-5, f"K6 rstd off by {rel:.2e} rel at {rows}")
+            if dtype == torch.float32:
+                rel = float(((y - yp).abs() / yp.abs().clamp_min(1e-30))
+                            .max())
+                require(rel <= 1e-5, f"K6 f32 off by {rel:.2e} rel at "
+                                     f"({rows}, {D_MODEL})")
+                log(f"  K6 fused_rmsnorm f32 ({rows}, {D_MODEL}): max rel "
+                    f"{rel:.2e}")
+            else:
+                ulp = bf16_ulp(y, yp)
+                require(ulp <= 1, f"K6 bf16 off by {ulp} ulp at "
+                                  f"({rows}, {D_MODEL})")
+                log(f"  K6 fused_rmsnorm bf16 ({rows}, {D_MODEL}): max "
+                    f"{ulp} bf16 ulp")
+
+
+def _excess(a, b, atol, rtol):
+    """max(|a-b| - rtol|b|) / atol: <= 1 is within tolerance."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() - rtol * b.abs()).max()) / atol
+
+
+def check_flash(gen):
+    """K7/K8 against the chunked plain versions: causal at phase 4's
+    shape in f32 and bf16, then window, non-causal and other head widths
+    at ragged S.  f32 forward atol 2e-5 / rtol 1e-4, backward 2e-3;
+    bf16 3e-2 (tests/test_kernels.py's tolerances)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fla
+    cuda = torch.device("cuda")
+    cases = [(ATTN_SHAPE, True, 0, 1024), ((2, 300, 3, 64), True, 100, 64),
+             ((2, 300, 3, 64), False, 0, 64), ((1, 200, 2, 16), True, 0, 64),
+             ((1, 130, 2, 128), False, 0, 32), ((1, 257, 4, 32), True, 50, 64)]
+    for shape, causal, window, chunk in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.float32:
+                tol_f, tol_b = (2e-5, 1e-4), (2e-3, 2e-3)
+            else:
+                tol_f = tol_b = (3e-2, 3e-2)
+            q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
+                           .to(dtype) for _ in range(4))
+            kw = dict(causal=causal, window=window, chunk=chunk)
+            out, lse = fla.flash_attention_fwd(q, k, v, **kw)
+            grads = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            pout, plse = fla.flash_fwd_plain(q, k, v, **kw)
+            pgrads = fla.flash_bwd_plain(q, k, v, pout, plse, do, **kw)
+            ex_f = max(_excess(out, pout, *tol_f), _excess(lse, plse, *tol_f))
+            ex_b = max(_excess(g, p, *tol_b) for g, p in zip(grads, pgrads))
+            MAX_ERR["flash_attention_fwd"] = max(
+                MAX_ERR["flash_attention_fwd"], max_abs(out, pout),
+                max_abs(lse, plse))
+            MAX_ERR["flash_attention_bwd"] = max(
+                MAX_ERR["flash_attention_bwd"],
+                *(max_abs(g, p) for g, p in zip(grads, pgrads)))
+            what = (f"{tuple(shape)} {str(dtype)[6:]} causal={causal} "
+                    f"window={window}")
+            log(f"  K7/K8 {what}: max err/tol fwd {ex_f:.3f} bwd {ex_b:.3f}")
+            require(ex_f <= 1.0, f"K7 flash_attention_fwd != plain at {what}")
+            require(ex_b <= 1.0, f"K8 flash_attention_bwd != plain at {what}")
+            del q, k, v, do, out, lse, grads, pout, plse, pgrads
+    torch.cuda.empty_cache()
+
+
+def measure(gen):
+    """Per-kernel times at the main path's largest shapes.  Each row:
+    the kernel's ms, its bound and what bounds it, the plain version's
+    ms and, where one PyTorch call computes the same function, its ms."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import fused_adamw as fa, fused_hop as fh
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import fused_rmsnorm as frn
     cuda = torch.device("cuda")
     n = math.prod(HOP_SHAPE)
     x = sample(n, gen, cuda).reshape(HOP_SHAPE)
@@ -244,29 +368,41 @@ def measure(gen):
     scale_f = float(scale)
     rows = {}
 
-    def row(key, fn, plain, library, n_bytes, n_flops, replaces, what):
+    def row(key, fn, plain, library, n_bytes, n_flops, what,
+            tensor_cores=False):
         ms = time_ms(fn)
-        b_ms, by = bound_ms(n_bytes, n_flops)
-        rows[key] = {"ms": ms, "plain_ms": time_ms(plain),
-                     "library_ms": time_ms(library) if library else None,
-                     "bound_ms": b_ms, "bound_by": by, "replaces": replaces}
-        log(f"  {key:15s} {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
-            f"{by}, plain {rows[key]['plain_ms']:.4f} ms, library "
-            f"{rows[key]['library_ms']})")
+        b_ms, by = bound_ms(n_bytes, n_flops, tensor_cores)
+        rec = {"ms": ms, "plain_ms": time_ms(plain),
+               "library_ms": time_ms(library) if library else None,
+               "bound_ms": b_ms, "bound_by": by}
+        log(f"  {key:24s} {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{by}, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']})")
+        return rec
 
-    row("hop_absmax", lambda: fh.hop_absmax(x), lambda: fh.absmax_plain(x),
-        lambda: x.abs().amax(), 4 * n, 2 * n,
-        "src/repro/kernels/fused_hop.py:144", f"f32 {HOP_SHAPE}")
-    row("hop_encode", lambda: fh.hop_encode("int8", x),
-        lambda: fh.encode_plain("int8", x), None, 4 * n + n + 4, 6 * n,
-        "src/repro/kernels/fused_hop.py:153",
-        f"int8 {HOP_SHAPE} (absmax + quantize)")
-    row("hop_decode_add", lambda: fh.hop_decode_add("int8", payload, scale,
-                                                      add),
+    rows["hop_absmax"] = row(
+        "hop_absmax", lambda: fh.hop_absmax(x), lambda: fh.absmax_plain(x),
+        lambda: x.abs().amax(), 4 * n, 2 * n, f"f32 {HOP_SHAPE}")
+    # K2, every variant: bf16 is a cast (one PyTorch call computes it);
+    # int8 and fp8 clip at +-127 / +-448 with a scale from the absmax,
+    # which no single PyTorch call computes.
+    variants = {}
+    for name, out_bytes in (("bf16", 2), ("int8", 1), ("fp8_e4m3", 1)):
+        variants[name] = row(
+            f"hop_encode[{name}]", lambda name=name: fh.hop_encode(name, x),
+            lambda name=name: fh.encode_plain(name, x),
+            (lambda: x.to(torch.bfloat16)) if name == "bf16" else None,
+            4 * n + out_bytes * n + (0 if name == "bf16" else 4),
+            (0 if name == "bf16" else 6) * n,
+            f"{name} {HOP_SHAPE}" + ("" if name == "bf16"
+                                     else " (absmax + quantize)"))
+    rows["hop_encode"] = {**variants["int8"], "variants": variants}
+    rows["hop_decode_add"] = row(
+        "hop_decode_add",
+        lambda: fh.hop_decode_add("int8", payload, scale, add),
         lambda: fh.decode_add_plain("int8", payload, scale, add),
         lambda: torch.add(add, payload, alpha=scale_f), n + 4 * n + 4 * n,
-        2 * n, "src/repro/kernels/fused_hop.py:164",
-        f"int8*scale+add {HOP_SHAPE}")
+        2 * n, f"int8*scale+add {HOP_SHAPE}")
     del x, add, payload
     nl = math.prod(LEAF_SHAPE)
     p = sample(nl, gen, cuda, outliers=False) * 0.05
@@ -282,12 +418,52 @@ def measure(gen):
             torch._fused_adamw_([p], [g], [m], [v], [], step, lr=1e-3,
                                 beta1=0.9, beta2=0.95, weight_decay=0.1,
                                 eps=1e-8, amsgrad=False, maximize=False)
-    row("adamw_update", lambda: fa.adamw_update(p, g, m, v, inplace=True,
-                                                  **kw),
+    rows["adamw_update"] = row(
+        "adamw_update",
+        lambda: fa.adamw_update(p, g, m, v, inplace=True, **kw),
         lambda: fa.adamw_update_plain(p, g, m, v, **kw), library,
-        16 * nl + 12 * nl, 15 * nl, "src/repro/kernels/fused_adamw.py:21",
-        f"f32 in place {LEAF_SHAPE}")
+        16 * nl + 12 * nl, 15 * nl, f"f32 in place {LEAF_SHAPE}")
     del p, g, m, v
+
+    # K6 at phase 4's activations: (B*S, d) bf16.
+    xr = torch.randn((LONG_SEQ, D_MODEL), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    sc = torch.randn(D_MODEL, generator=gen, device=cuda) * 0.1
+    w = (1.0 + sc).to(torch.bfloat16)
+    rows["fused_rmsnorm"] = row(
+        "fused_rmsnorm", lambda: frn.fused_rmsnorm(xr, sc),
+        lambda: frn.rmsnorm_plain(xr, sc),
+        lambda: F.rms_norm(xr, (D_MODEL,), w, 1e-6),
+        LONG_SEQ * D_MODEL * 4 + 4 * D_MODEL + 4 * LONG_SEQ,
+        4 * LONG_SEQ * D_MODEL, f"bf16 ({LONG_SEQ}, {D_MODEL})")
+
+    # K7/K8 at one layer of phase 4: (1, 4096, 15, 64) bf16, causal.
+    b, s_, h, dh = ATTN_SHAPE
+    q, k, v, do = (torch.randn(ATTN_SHAPE, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fla.flash_attention_fwd(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    elems = b * s_ * h * dh
+    causal_pairs = b * h * s_ * s_ / 2
+    rows["flash_attention_fwd"] = row(
+        "flash_attention_fwd", lambda: fla.flash_attention_fwd(q, k, v),
+        lambda: fla.flash_fwd_plain(q, k, v, chunk=1024),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        4 * elems * 2 + 4 * b * h * s_, 4 * causal_pairs * dh,
+        f"bf16 causal {ATTN_SHAPE}", tensor_cores=True)
+    rows["flash_attention_bwd"] = row(
+        "flash_attention_bwd",
+        lambda: fla.flash_attention_bwd(q, k, v, out, lse, do),
+        lambda: fla.flash_bwd_plain(q, k, v, out, lse, do, chunk=1024),
+        lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                    retain_graph=True),
+        8 * elems * 2 + 4 * b * h * s_, 8 * causal_pairs * dh,
+        f"bf16 causal {ATTN_SHAPE} (delta + dq pass + dk/dv pass)",
+        tensor_cores=True)
+    del q, k, v, do, out, lse, qt, kt, vt, dot, lib_out
     torch.cuda.empty_cache()
     return rows
 
@@ -307,18 +483,24 @@ def train_args(**over):
     return args
 
 
-def _counts():
+def _wrappers():
+    from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import fused_adamw as fa, fused_hop as fh
-    return {"hop_absmax": fh.hop_absmax.launches,
-            "hop_encode": fh.hop_encode.launches,
-            "hop_decode_add": fh.hop_decode_add.launches,
-            "adamw_update": fa.adamw_update.launches}
+    from repro_torch.kernels import fused_rmsnorm as frn
+    return {"hop_absmax": fh.hop_absmax, "hop_encode": fh.hop_encode,
+            "hop_decode_add": fh.hop_decode_add,
+            "adamw_update": fa.adamw_update,
+            "fused_rmsnorm": frn.fused_rmsnorm,
+            "flash_attention_fwd": fla.flash_attention_fwd,
+            "flash_attention_bwd": fla.flash_attention_bwd}
+
+
+def _counts():
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def _reset_counts():
-    from repro_torch.kernels import fused_adamw as fa, fused_hop as fh
-    for fn in (fh.hop_absmax, fh.hop_encode, fh.hop_decode_add,
-               fa.adamw_update):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
@@ -331,12 +513,14 @@ def _checksum(params):
     return total
 
 
-def _step_breakdown(trainer, module, args):
+def _step_breakdown(trainer, module, args, rank, world):
     """Host-clock seconds of the step's layers, each timed alone after
     the main path (synchronised before and after): forward+backward on
-    this rank's shard, the aggregation of the full gradient tree, and
-    the optimizer update."""
+    this rank's shard (one rank at a time, so the card is not shared),
+    the aggregation of the full gradient tree (all ranks, it is a
+    collective), and the optimizer update."""
     import torch
+    import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.models import param_groups
     from repro_torch.train.step import shard_batch
@@ -355,14 +539,20 @@ def _step_breakdown(trainer, module, args):
     params = module.tree()
     agg = trainer.extras["aggregator"]
     batch = {k: v.to(args.device) for k, v in shard_batch(
-        trainer.data_iter_fn(TRAIN_STEPS), agg.groups["data"]).items()}
+        trainer.data_iter_fn(args.steps), agg.groups["data"]).items()}
 
     def fwd_bwd():
         loss, _ = trainer.model.loss(params, batch)
         loss.backward()
         return tree.tree_map(lambda p: p.grad, params)
 
-    t_fb, grads = timed(fwd_bwd)
+    for r in range(world):
+        if world > 1:
+            dist.barrier()
+        if r == rank:
+            t_fb, grads = timed(fwd_bwd)
+    if world > 1:
+        dist.barrier()
     t_agg, reduced = timed(lambda: agg(grads, groups=param_groups(params)))
     state = trainer.optimizer.init(params)
     t_opt, _ = timed(lambda: trainer.optimizer.update(reduced, state,
@@ -386,8 +576,10 @@ def train_rank(rank, world, args, small_args):
     module, opt_state = trainer.init_state(args.seed)
     n_params = sum(p.numel() for p in module.parameters())
     steps = []
+    if args.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     _reset_counts()                           # main path starts here
-    for s in range(TRAIN_STEPS):
+    for s in range(args.steps):
         before = _counts()
         module, opt_state, hist = trainer.run(1, module, opt_state,
                                               start_step=s)
@@ -398,7 +590,7 @@ def train_rank(rank, world, args, small_args):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if args.device == "cuda" else 0.0
     checksum = _checksum(module.tree())
-    breakdown = _step_breakdown(trainer, module, args)
+    breakdown = _step_breakdown(trainer, module, args, rank, world)
     del module, opt_state, trainer
 
     # Small reference check: the same step on the card and on the host's
@@ -425,14 +617,60 @@ def train_rank(rank, world, args, small_args):
             "small_losses": losses, "small_param_diff": param_diff}
 
 
+def run_phase(world, args, small, required):
+    """Train ``args`` on ``world`` gloo ranks sharing the card, print
+    each step, and require finite losses, one parameter checksum on
+    every rank, launches of every ``required`` kernel, and the small
+    model's card-vs-host agreement.  Returns each rank's record."""
+    from repro_torch.core.dist import run_ranks
+    log(f"  transport: gloo, {world} ranks on one card, CUDA payloads "
+        f"staged through host memory explicitly in ppermute; batch "
+        f"{args.batch // world} per rank, seq {args.seq}, {args.steps} steps")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        results = run_ranks(train_rank, world, (args, small),
+                            backend="gloo", rendezvous_dir=rdv,
+                            threads=max(1, (os.cpu_count() or 1) // world),
+                            timeout_s=900)
+    log(f"  {world} ranks done in {time.perf_counter() - t0:.1f} s; "
+        f"{results[0]['n_params']} parameters per replica; peak GiB per "
+        f"rank {[round(r['peak_gib'], 2) for r in results]}")
+    for s, rec in enumerate(results[0]["steps"]):
+        log(f"  step {s + 1}: loss {rec['loss']:.5f} grad_norm "
+            f"{rec['grad_norm']:.5f} step_s {rec['step_s']:.3f} buckets "
+            f"{rec['n_buckets']} launches/rank {rec['launches']}")
+    for r in results:
+        log(f"  rank {r['rank']} layers, one step timed alone after the "
+            f"main path: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      r["breakdown"].items()))
+    for r in results:
+        require(all(r["totals"][k] > 0 for k in required),
+                f"rank {r['rank']}: a kernel never launched {r['totals']}")
+        require(all(math.isfinite(rec["loss"]) for rec in r["steps"]),
+                f"rank {r['rank']}: non-finite loss")
+    sums = {r["checksum"] for r in results}
+    require(len(sums) == 1, f"parameters differ across ranks: {sums}")
+    log(f"  parameters bit-identical on all {world} ranks "
+        f"(checksum {sums.pop()})")
+    sl = results[0]["small_losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(sl["cpu"], sl[args.device]))
+    log(f"  small float32 model at seq {small.seq}, card vs host plain "
+        f"versions: losses {sl[args.device]} vs {sl['cpu']} (max rel "
+        f"{rel:.2e}), max param diff {results[0]['small_param_diff']:.2e}")
+    require(rel <= 1e-3, "card and host training disagree")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from repro_torch.core.dist import run_ranks
     from repro_torch.kernels import backend
 
+    # Plain versions on the card are references: full f32 products.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
@@ -450,67 +688,55 @@ def main():
     log(f"  built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: kernels vs plain versions on the card")
+    log("phase 2: K1-K3 and K5 vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_hop_kernels(gen)
     check_adamw(gen)
+
+    log("phase 2: K6 fused_rmsnorm and K7/K8 flash attention")
+    check_rmsnorm(gen)
+    check_flash(gen)
     rows = measure(gen)
 
-    log("phase 3: train full-width smollm-360m")
-    log(f"transport: gloo, {TRAIN_WORLD} ranks on one card, CUDA payloads "
-        f"staged through host memory explicitly in ppermute")
+    log("phase 3: train full-width smollm-360m, seq 512")
     args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
                       device="cuda")
     small = train_args(full=False, batch=2 * TRAIN_WORLD, seq=32, steps=2,
                        dtype="float32")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as rdv:
-        results = run_ranks(train_rank, TRAIN_WORLD, (args, small),
-                            backend="gloo", rendezvous_dir=rdv,
-                            threads=max(1, (os.cpu_count() or 1)
-                                        // TRAIN_WORLD),
-                            timeout_s=900)
-    log(f"  {TRAIN_WORLD} ranks done in {time.perf_counter() - t0:.1f} s; "
-        f"{results[0]['n_params']} parameters per replica; peak "
-        f"{max(r['peak_gib'] for r in results):.2f} GiB per rank")
-    for s, rec in enumerate(results[0]["steps"]):
-        log(f"  step {s + 1}: loss {rec['loss']:.5f} grad_norm "
-            f"{rec['grad_norm']:.5f} step_s {rec['step_s']:.3f} buckets "
-            f"{rec['n_buckets']} launches/rank {rec['launches']}")
-    for r in results:
-        log(f"  rank {r['rank']} layers, one step timed alone after the "
-            f"main path: " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                      r["breakdown"].items()))
-    for r in results:
-        require(all(v > 0 for v in r["totals"].values()),
-                f"rank {r['rank']}: a kernel never launched {r['totals']}")
-        require(all(math.isfinite(rec["loss"]) for rec in r["steps"]),
-                f"rank {r['rank']}: non-finite loss")
-    sums = {r["checksum"] for r in results}
-    require(len(sums) == 1, f"parameters differ across ranks: {sums}")
-    log(f"  parameters bit-identical on all {TRAIN_WORLD} ranks "
-        f"(checksum {sums.pop()})")
-    sl = results[0]["small_losses"]
-    rel = max(abs(a - b) / abs(a) for a, b in zip(sl["cpu"], sl[args.device]))
-    log(f"  small float32 model, card vs host plain versions: losses "
-        f"{sl[args.device]} vs {sl['cpu']} (max rel {rel:.2e}), max param diff "
-        f"{results[0]['small_param_diff']:.2e}")
-    require(rel <= 1e-3, "card and host training disagree")
+    main_path = ("hop_absmax", "hop_encode", "hop_decode_add",
+                 "adamw_update", "fused_rmsnorm")
+    phase3 = run_phase(TRAIN_WORLD, args, small, main_path)
 
-    launches = {k: sum(r["totals"][k] for r in results)
-                for k in results[0]["totals"]}
+    log(f"phase 4: long context, full-width smollm-360m at seq {LONG_SEQ}")
+    args = train_args(full=True, batch=LONG_WORLD, seq=LONG_SEQ,
+                      steps=LONG_STEPS, device="cuda")
+    small = train_args(full=False, batch=2 * LONG_WORLD, seq=128, steps=2,
+                       dtype="float32")
+    phase4 = run_phase(LONG_WORLD, args, small, tuple(KERNELS))
+    for r in phase4:
+        for s_, rec in enumerate(r["steps"]):
+            for k in ("flash_attention_fwd", "flash_attention_bwd"):
+                require(rec["launches"][k] == LAYERS,
+                        f"rank {r['rank']} step {s_ + 1}: {k} launched "
+                        f"{rec['launches'][k]} times, not once per layer")
+    fb = min(r["breakdown"]["fwd_bwd_s"] for r in phase4)
+    attn_s = LAYERS * (rows["flash_attention_fwd"]["ms"]
+                       + rows["flash_attention_bwd"]["ms"]) / 1e3
+    log(f"  attention kernels (K7+K8 at phase 2's per-layer times x "
+        f"{LAYERS} layers) {attn_s:.3f} s of the {fb:.3f} s "
+        f"forward+backward of one rank alone: {attn_s / fb:.1%}")
+
+    by_phase = {k: {"phase3": sum(r["totals"][k] for r in phase3),
+                    "phase4": sum(r["totals"][k] for r in phase4)}
+                for k in KERNELS}
     record = {"kernels": [
         {"name": k, "route": "cuda",
-         "source": ("src/repro_torch/kernels/csrc/fused_adamw.cu"
-                    if k == "adamw_update"
-                    else "src/repro_torch/kernels/csrc/fused_hop.cu"),
-         "replaces": rows[k]["replaces"], "launches": launches[k],
-         "max_abs_err": MAX_ERR[k], "ms": rows[k]["ms"],
-         "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
-         "bound_by": rows[k]["bound_by"],
-         "library_ms": rows[k]["library_ms"]}
-        for k in ("hop_absmax", "hop_encode", "hop_decode_add",
-                  "adamw_update")]}
+         "source": f"src/repro_torch/kernels/csrc/{KERNELS[k][0]}",
+         "replaces": KERNELS[k][1],
+         "launches": sum(by_phase[k].values()),
+         "launches_by_phase": by_phase[k],
+         "max_abs_err": MAX_ERR[k], **rows[k]}
+        for k in KERNELS]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(gpu, flush=True)

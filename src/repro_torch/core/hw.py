@@ -32,6 +32,8 @@ class Gpu:
     name: str
     hbm_bandwidth: float        # bytes/s
     peak_f32_flops: float       # outside the tensor cores
+    peak_bf16_flops: float      # tensor cores, dense
 
 
-H100_SXM = Gpu("h100-sxm", hbm_bandwidth=3.35e12, peak_f32_flops=67e12)
+H100_SXM = Gpu("h100-sxm", hbm_bandwidth=3.35e12, peak_f32_flops=67e12,
+               peak_bf16_flops=989e12)

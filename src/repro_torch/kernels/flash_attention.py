@@ -1,0 +1,289 @@
+"""Flash attention on Hopper: forward (K7) and FlashAttention-2 backward
+(K8).
+
+Counterpart of ``repro/kernels/flash_attention.py``.  The kernels of
+``csrc/flash_attention.cu`` replace the Pallas ``_flash_fwd_kernel``
+(K7) and ``_flash_dq_kernel`` + ``_flash_dkv_kernel`` (K8, two
+kernels: a dq pass over query tiles and a dk/dv pass over key tiles,
+each output tile owned by one thread block, so no atomics).  Both are
+bound by tensor-core operations (``4·B·H·S²·dh·½`` causal forward,
+``8·B·H·S²·dh·½`` for the backward's four products); this first design
+runs f32 arithmetic on the CUDA cores over 64×64 shared-memory tiles and
+skips tiles wholly above the diagonal or outside the window.
+
+Shapes: ``q, k, v`` are ``(B, S, H, dh)`` with the kv heads already
+repeated to ``H``; ``lse`` is ``(B, H, S)`` f32.  Positions are
+``0..S-1``; a key is visible to a query when ``k <= q`` (``causal``) and
+``q - k < window`` (``window > 0``).  Any ``S`` is taken: keys past the
+end are masked and rows past the end are not written.
+
+Beside the kernels live :func:`flash_fwd_plain` and
+:func:`flash_bwd_plain`, torch transcriptions of the reference's chunked
+``_flash_fwd_impl`` / ``_flash_bwd`` (``repro/models/attention.py``):
+chunked by ``chunk`` (the model's ``attn_chunk``), scores in the input
+dtype and then f32, masked with the finite ``NEG_INF``.  The kernels
+take their scores in f32 from f32 copies of q and k, as the Pallas
+kernel does, so in bf16 the two round differently (tolerances in the
+tests).  The wrappers take the plain versions only for CPU tensors; for
+CUDA tensors they launch the kernels or raise.  :class:`FlashAttnFn`
+joins forward and backward for autograd.
+
+``flash_attention_fwd.launches`` counts K7 launches;
+``flash_attention_bwd.launches`` counts K8 calls (one per call, though
+each call launches its two kernels).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import backend
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _scale(dh: int) -> float:
+    """``1/sqrt(dh)`` as the f32 the reference multiplies by."""
+    return float(np.float32(1.0 / np.sqrt(dh)))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path, tests, and the card-side comparison)
+# ---------------------------------------------------------------------------
+
+def _bias(q0: int, k0: int, chunk: int, s: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """(chunk, chunk) additive f32 mask of one (query, key) chunk pair."""
+    qp = torch.arange(q0, q0 + chunk, device=device)[:, None]
+    kp = torch.arange(k0, k0 + chunk, device=device)[None, :]
+    m = (qp < s) & (kp < s)
+    if causal:
+        m = m & (qp >= kp)
+    if window > 0:
+        m = m & ((qp - kp) < window)
+    return torch.where(m, 0.0, NEG_INF).to(torch.float32)
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    return F.pad(x, (0, 0, 0, 0, 0, n - x.shape[1])) if n > x.shape[1] \
+        else x
+
+
+def _chunks(x: torch.Tensor, chunk: int):
+    return [x[:, i:i + chunk] for i in range(0, x.shape[1], chunk)]
+
+
+def flash_fwd_plain(q, k, v, causal: bool = True, window: int = 0,
+                    chunk: int = 64):
+    """``(out (B,S,H,dh) in q's dtype, lse (B,H,S) f32)``: the
+    reference's ``_flash_fwd_impl`` over ``chunk``-sized blocks."""
+    b, s, h, dh = q.shape
+    sp = -(-s // chunk) * chunk
+    qs = _chunks(_pad_seq(q, sp), chunk)
+    ks = _chunks(_pad_seq(k, sp), chunk)
+    vs = _chunks(_pad_seq(v, sp), chunk)
+    scale = _scale(dh)
+    outs, lses = [], []
+    for i, qb in enumerate(qs):
+        acc = torch.zeros((b, h, chunk, dh), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, h, chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device)
+        for j, (kb, vb) in enumerate(zip(ks, vs)):
+            sc = torch.einsum("bqhd,bkhd->bhqk", qb, kb).to(torch.float32)
+            sc = sc * scale + _bias(i * chunk, j * chunk, chunk, s, causal,
+                                    window, q.device)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vb.to(torch.float32))
+            m = m_new
+        l_safe = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l_safe[..., None]).to(q.dtype).transpose(1, 2))
+        lses.append(m + torch.log(l_safe))
+    out = torch.cat(outs, dim=1)[:, :s].contiguous()
+    lse = torch.cat(lses, dim=-1)[..., :s].contiguous()
+    return out, lse
+
+
+def _delta(out, dout) -> torch.Tensor:
+    """``rowsum(dO∘O)`` as ``(B, H, S)`` f32 (outside the kernels, as in
+    the reference)."""
+    return torch.einsum("bshd,bshd->bhs", dout.to(torch.float32),
+                        out.to(torch.float32)).contiguous()
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
+                    window: int = 0, chunk: int = 64):
+    """``(dq, dk, dv)``: the reference's ``_flash_bwd`` (a dq pass over
+    query chunks, then a dk/dv pass over key chunks)."""
+    b, s, h, dh = q.shape
+    sp = -(-s // chunk) * chunk
+    scale = _scale(dh)
+    delta = F.pad(_delta(out, dout), (0, sp - s))
+    lse = F.pad(lse, (0, sp - s))
+    qs = _chunks(_pad_seq(q, sp), chunk)
+    dos = _chunks(_pad_seq(dout, sp), chunk)
+    ks = _chunks(_pad_seq(k, sp), chunk)
+    vs = _chunks(_pad_seq(v, sp), chunk)
+    lses = [lse[..., i:i + chunk] for i in range(0, sp, chunk)]
+    deltas = [delta[..., i:i + chunk] for i in range(0, sp, chunk)]
+
+    def probs(i, j):
+        sc = torch.einsum("bqhd,bkhd->bhqk", qs[i], ks[j]).to(torch.float32)
+        sc = sc * scale + _bias(i * chunk, j * chunk, chunk, s, causal,
+                                window, q.device)
+        p = torch.exp(sc - lses[i][..., None])
+        dp = torch.einsum("bqhd,bkhd->bhqk", dos[i].to(torch.float32),
+                          vs[j].to(torch.float32))
+        return p, p * (dp - deltas[i][..., None]) * scale
+
+    dqs = []
+    for i in range(len(qs)):
+        dq = torch.zeros((b, chunk, h, dh), dtype=torch.float32,
+                         device=q.device)
+        for j in range(len(ks)):
+            _, ds = probs(i, j)
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds,
+                                   ks[j].to(torch.float32))
+        dqs.append(dq)
+    dks, dvs = [], []
+    for j in range(len(ks)):
+        dk = torch.zeros((b, chunk, h, dh), dtype=torch.float32,
+                         device=q.device)
+        dv = torch.zeros_like(dk)
+        for i in range(len(qs)):
+            p, ds = probs(i, j)
+            dv = dv + torch.einsum("bhqk,bqhd->bkhd", p,
+                                   dos[i].to(torch.float32))
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds,
+                                   qs[i].to(torch.float32))
+        dks.append(dk)
+        dvs.append(dv)
+
+    def join(parts, like):
+        return torch.cat(parts, dim=1)[:, :s].to(like.dtype).contiguous()
+    return join(dqs, q), join(dks, k), join(dvs, v)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = backend.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        ints = [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
+        lib.flash_attention_fwd.argtypes = [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_bwd.argtypes = [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 9 + ints + [ctypes.c_void_p]
+        lib.flash_attention_bwd.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _on_cpu(what: str, *tensors) -> bool:
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"{what}: unsupported/mixed devices {devs}")
+    return False
+
+
+def _check_kernel_inputs(what: str, q, *same, f32=()):
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be (B, S, H, dh), got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    for t in same:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{what}: every (B, S, H, dh) input must "
+                             f"match q's shape and dtype")
+    b, s, h, _ = q.shape
+    for t in f32:
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s):
+            raise ValueError(f"{what}: lse/delta must be float32 "
+                             f"({b}, {h}, {s})")
+    backend.check_cuda(what, q, *same, *f32)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        chunk: int = 64):
+    """``(out, lse)``.  ``chunk`` sets the plain version's blocks (CPU);
+    the kernel tiles by 64."""
+    if _on_cpu("flash_attention_fwd", q, k, v):
+        return flash_fwd_plain(q, k, v, causal, window, chunk)
+    _check_kernel_inputs("flash_attention_fwd", q, k, v)
+    b, s, h, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    backend.check(_lib().flash_attention_fwd(
+        _DTYPE_CODE[q.dtype], dh, *(backend.ptr(t) for t in (q, k, v, out,
+                                                              lse)),
+        b, s, h, _scale(dh), int(causal), int(window),
+        backend.stream_ptr()), "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, chunk: int = 64):
+    """``(dq, dk, dv)`` in the inputs' dtype."""
+    if _on_cpu("flash_attention_bwd", q, k, v, out, lse, dout):
+        return flash_bwd_plain(q, k, v, out, lse, dout, causal, window,
+                               chunk)
+    delta = _delta(out, dout)
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, out, dout,
+                         f32=(lse, delta))
+    b, s, h, dh = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    backend.check(_lib().flash_attention_bwd(
+        _DTYPE_CODE[q.dtype], dh,
+        *(backend.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)),
+        b, s, h, _scale(dh), int(causal), int(window),
+        backend.stream_ptr()), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttnFn(torch.autograd.Function):
+    """Attention through K7 forward and K8 backward on CUDA, or the plain
+    versions on the CPU.  ``apply(q, k, v, causal, window, chunk)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window, chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = {"causal": causal, "window": window, "chunk": chunk}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.cfg)
+        return dq, dk, dv, None, None, None
+

@@ -1,11 +1,16 @@
-"""GQA attention, full-sequence (counterpart of the dense path of
-``repro/models/attention.py``).
+"""GQA attention, full-sequence (counterpart of the full-sequence paths
+of ``repro/models/attention.py``).
 
-Attention is the reference's ``sdpa_full``: plain masked attention in
-torch, with an fp32 softmax, as the reference leaves it outside any
-kernel.  Sequences longer than ``spec.attn_full_seq_max`` take the
-reference's flash path, whose kernels (K7/K8) are not ported yet, so
-they raise.  MLA, sliding-window decode and KV caches come with serving.
+Short sequences (both sides at most ``spec.attn_full_seq_max``) take the
+reference's ``sdpa_full``: plain masked attention in torch with an f32
+softmax, as the reference leaves it outside any kernel.  Longer ones
+take :func:`sdpa_chunked`, the reference's flash path: kv heads repeated
+to the query heads, then :class:`~repro_torch.kernels.FlashAttnFn` — K7
+forward and K8 backward on CUDA, the chunked plain versions (chunk
+``spec.attn_chunk``) on the CPU.  The full-sequence positions are
+``0..S-1`` (``transformer.forward`` builds them so), which is what the
+kernels assume.  MLA, sliding-window decode and KV caches come with
+serving.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import math
 
 import torch
 
+from ..kernels.flash_attention import FlashAttnFn
 from .common import ModelSpec, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -49,14 +55,25 @@ def sdpa_full(q, k, v, q_pos, k_pos, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def sdpa_chunked(q, k, v, window: int, q_chunk: int):
+    """Flash attention (the reference's ``sdpa_chunked``): no (S, S)
+    score tensor in either pass.  q (B,S,H,dh); k,v (B,S,KV,dh) at
+    positions 0..S-1.  The kv heads are repeated to H here, so autograd
+    sums their gradients back over each group, as ``jnp.repeat`` does;
+    a ragged S is padded inside the plain version and masked in the
+    kernels."""
+    rep = q.shape[2] // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    return FlashAttnFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                             True, window, q_chunk)
+
+
 def sdpa(q, k, v, q_pos, k_pos, spec: ModelSpec, window: int = 0):
     if q.shape[1] <= spec.attn_full_seq_max and \
             k.shape[1] <= spec.attn_full_seq_max:
         return sdpa_full(q, k, v, q_pos, k_pos, window)
-    raise NotImplementedError(
-        f"sequence {q.shape[1]} > attn_full_seq_max "
-        f"{spec.attn_full_seq_max}: the flash-attention kernels (K7/K8) "
-        f"are not ported yet")
+    return sdpa_chunked(q, k, v, window, spec.attn_chunk)
 
 
 def gqa_forward(params, x, positions, spec: ModelSpec, rope: bool = True):

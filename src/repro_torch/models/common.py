@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.fused_rmsnorm import RMSNormFn
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -159,10 +161,9 @@ def embed_init(gen: torch.Generator, shape, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps: float = 1e-6):
-    dt = x.dtype
-    x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + scale.to(torch.float32))).to(dt)
+    """``x·rsqrt(mean(x²)+eps)·(1+scale)`` in f32, cast back to ``x``'s
+    dtype: K6 on CUDA, its plain version on the CPU."""
+    return RMSNormFn.apply(x, scale, eps)
 
 
 def norm(x, params, kind: str):

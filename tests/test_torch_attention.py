@@ -1,0 +1,213 @@
+"""The port's flash attention (K7/K8's plain versions, ``FlashAttnFn``,
+``sdpa_chunked``) against the JAX reference, on the CPU.
+
+On the CPU ``FlashAttnFn`` runs the chunked plain versions, torch
+transcriptions of the reference's ``_flash_fwd_impl``/``_flash_bwd``.
+They are held, on the same numpy inputs, to:
+
+* ``repro.models.attention.sdpa_chunked`` (forward and ``jax.vjp``) at
+  (1, 128, 4 query / 2 kv heads, 16), chunk 16: causal, window 100 and
+  non-causal (the reference reaches it with every query position past
+  the last key), at S = 128 and a ragged S = 100 that forces padding.
+  The kv gradients come back summed over each group of repeated heads;
+* the Pallas ``flash_attention_fwd/bwd`` in interpret mode at
+  (1, 128, 2, 64);
+* the naive oracle ``repro.kernels.ref.flash_attention_ref`` and its
+  ``jax.grad``.
+
+Tolerances are the reference's own (tests/test_kernels.py): f32 forward
+atol 2e-5 / rtol 1e-4, backward 2e-3, bf16 3e-2.  The kernels are held
+to these plain versions on the card by
+tests/test_torch_kernels_on_card.py and chip_smoke.py.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_spec as jget_spec
+from repro.kernels import flash_attention as jfa
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+
+from repro_torch.configs import get_spec
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+
+MODES = [(True, 0), (True, 100), (False, 0)]
+FWD = dict(atol=2e-5, rtol=1e-4)
+BWD = dict(atol=2e-3, rtol=2e-3)
+
+
+def _qkvo(shape, kv_heads, seed):
+    rng = np.random.default_rng(seed)
+    b, s, h, dh = shape
+    q = rng.standard_normal(shape).astype(np.float32)
+    k = rng.standard_normal((b, s, kv_heads, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv_heads, dh)).astype(np.float32)
+    do = rng.standard_normal(shape).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_positions(s, causal):
+    k_pos = jnp.arange(s, dtype=jnp.int32)
+    # Non-causal: every query sits past the last key (padded keys, at
+    # 2**30, stay masked).
+    q_pos = k_pos if causal else jnp.full((s,), s, jnp.int32)
+    return q_pos, k_pos
+
+
+def _port_sdpa(causal, window):
+    """The port's ``sdpa_chunked``; non-causal (which the model never
+    runs) as the same kv repeat in front of ``FlashAttnFn``."""
+    if causal:
+        return lambda q, k, v: tattn.sdpa_chunked(q, k, v, window, 16)
+
+    def run(q, k, v):
+        rep = q.shape[2] // k.shape[2]
+        return fa.FlashAttnFn.apply(q, torch.repeat_interleave(k, rep, 2),
+                                    torch.repeat_interleave(v, rep, 2),
+                                    False, window, 16)
+    return run
+
+
+def _port_grads(fn, arrays, do):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    out = fn(*ts)
+    out.backward(torch.from_numpy(do))
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("s", [128, 100])
+@pytest.mark.parametrize("causal,window", MODES)
+def test_sdpa_chunked_forward_matches_reference(s, causal, window):
+    q, k, v, _ = _qkvo((1, s, 4, 16), 2, seed=s + window)
+    q_pos, k_pos = _jax_positions(s, causal)
+    want = jattn.sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              q_pos, k_pos, window, 16)
+    with torch.no_grad():
+        got = _port_sdpa(causal, window)(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert got.shape == (1, s, 4, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+
+
+@pytest.mark.parametrize("s", [128, 100])
+@pytest.mark.parametrize("causal,window", MODES)
+def test_sdpa_chunked_vjp_matches_reference(s, causal, window):
+    q, k, v, do = _qkvo((1, s, 4, 16), 2, seed=3 * s + window)
+    q_pos, k_pos = _jax_positions(s, causal)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.sdpa_chunked(
+        a, b, c, q_pos, k_pos, window, 16),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    _, got = _port_grads(_port_sdpa(causal, window), (q, k, v), do)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, name          # summed back to 2 kv heads
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=name, **BWD)
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_plain_versions_match_pallas_interpreter(causal, window):
+    """(1, 128, 2, 64) against the Pallas kernels run by the interpreter:
+    out and lse forward, then (dq, dk, dv) from each side's own out/lse."""
+    q, k, v, do = _qkvo((1, 128, 2, 64), 2, seed=7)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jout, jlse = jfa.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                         window=window, interpret=True,
+                                         return_lse=True)
+    jgrads = jfa.flash_attention_bwd(jq, jk, jv, jout, jlse, jdo,
+                                     causal=causal, window=window,
+                                     interpret=True)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = fa.flash_attention_fwd(tq, tk, tv, causal=causal,
+                                      window=window, chunk=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **FWD)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD)
+    grads = fa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal=causal,
+                                   window=window, chunk=32)
+    for g, w, name in zip(grads, jgrads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **BWD)
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_flash_fn_matches_naive_oracle_and_its_grad(causal, window):
+    q, k, v, do = _qkvo((2, 96, 3, 32), 3, seed=11)
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    want = jref.flash_attention_ref(*jargs, causal=causal, window=window)
+    jgrads = jax.grad(lambda a, b, c: (jref.flash_attention_ref(
+        a, b, c, causal=causal, window=window) * jnp.asarray(do)).sum(),
+        argnums=(0, 1, 2))(*jargs)
+    with torch.no_grad():
+        oracle = tref.flash_attention_ref(
+            *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+            window=window)
+    np.testing.assert_allclose(oracle.numpy(), np.asarray(want), **FWD)
+    out, grads = _port_grads(lambda a, b, c: fa.FlashAttnFn.apply(
+        a, b, c, causal, window, 32), (q, k, v), do)
+    np.testing.assert_allclose(out, np.asarray(want), **FWD)
+    for g, w, name in zip(grads, jgrads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=name, **BWD)
+
+
+@pytest.mark.parametrize("chunk", [16, 48, 128])
+def test_plain_result_does_not_depend_on_the_chunk(chunk):
+    """The kernel tiles by 64 and the model's plain path by its
+    ``attn_chunk``: the function is the same at any chunk."""
+    q, k, v, do = _qkvo((1, 100, 2, 16), 2, seed=5)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    base = fa.flash_attention_fwd(tq, tk, tv, window=30, chunk=64)
+    out = fa.flash_attention_fwd(tq, tk, tv, window=30, chunk=chunk)
+    for a, b in zip(out, base):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **FWD)
+    g0 = fa.flash_attention_bwd(tq, tk, tv, *base, tdo, window=30, chunk=64)
+    g1 = fa.flash_attention_bwd(tq, tk, tv, *base, tdo, window=30,
+                                chunk=chunk)
+    for a, b in zip(g1, g0):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **BWD)
+
+
+def test_bf16_forward_matches_reference():
+    q, k, v, _ = _qkvo((1, 128, 4, 16), 2, seed=2)
+    q_pos, k_pos = _jax_positions(128, True)
+    want = jattn.sdpa_chunked(*(jnp.asarray(a, jnp.bfloat16)
+                                for a in (q, k, v)), q_pos, k_pos, 0, 16)
+    with torch.no_grad():
+        got = tattn.sdpa_chunked(*(torch.from_numpy(a).to(torch.bfloat16)
+                                   for a in (q, k, v)), 0, 16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("s", [64, 128])
+def test_sdpa_dispatch_matches_reference(s):
+    """The reduced smollm-360m's ``sdpa``: plain attention up to
+    ``attn_full_seq_max`` (64), the flash path above it."""
+    jspec = dataclasses.replace(jget_spec("smollm-360m").reduced(),
+                                dtype="float32")
+    tspec = dataclasses.replace(get_spec("smollm-360m").reduced(),
+                                dtype="float32")
+    q, k, v, _ = _qkvo((2, s, 4, 64), 2, seed=s)
+    pos = np.arange(s, dtype=np.int32)
+    want = jattn.sdpa(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(pos),
+                      jnp.asarray(pos), jspec)
+    with torch.no_grad():
+        got = tattn.sdpa(*(torch.from_numpy(a) for a in (q, k, v)),
+                         torch.from_numpy(pos), torch.from_numpy(pos), tspec)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.empty((1, 64, 2, 16), device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(x, x, x)
+    lse = torch.empty((1, 2, 64), device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(x, x, x, x, lse, x)

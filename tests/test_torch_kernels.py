@@ -250,3 +250,85 @@ def test_wrappers_refuse_other_devices():
         fh.hop_encode("int8", x)
     with pytest.raises(ValueError):
         fa.adamw_update(x, x, x, x, lr=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K6: fused RMSNorm
+# ---------------------------------------------------------------------------
+
+RMS_SHAPES = [(8, 128), (3, 37, 128), (500, 256), (37, 960)]
+
+
+def _bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _rms_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)
+    return x, s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_matches_reference_and_pallas_interpreter(shape, dtype):
+    """K6's plain version against ``repro.models.common.rmsnorm`` and the
+    Pallas ``fused_rmsnorm`` in interpret mode: f32 within rtol 1e-5
+    (the row sums run in other orders), bf16 within one bf16 ulp."""
+    from repro.kernels.fused_rmsnorm import fused_rmsnorm as jfused
+    from repro.models.common import rmsnorm as jrmsnorm
+    from repro_torch.convert import tensor_from_numpy
+    from repro_torch.kernels import fused_rmsnorm as frn
+    x, s = _rms_inputs(shape, seed=shape[-1] + len(shape))
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    wants = [jrmsnorm(jx, jnp.asarray(s)),
+             jfused(jx, jnp.asarray(s), block_rows=64, interpret=True)]
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got, rstd = frn.fused_rmsnorm(tx, torch.from_numpy(s))
+    assert got.dtype == tx.dtype and rstd.shape == shape[:-1]
+    assert frn.fused_rmsnorm.launches == 0      # the CPU runs no kernel
+    for want in wants:
+        want_t = tensor_from_numpy(np.asarray(want))
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=0)
+        else:
+            assert _bf16_ulp_distance(got, want_t) <= 1
+    np.testing.assert_array_equal(
+        tref.rmsnorm_ref(tx, torch.from_numpy(s)).float().numpy(),
+        got.float().numpy())
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 128), (37, 960)])
+def test_rmsnorm_grad_matches_jax_grad(shape):
+    """``RMSNormFn``'s closed-form backward against ``jax.grad`` of the
+    reference's rmsnorm, in f32, for both ``x`` and ``scale``: rtol 1e-5,
+    plus an absolute slack of 2⁻²⁰·max|grad| where ``g·w − x̂·mean(·)``
+    cancels (the two sides round that difference at different steps)."""
+    import jax
+    from repro.models.common import rmsnorm as jrmsnorm
+    from repro_torch.kernels.fused_rmsnorm import RMSNormFn
+    x, s = _rms_inputs(shape, seed=3)
+    gy = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    jdx, jds = jax.grad(lambda a, b: (jrmsnorm(a, b) * jnp.asarray(gy)).sum(),
+                        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(s))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ts = torch.from_numpy(s).requires_grad_(True)
+    RMSNormFn.apply(tx, ts, 1e-6).backward(torch.from_numpy(gy))
+    for got, want in ((tx.grad, jdx), (ts.grad, jds)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=2.0 ** -20 * np.abs(want).max())
+
+
+def test_rmsnorm_wrapper_refuses_other_devices():
+    from repro_torch.kernels import fused_rmsnorm as frn
+    x = torch.empty((4, 16), device="meta")
+    with pytest.raises(ValueError):
+        frn.fused_rmsnorm(x, torch.empty(16, device="meta"))
+    with pytest.raises(ValueError):
+        frn.fused_rmsnorm(torch.zeros(4, 16), torch.empty(16, device="meta"))

@@ -6,14 +6,17 @@ only PyTorch for CUDA:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_on_card.py
 
 Without a card every test skips (decided in the ``cuda`` fixture, when a
-test runs).  K1/K2/K3 must be bit-exact; K5 within 1 ulp.
+test runs).  K1/K2/K3 must be bit-exact; K5 within 1 ulp; K6, K7 and
+K8 within the tolerances their tests state.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fla
 from repro_torch.kernels import fused_adamw as fa
 from repro_torch.kernels import fused_hop as fh
+from repro_torch.kernels import fused_rmsnorm as frn
 
 
 @pytest.fixture
@@ -72,3 +75,62 @@ def test_wrappers_count_only_kernel_launches(cuda):
     after = (fh.hop_absmax.launches, fh.hop_encode.launches,
              fh.hop_decode_add.launches)
     assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+
+
+def _bf16_ulp_distance(a, b) -> int:
+    def ordered(t):
+        i = t.detach().cpu().contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [37, 4096])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, dtype):
+    """K6: f32 within rtol 1e-5, bf16 within one bf16 ulp."""
+    x = _normal(rows * 960, 8).reshape(rows, 960).to(cuda, dtype)
+    s = (_normal(960, 9) * 0.1).to(cuda)
+    before = frn.fused_rmsnorm.launches
+    y, rstd = frn.fused_rmsnorm(x, s)
+    assert frn.fused_rmsnorm.launches == before + 1
+    yp, rp = frn.rmsnorm_plain(x, s)
+    torch.testing.assert_close(rstd, rp, rtol=1e-5, atol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=1e-5, atol=0)
+    else:
+        assert _bf16_ulp_distance(y, yp) <= 1
+
+
+def _attn_inputs(shape, dtype, cuda, seed):
+    return [_normal(int(np.prod(shape)), seed + i).reshape(shape)
+            .to(cuda, dtype) for i in range(4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,dh,causal,window", [
+    (256, 64, True, 0), (300, 64, True, 100), (300, 64, False, 0),
+    (130, 16, True, 0), (100, 128, False, 0)])
+def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
+                                           dtype):
+    """K7 (out, lse) and K8 (dq, dk, dv) against the chunked plain
+    versions: f32 forward atol 2e-5 / rtol 1e-4, backward 2e-3; bf16
+    3e-2 (the kernel forms its scores in f32, the plain version in bf16,
+    as the reference's two routes do)."""
+    q, k, v, do = _attn_inputs((2, s, 3, dh), dtype, cuda, seed=s + dh)
+    kw = dict(causal=causal, window=window, chunk=64)
+    fwd = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    bwd = dict(atol=2e-3, rtol=2e-3) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    n7, n8 = fla.flash_attention_fwd.launches, fla.flash_attention_bwd.launches
+    out, lse = fla.flash_attention_fwd(q, k, v, **kw)
+    grads = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert (fla.flash_attention_fwd.launches, fla.flash_attention_bwd.launches
+            ) == (n7 + 1, n8 + 1)
+    torch.cuda.synchronize()
+    pout, plse = fla.flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), pout.float(), **fwd)
+    torch.testing.assert_close(lse, plse, **fwd)
+    pgrads = fla.flash_bwd_plain(q, k, v, pout, plse, do, **kw)
+    for g, p, name in zip(grads, pgrads, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), p.float(), msg=name, **bwd)

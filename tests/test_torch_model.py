@@ -4,7 +4,10 @@ The reduced smollm-360m with the reference's own initial weights
 (carried over by ``convert.params_from_numpy``) and one numpy batch:
 logits, loss and every gradient leaf agree at rtol 1e-4 / atol 1e-5 in
 float32 (the two frameworks sum in different orders); in the bfloat16
-compute dtype the loss agrees to 2e-2.
+compute dtype the loss agrees to 2e-2.  At seq 128, above the reduced
+spec's ``attn_full_seq_max`` of 64, both models take their flash path
+(the port's ``FlashAttnFn`` runs its chunked plain versions on the CPU)
+and agree at the same tolerances.
 """
 import dataclasses
 
@@ -120,10 +123,63 @@ def test_module_holds_the_reference_names(reference_f32):
 
 
 def test_long_sequences_raise_until_flash_kernels_land():
+    """The flash kernels have landed: a sequence one past
+    ``attn_full_seq_max`` no longer raises but takes the flash path, and
+    gives the logits of plain attention at that length."""
     _, tspec = _specs("float32")
-    params = params_from_numpy(tree.tree_map(
-        lambda t: t.numpy(), transformer.init_params(
-            torch.Generator().manual_seed(0), tspec, "cpu")))
-    toks = torch.zeros((1, tspec.attn_full_seq_max + 1), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        transformer.forward(params, toks, tspec)
+    params = transformer.init_params(torch.Generator().manual_seed(0), tspec,
+                                     "cpu")
+    s = tspec.attn_full_seq_max + 1
+    toks = torch.randint(0, tspec.vocab_size, (1, s),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        flash = transformer.forward(params, toks, tspec)
+        plain = transformer.forward(params, toks, dataclasses.replace(
+            tspec, attn_full_seq_max=s))
+    assert torch.isfinite(flash).all()
+    np.testing.assert_allclose(flash.numpy(), plain.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def reference_long():
+    """The reference at seq 128, above the reduced spec's
+    ``attn_full_seq_max`` of 64: its chunked flash path (chunk 16)."""
+    jspec, _ = _specs("float32")
+    assert 128 > jspec.attn_full_seq_max
+    model = jbuild_model(jspec)
+    params = model.init(jax.random.PRNGKey(2))
+    batch = _batch(jspec, b=1, s=128, seed=2)
+    logits = jtransformer.forward(params, batch["tokens"], jspec)[0]
+    (loss, _), grads = jax.value_and_grad(model.loss, has_aux=True)(
+        params, batch)
+    return {"params": jax.tree_util.tree_map(np.asarray, params),
+            "batch": batch, "logits": np.asarray(logits),
+            "loss": float(loss),
+            "grads": jax.tree_util.tree_map(np.asarray, grads)}
+
+
+def test_long_context_logits_match_reference(reference_long):
+    _, tspec = _specs("float32")
+    params = _port_params(reference_long["params"])
+    with torch.no_grad():
+        logits = transformer.forward(
+            params, _torch_batch(reference_long["batch"])["tokens"], tspec)
+    np.testing.assert_allclose(logits.numpy(), reference_long["logits"],
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_long_context_loss_and_grads_match_reference(reference_long):
+    _, tspec = _specs("float32")
+    params = _port_params(reference_long["params"])
+    loss, _ = build_model(tspec).loss(params,
+                                      _torch_batch(reference_long["batch"]))
+    loss.backward()
+    assert abs(float(loss.detach()) - reference_long["loss"]) <= \
+        1e-4 * abs(reference_long["loss"])
+    got = tree.leaves_with_path(params)
+    want = tree.leaves(reference_long["grads"])
+    assert len(got) == len(want)
+    for (path, p), g in zip(got, want):
+        np.testing.assert_allclose(p.grad.numpy(), g, rtol=1e-4, atol=1e-5,
+                                   err_msg="/".join(path))

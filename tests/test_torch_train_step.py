@@ -15,7 +15,10 @@ the reduced float32 smollm-360m:
   difference of the step (measured: 5 of 65536 elements of
   ``body/attn/wk``, 3.1e-5 apart);
 * ``codec="int8"`` (fused hops): losses within 1e-3 relative — a one-ulp
-  gradient difference may flip one int8 quantum.
+  gradient difference may flip one int8 quantum;
+* one uncoded step at seq 128, above the reduced spec's
+  ``attn_full_seq_max`` of 64, where both sides take their flash path:
+  held as the uncoded steps are.
 
 Also: importing every ``repro_torch`` module (and chip_smoke.py) leaves
 ``jax`` and ``repro`` out of ``sys.modules``, no source imports them,
@@ -47,10 +50,14 @@ STEPS = 3
 LR = 1e-3
 
 
-def _batches():
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, 512, (STEPS, 4, 33)).astype(np.int32)
+def _batches(steps=STEPS, seq=32, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 512, (steps, 4, seq + 1)).astype(np.int32)
     return toks[:, :, :-1], toks[:, :, 1:]
+
+
+def _long_batches():
+    return _batches(steps=1, seq=128, seed=1)
 
 
 def _spec():
@@ -85,20 +92,22 @@ np.savez(f"{out_dir}/init.npz", **{key(p): np.asarray(v) for p, v in flat})
 data = np.load(f"{out_dir}/batches.npz")
 mesh = compat.make_mesh((2,), ("data",))
 res = {}
-for codec in ("none", "int8"):
+for run, codec, sfx in (("none", "none", ""), ("int8", "int8", ""),
+                        ("long", "none", "_long")):
     opt = adamw(float(sys.argv[3]))
     cfg = TrainStepConfig(aggregator=AggregatorConfig(
         strategy="rhd_rsa", codec=codec, fusion_threshold_mb=0.25))
-    example = {"tokens": data["tokens"][0], "labels": data["labels"][0]}
+    tokens, labels = data["tokens" + sfx], data["labels" + sfx]
+    example = {"tokens": tokens[0], "labels": labels[0]}
     step, _ = make_train_step(model, opt, mesh, cfg, example, donate=False)
     params, state, losses = init, opt.init(init), []
-    for i in range(data["tokens"].shape[0]):
+    for i in range(tokens.shape[0]):
         params, state, m = step(params, state, {
-            "tokens": data["tokens"][i], "labels": data["labels"][i]})
+            "tokens": tokens[i], "labels": labels[i]})
         losses.append(float(m["loss"]))
-    res[f"{codec}|losses"] = np.asarray(losses)
+    res[f"{run}|losses"] = np.asarray(losses)
     for p, v in jax.tree_util.tree_flatten_with_path(params)[0]:
-        res[f"{codec}|{key(p)}"] = np.asarray(v)
+        res[f"{run}|{key(p)}"] = np.asarray(v)
 np.savez(f"{out_dir}/out.npz", **res)
 print("JAX TRAIN DONE")
 """
@@ -108,7 +117,9 @@ print("JAX TRAIN DONE")
 def reference(tmp_path_factory):
     d = tmp_path_factory.mktemp("jaxtrain")
     tokens, labels = _batches()
-    np.savez(d / "batches.npz", tokens=tokens, labels=labels)
+    tokens_long, labels_long = _long_batches()
+    np.savez(d / "batches.npz", tokens=tokens, labels=labels,
+             tokens_long=tokens_long, labels_long=labels_long)
     script = d / "ref.py"
     script.write_text(_JAX_SCRIPT)
     env = dict(os.environ)
@@ -139,9 +150,10 @@ def _nest(flat: dict) -> dict:
 def _rank_train(rank, world, init_flat):
     torch.set_num_threads(1)
     spec = _spec()
-    tokens, labels = _batches()
     res = {}
-    for codec in CODECS:
+    for run, codec in (("none", "none"), ("int8", "int8"),
+                       ("long", "none")):
+        tokens, labels = _long_batches() if run == "long" else _batches()
         module = TransformerLM(spec, params_from_numpy(_nest(init_flat)))
         opt = adamw(LR)
         step, extras = make_train_step(
@@ -150,12 +162,12 @@ def _rank_train(rank, world, init_flat):
         params = module.tree()
         state = opt.init(params)
         losses = []
-        for i in range(STEPS):
+        for i in range(tokens.shape[0]):
             batch = {"tokens": torch.from_numpy(tokens[i]),
                      "labels": torch.from_numpy(labels[i])}
             params, state, metrics = step(params, state, batch)
             losses.append(float(metrics["loss"]))
-        res[codec] = {"losses": losses,
+        res[run] = {"losses": losses,
                       "n_buckets": extras["aggregator"].last_schedule
                       .n_buckets,
                       "params": {"/".join(path): p.detach().numpy().copy()
@@ -172,18 +184,27 @@ def port(reference, tmp_path_factory):
                           threads=1, timeout_s=300)
 
 
-def test_uncoded_steps_match_reference(reference, port):
-    _, out = reference
-    got = port[0]["none"]
-    np.testing.assert_allclose(got["losses"], out["none|losses"], rtol=1e-5)
+def _check_uncoded(got, out, run, steps):
+    np.testing.assert_allclose(got["losses"], out[f"{run}|losses"],
+                               rtol=1e-5)
     outside = total = 0
     for path, v in got["params"].items():
-        want = out[f"none|{path}"]
+        want = out[f"{run}|{path}"]
         diff = np.abs(v - want)
         outside += int(np.sum(diff > 1e-6 + 1e-4 * np.abs(want)))
         total += v.size
-        assert float(diff.max()) <= 2 * LR * STEPS, path
+        assert float(diff.max()) <= 2 * LR * steps, path
     assert outside <= 1e-4 * total, f"{outside} of {total} elements"
+
+
+def test_uncoded_steps_match_reference(reference, port):
+    _check_uncoded(port[0]["none"], reference[1], "none", STEPS)
+
+
+def test_long_context_step_matches_reference(reference, port):
+    """One step at seq 128: both sides' flash attention inside the
+    data-parallel step."""
+    _check_uncoded(port[0]["long"], reference[1], "long", 1)
 
 
 def test_int8_fused_hop_steps_match_reference(reference, port):
