@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    at a 1 Mi-element bucket, a ragged n and the largest main-path hop,
    bit for bit (K5: within 1 ulp), plus the subnormal regime against
    the plain version on a CPU copy under the flush-to-zero guard, and
-   e4m3 values that round up to exactly 448.  K6 at phase 4's
+   e4m3 values that round up to exactly 448.  K4 bit for bit at the
+   largest ResNet-50 bucket (4, 2359296) f32, ragged and vector-width
+   bf16 cases, the [1024, 1, ..., 1] bf16 column (k = 256, exactly
+   1279) and integer-valued ragged rows (exact), and subnormals.  K6 at phase 4's
    (4096, 960) rows and a ragged (37, 960), f32 within rtol 1e-5 and
    bf16 within 1 ulp.  K7/K8 causal at phase 4's (1, 4096, 15, 64) in
    f32 and bf16, plus window 100, non-causal and other head widths at
@@ -32,6 +35,17 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    have run (K7 and K8 once per layer per step), losses finite and
    parameters bit-identical; then a small float32 model at seq 128 (its
    flash path) on the card and on the host must agree.
+5. The paper's CNNs: full-width ResNet-50 (psum, ring_rsa, rhd_rsa and
+   ps_gather with fused hops, whose terminal sum is K4) and MobileNet-v1
+   (rhd_rsa and fused ps_gather) at 224x224, 1000 classes, bf16 compute,
+   on 4 ranks sharing the card over gloo, global batch 128 (32 per
+   rank), SGD ``p - 0.05 g``: one warm-up step and 2 timed steps per
+   model and strategy through ``Trainer``, spawned once.  K4 must launch
+   exactly once per bucket per step under fused ps_gather (21 on
+   ResNet-50, 5 on MobileNet-v1) and never otherwise; losses finite,
+   parameters bit-identical on every rank.  Then a small float32
+   MobileNet-v1 at image 32 under fused ps_gather on the card and on the
+   host's plain versions must agree.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
@@ -59,6 +73,15 @@ CHECK_N = 1 << 20            # a main-path bucket size (1 Mi f32)
 RAGGED_N = 1_000_003
 HOP_SHAPE = (16, 960, 2560)  # first RHD hop of the d_ff bucket at p=4
 LEAF_SHAPE = (32, 960, 2560)  # the largest parameter leaf (body/mlp/w1)
+R50_BUCKET = 2_359_296       # the largest ResNet-50 bucket (a 3x3x512x512 leaf)
+HOLD_CYCLES = 100_000_000     # ~50 ms of spinning at the H100's 1.98 GHz
+CNN_WORLD = 4
+CNN_BATCH = 32 * CNN_WORLD   # global; the paper's 64 per GPU, halved for 4
+CNN_IMAGE = 224              # ranks on one card
+CNN_WARMUP, CNN_TIMED = 1, 2
+CNN_RUNS = (("resnet50", ("psum", "ring_rsa", "rhd_rsa", "ps_gather")),
+            ("mobilenet", ("rhd_rsa", "ps_gather")))
+CNN_BUCKETS = {"resnet50": 21, "mobilenet": 5}   # at the 4 MiB threshold
 
 
 def log(msg):
@@ -74,12 +97,17 @@ def gpu_line():
 
 
 def time_ms(fn, reps=10):
+    """Device milliseconds per call of ``fn``.  A spin kernel holds the
+    stream while the calls are enqueued, so the host's launch overhead
+    (the ctypes wrappers take tens of microseconds) does not show as
+    device time for a kernel shorter than it."""
     import torch
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -135,6 +163,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "hop_encode": ("fused_hop.cu", "src/repro/kernels/fused_hop.py:153"),
     "hop_decode_add": ("fused_hop.cu",
                        "src/repro/kernels/fused_hop.py:164"),
+    "fused_reduce": ("fused_reduce.cu",
+                     "src/repro/kernels/fused_reduce.py:26"),
     "adamw_update": ("fused_adamw.cu",
                      "src/repro/kernels/fused_adamw.py:21"),
     "fused_rmsnorm": ("fused_rmsnorm.cu",
@@ -264,6 +294,59 @@ def check_adamw(gen):
             f"{ulps}")
 
 
+def check_fused_reduce(gen):
+    """K4 bit for bit against its plain version: both sum rows 0..k-1
+    in order in f32, then round to the output type."""
+    import torch
+    from repro_torch.kernels.fused_reduce import (fused_reduce,
+                                                  fused_reduce_plain)
+    cuda = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for (k, n), dtype, out_dtype in (
+            ((4, R50_BUCKET), f32, f32), ((4, R50_BUCKET), f32, bf16),
+            ((5, RAGGED_N), bf16, bf16), ((5, RAGGED_N), bf16, f32),
+            ((5, CHECK_N), bf16, bf16), ((3, RAGGED_N), f32, f32)):
+        x = sample(k * n, gen, cuda).reshape(k, n).to(dtype)
+        agree("fused_reduce", fused_reduce(x, out_dtype=out_dtype),
+              fused_reduce_plain(x, out_dtype),
+              f"K4 fused_reduce != plain at ({k}, {n}) {dtype}->{out_dtype}")
+        log(f"  K4 fused_reduce bit-exact vs plain at ({k}, {n}) "
+            f"{str(dtype)[6:]} -> {str(out_dtype)[6:]}")
+
+    # bf16 [1024, 1, ..., 1]: a running bf16 sum stays at 1024; the f32
+    # accumulator gives exactly 1024 + 255 (vector and scalar paths).
+    for n in (192, 4099):
+        x = torch.cat([torch.full((1, n), 1024.0, dtype=bf16, device=cuda),
+                       torch.ones((255, n), dtype=bf16, device=cuda)])
+        got = fused_reduce(x, out_dtype=f32)
+        require(bool((got == 1279.0).all()), f"K4 [1024, 1...] at n={n}: "
+                f"{got.unique().tolist()} != 1279")
+        agree("fused_reduce", got, fused_reduce_plain(x, f32),
+              f"K4 [1024, 1...] != plain at n={n}")
+    # integer-valued rows at ragged n: exact, so equal to the f64 sum.
+    for n in (2048 + 37, 3 * 2048 - 1):
+        x = (torch.arange(7 * n, dtype=torch.float64, device=cuda)
+             .reshape(7, n) % 513.0)
+        got = fused_reduce(x.to(f32))
+        require(torch.equal(got.double(), x.sum(0)),
+                f"K4 integer rows (7, {n}) != the float64 sum")
+    log("  K4 exactness pins: [1024, 1 x 255] bf16 -> 1279 exactly; "
+        "integer rows (7, 2085) and (7, 6143) equal the float64 sum")
+
+    # Subnormal regime: the card against the plain version on a CPU copy
+    # under the flush-to-zero guard.
+    tiny = torch.randn((4, 4096), generator=torch.Generator()
+                       .manual_seed(2)) * 8e-39
+    tiny[0, ::3] = 1.5e-38              # two normals whose sum is subnormal
+    tiny[1, ::3] = -1.4e-38
+    for xc, out_dtype in ((tiny, f32), (tiny, bf16), (tiny.to(bf16), f32)):
+        agree("fused_reduce", fused_reduce(xc.to(cuda), out_dtype=out_dtype),
+              fused_reduce_plain(xc, out_dtype),
+              f"K4 subnormal case {xc.dtype}->{out_dtype} differs from "
+              f"the CPU under FTZ")
+    log("  K4 subnormal regime bit-exact vs plain on the CPU under FTZ")
+
+
 def bf16_ulp(a, b):
     import torch
 
@@ -360,6 +443,8 @@ def measure(gen):
     from repro_torch.kernels import fused_adamw as fa, fused_hop as fh
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import fused_rmsnorm as frn
+    from repro_torch.kernels.fused_reduce import (fused_reduce,
+                                                  fused_reduce_plain)
     cuda = torch.device("cuda")
     n = math.prod(HOP_SHAPE)
     x = sample(n, gen, cuda).reshape(HOP_SHAPE)
@@ -404,6 +489,15 @@ def measure(gen):
         lambda: torch.add(add, payload, alpha=scale_f), n + 4 * n + 4 * n,
         2 * n, f"int8*scale+add {HOP_SHAPE}")
     del x, add, payload
+    k4 = sample(CNN_WORLD * R50_BUCKET, gen, cuda).reshape(CNN_WORLD,
+                                                           R50_BUCKET)
+    rows["fused_reduce"] = row(
+        "fused_reduce", lambda: fused_reduce(k4),
+        lambda: fused_reduce_plain(k4),
+        lambda: torch.sum(k4, 0, dtype=torch.float32),
+        4 * CNN_WORLD * R50_BUCKET + 4 * R50_BUCKET,
+        (CNN_WORLD - 1) * R50_BUCKET, f"f32 {tuple(k4.shape)}")
+    del k4
     nl = math.prod(LEAF_SHAPE)
     p = sample(nl, gen, cuda, outliers=False) * 0.05
     g = sample(nl, gen, cuda) * 1e-3
@@ -487,8 +581,10 @@ def _wrappers():
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import fused_adamw as fa, fused_hop as fh
     from repro_torch.kernels import fused_rmsnorm as frn
+    from repro_torch.kernels.fused_reduce import fused_reduce
     return {"hop_absmax": fh.hop_absmax, "hop_encode": fh.hop_encode,
             "hop_decode_add": fh.hop_decode_add,
+            "fused_reduce": fused_reduce,
             "adamw_update": fa.adamw_update,
             "fused_rmsnorm": frn.fused_rmsnorm,
             "flash_attention_fwd": fla.flash_attention_fwd,
@@ -513,7 +609,7 @@ def _checksum(params):
     return total
 
 
-def _step_breakdown(trainer, module, args, rank, world):
+def _step_breakdown(trainer, module, device, step, rank, world):
     """Host-clock seconds of the step's layers, each timed alone after
     the main path (synchronised before and after): forward+backward on
     this rank's shard (one rank at a time, so the card is not shared),
@@ -526,7 +622,7 @@ def _step_breakdown(trainer, module, args, rank, world):
     from repro_torch.train.step import shard_batch
 
     def sync():
-        if args.device == "cuda":
+        if device == "cuda":
             torch.cuda.synchronize()
 
     def timed(fn):
@@ -538,8 +634,8 @@ def _step_breakdown(trainer, module, args, rank, world):
 
     params = module.tree()
     agg = trainer.extras["aggregator"]
-    batch = {k: v.to(args.device) for k, v in shard_batch(
-        trainer.data_iter_fn(args.steps), agg.groups["data"]).items()}
+    batch = {k: v.to(device) for k, v in shard_batch(
+        trainer.data_iter_fn(step), agg.groups["data"]).items()}
 
     def fwd_bwd():
         loss, _ = trainer.model.loss(params, batch)
@@ -590,7 +686,8 @@ def train_rank(rank, world, args, small_args):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if args.device == "cuda" else 0.0
     checksum = _checksum(module.tree())
-    breakdown = _step_breakdown(trainer, module, args, rank, world)
+    breakdown = _step_breakdown(trainer, module, args.device, args.steps,
+                                rank, world)
     del module, opt_state, trainer
 
     # Small reference check: the same step on the card and on the host's
@@ -661,6 +758,152 @@ def run_phase(world, args, small, required):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper's CNNs under each aggregation strategy
+# ---------------------------------------------------------------------------
+
+def cnn_trainer(name, strategy, image, batch, dtype, device, group,
+                data_device=None):
+    """The CNN step of the tf_cnn_benchmarks analogue: ``make_train_step``
+    with SGD ``p - 0.05 g`` (no momentum) and a clip that never clips;
+    ``ps_gather`` fuses its terminal sum (K4)."""
+    from repro_torch.core import AggregatorConfig
+    from repro_torch.data import SyntheticImages
+    from repro_torch.models import CnnSpec, build_cnn
+    from repro_torch.optim import sgd
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+    agg = AggregatorConfig(strategy=strategy,
+                           fused_hops=True if strategy == "ps_gather"
+                           else None)
+    cfg = TrainerConfig(steps=CNN_WARMUP + CNN_TIMED, step=TrainStepConfig(
+        aggregator=agg, clip_norm=1e30))
+    data = SyntheticImages(batch, image_size=image, device=data_device)
+    return Trainer(build_cnn(CnnSpec(name, image_size=image, dtype=dtype)),
+                   sgd(0.05, momentum=0.0), data.batch_at, cfg, group=group,
+                   device=device, verbose=False)
+
+
+def cnn_rank(rank, world):
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import Group
+    from repro_torch.models.common import ParamTree
+
+    torch.cuda.set_device(0)
+    # float32 convolutions in full precision for the card-vs-host check.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = Group()
+    runs = []
+    for name, strategies in CNN_RUNS:
+        for strategy in strategies:
+            trainer = cnn_trainer(name, strategy, CNN_IMAGE, CNN_BATCH,
+                                  "bfloat16", "cuda", group,
+                                  data_device="cuda")
+            module, opt_state = trainer.init_state(0)
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            _reset_counts()                   # main path starts here
+            for s in range(CNN_WARMUP + CNN_TIMED):
+                before = _counts()
+                module, opt_state, hist = trainer.run(1, module, opt_state,
+                                                      start_step=s)
+                after = _counts()
+                steps.append({**hist[0], "launches": {
+                    k: after[k] - before[k] for k in after}})
+            totals = _counts()                # main path ends here
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs.append({
+                "model": name, "strategy": strategy, "steps": steps,
+                "totals": totals, "peak_gib": peak_gib,
+                "n_params": sum(p.numel() for p in module.parameters()),
+                "checksum": _checksum(module.tree()),
+                "breakdown": _step_breakdown(trainer, module, "cuda",
+                                             CNN_WARMUP + CNN_TIMED, rank,
+                                             world)})
+            del trainer, module, opt_state
+            torch.cuda.empty_cache()
+
+    # Small reference check: float32 MobileNet-v1 at image 32 under fused
+    # ps_gather on the card (K4) and on the host (its plain version).
+    losses, init = {}, None
+    for device in ("cpu", "cuda"):
+        small = cnn_trainer("mobilenet", "ps_gather", 32, 2 * world,
+                            "float32", device, group)
+        if init is None:
+            init = small.init_state(0)[0].tree()
+        mod = ParamTree(tree.tree_map(
+            lambda t: t.detach().clone().to(device), init))
+        mod, _, hist = small.run(2, mod, small.optimizer.init(mod.tree()))
+        losses[device] = [h["loss"] for h in hist]
+    return {"rank": rank, "runs": runs, "small_losses": losses}
+
+
+def run_cnn_phase():
+    """Spawn the 4 ranks once, then require for every model and strategy:
+    finite losses, one parameter checksum on every rank, K4 launched once
+    per bucket per step exactly under fused ps_gather and never
+    otherwise, no other kernel launched; then the small card-vs-host
+    agreement.  Returns each rank's record."""
+    from repro_torch.core.dist import run_ranks
+    log(f"  transport: gloo, {CNN_WORLD} ranks on one card; global batch "
+        f"{CNN_BATCH} ({CNN_BATCH // CNN_WORLD} per rank) at "
+        f"{CNN_IMAGE}x{CNN_IMAGE}, bf16; {CNN_WARMUP} warm-up + "
+        f"{CNN_TIMED} timed steps per model and strategy")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        results = run_ranks(cnn_rank, CNN_WORLD, (), backend="gloo",
+                            rendezvous_dir=rdv,
+                            threads=max(1, (os.cpu_count() or 1)
+                                        // CNN_WORLD),
+                            timeout_s=900)
+    log(f"  {CNN_WORLD} ranks done in {time.perf_counter() - t0:.1f} s")
+    for i, run in enumerate(results[0]["runs"]):
+        model, strategy = run["model"], run["strategy"]
+        buckets = CNN_BUCKETS[model]
+        k4_per_step = buckets if strategy == "ps_gather" else 0
+        timed = run["steps"][CNN_WARMUP:]
+        step_s = sum(r["step_s"] for r in timed) / len(timed)
+        log(f"  {model} {strategy}{' (fused, K4)' if k4_per_step else ''}: "
+            f"{run['n_params']} parameters, images/s "
+            f"{CNN_BATCH / step_s:.1f}, timed step_s "
+            f"{[round(r['step_s'], 4) for r in timed]}, warm-up "
+            f"{run['steps'][0]['step_s']:.3f} s, losses "
+            f"{[round(r['loss'], 5) for r in run['steps']]}, buckets "
+            f"{run['steps'][0]['n_buckets']}, peak GiB per rank "
+            f"{[round(r['runs'][i]['peak_gib'], 2) for r in results]}")
+        for r in results:
+            rr = r["runs"][i]
+            require((rr["model"], rr["strategy"]) == (model, strategy),
+                    "ranks ran the strategies in different orders")
+            log(f"    rank {r['rank']} layers, one step timed alone after "
+                f"the main path: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in rr["breakdown"].items()))
+            require(all(math.isfinite(s_["loss"]) for s_ in rr["steps"]),
+                    f"rank {r['rank']} {model} {strategy}: non-finite loss")
+            for s_, rec in enumerate(rr["steps"]):
+                require(rec["n_buckets"] == buckets,
+                        f"{model}: {rec['n_buckets']} buckets, not {buckets}")
+                want = {k: 0 for k in rec["launches"]}
+                want["fused_reduce"] = k4_per_step
+                require(rec["launches"] == want,
+                        f"rank {r['rank']} {model} {strategy} step {s_ + 1}:"
+                        f" launches {rec['launches']}, want {want}")
+        sums = {r["runs"][i]["checksum"] for r in results}
+        require(len(sums) == 1, f"{model} {strategy}: parameters differ "
+                                f"across ranks: {sums}")
+        log(f"    K4 launches per rank per step {k4_per_step}; parameters "
+            f"bit-identical on all {CNN_WORLD} ranks (checksum "
+            f"{sums.pop()})")
+    sl = results[0]["small_losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(sl["cpu"], sl["cuda"]))
+    log(f"  small float32 MobileNet-v1 at image 32, fused ps_gather, card "
+        f"vs host plain versions: losses {sl['cuda']} vs {sl['cpu']} (max "
+        f"rel {rel:.2e})")
+    require(rel <= 1e-3, "card and host CNN training disagree")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -688,9 +931,10 @@ def main():
     log(f"  built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: K1-K3 and K5 vs plain versions on the card")
+    log("phase 2: K1-K5 vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_hop_kernels(gen)
+    check_fused_reduce(gen)
     check_adamw(gen)
 
     log("phase 2: K6 fused_rmsnorm and K7/K8 flash attention")
@@ -712,7 +956,8 @@ def main():
                       steps=LONG_STEPS, device="cuda")
     small = train_args(full=False, batch=2 * LONG_WORLD, seq=128, steps=2,
                        dtype="float32")
-    phase4 = run_phase(LONG_WORLD, args, small, tuple(KERNELS))
+    phase4 = run_phase(LONG_WORLD, args, small,
+                       tuple(k for k in KERNELS if k != "fused_reduce"))
     for r in phase4:
         for s_, rec in enumerate(r["steps"]):
             for k in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -726,8 +971,14 @@ def main():
         f"{LAYERS} layers) {attn_s:.3f} s of the {fb:.3f} s "
         f"forward+backward of one rank alone: {attn_s / fb:.1%}")
 
+    log("phase 5: the paper's CNNs, full-width ResNet-50 and MobileNet-v1 "
+        f"at {CNN_IMAGE}x{CNN_IMAGE}")
+    phase5 = run_cnn_phase()
+
     by_phase = {k: {"phase3": sum(r["totals"][k] for r in phase3),
-                    "phase4": sum(r["totals"][k] for r in phase4)}
+                    "phase4": sum(r["totals"][k] for r in phase4),
+                    "phase5": sum(run["totals"][k] for r in phase5
+                                  for run in r["runs"])}
                 for k in KERNELS}
     record = {"kernels": [
         {"name": k, "route": "cuda",

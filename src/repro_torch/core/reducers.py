@@ -10,7 +10,8 @@ chunk along the leading dim (padding as needed), as the reference does.
 ``ring_rsa``   ring reduce-scatter + ring allgather
 ``rhd_rsa``    recursive vector halving/doubling — the paper's design,
                with MVAPICH2's pre/post fold for non-power-of-two p
-``ps_gather``  all-gather + local reduce (the parameter-server pattern)
+``ps_gather``  all-gather + local reduce (the parameter-server pattern);
+               fused, the reduce is kernel K4
 
 A reducer's ``axis`` is a :class:`~repro_torch.core.dist.Group`.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.fused_reduce import fused_reduce
 from . import dist as dist_mod
 from .dist import all_gather, axis_index, axis_size, ppermute
 
@@ -167,13 +169,15 @@ def rhd_rsa(x: torch.Tensor, axis, permute=ppermute) -> torch.Tensor:
 
 def ps_gather(x: torch.Tensor, axis, *, fused: bool = False) -> torch.Tensor:
     """Every rank ships its full gradient (p·N ingress bytes) and reduces
-    locally — the parameter-server pattern.  ``fused=True`` needs the
-    fused terminal reduction kernel K4 (``fused_reduce``), not ported."""
+    locally — the parameter-server pattern.  ``fused=True`` routes the
+    terminal reduction through kernel K4 (``kernels/fused_reduce.py``, one
+    f32 pass — the paper's C2 reduction kernel) instead of ``torch.sum``."""
+    gathered = all_gather(x, axis)          # (p, ...)
     if fused:
-        raise NotImplementedError(
-            "ps_gather with fused_hop needs kernel K4 (kernels/fused_reduce"
-            ".py:fused_reduce), which is not ported yet")
-    return torch.sum(all_gather(x, axis), dim=0)
+        p = gathered.shape[0]
+        out = fused_reduce(gathered.reshape(p, -1), out_dtype=x.dtype)
+        return out.reshape(x.shape)
+    return torch.sum(gathered, dim=0)
 
 
 # ---------------------------------------------------------------------------

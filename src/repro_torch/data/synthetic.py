@@ -1,11 +1,12 @@
-"""Synthetic LM batches (counterpart of ``repro/data/synthetic.py``).
+"""Synthetic batches (counterpart of ``repro/data/synthetic.py``).
 
-The same closed form as the reference: a noisy affine token recurrence
-``t_{i+1} = (t_i + 17) mod V``, with a 5% chance per position of a
-uniform random token.  Deviation: the draws come from a seeded
-``torch.Generator`` and cannot reproduce ``jax.random``'s bits, so the
-same seed gives other tokens than the reference; parity tests feed both
-packages batches made with numpy.
+``SyntheticText``: the same closed form as the reference, a noisy affine
+token recurrence ``t_{i+1} = (t_i + 17) mod V`` with a 5% chance per
+position of a uniform random token.  ``SyntheticImages``: standard-normal
+NHWC images and uniform labels for the CNNs.  Deviation: the draws come
+from a seeded ``torch.Generator`` and cannot reproduce ``jax.random``'s
+bits, so the same seed gives other values than the reference; parity
+tests feed both packages batches made with numpy.
 """
 from __future__ import annotations
 
@@ -34,3 +35,24 @@ class SyntheticText:
                              generator=gen)
         toks = torch.where(flip, rand, toks).to(torch.int64)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@dataclasses.dataclass
+class SyntheticImages:
+    """Images ``(batch, size, size, 3)`` float32 and labels ``(batch,)``
+    int64, drawn on ``device`` (the CPU by default): a global batch at
+    224 is 77 MB for 128 images, so a rank on a card draws it there."""
+    batch: int
+    image_size: int = 224
+    num_classes: int = 1000
+    seed: int = 0
+    device: "str | torch.device | None" = None
+
+    def batch_at(self, step: int) -> dict:
+        dev = torch.device(self.device or "cpu")
+        gen = torch.Generator(device=dev).manual_seed(self.seed + step)
+        images = torch.randn((self.batch, self.image_size, self.image_size,
+                              3), generator=gen, device=dev)
+        labels = torch.randint(0, self.num_classes, (self.batch,),
+                               generator=gen, device=dev)
+        return {"images": images, "labels": labels}

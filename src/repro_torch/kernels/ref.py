@@ -1,6 +1,8 @@
 """Plain-torch oracles for the kernels (counterpart of ``repro/kernels/ref.py``).
 
-The oracle of K5 is the plain version that lives beside its kernel in
+:func:`fused_reduce_ref` is K4's oracle, the reference's formula: one
+``torch.sum`` in f32 (its own summation order, so it agrees with the
+kernel within rounding, not bit for bit).  The oracle of K5 is the plain version that lives beside its kernel in
 ``fused_adamw.py``; it is the same function, term for term, as the
 reference's ``adamw_update_ref``.  Likewise ``rmsnorm_ref`` is K6's
 plain version.  :func:`flash_attention_ref` is naive masked attention
@@ -16,6 +18,12 @@ import torch
 from .flash_attention import NEG_INF
 from .fused_adamw import adamw_update_plain as adamw_update_ref
 from .fused_rmsnorm import rmsnorm_plain
+
+
+def fused_reduce_ref(x, out_dtype=None):
+    """``(k, n) -> (n,)`` sum with f32 accumulation."""
+    out_dtype = out_dtype or x.dtype
+    return torch.sum(x.to(torch.float32), dim=0).to(out_dtype)
 
 
 def rmsnorm_ref(x, scale, eps: float = 1e-6):
@@ -41,4 +49,5 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         .to(q.dtype)
 
 
-__all__ = ["adamw_update_ref", "flash_attention_ref", "rmsnorm_ref"]
+__all__ = ["adamw_update_ref", "flash_attention_ref", "fused_reduce_ref",
+           "rmsnorm_ref"]

@@ -1,5 +1,7 @@
-"""Models (dense GQA transformer LM in this slice)."""
+"""Models: the dense GQA transformer LM and the paper's CNNs."""
+from .cnn import CnnSpec
 from .common import ModelSpec
-from .registry import ModelApi, build_model, param_groups
+from .registry import ModelApi, build_cnn, build_model, param_groups
 
-__all__ = ["ModelApi", "ModelSpec", "build_model", "param_groups"]
+__all__ = ["CnnSpec", "ModelApi", "ModelSpec", "build_cnn", "build_model",
+           "param_groups"]

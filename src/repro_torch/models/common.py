@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/models/common.py``.  ``ModelSpec`` keeps every
 field and default of the reference (so ``reduced()`` gives the same
-sizes); :class:`ParamTree` holds a nested dict of parameters as an
-``nn.Module`` under the reference's names.
+sizes); :class:`ParamTree` holds a nested tree of dicts and lists of
+parameters as an ``nn.Module`` under the reference's names.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from torch import nn
 from ..kernels.fused_rmsnorm import RMSNormFn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,21 +123,29 @@ class ModelSpec:
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: one parameter per leaf, one
-    submodule per inner dict, under the dict's own keys."""
+    """A nested tree of dicts and lists of tensors as a module: one
+    parameter per leaf, one submodule per inner dict or list, under the
+    dict's own keys or the list's indices ("0", "1", ...).
+    :meth:`tree` gives the same structure back, lists as lists."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: "dict | list"):
         super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+        self._is_list = isinstance(tree, list)
+        for k, v in (enumerate(tree) if self._is_list else tree.items()):
+            if isinstance(v, (dict, list)):
+                self.add_module(str(k), ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v))
+                self.register_parameter(str(k), nn.Parameter(v))
 
-    def tree(self) -> dict:
-        out: dict = dict(self._parameters)
-        out.update({k: m.tree() for k, m in self._modules.items()})
-        return out
+    def _child(self, name: str):
+        m = self._modules.get(name)
+        return self._parameters[name] if m is None else m.tree()
+
+    def tree(self) -> "dict | list":
+        names = list(self._parameters) + list(self._modules)
+        if self._is_list:
+            return [self._child(str(i)) for i in range(len(names))]
+        return {k: self._child(k) for k in names}
 
 
 # ---------------------------------------------------------------------------

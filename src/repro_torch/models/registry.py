@@ -1,5 +1,6 @@
 """Model registry and the fusion-group tags of each parameter
-(counterpart of ``repro/models/registry.py``, dense family).
+(counterpart of ``repro/models/registry.py``: the dense family, and the
+paper's CNNs through :func:`build_cnn`).
 
 ``param_groups`` gives the reference's tuple-ized PartitionSpec per leaf
 (the model-axis rules), so the aggregator buckets gradients exactly as
@@ -12,8 +13,8 @@ import dataclasses
 from typing import Callable
 
 from .. import tree as tree_mod
-from . import transformer
-from .common import ModelSpec
+from . import cnn, transformer
+from .common import ModelSpec, ParamTree
 
 _COL = (None, "model")
 _ROW = ("model", None)
@@ -28,9 +29,9 @@ _RULES: dict[str, tuple] = {
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
-    """``init(generator, device) -> TransformerLM``;
-    ``loss(params_tree, batch) -> (loss, metrics)``."""
-    spec: ModelSpec
+    """``init(generator, device) -> module`` (its ``.tree()`` is the
+    parameter tree); ``loss(params_tree, batch) -> (loss, metrics)``."""
+    spec: "ModelSpec | cnn.CnnSpec"
     init: Callable
     loss: Callable
 
@@ -44,6 +45,19 @@ def build_model(spec: ModelSpec) -> ModelApi:
         init=lambda gen, device=None: transformer.TransformerLM(
             spec, transformer.init_params(gen, spec, device)),
         loss=lambda p, b: transformer.loss_fn(p, b, spec))
+
+
+def build_cnn(spec: cnn.CnnSpec) -> ModelApi:
+    """ResNet-50 (``spec.name == "resnet50"``) or MobileNet-v1
+    (``"mobilenet"``); batches are ``{"images": (B, H, W, 3), "labels"}``."""
+    if spec.name not in cnn.CNNS:
+        raise ValueError(f"unknown CNN {spec.name!r}; one of "
+                         f"{sorted(cnn.CNNS)}")
+    init_fn, forward = cnn.CNNS[spec.name]
+    return ModelApi(
+        spec=spec,
+        init=lambda gen, device=None: ParamTree(init_fn(gen, device)),
+        loss=lambda p, b: cnn.cnn_loss(forward, p, b, spec))
 
 
 def _spec_for(path: tuple, leaf) -> tuple:

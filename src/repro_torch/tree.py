@@ -1,27 +1,40 @@
-"""Nested-dict pytrees, flattened in ``jax.tree_util``'s order.
+"""Nested pytrees of dicts and lists, flattened in ``jax.tree_util``'s order.
 
-Parameters, gradients and optimizer state are nested dicts of tensors
-with the reference's names.  Dicts are the only containers; their keys
-flatten sorted, as ``jax.tree_util`` does, so leaf indices, fusion
-buckets and schedules match the reference's exactly.  Anything that is
-not a dict (a tensor, a tuple tag, None) is a leaf.
+Parameters, gradients and optimizer state are nested dicts and lists of
+tensors with the reference's names.  Dict keys flatten sorted and lists
+in index order, as ``jax.tree_util`` does, so leaf indices, fusion
+buckets and schedules match the reference's exactly.  Anything else (a
+tensor, a tuple tag, None) is a leaf; a path names a dict entry by its
+key and a list entry by its index.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
 
+def _items(node):
+    """``(key, child)`` pairs of an inner node in flattening order, or
+    None for a leaf."""
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, list):
+        return list(enumerate(node))
+    return None
+
+
 def leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
-    return [tree]
+    items = _items(tree)
+    if items is None:
+        return [tree]
+    return [leaf for _, child in items for leaf in leaves(child)]
 
 
 def leaves_with_path(tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in leaves_with_path(tree[k], prefix + (k,))]
-    return [(prefix, tree)]
+    items = _items(tree)
+    if items is None:
+        return [(prefix, tree)]
+    return [item for k, child in items
+            for item in leaves_with_path(child, prefix + (k,))]
 
 
 _END = object()
@@ -34,6 +47,8 @@ def unflatten(like, flat) -> Any:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(child) for child in node]
         return next(it)
 
     out = build(like)

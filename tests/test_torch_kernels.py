@@ -1,5 +1,5 @@
-"""The port's kernels K1/K2/K3 (fused hop) and K5 (AdamW) against the
-JAX reference, on the CPU.
+"""The port's kernels K1/K2/K3 (fused hop), K4 (fused reduce) and K5
+(AdamW) against the JAX reference, on the CPU.
 
 On the CPU each wrapper runs its plain torch version (the kernel's
 arithmetic, under the flush-to-zero guard), so these tests hold that
@@ -7,8 +7,11 @@ arithmetic to the reference's: ``repro.core.codec.encode/decode`` and
 ``repro.kernels.fused_hop`` (direct lowering and, on a small case, the
 Pallas interpreter) bit for bit on payload and scale, across the normal,
 zero, subnormal and outlier regimes of tests/test_codec_properties.py;
-K5 to 1 ulp of ``repro.kernels.ref.adamw_update_ref`` and to rtol 1e-6
-of ``repro.optim.adamw`` (which squares ``g`` before scaling it).  The
+K4 bit for bit with ``repro.kernels.ref.fused_reduce_ref`` and the
+Pallas kernel in interpret mode for k <= 16 (XLA adds the rows in order
+there too); K5 to 1 ulp of ``repro.kernels.ref.adamw_update_ref`` and to
+rtol 1e-6 of ``repro.optim.adamw`` (which squares ``g`` before scaling
+it).  The
 kernels themselves are held to the plain versions on the card by
 tests/test_torch_kernels_on_card.py and chip_smoke.py.
 """
@@ -20,14 +23,16 @@ import jax.numpy as jnp
 from repro.core import codec as jcodec
 from repro.kernels import fused_hop as jfh
 from repro.kernels import ref as jref
+from repro.kernels.fused_reduce import fused_reduce as pallas_reduce
 from repro.optim import optimizers as joptim
 
-from repro_torch.convert import tensor_to_numpy
+from repro_torch.convert import tensor_from_numpy, tensor_to_numpy
 from repro_torch.core import codec as tcodec
 from repro_torch.kernels import backend
 from repro_torch.kernels import fused_adamw as fa
 from repro_torch.kernels import fused_hop as fh
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fused_reduce import fused_reduce, fused_reduce_plain
 
 CODED = ("bf16", "int8", "fp8_e4m3")
 REGIMES = ("normal", "zero", "subnormal", "outlier", "subnormal_absmax")
@@ -250,6 +255,99 @@ def test_wrappers_refuse_other_devices():
         fh.hop_encode("int8", x)
     with pytest.raises(ValueError):
         fa.adamw_update(x, x, x, x, lr=1e-3)
+    with pytest.raises(ValueError):
+        fused_reduce(x.reshape(2, 8))
+
+
+# ---------------------------------------------------------------------------
+# K4: fused chunk reduction
+# ---------------------------------------------------------------------------
+
+def _stack(k, n, dtype, seed):
+    x = np.random.default_rng(seed).standard_normal((k, n)) \
+        .astype(np.float32)
+    return x if dtype == "float32" else x.astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [128, 2048, 4999])
+@pytest.mark.parametrize("k", [2, 5, 16])
+def test_fused_reduce_matches_reference_and_pallas_interpreter(k, n, dtype):
+    """tests/test_kernels.py's grid, bit for bit, in the input's dtype
+    and in f32 out; the port's own oracle (one ``torch.sum``) within
+    the reference's tolerance there (1e-6 f32, 2e-2 bf16)."""
+    x = _stack(k, n, dtype, k * n)
+    got = fused_reduce(tensor_from_numpy(x))
+    assert got.dtype == tensor_from_numpy(x).dtype and got.shape == (n,)
+    assert _same_bits(_t(got), jref.fused_reduce_ref(jnp.asarray(x)))
+    assert _same_bits(_t(got), pallas_reduce(jnp.asarray(x),
+                                             interpret=True))
+    got32 = fused_reduce(tensor_from_numpy(x), out_dtype=torch.float32)
+    assert _same_bits(_t(got32), jref.fused_reduce_ref(
+        jnp.asarray(x), out_dtype=jnp.float32))
+    tol = 2e-2 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(
+        _t(got).astype(np.float32),
+        _t(tref.fused_reduce_ref(tensor_from_numpy(x))).astype(np.float32),
+        rtol=tol, atol=tol)
+
+
+def test_fused_reduce_f32_to_bf16_rounds_once():
+    """f32 rows summed in f32, then one round-to-nearest-even to bf16:
+    the reference's ``out_dtype`` cast."""
+    x = _stack(5, 4999, "float32", 3)
+    got = fused_reduce(tensor_from_numpy(x), out_dtype=torch.bfloat16)
+    want = jref.fused_reduce_ref(jnp.asarray(x), out_dtype=jnp.bfloat16)
+    assert _same_bits(_t(got), want)
+
+
+def test_fused_reduce_bf16_provably_loses_bits_sequentially():
+    """The bf16 [1024, 1, ..., 1] column: a running bf16 sum stays at
+    1024 (its ulp there is 8), the f32 accumulator gives exactly 1279."""
+    k, n = 256, 192
+    x = torch.cat([torch.full((1, n), 1024.0, dtype=torch.bfloat16),
+                   torch.ones((k - 1, n), dtype=torch.bfloat16)])
+    seq = x[0]
+    for i in range(1, k):
+        seq = seq + x[i]
+    assert bool((seq == 1024.0).all())
+    got = fused_reduce(x, out_dtype=torch.float32)
+    assert bool((got == 1024.0 + (k - 1)).all())
+
+
+def test_fused_reduce_ragged_tail_exact():
+    """Integer-valued rows at n past a multiple of any tile: exact, so
+    bit for bit the float64 sum and the Pallas kernel's padded tiles."""
+    k, block_n = 7, 2048
+    for n in (block_n + 37, 3 * block_n - 1):
+        x = (np.arange(k * n, dtype=np.float32).reshape(k, n) % 513.0)
+        got = _t(fused_reduce(torch.from_numpy(x)))
+        assert got.shape == (n,)
+        assert (got.astype(np.float64) == x.astype(np.float64).sum(0)).all()
+        assert _same_bits(got, pallas_reduce(jnp.asarray(x),
+                                             block_n=block_n,
+                                             interpret=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_reduce_subnormals_flush_like_the_reference(dtype):
+    """Subnormal addends and sums flush to zero under the guard, as
+    XLA's do: a normal pair whose sum is subnormal gives zero."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((4, 4096)) * 8e-39).astype(np.float32)
+    x[0, ::3], x[1, ::3] = 1.5e-38, -1.4e-38
+    x = x if dtype == "float32" else x.astype(jnp.bfloat16)
+    got = fused_reduce(tensor_from_numpy(x), out_dtype=torch.float32)
+    want = jref.fused_reduce_ref(jnp.asarray(x), out_dtype=jnp.float32)
+    assert _same_bits(_t(got), want)
+    assert float(got[0]) == 0.0
+
+
+def test_fused_reduce_plain_copies_a_single_row():
+    x = torch.arange(6, dtype=torch.float32).reshape(1, 6)
+    out = fused_reduce_plain(x)
+    out += 1.0
+    assert torch.equal(x, torch.arange(6, dtype=torch.float32).reshape(1, 6))
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ only PyTorch for CUDA:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_on_card.py
 
 Without a card every test skips (decided in the ``cuda`` fixture, when a
-test runs).  K1/K2/K3 must be bit-exact; K5 within 1 ulp; K6, K7 and
-K8 within the tolerances their tests state.
+test runs).  K1/K2/K3 and K4 must be bit-exact; K5 within 1 ulp; K6, K7
+and K8 within the tolerances their tests state.
 """
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_attention as fla
 from repro_torch.kernels import fused_adamw as fa
 from repro_torch.kernels import fused_hop as fh
 from repro_torch.kernels import fused_rmsnorm as frn
+from repro_torch.kernels.fused_reduce import fused_reduce, fused_reduce_plain
 
 
 @pytest.fixture
@@ -75,6 +76,37 @@ def test_wrappers_count_only_kernel_launches(cuda):
     after = (fh.hop_absmax.launches, fh.hop_encode.launches,
              fh.hop_decode_add.launches)
     assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("k,n", [(4, 1 << 16), (5, 4999), (16, 2048 + 37)])
+def test_fused_reduce_kernel_matches_plain_on_card(cuda, k, n, dtype,
+                                                   out_dtype):
+    """K4 bit for bit: both add rows 0..k-1 in order in f32 and round
+    once to the output type (vector path where n allows, else scalar)."""
+    x = _normal(k * n, k + n, outlier=True).reshape(k, n).to(cuda, dtype)
+    before = fused_reduce.launches
+    got = fused_reduce(x, out_dtype=out_dtype)
+    assert fused_reduce.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (n,)
+    assert torch.equal(got, fused_reduce_plain(x, out_dtype))
+
+
+def test_fused_reduce_kernel_exactness_pins_on_card(cuda):
+    """The bf16 [1024, 1, ..., 1] column sums to exactly 1279 (a running
+    bf16 sum stays at 1024); integer-valued rows at ragged n equal the
+    float64 sum."""
+    for n in (192, 4099):
+        x = torch.cat([torch.full((1, n), 1024.0, dtype=torch.bfloat16),
+                       torch.ones((255, n), dtype=torch.bfloat16)]).to(cuda)
+        assert bool((fused_reduce(x, out_dtype=torch.float32) == 1279.0)
+                    .all())
+    for n in (2048 + 37, 3 * 2048 - 1):
+        x = torch.arange(7 * n, dtype=torch.float64).reshape(7, n) % 513.0
+        got = fused_reduce(x.to(cuda, torch.float32))
+        assert torch.equal(got.cpu().double(), x.sum(0))
 
 
 def _bf16_ulp_distance(a, b) -> int:

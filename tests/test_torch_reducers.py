@@ -10,7 +10,11 @@ for the reference, each running every case at once:
 * coded int8 / fp8 / bf16 stay within ``codec.tolerance`` of the exact
   sum (relative to the input absmax), fused and unfused hops agree bit
   for bit, and a coded allreduce leaves every rank with the same bits;
-* ``ppermute`` zero-fills the receive buffer of non-targets.
+* ``ppermute`` zero-fills the receive buffer of non-targets;
+* ``ps_gather`` with fused hops (its terminal sum on K4's plain version)
+  is bit-exact with the reference's ``ps_gather(fused=True)`` (the
+  Pallas kernel, interpreted) on integer-valued and normal inputs, and
+  leaves every rank with the same bits.
 """
 import os
 import subprocess
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.core import codec, dist, reducers
 from repro_torch.core.schedule import Stage
+from repro_torch.kernels.fused_reduce import fused_reduce
 
 PS = (3, 4)
 UNCODED_ALGS = ("ring_rsa", "rhd_rsa", "ps_gather")
@@ -61,6 +66,11 @@ def _rank_cases(rank, world, inputs):
         for alg in UNCODED_ALGS + ("psum",):
             res[(alg, shape)] = reducers.execute_stages(
                 x, [_stage(alg, p=world)], groups).numpy()
+    fused_ps = [_stage("ps_gather", fused=True, p=world)]
+    for key in [f"int{shape}" for shape in UNCODED_SHAPES] + ["coded"]:
+        x = torch.from_numpy(inputs[key][rank].copy())
+        res[("ps_gather_fused", key)] = reducers.execute_stages(
+            x, fused_ps, groups).numpy()
     x = torch.from_numpy(inputs["coded"][rank].copy())
     for alg in CODED_ALGS:
         for name in CODECS:
@@ -107,6 +117,8 @@ for p in (3, 4):
         return np.asarray(fn(g)).reshape(arr.shape)
     for key in inputs.files:
         arr = inputs[key]
+        st = Stage("allreduce", "ps_gather", "data", p, 0, 0, 0.0, "none", True)
+        out[f"{p}|ps_gather_fused|{key}"] = run(arr, st)
         if key.startswith("int"):
             for alg in algs:
                 st = Stage("allreduce", alg, "data", p, 0, 0, 0.0)
@@ -208,9 +220,45 @@ def test_ppermute_zero_fills_non_targets(port, p):
         assert np.array_equal(res["ppermute"], want)
 
 
-def test_fused_ps_gather_needs_k4():
-    with pytest.raises(NotImplementedError, match="K4"):
-        reducers.ps_gather(torch.zeros(4), dist.Group(), fused=True)
+def test_fused_ps_gather_needs_k4(monkeypatch):
+    """Fused ``ps_gather`` takes its terminal sum through K4's wrapper
+    (``(p, n)`` rows, out in the buffer's dtype), the unfused one not."""
+    calls = []
+
+    def spy(x, *, out_dtype=None):
+        calls.append((tuple(x.shape), out_dtype))
+        return fused_reduce(x, out_dtype=out_dtype)
+
+    monkeypatch.setattr(reducers, "fused_reduce", spy)
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    out = reducers.ps_gather(x, dist.Group(), fused=True)
+    assert calls == [((1, 12), torch.float32)]
+    assert torch.equal(out, x)
+    reducers.ps_gather(x, dist.Group(), fused=False)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("key", [f"int{s}" for s in UNCODED_SHAPES]
+                         + ["coded"])
+@pytest.mark.parametrize("p", PS)
+def test_fused_ps_gather_matches_reference(port, reference, p, key):
+    """Bit-exact with the reference's fused ps_gather: both add the p
+    gathered rows in rank order in f32 to a +0 start."""
+    want = reference[f"{p}|ps_gather_fused|{key}"]
+    for rank, res in enumerate(port[p]):
+        got = res[("ps_gather_fused", key)]
+        assert got.dtype == want.dtype and got.shape == want[rank].shape
+        assert np.array_equal(got.view(np.uint32), want[rank].view(np.uint32))
+    if key.startswith("int"):
+        assert np.array_equal(port[p][0][("ps_gather_fused", key)],
+                              _inputs(p)[key].sum(axis=0))
+
+
+@pytest.mark.parametrize("p", PS)
+def test_fused_ps_gather_leaves_replicas_identical(port, p):
+    first = port[p][0][("ps_gather_fused", "coded")]
+    for res in port[p][1:]:
+        assert np.array_equal(res[("ps_gather_fused", "coded")], first)
 
 
 @pytest.mark.parametrize("alg", CODED_ALGS)
