@@ -6,7 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught and excused):
 
 1. Build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
-   for sm_90a, one compiler per source, all at once.
+   for sm_90a, one compiler per source, all at once.  For K7/K8 print
+   each kernel's registers, spills and shared memory, and the HGMMA
+   (wgmma) and HMMA instructions in its SASS where cuobjdump exists:
+   the bf16 kernels must hold HGMMA, the f32 ones none.
 2. Hold each kernel against its plain torch version on the card.  K1–K3
    at a 1 Mi-element bucket, a ragged n and the largest main-path hop,
    bit for bit (K5: within 1 ulp), plus the subnormal regime against
@@ -18,9 +21,11 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    (4096, 960) rows and a ragged (37, 960), f32 within rtol 1e-5 and
    bf16 within 1 ulp.  K7/K8 causal at phase 4's (1, 4096, 15, 64) in
    f32 and bf16, plus window 100, non-causal and other head widths at
-   ragged S, at the reference's tolerances.  Times each kernel, its
-   plain version and, where one exists, one PyTorch call computing the
-   same function (a yardstick the port never calls).
+   ragged S, at the reference's tolerances; each bf16 case twice, bit
+   for bit.  Times each kernel, its plain version and, where one
+   exists, one PyTorch call computing the same function (a yardstick
+   the port never calls); K7/K8 in bf16 (tensor cores, the main path)
+   and in f32 (CUDA cores, against the f32 peak).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
    batch 2 per rank, seq 512, ``rhd_rsa`` + ``int8`` fused hops and the
@@ -183,6 +188,82 @@ def agree(key, a, b, what):
     if a is not None and b is not None:
         MAX_ERR[key] = max(MAX_ERR[key], max_abs(a, b))
     require(bits_equal(a, b), what)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: what the compiler made of the flash kernels
+# ---------------------------------------------------------------------------
+
+def _kernel_name(mangled):
+    """``flash_dkv_tc<64>`` / ``flash_fwd_kernel<float, 64>`` from a
+    mangled name."""
+    import re
+    m = re.search(r"(flash_[a-z_]+)I(f?)Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+
+
+def _sass_counts(lib_path):
+    """``{kernel: (HGMMA, HMMA)}`` instruction counts in the library's
+    SASS, or None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = _kernel_name(line.split("Function : ")[1].strip())
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "HMMA" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def report_flash_build(text):
+    """Registers, spills and dynamic shared memory of every K7/K8 kernel
+    (ptxas's report and the launchers' sizes), then the tensor-core
+    instructions in the SASS: each bf16 kernel (``*_tc``) must hold
+    HGMMA (wgmma), each f32 kernel none."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import flash_attention as fla
+    lib = fla._lib()
+    smem_kind = {"flash_fwd_tc": 0, "flash_dq_tc": 1, "flash_dkv_tc": 2}
+    name, spill = None, ""
+    for line in text.splitlines():
+        if "Performance Loss" in line:
+            what = line.split("Performance Loss:")[1].split(" for the function")[0]
+            log(f"  ptxas: {_kernel_name(line.split(chr(39))[-2])}:{what}")
+        elif "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            base = name.split("<")[0]
+            smem = ""
+            if base in smem_kind:
+                head_dim = int(name.split("<")[1].rstrip(">"))
+                smem = (f", dynamic smem "
+                        f"{lib.flash_attention_tc_smem(smem_kind[base], head_dim)}"
+                        f" B")
+            regs = line.split("Used")[1].split(",")[0].strip()
+            log(f"  {name:30s} {regs}{smem}; {spill}")
+            name = None
+    counts = _sass_counts(backend.library_path("flash_attention"))
+    if counts is None:
+        log("  cuobjdump not found: SASS not counted")
+        return
+    for k, (hgmma, hmma) in sorted(counts.items()):
+        log(f"  SASS {k:30s} HGMMA {hgmma:3d}  HMMA {hmma:3d}")
+        if "_tc<" in k:
+            require(hgmma > 0, f"{k} holds no HGMMA: not on the tensor cores")
+        else:
+            require(hgmma == hmma == 0, f"{k} (f32) holds tensor-core "
+                                        f"instructions")
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +477,8 @@ def check_flash(gen):
     """K7/K8 against the chunked plain versions: causal at phase 4's
     shape in f32 and bf16, then window, non-causal and other head widths
     at ragged S.  f32 forward atol 2e-5 / rtol 1e-4, backward 2e-3;
-    bf16 3e-2 (tests/test_kernels.py's tolerances)."""
+    bf16 3e-2 (tests/test_kernels.py's tolerances).  Every bf16 case is
+    run twice and must give the same bits (no atomics)."""
     import torch
     from repro_torch.kernels import flash_attention as fla
     cuda = torch.device("cuda")
@@ -430,6 +512,13 @@ def check_flash(gen):
             log(f"  K7/K8 {what}: max err/tol fwd {ex_f:.3f} bwd {ex_b:.3f}")
             require(ex_f <= 1.0, f"K7 flash_attention_fwd != plain at {what}")
             require(ex_b <= 1.0, f"K8 flash_attention_bwd != plain at {what}")
+            if dtype == torch.bfloat16:
+                again = (*fla.flash_attention_fwd(q, k, v, **kw),
+                         *fla.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+                require(all(bits_equal(a, b) for a, b in
+                            zip(again, (out, lse, *grads))),
+                        f"K7/K8 bf16 not deterministic at {what}")
+                del again
             del q, k, v, do, out, lse, grads, pout, plse, pgrads
     torch.cuda.empty_cache()
 
@@ -531,32 +620,42 @@ def measure(gen):
         LONG_SEQ * D_MODEL * 4 + 4 * D_MODEL + 4 * LONG_SEQ,
         4 * LONG_SEQ * D_MODEL, f"bf16 ({LONG_SEQ}, {D_MODEL})")
 
-    # K7/K8 at one layer of phase 4: (1, 4096, 15, 64) bf16, causal.
+    # K7/K8 at one layer of phase 4: (1, 4096, 15, 64) causal, bf16 on
+    # the tensor cores (the main path) and f32 on the CUDA cores.
     b, s_, h, dh = ATTN_SHAPE
-    q, k, v, do = (torch.randn(ATTN_SHAPE, generator=gen, device=cuda)
-                   .to(torch.bfloat16) for _ in range(4))
-    out, lse = fla.flash_attention_fwd(q, k, v)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     elems = b * s_ * h * dh
     causal_pairs = b * h * s_ * s_ / 2
-    rows["flash_attention_fwd"] = row(
-        "flash_attention_fwd", lambda: fla.flash_attention_fwd(q, k, v),
-        lambda: fla.flash_fwd_plain(q, k, v, chunk=1024),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        4 * elems * 2 + 4 * b * h * s_, 4 * causal_pairs * dh,
-        f"bf16 causal {ATTN_SHAPE}", tensor_cores=True)
-    rows["flash_attention_bwd"] = row(
-        "flash_attention_bwd",
-        lambda: fla.flash_attention_bwd(q, k, v, out, lse, do),
-        lambda: fla.flash_bwd_plain(q, k, v, out, lse, do, chunk=1024),
-        lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                    retain_graph=True),
-        8 * elems * 2 + 4 * b * h * s_, 8 * causal_pairs * dh,
-        f"bf16 causal {ATTN_SHAPE} (delta + dq pass + dk/dv pass)",
-        tensor_cores=True)
+    q, k, v, do = (torch.randn(ATTN_SHAPE, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    fwd_rows, bwd_rows = {}, {}
+    for name, dtype, size in (("bf16", torch.bfloat16, 2),
+                              ("f32", torch.float32, 4)):
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        out, lse = fla.flash_attention_fwd(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        unit = "tensor cores" if name == "bf16" else "CUDA cores"
+        fwd_rows[name] = row(
+            f"flash_attention_fwd[{name}]",
+            lambda: fla.flash_attention_fwd(q, k, v),
+            lambda: fla.flash_fwd_plain(q, k, v, chunk=1024),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            4 * elems * size + 4 * b * h * s_, 4 * causal_pairs * dh,
+            f"causal {ATTN_SHAPE}, {unit}", tensor_cores=name == "bf16")
+        bwd_rows[name] = row(
+            f"flash_attention_bwd[{name}]",
+            lambda: fla.flash_attention_bwd(q, k, v, out, lse, do),
+            lambda: fla.flash_bwd_plain(q, k, v, out, lse, do, chunk=1024),
+            lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                        retain_graph=True),
+            8 * elems * size + 4 * b * h * s_, 8 * causal_pairs * dh,
+            f"causal {ATTN_SHAPE} (delta + dq pass + dk/dv pass), {unit}",
+            tensor_cores=name == "bf16")
+    rows["flash_attention_fwd"] = {**fwd_rows["bf16"], "variants": fwd_rows}
+    rows["flash_attention_bwd"] = {**bwd_rows["bf16"], "variants": bwd_rows}
     del q, k, v, do, out, lse, qt, kt, vt, dot, lib_out
     torch.cuda.empty_cache()
     return rows
@@ -925,6 +1024,9 @@ def main():
     t0 = time.perf_counter()
     reports = backend.build_all()
     for name, text in reports.items():
+        if name == "flash_attention":
+            report_flash_build(text)
+            continue
         for line in text.splitlines():
             if "registers" in line:
                 log(f"  {name}: {line.strip()}")

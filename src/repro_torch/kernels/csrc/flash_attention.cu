@@ -13,19 +13,50 @@
 // row stays finite; l is clamped at 1e-30 as in the reference.
 //
 // Bound: tensor-core operations (4*B*H*S^2*D/2 for the causal forward,
-// 8*B*H*S^2*D/2 for the backward's four products) — far above the bytes
-// moved.  This first design does not reach the tensor cores: 64x64
-// tiles in shared memory as f32, 256 threads, each owning 4 rows and
-// every 16th column of a tile, f32 arithmetic on the CUDA cores, built
-// with -fmad=false like every kernel here.  Tiles wholly above the
-// diagonal or outside the window are skipped; the forward and dq grids
-// start with the heaviest (last) query tiles.  Every output tile is
-// owned by one thread block (dq by query tile, dk/dv by key tile): no
-// atomics, so the result is deterministic.
+// 8*B*H*S^2*D/2 for the backward's four products) -- far above the bytes
+// moved.  Common to both designs below: tiles wholly above the diagonal
+// or outside the window are skipped and the partial ones masked; the
+// forward and dq grids start with the heaviest (last) query tiles, the
+// dk/dv grid with the heaviest (first) key tiles; every output tile is
+// owned by one thread block (dq by query tile, dk/dv by key tile), so
+// there are no atomics and two calls give the same bits.
+//
+// bfloat16 runs on the tensor cores (sm_90a). A block owns 128 rows
+// (queries in the forward and the dq pass, keys in the dk/dv pass) and has
+// two consumer warpgroups of 64 rows each plus a producer warpgroup whose
+// first thread issues every copy; setmaxnreg lowers the producer to 24
+// registers and raises the consumers to 240 (it trades registers between
+// whole warpgroups, so a lone producer warp would leave the consumers at
+// 168 and the dk/dv pass spilling). The producer brings the block's own
+// tiles in once and streams the other side's 64-row tiles (K/V, or Q/dO in
+// the dk/dv pass) through a 2-stage shared-memory ring with TMA;
+// full/empty mbarriers hand each stage over. Every product is a
+// wgmma.mma_async with bf16 operands and f32 accumulators: S = Q K^T, dP =
+// dO V^T, S^T = K Q^T and dP^T = V dO^T from shared memory; P V, dS K, P^T
+// dO and dS^T Q with P or dS from registers, rounded to bf16 (as
+// FlashAttention-2/3 do), and the shared-memory operand read N-major
+// through the descriptor's transpose bit. m, l, the softmax (in base 2)
+// and the outputs stay f32. TMA writes each tile in the swizzle that the
+// wgmma descriptors name: 128-byte rows at D = 64 (two boxes of 64 columns
+// at D = 128), 64-byte at D = 32, 32-byte at D = 16. The tensor maps'
+// outer extent is S per (batch, head), so rows past S arrive as zeros. The
+// wrapper checks that every pointer is 16-byte aligned (TMA's rule; the
+// row stride H*D*2 always is).
+//
+// float32 stays on the CUDA cores: the tensor cores would take it only as
+// TF32 (about 3 digits), which the f32 tolerances refuse.  Its kernels
+// use 64x64 f32 tiles in shared memory, 256 threads each owning 4 rows
+// and every 16th column of a tile, built with -fmad=false like every
+// kernel here.  The C entry points send bfloat16 to the tensor-core
+// kernels and float32 to these; neither falls back to the other.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes via dlsym
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
 
 namespace {
+
 
 constexpr int kB = 64;          // rows of a query tile and of a key tile
 constexpr int kThreads = 256;   // 16 x 16: ty owns rows, tx columns
@@ -33,19 +64,12 @@ constexpr int kPitchP = kB + 1; // pitch of a score tile in shared memory
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ bool visible(int q, int k, int S, int causal,
@@ -56,22 +80,28 @@ __device__ __forceinline__ bool visible(int q, int k, int S, int causal,
   return true;
 }
 
-// Key tiles [lo, hi) that can hold a key visible to query tile qt.
-__device__ __forceinline__ void key_range(int qt, int S, int causal,
-                                          int window, int* lo, int* hi) {
+// Key tiles (kB rows) [lo, hi) that can hold a key visible to a query
+// in [q_first, q_first + n); empty when no such query lies below S.
+__device__ __forceinline__ void keys_for(int q_first, int n, int S,
+                                         int causal, int window, int* lo,
+                                         int* hi) {
+  *lo = *hi = 0;
+  if (q_first >= S) return;
   const int nt = (S + kB - 1) / kB;
-  const int q_first = qt * kB;
-  const int q_last = min(q_first + kB - 1, S - 1);
+  const int q_last = min(q_first + n - 1, S - 1);
   *hi = causal ? min(nt, q_last / kB + 1) : nt;
   *lo = window > 0 ? max(0, (q_first - window + 1) / kB) : 0;
 }
 
-// Query tiles [lo, hi) that can see a key of key tile kt.
-__device__ __forceinline__ void query_range(int kt, int S, int causal,
-                                            int window, int* lo, int* hi) {
+// Query tiles (kB rows) [lo, hi) that can see a key in
+// [k_first, k_first + n); empty when no such key lies below S.
+__device__ __forceinline__ void queries_for(int k_first, int n, int S,
+                                            int causal, int window, int* lo,
+                                            int* hi) {
+  *lo = *hi = 0;
+  if (k_first >= S) return;
   const int nt = (S + kB - 1) / kB;
-  const int k_first = kt * kB;
-  const int k_last = min(k_first + kB - 1, S - 1);
+  const int k_last = min(k_first + n - 1, S - 1);
   *lo = causal ? k_first / kB : 0;
   *hi = window > 0 ? min(nt, (k_last + window - 1) / kB + 1) : nt;
 }
@@ -145,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.0f;
   }
   int lo, hi;
-  key_range(qt, S, causal, window, &lo, &hi);
+  keys_for(qt * kB, kB, S, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();
@@ -264,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.0f;
   int lo, hi;
-  key_range(qt, S, causal, window, &lo, &hi);
+  keys_for(qt * kB, kB, S, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();
@@ -375,7 +405,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CD; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
   int lo, hi;
-  query_range(kt, S, causal, window, &lo, &hi);
+  queries_for(kt * kB, kB, S, causal, window, &lo, &hi);
   for (int qt = lo; qt < hi; ++qt) {
     const int q0 = qt * kB;
     __syncthreads();
@@ -463,6 +493,668 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores: wgmma, TMA and mbarriers (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = kB;     // rows of a streamed tile and of a warpgroup
+constexpr int kOwn = 128;     // rows a block owns: two consumer warpgroups
+constexpr int kStages = 2;    // depth of the shared-memory ring
+constexpr int kConsumers = 256;
+// + a producer warpgroup, of which one thread issues the copies.
+// setmaxnreg trades registers between whole warpgroups: with the
+// launch's 168 a thread (65536 over 384 threads), the producer's drop to
+// 24 frees 144 x 128, which the consumers take as 240 - 168 = 72 x 256.
+constexpr int kTcThreads = kConsumers + 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// A wait that outlasts this many cycles (~9 s at 1.98 GHz) traps: a lost
+// copy then fails the launch instead of hanging the card.
+constexpr long long kWaitLimit = 1ll << 34;
+
+// A row of D bf16 is cut into NB boxes of CW columns; each box is one
+// swizzle atom wide (ROWB bytes), and a tile of R rows keeps its boxes
+// one after another, each R x ROWB bytes.
+template <int D>
+struct Geo {
+  static constexpr int CW = D < 64 ? D : 64;
+  static constexpr int NB = D / CW;
+  static constexpr int ROWB = 2 * CW;
+  // descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint32_t SWZ = ROWB == 128 ? 1u : (ROWB == 64 ? 2u : 3u);
+  static constexpr uint32_t SBO = 8 * ROWB;  // bytes between 8-row groups
+  static constexpr int KSTEPS = D / 16;
+};
+
+// Shared memory: NOWN own tiles of kOwn rows, then kStages stages of two
+// streamed tiles of kTile rows, then the mbarriers (own, full[], empty[]).
+// Every tile starts on a 1024-byte boundary (the 128-byte swizzle's
+// period), so TMA and wgmma agree on the swizzle.
+template <int D, int NOWN>
+struct Smem {
+  static constexpr uint32_t own = kOwn * D * 2;
+  static constexpr uint32_t tile = kTile * D * 2;
+  static constexpr uint32_t stream = NOWN * own;
+  static constexpr uint32_t bars = stream + kStages * 2 * tile;
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) {
+  return bars + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
+  return bars + 8 * (1 + kStages + s);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > kWaitLimit) __trap();
+  }
+}
+
+// One box of a (B, S, H, D) tensor: columns [c0, c0 + CW) of head h,
+// rows [s0, s0 + box rows) of batch b.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int h, int s0,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(h),
+      "r"(s0), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// A shared-memory matrix descriptor: start address, leading byte offset
+// 16 (unused by these swizzled layouts), stride byte offset between
+// 8-row groups, swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
+                                              uint32_t swz) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swz) << 62);
+}
+
+// K-major operand: rows [row0, row0 + 64) of a tile of `rows` rows, the
+// 16 columns of step ks along the reduction (D).  Within a box the step
+// moves the start by 32 bytes; the hardware swizzles the address.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int row0,
+                                           int ks) {
+  using G = Geo<D>;
+  const int c = ks * 16;
+  return make_desc(tile + (c / G::CW) * rows * G::ROWB + row0 * G::ROWB +
+                       (c % G::CW) * 2,
+                   G::SBO, G::SWZ);
+}
+
+// N-major operand (the transpose bit): rows [16 ks, 16 ks + 16) of a tile
+// run along the reduction, the CW columns of box nb along N.
+template <int D>
+__device__ __forceinline__ uint64_t desc_n(uint32_t tile, int rows, int ks,
+                                           int nb) {
+  using G = Geo<D>;
+  return make_desc(tile + nb * rows * G::ROWB + ks * 16 * G::ROWB, G::SBO,
+                   G::SWZ);
+}
+
+// D (64x64, f32) (+)= A (64x16, smem) * B (16x64, smem, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64xN, f32) += A (64x16, registers) * B (16xN, smem, N-major:
+// the transpose bit set).  N is the width of one swizzle box.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator fragments (m64nN, f32): in a warpgroup, warp w holds rows
+// 16w..16w+15; lane (g = lane/4, t = lane%4) holds element e at row
+// 16w + g + 8*((e>>1)&1), column 8*(e>>2) + 2t + (e&1).  Elements 8kk..
+// 8kk+7 of a 64-column accumulator, packed in pairs, are exactly the A
+// fragment of reduction step kk of the next product.
+
+// Whether every (query, key) pair of two kTile-row tiles is visible, so
+// the tile needs no mask.
+__device__ __forceinline__ bool all_visible(int q0, int k0, int S,
+                                            int causal, int window) {
+  return q0 + kTile <= S && k0 + kTile <= S &&
+         (!causal || k0 + kTile - 1 <= q0) &&
+         (window <= 0 || q0 + kTile - 1 - k0 < window);
+}
+
+// Barriers, then the roles split for good: the producer warp returns when
+// its copies are issued; the consumers never meet it at a __syncthreads.
+__device__ __forceinline__ uint32_t setup(unsigned char* raw,
+                                          uint32_t bar_off,
+                                          uint32_t* base) {
+  const uint32_t b0 = smem_u32(raw);
+  *base = (b0 + 1023u) & ~1023u;
+  const uint32_t bars = *base + bar_off;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar(bars, s), 1);
+      mbar_init(empty_bar(bars, s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return bars;
+}
+
+// The producer (one thread): the block's own tiles (own0, and own1 when
+// NOWN is 2) from row `own_row`, then tiles lo..hi-1 of the streamed pair
+// (str0, str1) through the ring.
+template <int D, int NOWN>
+__device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
+                                        const CUtensorMap* own0,
+                                        const CUtensorMap* own1,
+                                        const CUtensorMap* str0,
+                                        const CUtensorMap* str1, int h, int b,
+                                        int own_row, int lo, int hi) {
+  using G = Geo<D>;
+  using L = Smem<D, NOWN>;
+  mbar_expect_tx(bars, NOWN * L::own);
+  for (int nb = 0; nb < G::NB; ++nb) {
+    tma_load(base + nb * kOwn * G::ROWB, own0, bars, nb * G::CW, h, own_row,
+             b);
+    if (NOWN == 2)
+      tma_load(base + L::own + nb * kOwn * G::ROWB, own1, bars, nb * G::CW,
+               h, own_row, b);
+  }
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    mbar_wait(empty_bar(bars, s), ((i / kStages) & 1) ^ 1);
+    mbar_expect_tx(full_bar(bars, s), 2 * L::tile);
+    const uint32_t st = base + L::stream + s * 2 * L::tile;
+    for (int nb = 0; nb < G::NB; ++nb) {
+      tma_load(st + nb * kTile * G::ROWB, str0, full_bar(bars, s),
+               nb * G::CW, h, j * kTile, b);
+      tma_load(st + L::tile + nb * kTile * G::ROWB, str1, full_bar(bars, s),
+               nb * G::CW, h, j * kTile, b);
+    }
+  }
+}
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+// Stores rows `row` and `row + 8` (this lane's) of a 64 x D accumulator
+// set acc[NB][CW/2], divided per row by div[], as bf16 into a (B, S, H, D)
+// tensor at element offset `base`; rows at or past S are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(
+    __nv_bfloat16* __restrict__ dst, long long base, long long row_stride,
+    int row, int S, const float (&acc)[Geo<D>::NB][Geo<D>::CW / 2],
+    const float (&div)[2]) {
+  using G = Geo<D>;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    if (r >= S) continue;
+    __nv_bfloat16* out = dst + base + r * row_stride;
+#pragma unroll
+    for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+      for (int n8 = 0; n8 < G::CW / 8; ++n8) {
+        const int e = 4 * n8 + 2 * hf;
+        *reinterpret_cast<uint32_t*>(out + nb * G::CW + 8 * n8 + 2 * t) =
+            pack_bf16(acc[nb][e] / div[hf], acc[nb][e + 1] / div[hf]);
+      }
+  }
+}
+
+// K7 on the tensor cores.  Grid (B*H, query tiles of kOwn rows, last
+// first); warpgroup wg owns queries q0 + 64 wg .. + 63.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int S, int H, float scale_log2, int causal, int window) {
+  using G = Geo<D>;
+  using L = Smem<D, 1>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  int lo, hi;
+  keys_for(q0, kOwn, S, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 1>(base, bars, &tq, nullptr, &tk, &tv, h, b, q0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int qw = q0 + wg * kTile;
+  const int row = qw + wi * 16 + g;  // and row + 8
+  int wlo, whi;
+  keys_for(qw, kTile, S, causal, window, &wlo, &whi);
+  float o[G::NB][G::CW / 2];
+#pragma unroll
+  for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < G::CW / 2; ++e) o[nb][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  mbar_wait(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    mbar_wait(full_bar(bars, s), (i / kStages) & 1);
+    if (j >= wlo && j < whi) {
+      const uint32_t k_s = base + L::stream + s * 2 * L::tile;
+      const uint32_t v_s = k_s + L::tile;
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks)
+        wgmma_ss_n64(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                     desc_k<D>(k_s, kTile, 0, ks), 1);
+      wg_commit();
+      wg_wait0();
+      const int k0 = j * kTile;
+      const bool mask = !all_visible(qw, k0, S, causal, window);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int hf = (e >> 1) & 1;
+        float x = __fmul_rn(sc[e], scale_log2);
+        if (mask && !visible(row + 8 * hf, k0 + 8 * (e >> 2) + 2 * t + (e & 1),
+                             S, causal, window))
+          x = kNegInf;
+        sc[e] = x;
+        mx[hf] = fmaxf(mx[hf], x);
+      }
+      float corr[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+        const float m_new = fmaxf(m[hf], mx[hf]);
+        corr[hf] = exp2f(m[hf] - m_new);
+        m[hf] = m_new;
+        l[hf] *= corr[hf];
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hf = (e >> 1) & 1;
+        const float p0 = exp2f(sc[e] - m[hf]);
+        const float p1 = exp2f(sc[e + 1] - m[hf]);
+        l[hf] += p0 + p1;
+        pa[e >> 3][(e >> 1) & 3] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < G::CW / 2; ++e) o[nb][e] *= corr[(e >> 1) & 1];
+      wg_fence();
+#pragma unroll
+      for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(o[nb], pa[kk], desc_n<D>(v_s, kTile, kk, nb));
+      wg_commit();
+      wg_wait0();
+    }
+    mbar_arrive(empty_bar(bars, s));
+  }
+  float l_safe[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lt = l[hf];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    l_safe[hf] = fmaxf(lt, 1e-30f);
+  }
+  const long long row_stride = static_cast<long long>(H) * D;
+  store_rows<D>(out, (static_cast<long long>(b) * S * H + h) * D, row_stride,
+                row, S, o, l_safe);
+  if (t == 0)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (row + 8 * hf < S)
+        lse[static_cast<long long>(bh) * S + row + 8 * hf] =
+            m[hf] * kLn2 + logf(l_safe[hf]);
+}
+
+// K8, dq pass on the tensor cores: grid as the forward's; Q and dO are
+// the block's own tiles, K and V stream.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dq_tc(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int S, int H, float scale,
+                float scale_log2, int causal, int window) {
+  using G = Geo<D>;
+  using L = Smem<D, 2>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  int lo, hi;
+  keys_for(q0, kOwn, S, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 2>(base, bars, &tq, &tdo, &tk, &tv, h, b, q0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int qw = q0 + wg * kTile;
+  const int row = qw + wi * 16 + g;  // and row + 8
+  int wlo, whi;
+  keys_for(qw, kTile, S, causal, window, &wlo, &whi);
+  const long long rbase = static_cast<long long>(bh) * S;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    lse2[hf] = r < S ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
+    dl[hf] = r < S ? delta[rbase + r] : 0.0f;
+  }
+  float acc[G::NB][G::CW / 2];
+#pragma unroll
+  for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < G::CW / 2; ++e) acc[nb][e] = 0.0f;
+  const uint32_t do_own = base + L::own;
+  mbar_wait(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    mbar_wait(full_bar(bars, s), (i / kStages) & 1);
+    if (j >= wlo && j < whi) {
+      const uint32_t k_s = base + L::stream + s * 2 * L::tile;
+      const uint32_t v_s = k_s + L::tile;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks) {
+        wgmma_ss_n64(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                     desc_k<D>(k_s, kTile, 0, ks), 1);
+        wgmma_ss_n64(dp, desc_k<D>(do_own, kOwn, wg * kTile, ks),
+                     desc_k<D>(v_s, kTile, 0, ks), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      const int k0 = j * kTile;
+      const bool mask = !all_visible(qw, k0, S, causal, window);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hf = (e >> 1) & 1;
+        float ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int x = e + u;
+          float p = 0.0f;
+          if (!mask || visible(row + 8 * hf, k0 + 8 * (x >> 2) + 2 * t + u, S,
+                               causal, window))
+            p = exp2f(__fmul_rn(sc[x], scale_log2) - lse2[hf]);
+          ds[u] = __fmul_rn(__fmul_rn(p, dp[x] - dl[hf]), scale);
+        }
+        da[e >> 3][(e >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc[nb], da[kk], desc_n<D>(k_s, kTile, kk, nb));
+      wg_commit();
+      wg_wait0();
+    }
+    mbar_arrive(empty_bar(bars, s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<D>(dq, (static_cast<long long>(b) * S * H + h) * D,
+                static_cast<long long>(H) * D, row, S, acc, one);
+}
+
+// K8, dk/dv pass on the tensor cores: grid (B*H, key tiles of kOwn rows,
+// first first); K and V are the block's own tiles, Q and dO stream.  The
+// products run transposed (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T
+// come out as the A fragments of dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dkv_tc(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int S, int H, float scale,
+                 float scale_log2, int causal, int window) {
+  using G = Geo<D>;
+  using L = Smem<D, 2>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kOwn;
+  int lo, hi;
+  queries_for(k0, kOwn, S, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 2>(base, bars, &tk, &tv, &tq, &tdo, h, b, k0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int kw = k0 + wg * kTile;
+  const int row = kw + wi * 16 + g;  // keys row and row + 8
+  int wlo, whi;
+  queries_for(kw, kTile, S, causal, window, &wlo, &whi);
+  const long long rbase = static_cast<long long>(bh) * S;
+  float acc_k[G::NB][G::CW / 2], acc_v[G::NB][G::CW / 2];
+#pragma unroll
+  for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < G::CW / 2; ++e) acc_k[nb][e] = acc_v[nb][e] = 0.0f;
+  const uint32_t v_own = base + L::own;
+  mbar_wait(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const int q0 = j * kTile;
+    const bool active = j >= wlo && j < whi;
+    // lse (base 2) and delta of this lane's 16 query columns
+    float lq[16], dl[16];
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int q = q0 + 8 * (c >> 1) + 2 * t + (c & 1);
+        lq[c] = q < S ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
+        dl[c] = q < S ? delta[rbase + q] : 0.0f;
+      }
+    }
+    mbar_wait(full_bar(bars, s), (i / kStages) & 1);
+    if (active) {
+      const uint32_t q_s = base + L::stream + s * 2 * L::tile;
+      const uint32_t do_s = q_s + L::tile;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks) {
+        wgmma_ss_n64(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                     desc_k<D>(q_s, kTile, 0, ks), 1);
+        wgmma_ss_n64(dp, desc_k<D>(v_own, kOwn, wg * kTile, ks),
+                     desc_k<D>(do_s, kTile, 0, ks), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      const bool mask = !all_visible(q0, kw, S, causal, window);
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hf = (e >> 1) & 1;
+        float p[2], ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int x = e + u;
+          const int c = 2 * (x >> 2) + u;  // this lane's column index
+          p[u] = 0.0f;
+          if (!mask || visible(q0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf, S,
+                               causal, window))
+            p[u] = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
+          ds[u] = __fmul_rn(__fmul_rn(p[u], dp[x] - dl[c]), scale);
+        }
+        pa[e >> 3][(e >> 1) & 3] = pack_bf16(p[0], p[1]);
+        da[e >> 3][(e >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs(acc_v[nb], pa[kk], desc_n<D>(do_s, kTile, kk, nb));
+          wgmma_rs(acc_k[nb], da[kk], desc_n<D>(q_s, kTile, kk, nb));
+        }
+      wg_commit();
+      wg_wait0();
+    }
+    mbar_arrive(empty_bar(bars, s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  const long long obase = (static_cast<long long>(b) * S * H + h) * D;
+  const long long row_stride = static_cast<long long>(H) * D;
+  store_rows<D>(dk, obase, row_stride, row, S, acc_k, one);
+  store_rows<D>(dv, obase, row_stride, row, S, acc_v, one);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -523,20 +1215,128 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-#define FLASH_DISPATCH(CALL)                                          \
-  switch (head_dim) {                                                 \
-    case 16: return dtype == 0 ? CALL(float, 16) : CALL(__nv_bfloat16, 16); \
-    case 32: return dtype == 0 ? CALL(float, 32) : CALL(__nv_bfloat16, 32); \
-    case 64: return dtype == 0 ? CALL(float, 64) : CALL(__nv_bfloat16, 64); \
-    case 128:                                                         \
-      return dtype == 0 ? CALL(float, 128) : CALL(__nv_bfloat16, 128); \
-    default: return static_cast<int>(cudaErrorInvalidValue);          \
+// cuTensorMapEncodeTiled from the driver library the process already has
+// loaded (through the CUDA runtime), so the build needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// Returned when the driver has no tensor-map encoder or refuses the map
+// (then kMapError + the CUresult).
+constexpr int kMapError = 1000;
+
+// A map of a (B, S, H, D) bf16 tensor whose box is `rows` rows of one
+// head by CW columns, in the swizzle that Geo<D> names.  Coordinates
+// past S read as zeros (OOB fill NONE fills zeros).
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+             int rows) {
+  using G = Geo<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kMapError;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(H) * D * 2,
+      static_cast<cuuint64_t>(S) * H * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::CW), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      G::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                     : (G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+template <int D>
+int fwd_tc(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, float scale, int causal,
+           int window, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int rc = make_map<D>(&mq, q, B, S, H, kOwn);
+  if (rc == 0) rc = make_map<D>(&mk, k, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&mv, v, B, S, H, kTile);
+  if (rc != 0) return rc;
+  constexpr uint32_t smem = Smem<D, 1>::bytes;
+  rc = prepare(flash_fwd_tc<D>, smem);
+  if (rc != 0) return rc;
+  const dim3 grid(B * H, (S + kOwn - 1) / kOwn);
+  flash_fwd_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, S, H,
+      scale * kLog2e, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, void* dk, void* dv,
+           int B, int S, int H, float scale, int causal, int window,
+           cudaStream_t stream) {
+  CUtensorMap q_own, do_own, k_str, v_str, k_own, v_own, q_str, do_str;
+  int rc = make_map<D>(&q_own, q, B, S, H, kOwn);
+  if (rc == 0) rc = make_map<D>(&do_own, dout, B, S, H, kOwn);
+  if (rc == 0) rc = make_map<D>(&k_str, k, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&v_str, v, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&k_own, k, B, S, H, kOwn);
+  if (rc == 0) rc = make_map<D>(&v_own, v, B, S, H, kOwn);
+  if (rc == 0) rc = make_map<D>(&q_str, q, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&do_str, dout, B, S, H, kTile);
+  if (rc != 0) return rc;
+  constexpr uint32_t smem = Smem<D, 2>::bytes;
+  rc = prepare(flash_dq_tc<D>, smem);
+  if (rc == 0) rc = prepare(flash_dkv_tc<D>, smem);
+  if (rc != 0) return rc;
+  const float scale_log2 = scale * kLog2e;
+  const dim3 grid(B * H, (S + kOwn - 1) / kOwn);
+  flash_dq_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      q_own, do_own, k_str, v_str, lse, delta,
+      static_cast<__nv_bfloat16*>(dq), S, H, scale, scale_log2, causal,
+      window);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  flash_dkv_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      k_own, v_own, q_str, do_str, lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H,
+      scale, scale_log2, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32 to the CUDA-core kernels, bfloat16 to the tensor-core ones.
+#define FLASH_DISPATCH(F32, BF16)                         \
+  switch (head_dim) {                                     \
+    case 16: return dtype == 0 ? F32(16) : BF16(16);      \
+    case 32: return dtype == 0 ? F32(32) : BF16(32);      \
+    case 64: return dtype == 0 ? F32(64) : BF16(64);      \
+    case 128: return dtype == 0 ? F32(128) : BF16(128);   \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim one of 16, 32, 64, 128.
-// Each returns a cudaError_t.
+// Each returns a cudaError_t, or kMapError (+ the CUresult) when a
+// tensor map cannot be made.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v, void* out,
                                    float* lse, int B, int S, int H,
@@ -545,11 +1345,27 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
   if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD_CALL(T, D) \
-  fwd<T, D>(q, k, v, out, lse, B, S, H, scale, causal, window, st)
-  FLASH_DISPATCH(FWD_CALL)
-#undef FWD_CALL
+#define FWD_F32(D) \
+  fwd<float, D>(q, k, v, out, lse, B, S, H, scale, causal, window, st)
+#define FWD_BF16(D) \
+  fwd_tc<D>(q, k, v, out, lse, B, S, H, scale, causal, window, st)
+  FLASH_DISPATCH(FWD_F32, FWD_BF16)
+#undef FWD_F32
+#undef FWD_BF16
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of a bf16 tensor-core kernel (0 forward, 1 dq
+// pass, 2 dk/dv pass) at head_dim, in bytes; 0 for other arguments.
+extern "C" int flash_attention_tc_smem(int kernel, int head_dim) {
+  if (kernel < 0 || kernel > 2) return 0;
+  switch (head_dim) {
+    case 16: return kernel == 0 ? Smem<16, 1>::bytes : Smem<16, 2>::bytes;
+    case 32: return kernel == 0 ? Smem<32, 1>::bytes : Smem<32, 2>::bytes;
+    case 64: return kernel == 0 ? Smem<64, 1>::bytes : Smem<64, 2>::bytes;
+    case 128: return kernel == 0 ? Smem<128, 1>::bytes : Smem<128, 2>::bytes;
+    default: return 0;
+  }
 }
 
 extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
@@ -561,10 +1377,14 @@ extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
   if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BWD_CALL(T, D)                                                    \
-  bwd<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale, causal, \
-            window, st)
-  FLASH_DISPATCH(BWD_CALL)
-#undef BWD_CALL
+#define BWD_F32(D)                                                        \
+  bwd<float, D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale,    \
+                causal, window, st)
+#define BWD_BF16(D)                                                       \
+  bwd_tc<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale,        \
+            causal, window, st)
+  FLASH_DISPATCH(BWD_F32, BWD_BF16)
+#undef BWD_F32
+#undef BWD_BF16
   return static_cast<int>(cudaErrorInvalidValue);
 }

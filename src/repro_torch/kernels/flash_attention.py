@@ -5,11 +5,19 @@ Counterpart of ``repro/kernels/flash_attention.py``.  The kernels of
 ``csrc/flash_attention.cu`` replace the Pallas ``_flash_fwd_kernel``
 (K7) and ``_flash_dq_kernel`` + ``_flash_dkv_kernel`` (K8, two
 kernels: a dq pass over query tiles and a dk/dv pass over key tiles,
-each output tile owned by one thread block, so no atomics).  Both are
-bound by tensor-core operations (``4·B·H·S²·dh·½`` causal forward,
-``8·B·H·S²·dh·½`` for the backward's four products); this first design
-runs f32 arithmetic on the CUDA cores over 64×64 shared-memory tiles and
-skips tiles wholly above the diagonal or outside the window.
+each output tile owned by one thread block, so no atomics and two calls
+give the same bits).  Both are bound by tensor-core operations
+(``4·B·H·S²·dh·½`` causal forward, ``8·B·H·S²·dh·½`` for the backward's
+four products; its two passes do seven).  Tiles wholly above the
+diagonal or outside the window are skipped.
+
+bfloat16 runs on the tensor cores: ``wgmma`` with bf16 operands and f32
+accumulators, P and dS fed from registers rounded to bf16, K/V (Q/dO in
+the dk/dv pass) streamed by TMA through a two-stage ring by one thread
+of a producer warpgroup, two consumer warpgroups of 64 rows per block.
+TMA needs every pointer 16-byte aligned, which the wrapper checks.
+float32 stays on the CUDA cores (64×64 f32 tiles): the tensor cores take
+f32 only as TF32.
 
 Shapes: ``q, k, v`` are ``(B, S, H, dh)`` with the kv heads already
 repeated to ``H``; ``lse`` is ``(B, H, S)`` f32.  Positions are
@@ -22,11 +30,12 @@ Beside the kernels live :func:`flash_fwd_plain` and
 ``_flash_fwd_impl`` / ``_flash_bwd`` (``repro/models/attention.py``):
 chunked by ``chunk`` (the model's ``attn_chunk``), scores in the input
 dtype and then f32, masked with the finite ``NEG_INF``.  The kernels
-take their scores in f32 from f32 copies of q and k, as the Pallas
-kernel does, so in bf16 the two round differently (tolerances in the
-tests).  The wrappers take the plain versions only for CPU tensors; for
-CUDA tensors they launch the kernels or raise.  :class:`FlashAttnFn`
-joins forward and backward for autograd.
+take their scores in f32 from the inputs' exact products, as the Pallas
+kernel does, and in bf16 round P and dS to bf16 before their products,
+so in bf16 the two round differently (tolerances in the tests).  The
+wrappers take the plain versions only for CPU tensors; for CUDA tensors
+they launch the kernels or raise.  :class:`FlashAttnFn` joins forward
+and backward for autograd.
 
 ``flash_attention_fwd.launches`` counts K7 launches;
 ``flash_attention_bwd.launches`` counts K8 calls (one per call, though
@@ -188,6 +197,8 @@ def _lib():
         lib.flash_attention_bwd.argtypes = [ctypes.c_int] * 2 \
             + [ctypes.c_void_p] * 9 + ints + [ctypes.c_void_p]
         lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_tc_smem.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_tc_smem.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -221,12 +232,19 @@ def _check_kernel_inputs(what: str, q, *same, f32=()):
             raise ValueError(f"{what}: lse/delta must be float32 "
                              f"({b}, {h}, {s})")
     backend.check_cuda(what, q, *same, *f32)
+    if q.dtype == torch.bfloat16:
+        # TMA's rule for the (B, S, H, dh) inputs: base and row stride
+        # 16-byte aligned.
+        for t in (q, *same):
+            if t.data_ptr() % 16 or t.shape[2] * t.shape[3] * 2 % 16:
+                raise ValueError(f"{what}: bfloat16 inputs must start on "
+                                 f"a 16-byte boundary (TMA)")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         chunk: int = 64):
     """``(out, lse)``.  ``chunk`` sets the plain version's blocks (CPU);
-    the kernel tiles by 64."""
+    the kernels tile by 64 (f32) or 128 queries by 64 keys (bf16)."""
     if _on_cpu("flash_attention_fwd", q, k, v):
         return flash_fwd_plain(q, k, v, causal, window, chunk)
     _check_kernel_inputs("flash_attention_fwd", q, k, v)

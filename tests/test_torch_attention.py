@@ -211,3 +211,118 @@ def test_wrappers_refuse_other_devices():
     lse = torch.empty((1, 2, 64), device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(x, x, x, x, lse, x)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernels' arithmetic, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+TC_MODES = [(True, 0), (True, 40), (False, 0)]
+BF16 = dict(atol=3e-2, rtol=3e-2)
+
+
+def _visible(s, n, causal, window):
+    """(n, n) mask of positions 0..n-1, keys and queries past S hidden."""
+    qp = torch.arange(n)[:, None]
+    kp = torch.arange(n)[None, :]
+    m = (qp < s) & (kp < s)
+    if causal:
+        m &= kp <= qp
+    if window > 0:
+        m &= (qp - kp) < window
+    return m
+
+
+def _tc_emulate(q, k, v, do, causal, window, tile=64):
+    """What K7/K8's bf16 kernels compute: bf16 operands with f32 sums,
+    the softmax in base 2 over 64-key tiles with a running max, P rounded
+    to bf16 before P·V and dS rounded to bf16 before dS·K and dSᵀ·Q.
+    Takes and returns (B, S, H, dh) bf16; lse (B, H, S) f32."""
+    b, s, h, dh = q.shape
+    n = -(-s // tile) * tile
+    qf, kf, vf, dof = (fa._pad_seq(t, n).float().transpose(1, 2)
+                       for t in (q, k, v, do))
+    scale = fa._scale(dh)
+    scale_log2 = float(np.float32(scale) * LOG2E)
+    vis = _visible(s, n, causal, window)
+    sc = torch.where(vis, (qf @ kf.transpose(-1, -2)) * scale_log2,
+                     fa.NEG_INF)
+    m = torch.full((b, h, n), fa.NEG_INF)
+    l = torch.zeros((b, h, n))
+    acc = torch.zeros((b, h, n, dh))
+    for j in range(0, n, tile):
+        st = sc[..., j:j + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(st - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.bfloat16().float() @ vf[..., j:j + tile, :]
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    out = (acc / l_safe[..., None]).bfloat16()
+    lse = m * float(LN2) + torch.log(l_safe)
+    delta = (dof * out.float()).sum(-1)
+    p = torch.where(vis, torch.exp2(sc - (lse * float(LOG2E))[..., None]),
+                    0.0)
+    ds = (p * (dof @ vf.transpose(-1, -2) - delta[..., None])) * scale
+    ds16, p16 = ds.bfloat16().float(), p.bfloat16().float()
+    grads = (ds16 @ kf, ds16.transpose(-1, -2) @ qf,
+             p16.transpose(-1, -2) @ dof)
+
+    def back(t):
+        return t.transpose(1, 2)[:, :s].bfloat16()
+    return back(out), lse[..., :s], tuple(back(g) for g in grads)
+
+
+def _bf16_inputs(shape, seed):
+    q, k, v, do = _qkvo(shape, shape[2], seed)
+    return [torch.from_numpy(a).bfloat16() for a in (q, k, v, do)]
+
+
+def _close(got, want, name):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), err_msg=name,
+                               **BF16)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32)])
+@pytest.mark.parametrize("causal,window", TC_MODES)
+def test_tensor_core_rounding_matches_pallas_interpreter(shape, causal,
+                                                         window):
+    """The emulated bf16 kernel arithmetic against the reference's Pallas
+    kernels (interpret mode, f32 inside, bf16 out) at 3e-2."""
+    q, k, v, do = _bf16_inputs(shape, seed=shape[1] + window)
+    out, lse, grads = _tc_emulate(q, k, v, do, causal, window)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                       for t in (q, k, v, do))
+    blk = dict(block_q=32, block_k=32) if shape[1] % 128 else {}
+    jout, jlse = jfa.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                         window=window, interpret=True,
+                                         return_lse=True, **blk)
+    _close(out, jout, "out")
+    _close(lse, jlse, "lse")
+    jgrads = jfa.flash_attention_bwd(jq, jk, jv, jout, jlse, jdo,
+                                     causal=causal, window=window,
+                                     interpret=True, **blk)
+    for g, w, name in zip(grads, jgrads, ("dq", "dk", "dv")):
+        _close(g, w, name)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32)])
+@pytest.mark.parametrize("causal,window", TC_MODES)
+def test_tensor_core_rounding_matches_sdpa_chunked(shape, causal, window):
+    """The emulated bf16 kernel arithmetic against the reference model's
+    ``sdpa_chunked`` in bf16, forward and ``jax.vjp``, at 3e-2."""
+    s = shape[1]
+    q, k, v, do = _bf16_inputs(shape, seed=2 * s + window)
+    out, _, grads = _tc_emulate(q, k, v, do, causal, window)
+    q_pos, k_pos = _jax_positions(s, causal)
+    want, vjp = jax.vjp(lambda a, b, c: jattn.sdpa_chunked(
+        a, b, c, q_pos, k_pos, window, 32),
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)))
+    _close(out, want, "out")
+    jgrads = vjp(jnp.asarray(do.float().numpy(), jnp.bfloat16))
+    for g, w, name in zip(grads, jgrads, ("dq", "dk", "dv")):
+        _close(g, w, name)

@@ -141,13 +141,17 @@ def _attn_inputs(shape, dtype, cuda, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,dh,causal,window", [
     (256, 64, True, 0), (300, 64, True, 100), (300, 64, False, 0),
-    (130, 16, True, 0), (100, 128, False, 0)])
+    (130, 16, True, 0), (100, 128, False, 0), (256, 32, True, 0),
+    (257, 32, True, 50), (190, 32, False, 0), (77, 16, False, 0),
+    (333, 128, True, 0)])
 def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
                                            dtype):
     """K7 (out, lse) and K8 (dq, dk, dv) against the chunked plain
     versions: f32 forward atol 2e-5 / rtol 1e-4, backward 2e-3; bf16
     3e-2 (the kernel forms its scores in f32, the plain version in bf16,
-    as the reference's two routes do)."""
+    as the reference's two routes do).  Every head width runs at a
+    ragged S, so bf16 covers each TMA swizzle (32-, 64-, 128-byte rows
+    and two 128-byte boxes at dh 128) and the zero fill past S."""
     q, k, v, do = _attn_inputs((2, s, 3, dh), dtype, cuda, seed=s + dh)
     kw = dict(causal=causal, window=window, chunk=64)
     fwd = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 \
@@ -166,3 +170,42 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
     pgrads = fla.flash_bwd_plain(q, k, v, pout, plse, do, **kw)
     for g, p, name in zip(grads, pgrads, ("dq", "dk", "dv")):
         torch.testing.assert_close(g.float(), p.float(), msg=name, **bwd)
+
+
+@pytest.mark.parametrize("s,dh,causal,window", [
+    (4096, 64, True, 0), (300, 64, True, 100), (257, 32, False, 0),
+    (130, 16, True, 0), (333, 128, True, 0)])
+def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
+                                                      window):
+    """Two bf16 calls of K7 and of K8 give the same bits: every output
+    tile has one owner and there are no atomics."""
+    b, h = (1, 15) if s == 4096 else (2, 3)
+    q, k, v, do = _attn_inputs((b, s, h, dh), torch.bfloat16, cuda,
+                               seed=s + dh)
+    kw = dict(causal=causal, window=window)
+    out, lse = fla.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = fla.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    grads = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    grads2 = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for g, g2 in zip(grads, grads2):
+        assert torch.equal(g, g2)
+
+
+def test_bf16_flash_kernels_refuse_unaligned_views_on_card(cuda):
+    """TMA needs 16-byte aligned bases: a view two bytes into its storage
+    raises instead of launching."""
+    shape = (1, 128, 2, 64)
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    bad = flat[1:n + 1].view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    good = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    n7, n8 = fla.flash_attention_fwd.launches, fla.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fla.flash_attention_fwd(bad, good, good)
+    out, lse = fla.flash_attention_fwd(good, good, good)
+    with pytest.raises(ValueError, match="16-byte"):
+        fla.flash_attention_bwd(good, good, good, out, lse, bad)
+    assert (fla.flash_attention_fwd.launches,
+            fla.flash_attention_bwd.launches) == (n7 + 1, n8)
