@@ -6,15 +6,19 @@
 Phases (any failure exits non-zero; nothing is caught and excused):
 
 1. Build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
-   for sm_90a, one compiler per source, all at once.  For K7/K8 print
-   each kernel's registers, spills and shared memory, and the HGMMA
-   (wgmma) and HMMA instructions in its SASS where cuobjdump exists:
-   the bf16 kernels must hold HGMMA, the f32 ones none.
+   for sm_90a, one compiler per source, all at once.  Print each
+   kernel's registers and spills from ptxas; for K7/K8 also the shared
+   memory, and the HGMMA (wgmma) and HMMA instructions in its SASS where
+   cuobjdump exists: the bf16 kernels must hold HGMMA, the f32 ones none.
 2. Hold each kernel against its plain torch version on the card.  K1–K3
    at a 1 Mi-element bucket, a ragged n and the largest main-path hop,
    bit for bit (K5: within 1 ulp), plus the subnormal regime against
    the plain version on a CPU copy under the flush-to-zero guard, and
-   e4m3 values that round up to exactly 448.  K4 bit for bit at the
+   e4m3 values that round up to exactly 448.  Every path of K2 and K5:
+   views 4, 8 and 12 bytes into a 1 Mi buffer (their scalar loops, which
+   must be counted in ``scalar_launches``), n of 1 to 33 (the ragged
+   tail), K5 in place (aligned, and with a misaligned g), and bf16 NaN,
+   +-inf and -0.  K4 bit for bit at the
    largest ResNet-50 bucket (4, 2359296) f32, ragged and vector-width
    bf16 cases, the [1024, 1, ..., 1] bf16 column (k = 256, exactly
    1279) and integer-valued ragged rows (exact), and subnormals.  K6 at phase 4's
@@ -24,7 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    ragged S, at the reference's tolerances; each bf16 case twice, bit
    for bit.  Times each kernel, its plain version and, where one
    exists, one PyTorch call computing the same function (a yardstick
-   the port never calls); K7/K8 in bf16 (tensor cores, the main path)
+   the port never calls); K1–K3 take their inputs in turn from three
+   buffers larger than L2, K2 also as its int8/fp8 quantize pass alone;
+   each kernel in turns with its yardstick; K7/K8 in bf16 (tensor
+   cores, the main path)
    and in f32 (CUDA cores, against the f32 peak).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
@@ -32,7 +39,8 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    K5 AdamW, for 3 steps through ``Trainer``.  Every launch count is
    reset just before and read just after; K1–K3, K5 and K6 must have
    run, losses must be finite and parameters bit-identical on every
-   rank.  Then the same ranks train a small float32 model (seq 32) on
+   rank; the launches of K2 and K5 that took their scalar loops are
+   printed.  Then the same ranks train a small float32 model (seq 32) on
    the card and on the host's plain versions, and the two must agree.
 4. Long context: the same model at seq 4096 (above its
    ``attn_full_seq_max`` of 2048, so attention takes K7/K8) on 2 ranks
@@ -56,6 +64,7 @@ The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
 """
 import argparse
+import itertools
 import json
 import math
 import os
@@ -76,6 +85,7 @@ D_MODEL, HEADS, HEAD_DIM, LAYERS = 960, 15, 64, 32   # smollm-360m
 ATTN_SHAPE = (1, LONG_SEQ, HEADS, HEAD_DIM)          # one layer, phase 4
 CHECK_N = 1 << 20            # a main-path bucket size (1 Mi f32)
 RAGGED_N = 1_000_003
+SMALL_N = (1, 3, 4, 5, 7, 8, 15, 16, 17, 31, 33)   # tails alone, one unit + tail
 HOP_SHAPE = (16, 960, 2560)  # first RHD hop of the d_ff bucket at p=4
 LEAF_SHAPE = (32, 960, 2560)  # the largest parameter leaf (body/mlp/w1)
 R50_BUCKET = 2_359_296       # the largest ResNet-50 bucket (a 3x3x512x512 leaf)
@@ -224,35 +234,70 @@ def _sass_counts(lib_path):
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def report_flash_build(text):
-    """Registers, spills and dynamic shared memory of every K7/K8 kernel
-    (ptxas's report and the launchers' sizes), then the tensor-core
-    instructions in the SASS: each bf16 kernel (``*_tc``) must hold
-    HGMMA (wgmma), each f32 kernel none."""
+def _demangle(names):
+    """Readable kernel names through the toolkit's ``cu++filt``
+    (``encode_kernel<Int8, true>``); the mangled names where it has
+    none."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cu++filt")
+    if not names or not os.path.exists(tool):
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+
+    def short(line):              # drop namespaces, return type, arguments
+        for a, b in (("(anonymous namespace)::", ""), ("<unnamed>::", ""),
+                     ("(bool)1", "true"), ("(bool)0", "false")):
+            line = line.replace(a, b)
+        depth = 0
+        for i, c in enumerate(line):
+            depth += (c == "<") - (c == ">")
+            if c == "(" and depth == 0:
+                line = line[:i]
+                break
+        return line.removeprefix("void ")
+    return [short(line) for line in out.splitlines()]
+
+
+def report_build(source, text):
+    """Registers and spills of every kernel of ``source`` from ptxas's
+    report; for K7/K8 also the dynamic shared memory of each, then the
+    tensor-core instructions in the SASS: each bf16 kernel (``*_tc``)
+    must hold HGMMA (wgmma), each f32 kernel none."""
     from repro_torch.kernels import backend
     from repro_torch.kernels import flash_attention as fla
-    lib = fla._lib()
+    flash = source == "flash_attention"
+    mangled = [line.split("'")[1] for line in text.splitlines()
+               if "Compiling entry function" in line]
+    names = dict(zip(mangled, [_kernel_name(m) for m in mangled] if flash
+                     else _demangle(mangled)))
     smem_kind = {"flash_fwd_tc": 0, "flash_dq_tc": 1, "flash_dkv_tc": 2}
-    name, spill = None, ""
+    entry, props, spill = None, None, ""
     for line in text.splitlines():
         if "Performance Loss" in line:
             what = line.split("Performance Loss:")[1].split(" for the function")[0]
-            log(f"  ptxas: {_kernel_name(line.split(chr(39))[-2])}:{what}")
+            mangled_name = line.split(chr(39))[-2]
+            log(f"  ptxas: {names.get(mangled_name, mangled_name)}:{what}")
         elif "Compiling entry function" in line:
-            name = _kernel_name(line.split("'")[1])
-        elif "spill" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif "spill" in line and props == entry:
             spill = line.strip()
-        elif "Used" in line and "registers" in line and name:
+        elif "Used" in line and "registers" in line and entry:
+            name = names[entry]
             base = name.split("<")[0]
             smem = ""
-            if base in smem_kind:
+            if flash and base in smem_kind:
                 head_dim = int(name.split("<")[1].rstrip(">"))
                 smem = (f", dynamic smem "
-                        f"{lib.flash_attention_tc_smem(smem_kind[base], head_dim)}"
+                        f"{fla._lib().flash_attention_tc_smem(smem_kind[base], head_dim)}"
                         f" B")
             regs = line.split("Used")[1].split(",")[0].strip()
-            log(f"  {name:30s} {regs}{smem}; {spill}")
-            name = None
+            log(f"  {source}: {name:30s} {regs}{smem}; {spill}")
+            entry = None
+    if not flash:
+        return
     counts = _sass_counts(backend.library_path("flash_attention"))
     if counts is None:
         log("  cuobjdump not found: SASS not counted")
@@ -303,6 +348,57 @@ def check_hop_kernels(gen):
               f"K3 hop_decode_add[none+add] != plain at n={n}")
         log(f"  K1/K2/K3 bit-exact vs plain at n={n} "
             f"(bf16, int8, fp8_e4m3; scaled x add variants)")
+
+    # Every path of K2: views 4, 8 and 12 bytes into their storage take
+    # the scalar loop (counted in scalar_launches, each view once per
+    # codec); small n the ragged tail alone or after one unit.
+    buf = sample(CHECK_N, gen, cuda)
+    for off in (1, 2, 3):
+        x = buf[off:]
+        agree("hop_absmax", fh.hop_absmax(x), fh.absmax_plain(x),
+              f"K1 hop_absmax != plain on buf[{off}:]")
+        for name in ("bf16", "int8", "fp8_e4m3"):
+            before = fh.hop_encode.scalar_launches
+            (p, s), (pp, sp) = fh.hop_encode(name, x), fh.encode_plain(name, x)
+            require(fh.hop_encode.scalar_launches == before + 1,
+                    f"K2[{name}] on buf[{off}:] did not take the scalar loop")
+            agree("hop_encode", p, pp, f"K2[{name}] payload != plain on "
+                                       f"buf[{off}:]")
+            agree("hop_encode", s, sp, f"K2[{name}] scale != plain on "
+                                       f"buf[{off}:]")
+    before = fh.hop_encode.scalar_launches
+    for n in SMALL_N:
+        x = sample(n, gen, cuda)
+        for name in ("bf16", "int8", "fp8_e4m3"):
+            (p, s), (pp, sp) = fh.hop_encode(name, x), fh.encode_plain(name, x)
+            agree("hop_encode", p, pp, f"K2[{name}] payload != plain at n={n}")
+            agree("hop_encode", s, sp, f"K2[{name}] scale != plain at n={n}")
+    require(fh.hop_encode.scalar_launches == before,
+            "K2 took the scalar loop on an aligned buffer")
+    log(f"  K1/K2 bit-exact vs plain on buf[1:], buf[2:], buf[3:] of "
+        f"{CHECK_N} (scalar loop, counted) and at n = {SMALL_N} (vector "
+        f"path and tail)")
+
+    # bf16 special values on both paths: bit for bit with the card's cast,
+    # except that a NaN becomes the kernel's 0x7fc0 whatever NaN the
+    # card's cast writes.
+    nan, inf = float("nan"), float("inf")
+    special = torch.tensor([nan, -nan, inf, -inf, -0.0, 0.0, 3.4e38, -3.4e38,
+                            1e-40, -1e-40, 1.00390625, 1.01171875, -2.5],
+                           device=cuda).repeat(3)
+    for x in (special, special[1:]):
+        p, _ = fh.hop_encode("bf16", x)
+        pp, _ = fh.encode_plain("bf16", x)
+        isnan = torch.isnan(x)
+        bits, pbits = p.view(torch.int16), pp.view(torch.int16)
+        require(bool((bits[isnan] == 0x7fc0).all()), "K2[bf16] NaN != 0x7fc0")
+        require(bool(torch.isnan(pp[isnan].float()).all()),
+                "the card's bf16 cast lost a NaN")
+        agree("hop_encode", bits[~isnan], pbits[~isnan],
+              f"K2[bf16] special values != the card's cast at n={x.numel()}")
+    log(f"  K2[bf16] NaN, +-inf, -0, overflow-to-inf, subnormals and ties "
+        f"bit-exact with the card's cast on both paths; NaN -> 0x7fc0 (the "
+        f"card's cast writes {sorted({hex(v & 0xffff) for v in pbits[isnan].tolist()})})")
 
     # e4m3 near the top of the range: absmax 448 gives scale 1, so the
     # payload is the cast itself; 432 and 440 round up to exactly 448.
@@ -359,20 +455,48 @@ def check_adamw(gen):
     cuda = torch.device("cuda")
     kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
               count=3)
-    for n in (CHECK_N, RAGGED_N, math.prod(LEAF_SHAPE)):
-        p = sample(n, gen, cuda, outliers=False) * 0.05
-        g = sample(n, gen, cuda) * 1e-3
-        m = sample(n, gen, cuda, outliers=False) * 1e-4
-        v = sample(n, gen, cuda, outliers=False).square() * 1e-6
-        out = fa.adamw_update(p, g, m, v, **kw)
+
+    def quartet(n):
+        return (sample(n, gen, cuda, outliers=False) * 0.05,
+                sample(n, gen, cuda) * 1e-3,
+                sample(n, gen, cuda, outliers=False) * 1e-4,
+                sample(n, gen, cuda, outliers=False).square() * 1e-6)
+
+    def check(p, g, m, v, what, inplace=False, scalar=False):
+        """K5 within 1 ulp of the plain version, on the path expected."""
         ref = fa.adamw_update_plain(p, g, m, v, **kw)
+        before = fa.adamw_update.scalar_launches
+        out = fa.adamw_update(p, g, m, v, inplace=inplace, **kw)
+        require(fa.adamw_update.scalar_launches - before == int(scalar),
+                f"K5 {what}: {'not ' if scalar else ''}on the scalar loop")
         ulps = [max_ulp(a, b) for a, b in zip(out, ref)]
         MAX_ERR["adamw_update"] = max(MAX_ERR["adamw_update"],
                                       *(max_abs(a, b)
                                         for a, b in zip(out, ref)))
-        require(max(ulps) <= 1, f"K5 adamw_update off by {ulps} ulp at n={n}")
+        require(max(ulps) <= 1, f"K5 adamw_update off by {ulps} ulp {what}")
+        return ulps
+
+    for n in (CHECK_N, RAGGED_N, math.prod(LEAF_SHAPE)):
+        ulps = check(*quartet(n), f"at n={n}")
         log(f"  K5 adamw_update vs plain at n={n}: max ulp (p, m, v) = "
             f"{ulps}")
+    ulps = check(*quartet(RAGGED_N), f"in place at n={RAGGED_N}",
+                 inplace=True)
+    log(f"  K5 in place (vector path) at n={RAGGED_N}: max ulp {ulps}")
+    bufs = quartet(CHECK_N)
+    for off in (1, 2, 3):
+        ulps = check(*(t[off:] for t in bufs), f"on buf[{off}:]",
+                     scalar=True)
+        p, _, m, v = quartet(CHECK_N - off)
+        ulps += check(p, bufs[1][off:], m, v, f"in place, g = buf[{off}:]",
+                      inplace=True, scalar=True)
+    log(f"  K5 on buf[1:], buf[2:], buf[3:] of {CHECK_N} and in place with a "
+        f"misaligned g: scalar loop, within 1 ulp")
+    for n in SMALL_N:
+        check(*quartet(n), f"at n={n}")
+        check(*quartet(n), f"in place at n={n}", inplace=True)
+    log(f"  K5 at n = {SMALL_N}, out of place and in place: vector path "
+        f"and tail, within 1 ulp")
 
 
 def check_fused_reduce(gen):
@@ -526,7 +650,8 @@ def check_flash(gen):
 def measure(gen):
     """Per-kernel times at the main path's largest shapes.  Each row:
     the kernel's ms, its bound and what bounds it, the plain version's
-    ms and, where one PyTorch call computes the same function, its ms."""
+    ms and, where one PyTorch call computes the same function, its ms
+    (timed in turns with the kernel)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_adamw as fa, fused_hop as fh
@@ -536,48 +661,84 @@ def measure(gen):
                                                   fused_reduce_plain)
     cuda = torch.device("cuda")
     n = math.prod(HOP_SHAPE)
-    x = sample(n, gen, cuda).reshape(HOP_SHAPE)
-    add = sample(n, gen, cuda, outliers=False).reshape(HOP_SHAPE)
-    payload, scale = fh.hop_encode("int8", x)
-    scale_f = float(scale)
+    # K1-K3 take x (and the rest) in turn from three buffers of the hop
+    # shape, 157 MB each against the 50 MB L2: no call finds the previous
+    # call's data there, and only the reuse between K1 and K2 inside one
+    # hop_encode remains.
+    xs = [sample(n, gen, cuda).reshape(HOP_SHAPE) for _ in range(3)]
+    adds = [sample(n, gen, cuda, outliers=False).reshape(HOP_SHAPE)
+            for _ in range(3)]
+    encoded = [fh.hop_encode("int8", x) for x in xs]
+    payloads = [e[0] for e in encoded]
+    scales = [e[1] for e in encoded]
+    scale_fs = [float(s_) for s_ in scales]
+    bits = [fh._absmax_launch(x) for x in xs]
     rows = {}
+
+    def turns(fn, *lists):
+        """``fn`` on the i-th entry of each list, i = 0, 1, 2, 0, ...
+        from one call to the next."""
+        order = itertools.cycle(range(3))
+
+        def call():
+            i = next(order)
+            return fn(*(lst[i] for lst in lists))
+        return call
 
     def row(key, fn, plain, library, n_bytes, n_flops, what,
             tensor_cores=False):
-        ms = time_ms(fn)
+        # The kernel and its yardstick in turns (kernel, library, library,
+        # kernel), 50 calls each; the mean of each pair.
+        runs = {fn: [], library: []}
+        for f in (fn, library, library, fn) if library else (fn, fn):
+            runs[f].append(time_ms(f, reps=50))
+        ms = sum(runs[fn]) / 2
         b_ms, by = bound_ms(n_bytes, n_flops, tensor_cores)
-        rec = {"ms": ms, "plain_ms": time_ms(plain),
-               "library_ms": time_ms(library) if library else None,
+        rec = {"ms": ms, "plain_ms": time_ms(plain) if plain else None,
+               "library_ms": sum(runs[library]) / 2 if library else None,
                "bound_ms": b_ms, "bound_by": by}
         log(f"  {key:24s} {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
-            f"{by}, plain {rec['plain_ms']:.4f} ms, library "
-            f"{rec['library_ms']})")
+            f"{by}, plain {rec['plain_ms']}, library {rec['library_ms']}; "
+            f"turns {runs[fn]}{f' / {runs[library]}' if library else ''})")
         return rec
 
     rows["hop_absmax"] = row(
-        "hop_absmax", lambda: fh.hop_absmax(x), lambda: fh.absmax_plain(x),
-        lambda: x.abs().amax(), 4 * n, 2 * n, f"f32 {HOP_SHAPE}")
+        "hop_absmax", turns(fh.hop_absmax, xs), turns(fh.absmax_plain, xs),
+        turns(lambda x: x.abs().amax(), xs), 4 * n, 2 * n,
+        f"f32 {HOP_SHAPE}")
     # K2, every variant: bf16 is a cast (one PyTorch call computes it);
     # int8 and fp8 clip at +-127 / +-448 with a scale from the absmax,
-    # which no single PyTorch call computes.
+    # which no single PyTorch call computes.  Their quantize pass alone
+    # (K2 on bits K1 computed earlier, x cold in L2) has its own bound.
     variants = {}
     for name, out_bytes in (("bf16", 2), ("int8", 1), ("fp8_e4m3", 1)):
         variants[name] = row(
-            f"hop_encode[{name}]", lambda name=name: fh.hop_encode(name, x),
-            lambda name=name: fh.encode_plain(name, x),
-            (lambda: x.to(torch.bfloat16)) if name == "bf16" else None,
+            f"hop_encode[{name}]",
+            turns(lambda x, name=name: fh.hop_encode(name, x), xs),
+            turns(lambda x, name=name: fh.encode_plain(name, x), xs),
+            turns(lambda x: x.to(torch.bfloat16), xs) if name == "bf16"
+            else None,
             4 * n + out_bytes * n + (0 if name == "bf16" else 4),
             (0 if name == "bf16" else 6) * n,
             f"{name} {HOP_SHAPE}" + ("" if name == "bf16"
                                      else " (absmax + quantize)"))
+    for name in ("int8", "fp8_e4m3"):
+        variants[f"{name} pass"] = row(
+            f"hop_encode[{name}] pass",
+            turns(lambda x, b, name=name: fh._encode_launch(name, x, b), xs,
+                  bits), None, None,
+            5 * n + 8, 4 * n, f"{name} {HOP_SHAPE} quantize pass alone")
     rows["hop_encode"] = {**variants["int8"], "variants": variants}
     rows["hop_decode_add"] = row(
         "hop_decode_add",
-        lambda: fh.hop_decode_add("int8", payload, scale, add),
-        lambda: fh.decode_add_plain("int8", payload, scale, add),
-        lambda: torch.add(add, payload, alpha=scale_f), n + 4 * n + 4 * n,
-        2 * n, f"int8*scale+add {HOP_SHAPE}")
-    del x, add, payload
+        turns(lambda q, s_, a: fh.hop_decode_add("int8", q, s_, a), payloads,
+              scales, adds),
+        turns(lambda q, s_, a: fh.decode_add_plain("int8", q, s_, a),
+              payloads, scales, adds),
+        turns(lambda q, s_, a: torch.add(a, q, alpha=s_), payloads, scale_fs,
+              adds), n + 4 * n + 4 * n, 2 * n,
+        f"int8*scale+add {HOP_SHAPE}")
+    del xs, adds, encoded, payloads, scales, bits
     k4 = sample(CNN_WORLD * R50_BUCKET, gen, cuda).reshape(CNN_WORLD,
                                                            R50_BUCKET)
     rows["fused_reduce"] = row(
@@ -690,13 +851,22 @@ def _wrappers():
             "flash_attention_bwd": fla.flash_attention_bwd}
 
 
+SCALAR = ("hop_encode", "adamw_update")   # the wrappers with a scalar loop
+
+
 def _counts():
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
+def _scalar_counts():
+    return {k: _wrappers()[k].scalar_launches for k in SCALAR}
+
+
 def _reset_counts():
-    for fn in _wrappers().values():
+    for k, fn in _wrappers().items():
         fn.launches = 0
+        if k in SCALAR:
+            fn.scalar_launches = 0
 
 
 def _checksum(params):
@@ -782,6 +952,7 @@ def train_rank(rank, world, args, small_args):
         steps.append({**hist[0], "launches": {k: after[k] - before[k]
                                               for k in after}})
     totals = _counts()                        # main path ends here
+    scalar = _scalar_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if args.device == "cuda" else 0.0
     checksum = _checksum(module.tree())
@@ -809,7 +980,8 @@ def train_rank(rank, world, args, small_args):
                      for a, b in zip(finals["cpu"], finals[args.device]))
     return {"rank": rank, "n_params": n_params, "steps": steps,
             "breakdown": breakdown,
-            "totals": totals, "checksum": checksum, "peak_gib": peak_gib,
+            "totals": totals, "scalar": scalar, "checksum": checksum,
+            "peak_gib": peak_gib,
             "small_losses": losses, "small_param_diff": param_diff}
 
 
@@ -839,6 +1011,9 @@ def run_phase(world, args, small, required):
         log(f"  rank {r['rank']} layers, one step timed alone after the "
             f"main path: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       r["breakdown"].items()))
+    log(f"  scalar-loop launches per rank (K2 hop_encode, K5 adamw_update) "
+        f"over the {args.steps} steps: {[r['scalar'] for r in results]}, of "
+        f"{[{k: r['totals'][k] for k in SCALAR} for r in results]} launches")
     for r in results:
         require(all(r["totals"][k] > 0 for k in required),
                 f"rank {r['rank']}: a kernel never launched {r['totals']}")
@@ -911,10 +1086,11 @@ def cnn_rank(rank, world):
                 steps.append({**hist[0], "launches": {
                     k: after[k] - before[k] for k in after}})
             totals = _counts()                # main path ends here
+            scalar = _scalar_counts()
             peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
             runs.append({
                 "model": name, "strategy": strategy, "steps": steps,
-                "totals": totals, "peak_gib": peak_gib,
+                "totals": totals, "scalar": scalar, "peak_gib": peak_gib,
                 "n_params": sum(p.numel() for p in module.parameters()),
                 "checksum": _checksum(module.tree()),
                 "breakdown": _step_breakdown(trainer, module, "cuda",
@@ -1024,12 +1200,7 @@ def main():
     t0 = time.perf_counter()
     reports = backend.build_all()
     for name, text in reports.items():
-        if name == "flash_attention":
-            report_flash_build(text)
-            continue
-        for line in text.splitlines():
-            if "registers" in line:
-                log(f"  {name}: {line.strip()}")
+        report_build(name, text)
     log(f"  built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1077,17 +1248,25 @@ def main():
         f"at {CNN_IMAGE}x{CNN_IMAGE}")
     phase5 = run_cnn_phase()
 
-    by_phase = {k: {"phase3": sum(r["totals"][k] for r in phase3),
-                    "phase4": sum(r["totals"][k] for r in phase4),
-                    "phase5": sum(run["totals"][k] for r in phase5
-                                  for run in r["runs"])}
-                for k in KERNELS}
+    def phases(field, k):
+        return {"phase3": sum(r[field][k] for r in phase3),
+                "phase4": sum(r[field][k] for r in phase4),
+                "phase5": sum(run[field][k] for r in phase5
+                              for run in r["runs"])}
+
+    def scalar(k):
+        if k not in SCALAR:
+            return {}
+        by_phase = phases("scalar", k)
+        return {"scalar_launches": sum(by_phase.values()),
+                "scalar_launches_by_phase": by_phase}
+
     record = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{KERNELS[k][0]}",
          "replaces": KERNELS[k][1],
-         "launches": sum(by_phase[k].values()),
-         "launches_by_phase": by_phase[k],
+         "launches": sum(phases("totals", k).values()),
+         "launches_by_phase": phases("totals", k), **scalar(k),
          "max_abs_err": MAX_ERR[k], **rows[k]}
         for k in KERNELS]}
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -129,6 +129,13 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
+def vector_aligned(*tensors: torch.Tensor | None, width: int = 16) -> bool:
+    """Whether every tensor given (``None`` skipped) starts on a
+    ``width``-byte boundary: the test that sends a kernel down its
+    vector path.  A view may start at any element of its storage."""
+    return all(t.data_ptr() % width == 0 for t in tensors if t is not None)
+
+
 def check_cuda(what: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda":

@@ -2,14 +2,32 @@
 //
 // Replaces the Pallas kernels of src/repro/kernels/fused_hop.py:
 //   absmax_kernel       <- _absmax_kernel       (hop_absmax, K1)
-//   encode_*_kernel     <- _bf16/_int8/_fp8_encode_kernel (hop_encode, K2)
+//   encode_kernel       <- _bf16/_int8/_fp8_encode_kernel (hop_encode, K2)
 //   decode_add_kernel   <- _make_decode_add     (hop_decode_add, K3)
 //
 // All three are flat streaming passes over (n,) buffers, so they are
 // bound by device-memory bytes: K1 reads 4n; K2 reads 4n and writes n
 // (int8/fp8) or 2n (bf16); K3 reads n..4n of payload plus 4n of partial
-// and writes 4n.  The design is a grid-stride loop with enough blocks to
-// fill the card; the work per element is a handful of instructions.
+// and writes 4n.  K1 and K3 are grid-stride loops of one element per
+// thread per iteration over a fixed grid; the work per element is a
+// handful of instructions.
+//
+// K2 is built for the card's memory system.  Its vector path (x and the
+// payload 16-byte aligned) gives each thread units of 16 bytes of
+// payload: 8 bf16 or 16 int8/fp8 values, read as 2 or 4 float4 loads
+// that are all issued before any value is converted, then packed in
+// registers into one 16-byte store.  Loads and stores carry the
+// streaming hint (.cs, evict first): measured on the H100, K1 followed
+// by the int8/fp8 pass was faster with the hints than without, though
+// the pass alone was not; the likely reason is that the payload, which
+// this kernel does not read back, then does not push out of L2 the part
+// of x that K1 read last.  A tail of fewer than one unit, and a whole
+// buffer that is not 16-byte aligned (a hop chunk may start at any
+// 4-byte address), take a scalar loop in the same kernel.  The grid has
+// one thread per unit: measured on the H100, a one-wave grid (SMs times
+// the blocks an SM holds) looping over the units was slower, at every
+// codec, than letting the block scheduler hand out blocks as SMs free
+// up.
 //
 // K1 needs a reduction across blocks, which the TPU's sequential grid did
 // not: each block reduces its partial max in registers and shared memory,
@@ -85,44 +103,122 @@ __device__ __forceinline__ uint16_t bf16_rne(float f) {
   return static_cast<uint16_t>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
 }
 
-__global__ void encode_bf16_kernel(const float* __restrict__ x, long long n,
-                                   uint16_t* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; i < n; i += stride) {
-    out[i] = bf16_rne(x[i]);
-  }
-}
+// The codecs of K2: the payload's element type and one value's encoding.
+// Int8/Fp8 derive the scale from K1's bits; block 0 writes it once.
+struct Bf16 {
+  using Out = uint16_t;
+  __device__ Bf16(const unsigned*, float*) {}
+  __device__ Out operator()(float v) const { return bf16_rne(v); }
+};
 
-__global__ void encode_int8_kernel(const float* __restrict__ x, long long n,
-                                   const unsigned* __restrict__ absmax_bits,
-                                   int8_t* __restrict__ out,
-                                   float* __restrict__ scale_out) {
-  const float s = hop_scale(absmax_bits, 127.0f);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = s;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; i < n; i += stride) {
-    float q = rintf(flush(x[i]) / s);             // half to even
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    out[i] = static_cast<int8_t>(q);
+struct Int8 {
+  using Out = uint8_t;
+  float s;
+  __device__ Int8(const unsigned* absmax_bits, float* scale_out)
+      : s(hop_scale(absmax_bits, 127.0f)) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = s;
   }
-}
+  __device__ Out operator()(float v) const {
+    float q = rintf(flush(v) / s);                // half to even
+    q = fminf(fmaxf(q, -127.0f), 127.0f);
+    return static_cast<uint8_t>(static_cast<int8_t>(q));
+  }
+};
 
 // |x/s| <= 448 (plus rounding) because s = absmax/448, and on that range
 // the saturating round-to-nearest-even cvt equals ml_dtypes' e4m3fn cast.
-__global__ void encode_fp8_kernel(const float* __restrict__ x, long long n,
-                                  const unsigned* __restrict__ absmax_bits,
-                                  uint8_t* __restrict__ out,
-                                  float* __restrict__ scale_out) {
-  const float s = hop_scale(absmax_bits, 448.0f);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = s;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; i < n; i += stride) {
-    out[i] = static_cast<uint8_t>(
-        __nv_cvt_float_to_fp8(flush(x[i]) / s, __NV_SATFINITE, __NV_E4M3));
+struct Fp8 {
+  using Out = uint8_t;
+  float s;
+  __device__ Fp8(const unsigned* absmax_bits, float* scale_out)
+      : s(hop_scale(absmax_bits, 448.0f)) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = s;
   }
+  __device__ Out operator()(float v) const {
+    return static_cast<Out>(
+        __nv_cvt_float_to_fp8(flush(v) / s, __NV_SATFINITE, __NV_E4M3));
+  }
+};
+
+// 16 bytes of payload values, element 0 in the lowest byte.
+template <typename Out, int kPer>
+__device__ __forceinline__ uint4 pack(const Out (&o)[kPer]) {
+  constexpr int kPerWord = 4 / sizeof(Out);
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = 0;
+#pragma unroll
+    for (int j = 0; j < kPerWord; ++j)
+      w[k] |= static_cast<unsigned>(o[k * kPerWord + j])
+              << (8 * sizeof(Out) * j);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// kVec: x and out are 16-byte aligned; units of kPer values, then the
+// ragged tail.  Otherwise the scalar loop over all of x.
+template <class Codec, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+encode_kernel(const float* __restrict__ x, long long n,
+              const unsigned* __restrict__ absmax_bits,
+              typename Codec::Out* __restrict__ out,
+              float* __restrict__ scale_out) {
+  using Out = typename Codec::Out;
+  constexpr int kPer = 16 / sizeof(Out);          // values per store
+  constexpr int kLoads = kPer / 4;                // float4 loads per store
+  const Codec enc(absmax_bits, scale_out);
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long head = 0;                             // values done as units
+  if constexpr (kVec) {
+    const long long units = n / kPer;
+    const float4* xv = reinterpret_cast<const float4*>(x);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    for (long long u = tid; u < units; u += stride) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) v[k] = __ldcs(xv + u * kLoads + k);
+      Out o[kPer];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        o[4 * k] = enc(v[k].x);
+        o[4 * k + 1] = enc(v[k].y);
+        o[4 * k + 2] = enc(v[k].z);
+        o[4 * k + 3] = enc(v[k].w);
+      }
+      __stcs(ov + u, pack(o));
+    }
+    head = units * kPer;
+  }
+  for (long long i = head + tid; i < n; i += stride) out[i] = enc(x[i]);
+}
+
+template <class Codec, bool kVec>
+int launch_encode(const float* x, long long n, const unsigned* absmax_bits,
+                  void* out, float* scale_out, cudaStream_t stream) {
+  using Out = typename Codec::Out;
+  constexpr long long kPer = 16 / sizeof(Out);
+  // One thread per unit (or per value of the scalar loop or the tail).
+  const long long work = kVec ? (n / kPer > n % kPer ? n / kPer : n % kPer)
+                              : n;
+  long long blocks = (work + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  encode_kernel<Codec, kVec><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               stream>>>(x, n, absmax_bits,
+                                         static_cast<Out*>(out), scale_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Codec>
+int launch_codec(const float* x, long long n, const unsigned* absmax_bits,
+                 void* out, float* scale_out, int vec,
+                 cudaStream_t stream) {
+  return vec ? launch_encode<Codec, true>(x, n, absmax_bits, out, scale_out,
+                                          stream)
+             : launch_encode<Codec, false>(x, n, absmax_bits, out, scale_out,
+                                           stream);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -190,28 +286,22 @@ extern "C" int hop_absmax_f32(const float* x, long long n,
 }
 
 // codec: kBF16, kI8 or kFP8.  absmax_bits/scale_out are unused for bf16.
+// vec != 0 takes the vector path: the caller guarantees a 16-byte
+// aligned x and out.
 extern "C" int hop_encode_f32(int codec, const float* x, long long n,
                               const unsigned* absmax_bits, void* out,
-                              float* scale_out, void* stream) {
+                              float* scale_out, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n);
   switch (codec) {
     case kBF16:
-      encode_bf16_kernel<<<grid, kThreads, 0, s>>>(
-          x, n, static_cast<uint16_t*>(out));
-      break;
+      return launch_codec<Bf16>(x, n, absmax_bits, out, scale_out, vec, s);
     case kI8:
-      encode_int8_kernel<<<grid, kThreads, 0, s>>>(
-          x, n, absmax_bits, static_cast<int8_t*>(out), scale_out);
-      break;
+      return launch_codec<Int8>(x, n, absmax_bits, out, scale_out, vec, s);
     case kFP8:
-      encode_fp8_kernel<<<grid, kThreads, 0, s>>>(
-          x, n, absmax_bits, static_cast<uint8_t*>(out), scale_out);
-      break;
+      return launch_codec<Fp8>(x, n, absmax_bits, out, scale_out, vec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // scale and add may be null (the unscaled / no-add variants).

@@ -3,9 +3,12 @@
 Counterpart of ``repro/kernels/fused_adamw.py``: the kernel of
 ``csrc/fused_adamw.cu`` replaces the Pallas ``_adamw_kernel``.  It
 streams ``(p, g, m, v)`` once and writes ``(p', m', v')``: 16n bytes
-read and 12n written in float32, so device-memory bandwidth bounds it;
-the first design is a plain grid-stride pass.  The unfused torch chain
-makes about nine passes over parameter-sized tensors.
+read and 12n written in float32, so device-memory bandwidth bounds it.
+It moves 16-byte vectors when every pointer is 16-byte aligned
+(:func:`backend.vector_aligned`) and takes its scalar loop otherwise;
+``adamw_update.scalar_launches`` counts the launches that did.  The
+unfused torch chain makes about nine passes over parameter-sized
+tensors.
 
 The wrapper takes :func:`adamw_update_plain` for CPU tensors and launches
 the kernel for CUDA tensors, or raises.  ``inplace=True`` writes the
@@ -57,8 +60,12 @@ def adamw_update_plain(p, g, m, v, *, lr, b1=0.9, b2=0.95, eps=1e-8,
         m_new = s["b1"] * m.to(torch.float32) + s["one_minus_b1"] * g32
         v_new = s["b2"] * v.to(torch.float32) \
             + (s["one_minus_b2"] * g32) * g32
-        upd = (m_new / s["bc1"]) / (torch.sqrt(v_new / s["bc2"]) + s["eps"]) \
-            + s["wd"] * p32
+        # The square root in float64, rounded once: the correctly rounded
+        # float32 root (53 >= 2*24 + 2 bits), as the kernel's and XLA's
+        # are; torch's vectorised CPU sqrt is 1 ulp off on some inputs,
+        # which the cancellation in p - lr*upd then magnifies.
+        root = torch.sqrt((v_new / s["bc2"]).double()).float()
+        upd = (m_new / s["bc1"]) / (root + s["eps"]) + s["wd"] * p32
         return ((p32 - s["lr"] * upd).to(p.dtype), m_new.to(m.dtype),
                 v_new.to(v.dtype))
 
@@ -67,7 +74,8 @@ def _lib():
     lib = backend.load("fused_adamw")
     if not getattr(lib, "_typed", False):
         lib.adamw_update_f32.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_longlong] + [ctypes.c_float] * 9 + [ctypes.c_void_p]
+            + [ctypes.c_longlong] + [ctypes.c_float] * 9 \
+            + [ctypes.c_int, ctypes.c_void_p]
         lib.adamw_update_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -102,13 +110,16 @@ def adamw_update(p, g, m, v, *, lr, b1=0.9, b2=0.95, eps=1e-8,
     else:
         outs = tuple(torch.empty_like(t) for t in (p, m, v))
     s = adamw_scalars(**kw)
+    vec = backend.vector_aligned(*tensors, *outs)
     backend.check(_lib().adamw_update_f32(
         *(backend.ptr(t) for t in tensors), *(backend.ptr(t) for t in outs),
         p.numel(), s["lr"], s["b1"], s["one_minus_b1"], s["b2"],
-        s["one_minus_b2"], s["eps"], s["wd"], s["bc1"], s["bc2"],
+        s["one_minus_b2"], s["eps"], s["wd"], s["bc1"], s["bc2"], int(vec),
         backend.stream_ptr()), "adamw_update")
     adamw_update.launches += 1
+    adamw_update.scalar_launches += not vec
     return outs
 
 
 adamw_update.launches = 0
+adamw_update.scalar_launches = 0

@@ -17,10 +17,14 @@ matching the reference's XLA arithmetic bit for bit.
 
 Bounds on the card (device-memory bytes; the flops are negligible):
 K1 reads 4n; K2 reads 4n and writes n (int8/fp8) or 2n (bf16); K3 reads
-the payload (n..4n) and the partial (4n) and writes 4n.  The first
-design is a plain grid-stride pass per kernel; see the CUDA source.
+the payload (n..4n) and the partial (4n) and writes 4n.  K1 and K3 are
+plain grid-stride passes; K2 moves 16-byte vectors when ``x`` is 16-byte
+aligned (:func:`backend.vector_aligned`) and takes its scalar loop
+otherwise; see the CUDA source.
 
-Every wrapper counts its launches in ``<wrapper>.launches``.
+Every wrapper counts its launches in ``<wrapper>.launches``;
+``hop_encode.scalar_launches`` counts the K2 launches that took the
+scalar loop.
 """
 from __future__ import annotations
 
@@ -118,7 +122,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.hop_absmax_f32.argtypes = [vp, ll, vp, vp]
-        lib.hop_encode_f32.argtypes = [i, vp, ll, vp, vp, vp, vp]
+        lib.hop_encode_f32.argtypes = [i, vp, ll, vp, vp, vp, i, vp]
         lib.hop_decode_add.argtypes = [i, vp, vp, vp, vp, ll, vp]
         for fn in (lib.hop_absmax_f32, lib.hop_encode_f32,
                    lib.hop_decode_add):
@@ -161,6 +165,22 @@ def hop_absmax(x: torch.Tensor) -> torch.Tensor:
 hop_absmax.launches = 0
 
 
+def _encode_launch(name: str, x: torch.Tensor, bits):
+    """Launch K2 on ``x`` given K1's absmax bits (``None`` for bf16):
+    ``(payload, scale)``."""
+    out = torch.empty(x.shape, dtype=_WIRE_DTYPE[name], device=x.device)
+    scale = None if bits is None else torch.empty((), dtype=torch.float32,
+                                                  device=x.device)
+    vec = backend.vector_aligned(x, out)
+    backend.check(_lib().hop_encode_f32(
+        _CODEC_CODE[name], backend.ptr(x), x.numel(), backend.ptr(bits),
+        backend.ptr(out), backend.ptr(scale), int(vec),
+        backend.stream_ptr()), "hop_encode")
+    hop_encode.launches += 1
+    hop_encode.scalar_launches += not vec
+    return out, scale
+
+
 def hop_encode(name: str, x: torch.Tensor):
     """``(payload, scale)`` for the wire — fused twin of codec.encode."""
     _check_name(name)
@@ -171,21 +191,12 @@ def hop_encode(name: str, x: torch.Tensor):
     if x.dtype != torch.float32:
         raise TypeError(f"hop_encode kernel takes float32, got {x.dtype}")
     backend.check_cuda("hop_encode", x)
-    out = torch.empty(x.shape, dtype=_WIRE_DTYPE[name], device=x.device)
-    scale = None
-    bits = None
-    if name != "bf16":
-        bits = _absmax_launch(x)
-        scale = torch.empty((), dtype=torch.float32, device=x.device)
-    backend.check(_lib().hop_encode_f32(
-        _CODEC_CODE[name], backend.ptr(x), x.numel(), backend.ptr(bits),
-        backend.ptr(out), backend.ptr(scale), backend.stream_ptr()),
-        "hop_encode")
-    hop_encode.launches += 1
-    return out, scale
+    return _encode_launch(name, x,
+                          None if name == "bf16" else _absmax_launch(x))
 
 
 hop_encode.launches = 0
+hop_encode.scalar_launches = 0
 
 
 def hop_decode_add(name: str, payload: torch.Tensor, scale,

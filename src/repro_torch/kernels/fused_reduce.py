@@ -70,7 +70,7 @@ def fused_reduce(x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     backend.check_cuda("fused_reduce", x)
     k, n = x.shape
     out = torch.empty((n,), dtype=out_dtype, device=x.device)
-    vec = n % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+    vec = n % (16 // x.element_size()) == 0 and backend.vector_aligned(x)
     backend.check(_lib().fused_reduce(
         _CODE[x.dtype], _CODE[out_dtype], backend.ptr(x), k, n,
         backend.ptr(out), int(vec), backend.stream_ptr()), "fused_reduce")

@@ -7,7 +7,9 @@ only PyTorch for CUDA:
 
 Without a card every test skips (decided in the ``cuda`` fixture, when a
 test runs).  K1/K2/K3 and K4 must be bit-exact; K5 within 1 ulp; K6, K7
-and K8 within the tolerances their tests state.
+and K8 within the tolerances their tests state.  K2 and K5 are held on
+every path: 16-byte vectors, the ragged tail, and the scalar loop that
+views off a 16-byte boundary take (counted in ``scalar_launches``).
 """
 import numpy as np
 import pytest
@@ -64,6 +66,90 @@ def test_adamw_kernel_matches_plain_on_card(cuda):
     for a, b in zip(fa.adamw_update(p, g, m, v, **kw),
                     fa.adamw_update_plain(p, g, m, v, **kw)):
         assert _ulp_distance(a, b) <= 1
+
+
+SMALL_N = (1, 3, 4, 5, 7, 8, 15, 16, 17, 31, 33)
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", ["bf16", "int8", "fp8_e4m3"])
+def test_hop_encode_every_path_on_card(cuda, name):
+    """K2 bit for bit on views 0, 4, 8 and 12 bytes into a 1 Mi buffer
+    and at small n; ``scalar_launches`` rises once for each view off a
+    16-byte boundary and for nothing else."""
+    buf = _normal(1 << 20, 11, outlier=True).to(cuda)
+    cases = [(buf[off:], off != 0) for off in range(4)]
+    cases += [(_normal(n, n, outlier=n > 2).to(cuda), False)
+              for n in SMALL_N]
+    for x, scalar in cases:
+        before = fh.hop_encode.scalar_launches
+        p, s = fh.hop_encode(name, x)
+        assert fh.hop_encode.scalar_launches == before + scalar
+        pp, sp = fh.encode_plain(name, x)
+        assert _same_bits(p, pp), (name, x.numel())
+        assert (s is None and sp is None) or torch.equal(s, sp)
+
+
+def test_bf16_encode_special_values_on_card(cuda):
+    """+-inf, -0, overflow to inf, subnormals and ties bit for bit with
+    the card's cast on the vector path and the scalar loop; a NaN of
+    either sign becomes 0x7fc0."""
+    nan, inf = float("nan"), float("inf")
+    x = torch.tensor([nan, -nan, inf, -inf, -0.0, 0.0, 3.4e38, -3.4e38,
+                      1e-40, -1e-40, 1.00390625, 1.01171875, -2.5],
+                     device=cuda).repeat(3)
+    for view in (x, x[1:]):
+        p, _ = fh.hop_encode("bf16", view)
+        bits = p.view(torch.int16)
+        isnan = torch.isnan(view)
+        assert bool((bits[isnan] == 0x7fc0).all())
+        assert torch.equal(bits[~isnan],
+                           view.to(torch.bfloat16).view(torch.int16)[~isnan])
+
+
+def _adam_quartet(n, seed, cuda):
+    return [(_normal(n, seed) * 0.05).to(cuda),
+            (_normal(n, seed + 1) * 1e-3).to(cuda),
+            (_normal(n, seed + 2) * 1e-4).to(cuda),
+            (_normal(n, seed + 3) ** 2 * 1e-6).to(cuda)]
+
+
+def _check_adamw(p, g, m, v, *, scalar, inplace=False):
+    kw = dict(lr=1e-3, count=2)
+    want = fa.adamw_update_plain(p, g, m, v, **kw)
+    before = fa.adamw_update.scalar_launches
+    got = fa.adamw_update(p, g, m, v, inplace=inplace, **kw)
+    assert fa.adamw_update.scalar_launches == before + scalar
+    for a, b in zip(got, want):
+        assert _ulp_distance(a, b) <= 1
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_adamw_every_path_on_card(cuda, inplace):
+    """K5 within 1 ulp on views 4, 8 and 12 bytes into 1 Mi buffers (the
+    scalar loop) and at small n (vectors and the tail), out of place and
+    in place; ``scalar_launches`` rises for the views only."""
+    for off in (1, 2, 3):
+        _check_adamw(*(t[off:] for t in _adam_quartet(1 << 20, off, cuda)),
+                     scalar=True, inplace=inplace)
+    for n in SMALL_N:
+        _check_adamw(*_adam_quartet(n, n, cuda), scalar=False,
+                     inplace=inplace)
+
+
+def test_adamw_in_place_with_misaligned_g_on_card(cuda):
+    """The optimizer's in-place call with ``g`` a view off a 16-byte
+    boundary takes the scalar loop and stays within 1 ulp."""
+    n = 4099
+    p, _, m, v = _adam_quartet(n, 20, cuda)
+    gbuf = (_normal(n + 3, 21) * 1e-3).to(cuda)
+    for off in (1, 2, 3):
+        _check_adamw(p, gbuf[off:off + n], m, v, scalar=True, inplace=True)
+    _check_adamw(p, gbuf[:n], m, v, scalar=False, inplace=True)
 
 
 def test_wrappers_count_only_kernel_launches(cuda):
