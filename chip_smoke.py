@@ -9,10 +9,16 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    for sm_90a, one compiler per source, all at once.  Print each
    kernel's registers and spills from ptxas; for K7/K8 also the shared
    memory, and the HGMMA (wgmma) and HMMA instructions in its SASS where
-   cuobjdump exists: the bf16 kernels must hold HGMMA, the f32 ones none.
+   cuobjdump exists: the bf16 kernels must hold HGMMA, the f32 ones none
+   (head widths 16 to 256; at 256 the bf16 dk/dv pass is
+   ``flash_dkv_split_tc``).
 2. Hold each kernel against its plain torch version on the card.  K1–K3
-   at a 1 Mi-element bucket, a ragged n and the largest main-path hop,
-   bit for bit (K5: within 1 ulp), plus the subnormal regime against
+   at a 1 Mi-element bucket, a ragged n, phase 3's largest hop (16, 960,
+   2560) and phase 6's (393,216,000 elements, the first RHD hop of
+   gemma's tied embedding), bit for bit; K5 within 1 ulp at the same
+   small sizes, smollm-360m's largest leaf and gemma's tied embedding
+   (786,432,000 elements, out of place and in place); plus the
+   subnormal regime against
    the plain version on a CPU copy under the flush-to-zero guard, and
    e4m3 values that round up to exactly 448.  Every path of K2 and K5:
    views 4, 8 and 12 bytes into a 1 Mi buffer (their scalar loops, which
@@ -23,16 +29,19 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    bf16 cases, the [1024, 1, ..., 1] bf16 column (k = 256, exactly
    1279) and integer-valued ragged rows (exact), and subnormals.  K6 at phase 4's
    (4096, 960) rows and a ragged (37, 960), f32 within rtol 1e-5 and
-   bf16 within 1 ulp.  K7/K8 causal at phase 4's (1, 4096, 15, 64) in
-   f32 and bf16, plus window 100, non-causal and other head widths at
-   ragged S, at the reference's tolerances; each bf16 case twice, bit
-   for bit.  Times each kernel, its plain version and, where one
-   exists, one PyTorch call computing the same function (a yardstick
-   the port never calls); K1–K3 take their inputs in turn from three
-   buffers larger than L2, K2 also as its int8/fp8 quantize pass alone;
-   each kernel in turns with its yardstick; K7/K8 in bf16 (tensor
-   cores, the main path)
-   and in f32 (CUDA cores, against the f32 peak).
+   bf16 within 1 ulp, and the same at phase 6's width 3072.  K7/K8
+   causal at phase 4's (1, 4096, 15, 64) and phase 6's (1, 4096, 16, 256)
+   in f32 and bf16, plus window 100, non-causal and other head widths at
+   ragged S (dh 256 at S = 333), at the reference's tolerances; each
+   bf16 case twice, bit for bit.  Times each kernel, its plain version
+   and, where one exists, one PyTorch call computing the same function
+   (a yardstick the port never calls); K1–K3 take their inputs in turn
+   from three buffers larger than L2, K2 also as its int8/fp8 quantize
+   pass alone; K1–K3 (int8) and K5 also at phase 6's hop and leaf
+   (``variants``); each kernel in turns with its yardstick; K7/K8 in bf16
+   (tensor cores, the main path) and in f32 (CUDA cores, against the
+   f32 peak), at dh 64 and at dh 256 (``variants``); K6 also at
+   (4096, 3072).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
    batch 2 per rank, seq 512, ``rhd_rsa`` + ``int8`` fused hops and the
@@ -59,6 +68,19 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    parameters bit-identical on every rank.  Then a small float32
    MobileNet-v1 at image 32 under fused ps_gather on the card and on the
    host's plain versions must agree.
+6. Long context at gemma-7b's full width (d_model 3072, 16 heads of
+   256, d_ff 24576, vocab 256000, GeGLU, scaled tied embeddings), depth
+   cut to ``GEMMA_LAYERS`` of 28 so that two f32 replicas with their
+   AdamW state fit one card: seq 4096 on 2 ranks sharing the card over
+   gloo, batch 1 per rank, 2 steps, ``rhd_rsa`` + ``int8`` fused hops,
+   K5, bf16 compute, through ``Trainer`` and ``build_trainer``.  K1–K3
+   and K5–K8 must launch (K7 and K8 once per layer per step, at head_dim
+   256), losses be finite, parameters bit-identical, and the memory the
+   whole card holds at the end of the main path (every process's
+   context, its allocator's reserved blocks and workspaces) be at most
+   90% of the card's; then a float32 gemma
+   (``reduced()`` with head_dim kept at 256) at seq 128 trains on the
+   card and on the host's plain versions, which must agree.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
@@ -86,8 +108,8 @@ ATTN_SHAPE = (1, LONG_SEQ, HEADS, HEAD_DIM)          # one layer, phase 4
 CHECK_N = 1 << 20            # a main-path bucket size (1 Mi f32)
 RAGGED_N = 1_000_003
 SMALL_N = (1, 3, 4, 5, 7, 8, 15, 16, 17, 31, 33)   # tails alone, one unit + tail
-HOP_SHAPE = (16, 960, 2560)  # first RHD hop of the d_ff bucket at p=4
-LEAF_SHAPE = (32, 960, 2560)  # the largest parameter leaf (body/mlp/w1)
+HOP_SHAPE = (16, 960, 2560)  # phase 3: first RHD hop of smollm's d_ff bucket
+LEAF_SHAPE = (32, 960, 2560)  # smollm-360m's largest leaf (body/mlp/w1)
 R50_BUCKET = 2_359_296       # the largest ResNet-50 bucket (a 3x3x512x512 leaf)
 HOLD_CYCLES = 100_000_000     # ~50 ms of spinning at the H100's 1.98 GHz
 CNN_WORLD = 4
@@ -97,6 +119,18 @@ CNN_WARMUP, CNN_TIMED = 1, 2
 CNN_RUNS = (("resnet50", ("psum", "ring_rsa", "rhd_rsa", "ps_gather")),
             ("mobilenet", ("rhd_rsa", "ps_gather")))
 CNN_BUCKETS = {"resnet50": 21, "mobilenet": 5}   # at the 4 MiB threshold
+GEMMA_WORLD = 2
+GEMMA_STEPS = 2
+# Depth of phase 6's gemma-7b.  Each rank holds ~20 B per parameter (f32
+# weights, gradients, AdamW state, the aggregate's buffers) on
+# 786.4 M + 276.8 M per layer, plus the 4096 x 256000 logits and their
+# gradient.  On an H100 80GB (79.18 GiB) the card held 64.73 GiB (81.8%)
+# at one layer and 78.71 GiB (99.4%) at two (PERF.md section 4).
+GEMMA_LAYERS = 1
+GEMMA_D = 3072
+GEMMA_LEAF = (256000, GEMMA_D)   # the tied embedding, one bucket of its own
+GEMMA_HOP = (math.prod(GEMMA_LEAF) // GEMMA_WORLD,)  # its first RHD hop
+GEMMA_ATTN = (1, LONG_SEQ, 16, 256)                  # one layer, phase 6
 
 
 def log(msg):
@@ -143,20 +177,30 @@ def bound_ms(n_bytes, n_flops, tensor_cores=False):
                                         else "operations")
 
 
+CHUNK = 1 << 26    # elements compared at a time: bounds the temporaries
+
+
+def _chunks(a, b):
+    """Matching flat slices of ``a`` and ``b``, both on ``a``'s device."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    for i in range(0, a.numel(), CHUNK):
+        yield a[i:i + CHUNK], b[i:i + CHUNK].to(a.device)
+
+
 def bits_equal(a, b):
     import torch
     if a is None or b is None:
         return a is None and b is None
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.element_size() == 1:
-        return torch.equal(a.view(torch.uint8).cpu(), b.view(torch.uint8).cpu())
-    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
-    return torch.equal(a.view(view).cpu(), b.view(view).cpu())
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return all(torch.equal(x.view(view), y.view(view))
+               for x, y in _chunks(a, b))
 
 
 def max_abs(a, b):
-    return float((a.float().cpu() - b.float().cpu()).abs().max())
+    return max((float((x.float() - y.float()).abs().max())
+                for x, y in _chunks(a, b)), default=0.0)
 
 
 def max_ulp(a, b):
@@ -165,7 +209,8 @@ def max_ulp(a, b):
     def ordered(t):
         i = t.view(torch.int32).to(torch.int64)
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
-    return int((ordered(a) - ordered(b)).abs().max())
+    return max((int((ordered(x) - ordered(y)).abs().max())
+                for x, y in _chunks(a, b)), default=0)
 
 
 def require(cond, what):
@@ -205,13 +250,14 @@ def agree(key, a, b, what):
 # ---------------------------------------------------------------------------
 
 def _kernel_name(mangled):
-    """``flash_dkv_tc<64>`` / ``flash_fwd_kernel<float, 64>`` from a
-    mangled name."""
+    """``flash_dkv_tc<64>`` / ``flash_fwd_kernel<float, 64, 64>`` (head
+    width, tile rows) from a mangled name."""
     import re
-    m = re.search(r"(flash_[a-z_]+)I(f?)Li(\d+)E", mangled)
+    m = re.search(r"(flash_[a-z_]+)I(f?)Li(\d+)E(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled
-    return f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+    return (f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}"
+            f"{f', {m[4]}' if m[4] else ''}>")
 
 
 def _sass_counts(lib_path):
@@ -271,7 +317,8 @@ def report_build(source, text):
                if "Compiling entry function" in line]
     names = dict(zip(mangled, [_kernel_name(m) for m in mangled] if flash
                      else _demangle(mangled)))
-    smem_kind = {"flash_fwd_tc": 0, "flash_dq_tc": 1, "flash_dkv_tc": 2}
+    smem_kind = {"flash_fwd_tc": 0, "flash_dq_tc": 1, "flash_dkv_tc": 2,
+                 "flash_dkv_split_tc": 2}
     entry, props, spill = None, None, ""
     for line in text.splitlines():
         if "Performance Loss" in line:
@@ -327,7 +374,7 @@ def check_hop_kernels(gen):
     import torch
     from repro_torch.kernels import fused_hop as fh
     cuda = torch.device("cuda")
-    for n in (CHECK_N, RAGGED_N, math.prod(HOP_SHAPE)):
+    for n in (CHECK_N, RAGGED_N, math.prod(HOP_SHAPE), math.prod(GEMMA_HOP)):
         x = sample(n, gen, cuda)
         agree("hop_absmax", fh.hop_absmax(x), fh.absmax_plain(x),
               f"K1 hop_absmax != plain at n={n}")
@@ -348,6 +395,8 @@ def check_hop_kernels(gen):
               f"K3 hop_decode_add[none+add] != plain at n={n}")
         log(f"  K1/K2/K3 bit-exact vs plain at n={n} "
             f"(bf16, int8, fp8_e4m3; scaled x add variants)")
+        del x, add, p, s, pp, sp
+        torch.cuda.empty_cache()
 
     # Every path of K2: views 4, 8 and 12 bytes into their storage take
     # the scalar loop (counted in scalar_launches, each view once per
@@ -480,6 +529,15 @@ def check_adamw(gen):
         ulps = check(*quartet(n), f"at n={n}")
         log(f"  K5 adamw_update vs plain at n={n}: max ulp (p, m, v) = "
             f"{ulps}")
+    # gemma's tied embedding (3.1 GB a tensor): byte offsets past 2^31.
+    n = math.prod(GEMMA_LEAF)
+    quad = quartet(n)
+    ulps = check(*quad, f"at n={n}")
+    ulps += check(*quad, f"in place at n={n}", inplace=True)
+    log(f"  K5 adamw_update vs plain at n={n}, out of place then in place: "
+        f"max ulp (p, m, v) = {ulps}")
+    del quad
+    torch.cuda.empty_cache()
     ulps = check(*quartet(RAGGED_N), f"in place at n={RAGGED_N}",
                  inplace=True)
     log(f"  K5 in place (vector path) at n={RAGGED_N}: max ulp {ulps}")
@@ -562,33 +620,40 @@ def bf16_ulp(a, b):
 
 
 def check_rmsnorm(gen):
+    """K6 at phase 4's width (960) and phase 6's (3072): f32 within rtol
+    1e-5, bf16 within 1 ulp; the share of outputs equal bit for bit is
+    printed (the kernel sums a row in another order than torch)."""
     import torch
     from repro_torch.kernels import fused_rmsnorm as frn
     cuda = torch.device("cuda")
-    scale = torch.randn(D_MODEL, generator=gen, device=cuda) * 0.1
-    for rows in (LONG_SEQ, 37):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn((rows, D_MODEL), generator=gen,
-                            device=cuda).to(dtype)
-            y, rstd = frn.fused_rmsnorm(x, scale)
-            yp, rp = frn.rmsnorm_plain(x, scale)
-            MAX_ERR["fused_rmsnorm"] = max(MAX_ERR["fused_rmsnorm"],
-                                           max_abs(y, yp))
-            rel = float(((rstd - rp).abs() / rp.abs()).max())
-            require(rel <= 1e-5, f"K6 rstd off by {rel:.2e} rel at {rows}")
-            if dtype == torch.float32:
-                rel = float(((y - yp).abs() / yp.abs().clamp_min(1e-30))
-                            .max())
-                require(rel <= 1e-5, f"K6 f32 off by {rel:.2e} rel at "
-                                     f"({rows}, {D_MODEL})")
-                log(f"  K6 fused_rmsnorm f32 ({rows}, {D_MODEL}): max rel "
-                    f"{rel:.2e}")
-            else:
-                ulp = bf16_ulp(y, yp)
-                require(ulp <= 1, f"K6 bf16 off by {ulp} ulp at "
-                                  f"({rows}, {D_MODEL})")
-                log(f"  K6 fused_rmsnorm bf16 ({rows}, {D_MODEL}): max "
-                    f"{ulp} bf16 ulp")
+    for d in (D_MODEL, GEMMA_D):
+        scale = torch.randn(d, generator=gen, device=cuda) * 0.1
+        for rows in (LONG_SEQ, 37):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((rows, d), generator=gen,
+                                device=cuda).to(dtype)
+                y, rstd = frn.fused_rmsnorm(x, scale)
+                yp, rp = frn.rmsnorm_plain(x, scale)
+                MAX_ERR["fused_rmsnorm"] = max(MAX_ERR["fused_rmsnorm"],
+                                               max_abs(y, yp))
+                rel = float(((rstd - rp).abs() / rp.abs()).max())
+                require(rel <= 1e-5, f"K6 rstd off by {rel:.2e} rel at "
+                                     f"({rows}, {d})")
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = float((y.view(bits) == yp.view(bits)).float().mean())
+                if dtype == torch.float32:
+                    rel = float(((y - yp).abs() / yp.abs().clamp_min(1e-30))
+                                .max())
+                    require(rel <= 1e-5, f"K6 f32 off by {rel:.2e} rel at "
+                                         f"({rows}, {d})")
+                    log(f"  K6 fused_rmsnorm f32 ({rows}, {d}): max rel "
+                        f"{rel:.2e}, {same:.4%} of outputs bit-equal")
+                else:
+                    ulp = bf16_ulp(y, yp)
+                    require(ulp <= 1, f"K6 bf16 off by {ulp} ulp at "
+                                      f"({rows}, {d})")
+                    log(f"  K6 fused_rmsnorm bf16 ({rows}, {d}): max "
+                        f"{ulp} bf16 ulp, {same:.4%} of outputs bit-equal")
 
 
 def _excess(a, b, atol, rtol):
@@ -598,17 +663,20 @@ def _excess(a, b, atol, rtol):
 
 
 def check_flash(gen):
-    """K7/K8 against the chunked plain versions: causal at phase 4's
-    shape in f32 and bf16, then window, non-causal and other head widths
-    at ragged S.  f32 forward atol 2e-5 / rtol 1e-4, backward 2e-3;
-    bf16 3e-2 (tests/test_kernels.py's tolerances).  Every bf16 case is
-    run twice and must give the same bits (no atomics)."""
+    """K7/K8 against the chunked plain versions: causal at phase 4's and
+    phase 6's shapes in f32 and bf16, then window, non-causal and other
+    head widths (16 to 256) at ragged S.  f32 forward atol 2e-5 / rtol
+    1e-4, backward 2e-3; bf16 3e-2 (tests/test_kernels.py's tolerances).
+    Every bf16 case is run twice and must give the same bits (no
+    atomics)."""
     import torch
     from repro_torch.kernels import flash_attention as fla
     cuda = torch.device("cuda")
     cases = [(ATTN_SHAPE, True, 0, 1024), ((2, 300, 3, 64), True, 100, 64),
              ((2, 300, 3, 64), False, 0, 64), ((1, 200, 2, 16), True, 0, 64),
-             ((1, 130, 2, 128), False, 0, 32), ((1, 257, 4, 32), True, 50, 64)]
+             ((1, 130, 2, 128), False, 0, 32), ((1, 257, 4, 32), True, 50, 64),
+             (GEMMA_ATTN, True, 0, 1024), ((2, 333, 3, 256), True, 100, 64),
+             ((2, 333, 3, 256), False, 0, 64)]
     for shape, causal, window, chunk in cases:
         for dtype in (torch.float32, torch.bfloat16):
             if dtype == torch.float32:
@@ -648,7 +716,8 @@ def check_flash(gen):
 
 
 def measure(gen):
-    """Per-kernel times at the main path's largest shapes.  Each row:
+    """Per-kernel times at the main path's largest shapes (phase 6's hop
+    and leaf as ``variants`` of K1–K3 and K5).  Each row:
     the kernel's ms, its bound and what bounds it, the plain version's
     ms and, where one PyTorch call computes the same function, its ms
     (timed in turns with the kernel)."""
@@ -660,19 +729,6 @@ def measure(gen):
     from repro_torch.kernels.fused_reduce import (fused_reduce,
                                                   fused_reduce_plain)
     cuda = torch.device("cuda")
-    n = math.prod(HOP_SHAPE)
-    # K1-K3 take x (and the rest) in turn from three buffers of the hop
-    # shape, 157 MB each against the 50 MB L2: no call finds the previous
-    # call's data there, and only the reuse between K1 and K2 inside one
-    # hop_encode remains.
-    xs = [sample(n, gen, cuda).reshape(HOP_SHAPE) for _ in range(3)]
-    adds = [sample(n, gen, cuda, outliers=False).reshape(HOP_SHAPE)
-            for _ in range(3)]
-    encoded = [fh.hop_encode("int8", x) for x in xs]
-    payloads = [e[0] for e in encoded]
-    scales = [e[1] for e in encoded]
-    scale_fs = [float(s_) for s_ in scales]
-    bits = [fh._absmax_launch(x) for x in xs]
     rows = {}
 
     def turns(fn, *lists):
@@ -702,43 +758,75 @@ def measure(gen):
             f"turns {runs[fn]}{f' / {runs[library]}' if library else ''})")
         return rec
 
-    rows["hop_absmax"] = row(
-        "hop_absmax", turns(fh.hop_absmax, xs), turns(fh.absmax_plain, xs),
-        turns(lambda x: x.abs().amax(), xs), 4 * n, 2 * n,
-        f"f32 {HOP_SHAPE}")
-    # K2, every variant: bf16 is a cast (one PyTorch call computes it);
-    # int8 and fp8 clip at +-127 / +-448 with a scale from the absmax,
-    # which no single PyTorch call computes.  Their quantize pass alone
-    # (K2 on bits K1 computed earlier, x cold in L2) has its own bound.
-    variants = {}
-    for name, out_bytes in (("bf16", 2), ("int8", 1), ("fp8_e4m3", 1)):
-        variants[name] = row(
-            f"hop_encode[{name}]",
-            turns(lambda x, name=name: fh.hop_encode(name, x), xs),
-            turns(lambda x, name=name: fh.encode_plain(name, x), xs),
-            turns(lambda x: x.to(torch.bfloat16), xs) if name == "bf16"
-            else None,
-            4 * n + out_bytes * n + (0 if name == "bf16" else 4),
-            (0 if name == "bf16" else 6) * n,
-            f"{name} {HOP_SHAPE}" + ("" if name == "bf16"
+    def hop_rows(shape, codecs):
+        """K1, K2 (each of ``codecs``) and K3 (int8) at one hop shape."""
+        n = math.prod(shape)
+        # x (and the rest) in turn from three buffers of the hop shape,
+        # each larger than the 50 MB L2: no call finds the previous
+        # call's data there, and only the reuse between K1 and K2 inside
+        # one hop_encode remains.
+        xs = [sample(n, gen, cuda).reshape(shape) for _ in range(3)]
+        adds = [sample(n, gen, cuda, outliers=False).reshape(shape)
+                for _ in range(3)]
+        encoded = [fh.hop_encode("int8", x) for x in xs]
+        payloads = [e[0] for e in encoded]
+        scales = [e[1] for e in encoded]
+        scale_fs = [float(s_) for s_ in scales]
+        bits = [fh._absmax_launch(x) for x in xs]
+        out = {"hop_absmax": row(
+            "hop_absmax", turns(fh.hop_absmax, xs),
+            turns(fh.absmax_plain, xs),
+            turns(lambda x: x.abs().amax(), xs), 4 * n, 2 * n,
+            f"f32 {shape}")}
+        # K2: bf16 is a cast (one PyTorch call computes it); int8 and fp8
+        # clip at +-127 / +-448 with a scale from the absmax, which no
+        # single PyTorch call computes.  Their quantize pass alone (K2 on
+        # bits K1 computed earlier, x cold in L2) has its own bound.
+        variants = {}
+        for name in codecs:
+            out_bytes = 2 if name == "bf16" else 1
+            variants[name] = row(
+                f"hop_encode[{name}]",
+                turns(lambda x, name=name: fh.hop_encode(name, x), xs),
+                turns(lambda x, name=name: fh.encode_plain(name, x), xs),
+                turns(lambda x: x.to(torch.bfloat16), xs) if name == "bf16"
+                else None,
+                4 * n + out_bytes * n + (0 if name == "bf16" else 4),
+                (0 if name == "bf16" else 6) * n,
+                f"{name} {shape}" + ("" if name == "bf16"
                                      else " (absmax + quantize)"))
-    for name in ("int8", "fp8_e4m3"):
-        variants[f"{name} pass"] = row(
-            f"hop_encode[{name}] pass",
-            turns(lambda x, b, name=name: fh._encode_launch(name, x, b), xs,
-                  bits), None, None,
-            5 * n + 8, 4 * n, f"{name} {HOP_SHAPE} quantize pass alone")
-    rows["hop_encode"] = {**variants["int8"], "variants": variants}
-    rows["hop_decode_add"] = row(
-        "hop_decode_add",
-        turns(lambda q, s_, a: fh.hop_decode_add("int8", q, s_, a), payloads,
-              scales, adds),
-        turns(lambda q, s_, a: fh.decode_add_plain("int8", q, s_, a),
-              payloads, scales, adds),
-        turns(lambda q, s_, a: torch.add(a, q, alpha=s_), payloads, scale_fs,
-              adds), n + 4 * n + 4 * n, 2 * n,
-        f"int8*scale+add {HOP_SHAPE}")
-    del xs, adds, encoded, payloads, scales, bits
+            if name != "bf16":
+                variants[f"{name} pass"] = row(
+                    f"hop_encode[{name}] pass",
+                    turns(lambda x, b, name=name:
+                          fh._encode_launch(name, x, b), xs, bits),
+                    None, None, 5 * n + 8, 4 * n,
+                    f"{name} {shape} quantize pass alone")
+        out["hop_encode"] = variants
+        out["hop_decode_add"] = row(
+            "hop_decode_add",
+            turns(lambda q, s_, a: fh.hop_decode_add("int8", q, s_, a),
+                  payloads, scales, adds),
+            turns(lambda q, s_, a: fh.decode_add_plain("int8", q, s_, a),
+                  payloads, scales, adds),
+            turns(lambda q, s_, a: torch.add(a, q, alpha=s_), payloads,
+                  scale_fs, adds), n + 4 * n + 4 * n, 2 * n,
+            f"int8*scale+add {shape}")
+        return out
+
+    # The rows' own numbers are phase 3's hop; phase 6's first hop of the
+    # tied embedding (int8, its codec) is a variant of each.
+    smol = hop_rows(HOP_SHAPE, ("bf16", "int8", "fp8_e4m3"))
+    torch.cuda.empty_cache()
+    big = hop_rows(GEMMA_HOP, ("int8",))
+    torch.cuda.empty_cache()
+    for k in ("hop_absmax", "hop_decode_add"):
+        rows[k] = {**smol[k], "variants": {"smollm hop": smol[k],
+                                           "gemma hop": big[k]}}
+    rows["hop_encode"] = {**smol["hop_encode"]["int8"], "variants": {
+        **smol["hop_encode"],
+        **{f"{v} gemma hop": r for v, r in big["hop_encode"].items()}}}
+    del smol, big
     k4 = sample(CNN_WORLD * R50_BUCKET, gen, cuda).reshape(CNN_WORLD,
                                                            R50_BUCKET)
     rows["fused_reduce"] = row(
@@ -748,77 +836,97 @@ def measure(gen):
         4 * CNN_WORLD * R50_BUCKET + 4 * R50_BUCKET,
         (CNN_WORLD - 1) * R50_BUCKET, f"f32 {tuple(k4.shape)}")
     del k4
-    nl = math.prod(LEAF_SHAPE)
-    p = sample(nl, gen, cuda, outliers=False) * 0.05
-    g = sample(nl, gen, cuda) * 1e-3
-    m = torch.zeros_like(p)
-    v = torch.zeros_like(p)
-    kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, count=1)
-    library = None
-    if hasattr(torch, "_fused_adamw_"):
-        step = [torch.ones((), device=cuda)]
 
-        def library():
-            torch._fused_adamw_([p], [g], [m], [v], [], step, lr=1e-3,
-                                beta1=0.9, beta2=0.95, weight_decay=0.1,
-                                eps=1e-8, amsgrad=False, maximize=False)
-    rows["adamw_update"] = row(
-        "adamw_update",
-        lambda: fa.adamw_update(p, g, m, v, inplace=True, **kw),
-        lambda: fa.adamw_update_plain(p, g, m, v, **kw), library,
-        16 * nl + 12 * nl, 15 * nl, f"f32 in place {LEAF_SHAPE}")
-    del p, g, m, v
+    def adamw_row(shape):
+        nl = math.prod(shape)
+        p = sample(nl, gen, cuda, outliers=False) * 0.05
+        g = sample(nl, gen, cuda) * 1e-3
+        m = torch.zeros_like(p)
+        v = torch.zeros_like(p)
+        kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                  count=1)
+        library = None
+        if hasattr(torch, "_fused_adamw_"):
+            step = [torch.ones((), device=cuda)]
 
-    # K6 at phase 4's activations: (B*S, d) bf16.
-    xr = torch.randn((LONG_SEQ, D_MODEL), generator=gen,
-                     device=cuda).to(torch.bfloat16)
-    sc = torch.randn(D_MODEL, generator=gen, device=cuda) * 0.1
-    w = (1.0 + sc).to(torch.bfloat16)
-    rows["fused_rmsnorm"] = row(
-        "fused_rmsnorm", lambda: frn.fused_rmsnorm(xr, sc),
-        lambda: frn.rmsnorm_plain(xr, sc),
-        lambda: F.rms_norm(xr, (D_MODEL,), w, 1e-6),
-        LONG_SEQ * D_MODEL * 4 + 4 * D_MODEL + 4 * LONG_SEQ,
-        4 * LONG_SEQ * D_MODEL, f"bf16 ({LONG_SEQ}, {D_MODEL})")
+            def library():
+                torch._fused_adamw_([p], [g], [m], [v], [], step, lr=1e-3,
+                                    beta1=0.9, beta2=0.95, weight_decay=0.1,
+                                    eps=1e-8, amsgrad=False, maximize=False)
+        return row(
+            "adamw_update",
+            lambda: fa.adamw_update(p, g, m, v, inplace=True, **kw),
+            lambda: fa.adamw_update_plain(p, g, m, v, **kw), library,
+            16 * nl + 12 * nl, 15 * nl, f"f32 in place {shape}")
 
-    # K7/K8 at one layer of phase 4: (1, 4096, 15, 64) causal, bf16 on
-    # the tensor cores (the main path) and f32 on the CUDA cores.
-    b, s_, h, dh = ATTN_SHAPE
-    elems = b * s_ * h * dh
-    causal_pairs = b * h * s_ * s_ / 2
-    q, k, v, do = (torch.randn(ATTN_SHAPE, generator=gen, device=cuda)
-                   .to(torch.bfloat16) for _ in range(4))
+    smol = adamw_row(LEAF_SHAPE)
+    torch.cuda.empty_cache()
+    big = adamw_row(GEMMA_LEAF)
+    torch.cuda.empty_cache()
+    rows["adamw_update"] = {**smol, "variants": {"smollm leaf": smol,
+                                                 "gemma leaf": big}}
+
+    # K6 at phase 4's and phase 6's activations: (B*S, d) bf16.
+    norm_rows = {}
+    for d in (D_MODEL, GEMMA_D):
+        xr = torch.randn((LONG_SEQ, d), generator=gen,
+                         device=cuda).to(torch.bfloat16)
+        sc = torch.randn(d, generator=gen, device=cuda) * 0.1
+        w = (1.0 + sc).to(torch.bfloat16)
+        norm_rows[f"bf16 d{d}"] = row(
+            "fused_rmsnorm", lambda: frn.fused_rmsnorm(xr, sc),
+            lambda: frn.rmsnorm_plain(xr, sc),
+            lambda: F.rms_norm(xr, (d,), w, 1e-6),
+            LONG_SEQ * d * 4 + 4 * d + 4 * LONG_SEQ,
+            4 * LONG_SEQ * d, f"bf16 ({LONG_SEQ}, {d})")
+    rows["fused_rmsnorm"] = {**norm_rows[f"bf16 d{D_MODEL}"],
+                             "variants": norm_rows}
+    del xr, sc, w
+
+    # K7/K8 at one layer of phase 4, (1, 4096, 15, 64), and of phase 6,
+    # (1, 4096, 16, 256), causal: bf16 on the tensor cores (the main
+    # path) and f32 on the CUDA cores.  The rows' own numbers are phase
+    # 4's bf16; every case is a variant ("bf16" and "f32" at dh 64,
+    # "bf16 dh256" and "f32 dh256").
     fwd_rows, bwd_rows = {}, {}
-    for name, dtype, size in (("bf16", torch.bfloat16, 2),
-                              ("f32", torch.float32, 4)):
-        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
-        out, lse = fla.flash_attention_fwd(q, k, v)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        unit = "tensor cores" if name == "bf16" else "CUDA cores"
-        fwd_rows[name] = row(
-            f"flash_attention_fwd[{name}]",
-            lambda: fla.flash_attention_fwd(q, k, v),
-            lambda: fla.flash_fwd_plain(q, k, v, chunk=1024),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True),
-            4 * elems * size + 4 * b * h * s_, 4 * causal_pairs * dh,
-            f"causal {ATTN_SHAPE}, {unit}", tensor_cores=name == "bf16")
-        bwd_rows[name] = row(
-            f"flash_attention_bwd[{name}]",
-            lambda: fla.flash_attention_bwd(q, k, v, out, lse, do),
-            lambda: fla.flash_bwd_plain(q, k, v, out, lse, do, chunk=1024),
-            lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                        retain_graph=True),
-            8 * elems * size + 4 * b * h * s_, 8 * causal_pairs * dh,
-            f"causal {ATTN_SHAPE} (delta + dq pass + dk/dv pass), {unit}",
-            tensor_cores=name == "bf16")
+    for shape, tag in ((ATTN_SHAPE, ""), (GEMMA_ATTN, " dh256")):
+        b, s_, h, dh = shape
+        elems = b * s_ * h * dh
+        causal_pairs = b * h * s_ * s_ / 2
+        q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
+                       .to(torch.bfloat16) for _ in range(4))
+        for name, dtype, size in (("bf16", torch.bfloat16, 2),
+                                  ("f32", torch.float32, 4)):
+            q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+            out, lse = fla.flash_attention_fwd(q, k, v)
+            qt, kt, vt = (t.transpose(1, 2).contiguous()
+                          .requires_grad_(True) for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+            unit = "tensor cores" if name == "bf16" else "CUDA cores"
+            fwd_rows[name + tag] = row(
+                f"flash_attention_fwd[{name}]",
+                lambda: fla.flash_attention_fwd(q, k, v),
+                lambda: fla.flash_fwd_plain(q, k, v, chunk=1024),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                4 * elems * size + 4 * b * h * s_, 4 * causal_pairs * dh,
+                f"causal {shape}, {unit}", tensor_cores=name == "bf16")
+            bwd_rows[name + tag] = row(
+                f"flash_attention_bwd[{name}]",
+                lambda: fla.flash_attention_bwd(q, k, v, out, lse, do),
+                lambda: fla.flash_bwd_plain(q, k, v, out, lse, do,
+                                            chunk=1024),
+                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                            retain_graph=True),
+                8 * elems * size + 4 * b * h * s_, 8 * causal_pairs * dh,
+                f"causal {shape} (delta + dq pass + dk/dv pass), {unit}",
+                tensor_cores=name == "bf16")
+        del q, k, v, do, out, lse, qt, kt, vt, dot, lib_out
+        torch.cuda.empty_cache()
     rows["flash_attention_fwd"] = {**fwd_rows["bf16"], "variants": fwd_rows}
     rows["flash_attention_bwd"] = {**bwd_rows["bf16"], "variants": bwd_rows}
-    del q, k, v, do, out, lse, qt, kt, vt, dot, lib_out
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -927,7 +1035,26 @@ def _step_breakdown(trainer, module, device, step, rank, world):
     return {"fwd_bwd_s": t_fb, "aggregate_s": t_agg, "optimizer_s": t_opt}
 
 
-def train_rank(rank, world, args, small_args):
+def _card_in_use_gib(world):
+    """GiB the whole card holds now, read by each rank while every rank
+    still holds its state: each process's context, its allocator's
+    reserved blocks (workspaces included) and the parent's, plus the
+    blocks this rank's allocator held at its peak and has given back
+    since (none unless an allocation was retried).  Returns the card's
+    figure and this rank's given-back blocks, apart."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    if world > 1:
+        dist.barrier()
+    free, total = torch.cuda.mem_get_info()
+    released = torch.cuda.max_memory_reserved() - torch.cuda.memory_reserved()
+    if world > 1:
+        dist.barrier()
+    return (total - free) / 2 ** 30, released / 2 ** 30
+
+
+def train_rank(rank, world, args, small_args, spec=None, small_spec=None):
     import torch
     from repro_torch import tree
     from repro_torch.core import Group
@@ -937,7 +1064,7 @@ def train_rank(rank, world, args, small_args):
     if args.device == "cuda":
         torch.cuda.set_device(0)
     group = Group()
-    trainer = build_trainer(args, group=group, verbose=False)
+    trainer = build_trainer(args, group=group, verbose=False, spec=spec)
     module, opt_state = trainer.init_state(args.seed)
     n_params = sum(p.numel() for p in module.parameters())
     steps = []
@@ -955,10 +1082,15 @@ def train_rank(rank, world, args, small_args):
     scalar = _scalar_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if args.device == "cuda" else 0.0
+    reserved_gib = torch.cuda.max_memory_reserved() / 2 ** 30 \
+        if args.device == "cuda" else 0.0
+    card_gib, released_gib = _card_in_use_gib(world) \
+        if args.device == "cuda" else (0.0, 0.0)
     checksum = _checksum(module.tree())
+    del opt_state             # the breakdown makes its own optimizer state
     breakdown = _step_breakdown(trainer, module, args.device, args.steps,
                                 rank, world)
-    del module, opt_state, trainer
+    del module, trainer
 
     # Small reference check: the same step on the card and on the host's
     # plain versions, from one initialisation, must agree.
@@ -967,7 +1099,7 @@ def train_rank(rank, world, args, small_args):
     for device in ("cpu", args.device):
         small = build_trainer(argparse.Namespace(**{**vars(small_args),
                                                     "device": device}),
-                              group=group, verbose=False)
+                              group=group, verbose=False, spec=small_spec)
         if init is None:
             init = small.init_state(small_args.seed)[0].tree()
         mod = TransformerLM(small.model.spec, tree.tree_map(
@@ -981,28 +1113,34 @@ def train_rank(rank, world, args, small_args):
     return {"rank": rank, "n_params": n_params, "steps": steps,
             "breakdown": breakdown,
             "totals": totals, "scalar": scalar, "checksum": checksum,
-            "peak_gib": peak_gib,
+            "peak_gib": peak_gib, "reserved_gib": reserved_gib,
+            "card_gib": card_gib, "released_gib": released_gib,
             "small_losses": losses, "small_param_diff": param_diff}
 
 
-def run_phase(world, args, small, required):
-    """Train ``args`` on ``world`` gloo ranks sharing the card, print
-    each step, and require finite losses, one parameter checksum on
-    every rank, launches of every ``required`` kernel, and the small
-    model's card-vs-host agreement.  Returns each rank's record."""
+def run_phase(world, args, small, required, spec=None, small_spec=None):
+    """Train ``args`` (or ``spec``, when given) on ``world`` gloo ranks
+    sharing the card, print each step, and require finite losses, one
+    parameter checksum on every rank, launches of every ``required``
+    kernel, and the small model's (``small``, or ``small_spec``)
+    card-vs-host agreement.  Returns each rank's record."""
     from repro_torch.core.dist import run_ranks
     log(f"  transport: gloo, {world} ranks on one card, CUDA payloads "
         f"staged through host memory explicitly in ppermute; batch "
         f"{args.batch // world} per rank, seq {args.seq}, {args.steps} steps")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
-        results = run_ranks(train_rank, world, (args, small),
+        results = run_ranks(train_rank, world,
+                            (args, small, spec, small_spec),
                             backend="gloo", rendezvous_dir=rdv,
                             threads=max(1, (os.cpu_count() or 1) // world),
                             timeout_s=900)
     log(f"  {world} ranks done in {time.perf_counter() - t0:.1f} s; "
-        f"{results[0]['n_params']} parameters per replica; peak GiB per "
-        f"rank {[round(r['peak_gib'], 2) for r in results]}")
+        f"{results[0]['n_params']} parameters per replica; GiB per rank "
+        f"allocated at peak {[round(r['peak_gib'], 2) for r in results]}, "
+        f"reserved at peak {[round(r['reserved_gib'], 2) for r in results]}"
+        f"; the card in use at the main path's end "
+        f"{max(r['card_gib'] for r in results):.2f} GiB")
     for s, rec in enumerate(results[0]["steps"]):
         log(f"  step {s + 1}: loss {rec['loss']:.5f} grad_norm "
             f"{rec['grad_norm']:.5f} step_s {rec['step_s']:.3f} buckets "
@@ -1179,6 +1317,68 @@ def run_cnn_phase():
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: gemma-7b at full width, long context (K7/K8 at head_dim 256)
+# ---------------------------------------------------------------------------
+
+def run_gemma_phase(rows):
+    """Train full-width gemma-7b, depth cut to ``GEMMA_LAYERS``, at seq
+    4096 on 2 ranks through ``run_phase``; require K7 and K8 once per
+    layer per step and the ranks' peaks within 90% of the card's memory;
+    then the float32 gemma at head_dim 256 on the card and on the host.
+    Returns each rank's record."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_spec
+    full = get_spec("gemma-7b")
+    spec = dataclasses.replace(full, num_layers=GEMMA_LAYERS)
+    small_spec = dataclasses.replace(full.reduced(), head_dim=256,
+                                     dtype="float32")
+    log(f"  gemma-7b at full width: d_model {spec.d_model}, "
+        f"{spec.num_heads}/{spec.num_kv_heads} heads of "
+        f"{spec.resolved_head_dim}, d_ff {spec.d_ff}, vocab "
+        f"{spec.vocab_size}, {spec.mlp_type}, tied and scaled embeddings; "
+        f"depth cut to {spec.num_layers} of {full.num_layers} layers; the "
+        f"small check: {small_spec.num_layers} layers, d_model "
+        f"{small_spec.d_model}, head_dim {small_spec.resolved_head_dim}, "
+        f"float32")
+    args = train_args(arch="gemma-7b", full=True, batch=GEMMA_WORLD,
+                      seq=LONG_SEQ, steps=GEMMA_STEPS, device="cuda")
+    small = train_args(arch="gemma-7b", full=False, batch=2 * GEMMA_WORLD,
+                       seq=128, steps=2, dtype="float32")
+    results = run_phase(GEMMA_WORLD, args, small,
+                        tuple(k for k in KERNELS if k != "fused_reduce"),
+                        spec=spec, small_spec=small_spec)
+    for r in results:
+        for s_, rec in enumerate(r["steps"]):
+            for k in ("flash_attention_fwd", "flash_attention_bwd"):
+                require(rec["launches"][k] == GEMMA_LAYERS,
+                        f"rank {r['rank']} step {s_ + 1}: {k} launched "
+                        f"{rec['launches'][k]} times, not once per layer")
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    peaks = [r["peak_gib"] for r in results]
+    # What the card holds, not what the ranks' tensors take: the card's
+    # own reading at the end of the main path plus any blocks a rank's
+    # allocator gave back before it.
+    held = max(r["card_gib"] for r in results) + sum(
+        r["released_gib"] for r in results)
+    log(f"  GiB allocated at peak per rank {[round(p, 2) for p in peaks]} "
+        f"({sum(peaks):.2f}, {sum(peaks) / total:.1%} of the card); the "
+        f"card in use at its peak {held:.2f} of {total:.2f} GiB "
+        f"({held / total:.1%})")
+    require(held <= 0.9 * total,
+            f"phase 6 holds {held:.2f} GiB of the card, more than 90% of "
+            f"its {total:.2f}: cut GEMMA_LAYERS")
+    fb = min(r["breakdown"]["fwd_bwd_s"] for r in results)
+    attn_s = GEMMA_LAYERS * (
+        rows["flash_attention_fwd"]["variants"]["bf16 dh256"]["ms"]
+        + rows["flash_attention_bwd"]["variants"]["bf16 dh256"]["ms"]) / 1e3
+    log(f"  attention kernels (K7+K8 at phase 2's dh-256 times x "
+        f"{GEMMA_LAYERS} layers) {attn_s:.4f} s of the {fb:.3f} s "
+        f"forward+backward of one rank alone: {attn_s / fb:.1%}")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1214,6 +1414,7 @@ def main():
     check_rmsnorm(gen)
     check_flash(gen)
     rows = measure(gen)
+    torch.cuda.empty_cache()     # the ranks of phases 3-6 share the card
 
     log("phase 3: train full-width smollm-360m, seq 512")
     args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
@@ -1248,11 +1449,15 @@ def main():
         f"at {CNN_IMAGE}x{CNN_IMAGE}")
     phase5 = run_cnn_phase()
 
+    log(f"phase 6: long context, full-width gemma-7b at seq {LONG_SEQ}")
+    phase6 = run_gemma_phase(rows)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
                 "phase5": sum(run[field][k] for r in phase5
-                              for run in r["runs"])}
+                              for run in r["runs"]),
+                "phase6": sum(r[field][k] for r in phase6)}
 
     def scalar(k):
         if k not in SCALAR:

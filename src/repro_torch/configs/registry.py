@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Only the specs whose family is ported are listed; the others join with
-their families (ROADMAP.md, Queue 1).
+The dense family is ported whole: smollm-360m, granite-3-2b,
+deepseek-7b and gemma-7b (head_dim 256, GeGLU, scaled tied embeddings).
+The other families' specs join with their families (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ from ..models.common import ModelSpec
 
 ARCHS = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
 }
 
 

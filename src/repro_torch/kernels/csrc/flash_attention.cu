@@ -37,18 +37,26 @@
 // FlashAttention-2/3 do), and the shared-memory operand read N-major
 // through the descriptor's transpose bit. m, l, the softmax (in base 2)
 // and the outputs stay f32. TMA writes each tile in the swizzle that the
-// wgmma descriptors name: 128-byte rows at D = 64 (two boxes of 64 columns
-// at D = 128), 64-byte at D = 32, 32-byte at D = 16. The tensor maps'
-// outer extent is S per (batch, head), so rows past S arrive as zeros. The
-// wrapper checks that every pointer is 16-byte aligned (TMA's rule; the
-// row stride H*D*2 always is).
+// wgmma descriptors name: 128-byte rows at D = 64 (two or four boxes of
+// 64 columns at D = 128 or 256), 64-byte at D = 32, 32-byte at D = 16.
+// The tensor maps' outer extent is S per (batch, head), so rows past S
+// arrive as zeros. The wrapper checks that every pointer is 16-byte
+// aligned (TMA's rule; the row stride H*D*2 always is).
+//
+// At D = 256 (gemma-7b) the forward keeps this design (64 KiB of Q and a
+// 128 KiB ring: 193 KiB of the 227 KiB a block may have).  The backward
+// would need 256 KiB and, in the dk/dv pass, 256 f32 accumulators a
+// thread; there its streamed tiles are 32 rows and a dk/dv block owns 64
+// keys, dV in one consumer warpgroup and dK in the other (Bwd<D> and
+// flash_dkv_split_tc below).  P and dS round to bf16 as at other widths.
 //
 // float32 stays on the CUDA cores: the tensor cores would take it only as
 // TF32 (about 3 digits), which the f32 tolerances refuse.  Its kernels
-// use 64x64 f32 tiles in shared memory, 256 threads each owning 4 rows
-// and every 16th column of a tile, built with -fmad=false like every
-// kernel here.  The C entry points send bfloat16 to the tensor-core
-// kernels and float32 to these; neither falls back to the other.
+// use R x R f32 tiles in shared memory (R = 64; 32 in the backward at
+// D = 256), 256 threads each owning R/16 rows and every 16th column of a
+// tile, built with -fmad=false like every kernel here.  The C entry
+// points send bfloat16 to the tensor-core kernels and float32 to these;
+// neither falls back to the other.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes via dlsym
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,10 +66,17 @@
 namespace {
 
 
-constexpr int kB = 64;          // rows of a query tile and of a key tile
+constexpr int kB = 64;          // rows of an f32 forward tile (queries, keys)
 constexpr int kThreads = 256;   // 16 x 16: ty owns rows, tx columns
-constexpr int kPitchP = kB + 1; // pitch of a score tile in shared memory
 constexpr float kNegInf = -1e30f;
+
+// Rows of an f32 backward tile at head_dim D: 64 up to 128; at 256 four
+// (64, 257) f32 tiles alone take 263 KB of the 227 KB a block may have,
+// so the backward tiles by 32 rows (136 KB for dq, 140 KB for dk/dv).
+template <int D>
+constexpr int f32_bwd_rows() {
+  return D > 128 ? 32 : 64;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
@@ -80,39 +95,39 @@ __device__ __forceinline__ bool visible(int q, int k, int S, int causal,
   return true;
 }
 
-// Key tiles (kB rows) [lo, hi) that can hold a key visible to a query
-// in [q_first, q_first + n); empty when no such query lies below S.
-__device__ __forceinline__ void keys_for(int q_first, int n, int S,
+// Key tiles (`tile` rows each) [lo, hi) that can hold a key visible to a
+// query in [q_first, q_first + n); empty when no such query lies below S.
+__device__ __forceinline__ void keys_for(int q_first, int n, int tile, int S,
                                          int causal, int window, int* lo,
                                          int* hi) {
   *lo = *hi = 0;
   if (q_first >= S) return;
-  const int nt = (S + kB - 1) / kB;
+  const int nt = (S + tile - 1) / tile;
   const int q_last = min(q_first + n - 1, S - 1);
-  *hi = causal ? min(nt, q_last / kB + 1) : nt;
-  *lo = window > 0 ? max(0, (q_first - window + 1) / kB) : 0;
+  *hi = causal ? min(nt, q_last / tile + 1) : nt;
+  *lo = window > 0 ? max(0, (q_first - window + 1) / tile) : 0;
 }
 
-// Query tiles (kB rows) [lo, hi) that can see a key in
+// Query tiles (`tile` rows each) [lo, hi) that can see a key in
 // [k_first, k_first + n); empty when no such key lies below S.
-__device__ __forceinline__ void queries_for(int k_first, int n, int S,
-                                            int causal, int window, int* lo,
-                                            int* hi) {
+__device__ __forceinline__ void queries_for(int k_first, int n, int tile,
+                                            int S, int causal, int window,
+                                            int* lo, int* hi) {
   *lo = *hi = 0;
   if (k_first >= S) return;
-  const int nt = (S + kB - 1) / kB;
+  const int nt = (S + tile - 1) / tile;
   const int k_last = min(k_first + n - 1, S - 1);
-  *lo = causal ? k_first / kB : 0;
-  *hi = window > 0 ? min(nt, (k_last + window - 1) / kB + 1) : nt;
+  *lo = causal ? k_first / tile : 0;
+  *hi = window > 0 ? min(nt, (k_last + window - 1) / tile + 1) : nt;
 }
 
-// Rows [r0, r0 + kB) of head (b, h) into a (kB, D + 1) f32 tile; rows at
+// Rows [r0, r0 + R) of head (b, h) into an (R, D + 1) f32 tile; rows at
 // or past S read as zero.
-template <typename T, int D>
+template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long base, int r0, int S,
                                           int row_stride) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int s = r0 + r;
     dst[r * (D + 1) + c] =
@@ -121,9 +136,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
+template <int R>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long base, int r0, int S) {
-  for (int i = threadIdx.x; i < kB; i += kThreads)
+  for (int i = threadIdx.x; i < R; i += kThreads)
     dst[i] = r0 + i < S ? src[base + r0 + i] : 0.0f;
 }
 
@@ -139,72 +155,79 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// The f32 kernels tile by R rows (queries and keys alike): thread (ty, tx)
+// owns rows ty*RI .. ty*RI + RI-1 of a tile (RI = R/16) and, of an (R, R)
+// score tile, columns tx + 16 j (j < RI); of a (R, D) output, columns
+// tx + 16 c (c < D/16).
+
 // ---------------------------------------------------------------------------
 // K7: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int S, int H, float scale,
                      int causal, int window) {
   constexpr int P = D + 1;
+  constexpr int PP = R + 1;  // pitch of a score tile in shared memory
   constexpr int CD = D / 16;
+  constexpr int RI = R / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kB * P;
-  float* Vs = Ks + kB * P;
-  float* Ps = Vs + kB * P;  // (kB, kPitchP)
+  float* Ks = Qs + R * P;
+  float* Vs = Ks + R * P;
+  float* Ps = Vs + R * P;  // (R, PP)
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int row_stride = H * D;
   const long long base = (static_cast<long long>(b) * S * H + h) * D;
-  const int q0 = qt * kB;
+  const int q0 = qt * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, D>(Qs, q, base, q0, S, row_stride);
-  float m[4], l[4], acc[4][CD];
+  load_tile<T, D, R>(Qs, q, base, q0, S, row_stride);
+  float m[RI], l[RI], acc[RI][CD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.0f;
   }
   int lo, hi;
-  keys_for(qt * kB, kB, S, causal, window, &lo, &hi);
+  keys_for(q0, R, R, S, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kB;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D>(Ks, k, base, k0, S, row_stride);
-    load_tile<T, D>(Vs, v, base, k0, S, row_stride);
+    load_tile<T, D, R>(Ks, k, base, k0, S, row_stride);
+    load_tile<T, D, R>(Vs, v, base, k0, S, row_stride);
     __syncthreads();
-    float s[4][4];
+    float s[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int j = 0; j < RI; ++j) s[i][j] = 0.0f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
+      float a[RI], bk[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * P + d];
+      for (int i = 0; i < RI; ++i) a[i] = Qs[(ty * RI + i) * P + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * P + d];
+      for (int j = 0; j < RI; ++j) bk[j] = Ks[(tx + 16 * j) * P + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * bk[j];
+        for (int j = 0; j < RI; ++j) s[i][j] += a[i] * bk[j];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty * RI + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float x =
             visible(qi, k0 + tx + 16 * j, S, causal, window) ? s[i][j] * scale
                                                              : kNegInf;
@@ -214,9 +237,9 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float p = expf(s[i][j] - m_new);
-        Ps[(ty * 4 + i) * kPitchP + tx + 16 * j] = p;
+        Ps[(ty * RI + i) * PP + tx + 16 * j] = p;
         sum += p;
       }
       const float corr = expf(m[i] - m_new);
@@ -227,21 +250,21 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < kB; ++kk) {
-      float p[4], vv[CD];
+    for (int kk = 0; kk < R; ++kk) {
+      float p[RI], vv[CD];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * kPitchP + kk];
+      for (int i = 0; i < RI; ++i) p[i] = Ps[(ty * RI + i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < CD; ++c) vv[c] = Vs[kk * P + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < CD; ++c) acc[i][c] += p[i] * vv[c];
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty * RI + i;
     if (qi >= S) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
     const long long o = base + static_cast<long long>(qi) * row_stride;
@@ -257,7 +280,7 @@ __global__ void __launch_bounds__(kThreads)
 // K8, pass 1: dq, one block per query tile
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -265,15 +288,17 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int S, int H, float scale, int causal, int window) {
   constexpr int P = D + 1;
+  constexpr int PP = R + 1;
   constexpr int CD = D / 16;
+  constexpr int RI = R / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kB * P;
-  float* Ks = dOs + kB * P;
-  float* Vs = Ks + kB * P;
-  float* dSs = Vs + kB * P;        // (kB, kPitchP)
-  float* lse_s = dSs + kB * kPitchP;
-  float* delta_s = lse_s + kB;
+  float* dOs = Qs + R * P;
+  float* Ks = dOs + R * P;
+  float* Vs = Ks + R * P;
+  float* dSs = Vs + R * P;        // (R, PP)
+  float* lse_s = dSs + R * PP;
+  float* delta_s = lse_s + R;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -281,82 +306,82 @@ __global__ void __launch_bounds__(kThreads)
   const int row_stride = H * D;
   const long long base = (static_cast<long long>(b) * S * H + h) * D;
   const long long row_base = static_cast<long long>(bh) * S;
-  const int q0 = qt * kB;
+  const int q0 = qt * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, D>(Qs, q, base, q0, S, row_stride);
-  load_tile<T, D>(dOs, dout, base, q0, S, row_stride);
-  load_rows(lse_s, lse, row_base, q0, S);
-  load_rows(delta_s, delta, row_base, q0, S);
-  float acc[4][CD];
+  load_tile<T, D, R>(Qs, q, base, q0, S, row_stride);
+  load_tile<T, D, R>(dOs, dout, base, q0, S, row_stride);
+  load_rows<R>(lse_s, lse, row_base, q0, S);
+  load_rows<R>(delta_s, delta, row_base, q0, S);
+  float acc[RI][CD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.0f;
   int lo, hi;
-  keys_for(qt * kB, kB, S, causal, window, &lo, &hi);
+  keys_for(q0, R, R, S, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kB;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D>(Ks, k, base, k0, S, row_stride);
-    load_tile<T, D>(Vs, v, base, k0, S, row_stride);
+    load_tile<T, D, R>(Ks, k, base, k0, S, row_stride);
+    load_tile<T, D, R>(Vs, v, base, k0, S, row_stride);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.0f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], bk[4], bv[4];
+      float a[RI], g[RI], bk[RI], bv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty * 4 + i) * P + d];
-        g[i] = dOs[(ty * 4 + i) * P + d];
+      for (int i = 0; i < RI; ++i) {
+        a[i] = Qs[(ty * RI + i) * P + d];
+        g[i] = dOs[(ty * RI + i) * P + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         bk[j] = Ks[(tx + 16 * j) * P + d];
         bv[j] = Vs[(tx + 16 * j) * P + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] += a[i] * bk[j];
           dp[i][j] += g[i] * bv[j];
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty * RI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const float x =
             visible(q0 + r, k0 + c, S, causal, window) ? s[i][j] * scale
                                                        : kNegInf;
         const float p = expf(x - lse_s[r]);
-        dSs[r * kPitchP + c] = (p * (dp[i][j] - delta_s[r])) * scale;
+        dSs[r * PP + c] = (p * (dp[i][j] - delta_s[r])) * scale;
       }
     }
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < kB; ++kk) {
-      float ds[4], kv[CD];
+    for (int kk = 0; kk < R; ++kk) {
+      float ds[RI], kv[CD];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * kPitchP + kk];
+      for (int i = 0; i < RI; ++i) ds[i] = dSs[(ty * RI + i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < CD; ++c) kv[c] = Ks[kk * P + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < CD; ++c) acc[i][c] += ds[i] * kv[c];
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty * RI + i;
     if (qi >= S) continue;
     const long long o = base + static_cast<long long>(qi) * row_stride;
 #pragma unroll
@@ -368,7 +393,7 @@ __global__ void __launch_bounds__(kThreads)
 // K8, pass 2: dk and dv, one block per key tile
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -377,16 +402,18 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, int S, int H, float scale,
                          int causal, int window) {
   constexpr int P = D + 1;
+  constexpr int PP = R + 1;
   constexpr int CD = D / 16;
+  constexpr int RI = R / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kB * P;
-  float* Qs = Vs + kB * P;
-  float* dOs = Qs + kB * P;
-  float* Pt = dOs + kB * P;        // (kB keys, kPitchP) = P transposed
-  float* dSt = Pt + kB * kPitchP;  // dS transposed
-  float* lse_s = dSt + kB * kPitchP;
-  float* delta_s = lse_s + kB;
+  float* Vs = Ks + R * P;
+  float* Qs = Vs + R * P;
+  float* dOs = Qs + R * P;
+  float* Pt = dOs + R * P;        // (R keys, PP) = P transposed
+  float* dSt = Pt + R * PP;       // dS transposed
+  float* lse_s = dSt + R * PP;
+  float* delta_s = lse_s + R;
 
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -394,76 +421,76 @@ __global__ void __launch_bounds__(kThreads)
   const int row_stride = H * D;
   const long long base = (static_cast<long long>(b) * S * H + h) * D;
   const long long row_base = static_cast<long long>(bh) * S;
-  const int k0 = kt * kB;
+  const int k0 = kt * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, D>(Ks, k, base, k0, S, row_stride);
-  load_tile<T, D>(Vs, v, base, k0, S, row_stride);
-  float dk_acc[4][CD], dv_acc[4][CD];
+  load_tile<T, D, R>(Ks, k, base, k0, S, row_stride);
+  load_tile<T, D, R>(Vs, v, base, k0, S, row_stride);
+  float dk_acc[RI][CD], dv_acc[RI][CD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < CD; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
   int lo, hi;
-  queries_for(kt * kB, kB, S, causal, window, &lo, &hi);
+  queries_for(k0, R, R, S, causal, window, &lo, &hi);
   for (int qt = lo; qt < hi; ++qt) {
-    const int q0 = qt * kB;
+    const int q0 = qt * R;
     __syncthreads();
-    load_tile<T, D>(Qs, q, base, q0, S, row_stride);
-    load_tile<T, D>(dOs, dout, base, q0, S, row_stride);
-    load_rows(lse_s, lse, row_base, q0, S);
-    load_rows(delta_s, delta, row_base, q0, S);
+    load_tile<T, D, R>(Qs, q, base, q0, S, row_stride);
+    load_tile<T, D, R>(dOs, dout, base, q0, S, row_stride);
+    load_rows<R>(lse_s, lse, row_base, q0, S);
+    load_rows<R>(delta_s, delta, row_base, q0, S);
     __syncthreads();
-    // s[i][j]: key ty*4+i against query tx+16j (the forward's products
+    // s[i][j]: key ty*RI+i against query tx+16j (the forward's products
     // in the forward's order, so p is the forward's p).
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.0f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], bk[4], bv[4];
+      float a[RI], g[RI], bk[RI], bv[RI];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         a[j] = Qs[(tx + 16 * j) * P + d];
         g[j] = dOs[(tx + 16 * j) * P + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        bk[i] = Ks[(ty * 4 + i) * P + d];
-        bv[i] = Vs[(ty * 4 + i) * P + d];
+      for (int i = 0; i < RI; ++i) {
+        bk[i] = Ks[(ty * RI + i) * P + d];
+        bv[i] = Vs[(ty * RI + i) * P + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] += a[j] * bk[i];
           dp[i][j] += g[j] * bv[i];
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty * RI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const float x =
             visible(q0 + c, k0 + r, S, causal, window) ? s[i][j] * scale
                                                        : kNegInf;
         const float p = expf(x - lse_s[c]);
-        Pt[r * kPitchP + c] = p;
-        dSt[r * kPitchP + c] = (p * (dp[i][j] - delta_s[c])) * scale;
+        Pt[r * PP + c] = p;
+        dSt[r * PP + c] = (p * (dp[i][j] - delta_s[c])) * scale;
       }
     }
     __syncthreads();
 #pragma unroll 4
-    for (int qq = 0; qq < kB; ++qq) {
-      float p[4], ds[4], gv[CD], qv[CD];
+    for (int qq = 0; qq < R; ++qq) {
+      float p[RI], ds[RI], gv[CD], qv[CD];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Pt[(ty * 4 + i) * kPitchP + qq];
-        ds[i] = dSt[(ty * 4 + i) * kPitchP + qq];
+      for (int i = 0; i < RI; ++i) {
+        p[i] = Pt[(ty * RI + i) * PP + qq];
+        ds[i] = dSt[(ty * RI + i) * PP + qq];
       }
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
@@ -471,7 +498,7 @@ __global__ void __launch_bounds__(kThreads)
         qv[c] = Qs[qq * P + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < CD; ++c) {
           dv_acc[i][c] += p[i] * gv[c];
@@ -480,8 +507,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ki = k0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int ki = k0 + ty * RI + i;
     if (ki >= S) continue;
     const long long o = base + static_cast<long long>(ki) * row_stride;
 #pragma unroll
@@ -496,7 +523,7 @@ __global__ void __launch_bounds__(kThreads)
 // bfloat16 on the tensor cores: wgmma, TMA and mbarriers (sm_90a)
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = kB;     // rows of a streamed tile and of a warpgroup
+constexpr int kTile = 64;     // rows of a warpgroup, and of a streamed tile
 constexpr int kOwn = 128;     // rows a block owns: two consumer warpgroups
 constexpr int kStages = 2;    // depth of the shared-memory ring
 constexpr int kConsumers = 256;
@@ -510,6 +537,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // A wait that outlasts this many cycles (~9 s at 1.98 GHz) traps: a lost
 // copy then fails the launch instead of hanging the card.
 constexpr long long kWaitLimit = 1ll << 34;
+constexpr uint32_t kSmemLimit = 232448;  // opt-in shared memory of a block
 
 // A row of D bf16 is cut into NB boxes of CW columns; each box is one
 // swizzle atom wide (ROWB bytes), and a tile of R rows keeps its boxes
@@ -525,17 +553,43 @@ struct Geo {
   static constexpr int KSTEPS = D / 16;
 };
 
-// Shared memory: NOWN own tiles of kOwn rows, then kStages stages of two
-// streamed tiles of kTile rows, then the mbarriers (own, full[], empty[]).
+// Shared memory: NOWN own tiles of OWN rows, then kStages stages of two
+// streamed tiles of TN rows, then the mbarriers (own, full[], empty[]).
 // Every tile starts on a 1024-byte boundary (the 128-byte swizzle's
 // period), so TMA and wgmma agree on the swizzle.
-template <int D, int NOWN>
+template <int D, int NOWN, int OWN, int TN>
 struct Smem {
-  static constexpr uint32_t own = kOwn * D * 2;
-  static constexpr uint32_t tile = kTile * D * 2;
+  static constexpr uint32_t own = OWN * D * 2;
+  static constexpr uint32_t tile = TN * D * 2;
   static constexpr uint32_t stream = NOWN * own;
   static constexpr uint32_t bars = stream + kStages * 2 * tile;
   static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// The bf16 backward's tiling at head_dim D.  Up to 128 a block owns 128
+// rows (two consumer warpgroups of 64) and streams the other side in
+// 64-row tiles.  At 256 that needs 2 x 64 KiB of own tiles plus a
+// 128 KiB ring, past the 227 KiB a block may have, and the dk/dv pass
+// would hold dK and dV in 2 x 128 f32 registers a thread, past the 255
+// cap.  So at 256 the other side streams in 32-row tiles (wgmma N = 32;
+// the ring drops to 64 KiB) and a dk/dv block owns 64 keys, whose dV one
+// consumer warpgroup accumulates and dK the other
+// (flash_dkv_split_tc).
+template <int D>
+struct Bwd {
+  static constexpr bool kSplit = D > 128;
+  static constexpr int TN = kSplit ? 32 : kTile;       // streamed rows
+  static constexpr int OWN_KV = kSplit ? kTile : kOwn;  // dk/dv block keys
+};
+
+template <int D>
+struct TcSmem {
+  static constexpr uint32_t fwd = Smem<D, 1, kOwn, kTile>::bytes;
+  static constexpr uint32_t dq = Smem<D, 2, kOwn, Bwd<D>::TN>::bytes;
+  static constexpr uint32_t dkv =
+      Smem<D, 2, Bwd<D>::OWN_KV, Bwd<D>::TN>::bytes;
+  static_assert(fwd <= kSmemLimit && dq <= kSmemLimit && dkv <= kSmemLimit,
+                "a tensor-core kernel's tiles exceed the shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -636,9 +690,25 @@ __device__ __forceinline__ uint64_t desc_n(uint32_t tile, int rows, int ks,
                    G::SWZ);
 }
 
-// D (64x64, f32) (+)= A (64x16, smem) * B (16x64, smem, K-major).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
+// D (64xN, f32) (+)= A (64x16, smem) * B (16xN, smem, K-major); N is 64
+// (32 accumulators a thread) or 32 (16).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -722,13 +792,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 8kk+7 of a 64-column accumulator, packed in pairs, are exactly the A
 // fragment of reduction step kk of the next product.
 
-// Whether every (query, key) pair of two kTile-row tiles is visible, so
-// the tile needs no mask.
-__device__ __forceinline__ bool all_visible(int q0, int k0, int S,
-                                            int causal, int window) {
-  return q0 + kTile <= S && k0 + kTile <= S &&
-         (!causal || k0 + kTile - 1 <= q0) &&
-         (window <= 0 || q0 + kTile - 1 - k0 < window);
+// Whether every (query, key) pair of queries [q0, q0 + nq) and keys
+// [k0, k0 + nk) is visible, so the tile needs no mask.
+__device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk,
+                                            int S, int causal, int window) {
+  return q0 + nq <= S && k0 + nk <= S &&
+         (!causal || k0 + nk - 1 <= q0) &&
+         (window <= 0 || q0 + nq - 1 - k0 < window);
 }
 
 // Barriers, then the roles split for good: the producer warp returns when
@@ -751,10 +821,10 @@ __device__ __forceinline__ uint32_t setup(unsigned char* raw,
   return bars;
 }
 
-// The producer (one thread): the block's own tiles (own0, and own1 when
-// NOWN is 2) from row `own_row`, then tiles lo..hi-1 of the streamed pair
-// (str0, str1) through the ring.
-template <int D, int NOWN>
+// The producer (one thread): the block's own tiles of OWN rows (own0,
+// and own1 when NOWN is 2) from row `own_row`, then TN-row tiles lo..hi-1
+// of the streamed pair (str0, str1) through the ring.
+template <int D, int NOWN, int OWN, int TN>
 __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
                                         const CUtensorMap* own0,
                                         const CUtensorMap* own1,
@@ -762,13 +832,13 @@ __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
                                         const CUtensorMap* str1, int h, int b,
                                         int own_row, int lo, int hi) {
   using G = Geo<D>;
-  using L = Smem<D, NOWN>;
+  using L = Smem<D, NOWN, OWN, TN>;
   mbar_expect_tx(bars, NOWN * L::own);
   for (int nb = 0; nb < G::NB; ++nb) {
-    tma_load(base + nb * kOwn * G::ROWB, own0, bars, nb * G::CW, h, own_row,
+    tma_load(base + nb * OWN * G::ROWB, own0, bars, nb * G::CW, h, own_row,
              b);
     if (NOWN == 2)
-      tma_load(base + L::own + nb * kOwn * G::ROWB, own1, bars, nb * G::CW,
+      tma_load(base + L::own + nb * OWN * G::ROWB, own1, bars, nb * G::CW,
                h, own_row, b);
   }
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
@@ -777,10 +847,10 @@ __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
     mbar_expect_tx(full_bar(bars, s), 2 * L::tile);
     const uint32_t st = base + L::stream + s * 2 * L::tile;
     for (int nb = 0; nb < G::NB; ++nb) {
-      tma_load(st + nb * kTile * G::ROWB, str0, full_bar(bars, s),
-               nb * G::CW, h, j * kTile, b);
-      tma_load(st + L::tile + nb * kTile * G::ROWB, str1, full_bar(bars, s),
-               nb * G::CW, h, j * kTile, b);
+      tma_load(st + nb * TN * G::ROWB, str0, full_bar(bars, s),
+               nb * G::CW, h, j * TN, b);
+      tma_load(st + L::tile + nb * TN * G::ROWB, str1, full_bar(bars, s),
+               nb * G::CW, h, j * TN, b);
     }
   }
 }
@@ -819,7 +889,8 @@ __device__ __forceinline__ void store_rows(
 }
 
 // K7 on the tensor cores.  Grid (B*H, query tiles of kOwn rows, last
-// first); warpgroup wg owns queries q0 + 64 wg .. + 63.
+// first); warpgroup wg owns queries q0 + 64 wg .. + 63.  At every D the
+// keys stream in 64-row tiles (at 256: 64 KiB of Q, a 128 KiB ring).
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
@@ -828,18 +899,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int S, int H, float scale_log2, int causal, int window) {
   using G = Geo<D>;
-  using L = Smem<D, 1>;
+  using L = Smem<D, 1, kOwn, kTile>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
   const uint32_t bars = setup(smem_raw, L::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
   int lo, hi;
-  keys_for(q0, kOwn, S, causal, window, &lo, &hi);
+  keys_for(q0, kOwn, kTile, S, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
-      produce<D, 1>(base, bars, &tq, nullptr, &tk, &tv, h, b, q0, lo, hi);
+      produce<D, 1, kOwn, kTile>(base, bars, &tq, nullptr, &tk, &tv, h, b,
+                                 q0, lo, hi);
     return;
   }
   consumer_regs();
@@ -848,7 +920,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int qw = q0 + wg * kTile;
   const int row = qw + wi * 16 + g;  // and row + 8
   int wlo, whi;
-  keys_for(qw, kTile, S, causal, window, &wlo, &whi);
+  keys_for(qw, kTile, kTile, S, causal, window, &wlo, &whi);
   float o[G::NB][G::CW / 2];
 #pragma unroll
   for (int nb = 0; nb < G::NB; ++nb)
@@ -868,12 +940,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < G::KSTEPS; ++ks)
-        wgmma_ss_n64(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
-                     desc_k<D>(k_s, kTile, 0, ks), 1);
+        wgmma_ss(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                 desc_k<D>(k_s, kTile, 0, ks), 1);
       wg_commit();
       wg_wait0();
       const int k0 = j * kTile;
-      const bool mask = !all_visible(qw, k0, S, causal, window);
+      const bool mask = !all_visible(qw, kTile, k0, kTile, S, causal, window);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
@@ -939,7 +1011,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 // K8, dq pass on the tensor cores: grid as the forward's; Q and dO are
-// the block's own tiles, K and V stream.
+// the block's own tiles, K and V stream in TN-row tiles (Bwd<D>).
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dq_tc(const __grid_constant__ CUtensorMap tq,
@@ -950,18 +1022,22 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                 __nv_bfloat16* __restrict__ dq, int S, int H, float scale,
                 float scale_log2, int causal, int window) {
   using G = Geo<D>;
-  using L = Smem<D, 2>;
+  constexpr int TN = Bwd<D>::TN;
+  constexpr int NS = TN / 2;   // accumulators of a 64 x TN score tile
+  constexpr int KK = TN / 16;  // reduction steps over a streamed tile
+  using L = Smem<D, 2, kOwn, TN>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
   const uint32_t bars = setup(smem_raw, L::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
   int lo, hi;
-  keys_for(q0, kOwn, S, causal, window, &lo, &hi);
+  keys_for(q0, kOwn, TN, S, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
-      produce<D, 2>(base, bars, &tq, &tdo, &tk, &tv, h, b, q0, lo, hi);
+      produce<D, 2, kOwn, TN>(base, bars, &tq, &tdo, &tk, &tv, h, b, q0, lo,
+                              hi);
     return;
   }
   consumer_regs();
@@ -970,7 +1046,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int qw = q0 + wg * kTile;
   const int row = qw + wi * 16 + g;  // and row + 8
   int wlo, whi;
-  keys_for(qw, kTile, S, causal, window, &wlo, &whi);
+  keys_for(qw, kTile, TN, S, causal, window, &wlo, &whi);
   const long long rbase = static_cast<long long>(bh) * S;
   float lse2[2], dl[2];
 #pragma unroll
@@ -992,24 +1068,24 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (j >= wlo && j < whi) {
       const uint32_t k_s = base + L::stream + s * 2 * L::tile;
       const uint32_t v_s = k_s + L::tile;
-      float sc[32], dp[32];
+      float sc[NS], dp[NS];
 #pragma unroll
-      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+      for (int e = 0; e < NS; ++e) sc[e] = dp[e] = 0.0f;
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < G::KSTEPS; ++ks) {
-        wgmma_ss_n64(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
-                     desc_k<D>(k_s, kTile, 0, ks), 1);
-        wgmma_ss_n64(dp, desc_k<D>(do_own, kOwn, wg * kTile, ks),
-                     desc_k<D>(v_s, kTile, 0, ks), 1);
+        wgmma_ss(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                 desc_k<D>(k_s, TN, 0, ks), 1);
+        wgmma_ss(dp, desc_k<D>(do_own, kOwn, wg * kTile, ks),
+                 desc_k<D>(v_s, TN, 0, ks), 1);
       }
       wg_commit();
       wg_wait0();
-      const int k0 = j * kTile;
-      const bool mask = !all_visible(qw, k0, S, causal, window);
-      uint32_t da[4][4];
+      const int k0 = j * TN;
+      const bool mask = !all_visible(qw, kTile, k0, TN, S, causal, window);
+      uint32_t da[KK][4];
 #pragma unroll
-      for (int e = 0; e < 32; e += 2) {
+      for (int e = 0; e < NS; e += 2) {
         const int hf = (e >> 1) & 1;
         float ds[2];
 #pragma unroll
@@ -1027,8 +1103,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
       for (int nb = 0; nb < G::NB; ++nb)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs(acc[nb], da[kk], desc_n<D>(k_s, kTile, kk, nb));
+        for (int kk = 0; kk < KK; ++kk)
+          wgmma_rs(acc[nb], da[kk], desc_n<D>(k_s, TN, kk, nb));
       wg_commit();
       wg_wait0();
     }
@@ -1039,10 +1115,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                 static_cast<long long>(H) * D, row, S, acc, one);
 }
 
-// K8, dk/dv pass on the tensor cores: grid (B*H, key tiles of kOwn rows,
-// first first); K and V are the block's own tiles, Q and dO stream.  The
-// products run transposed (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T
-// come out as the A fragments of dV += P^T dO and dK += dS^T Q.
+// K8, dk/dv pass on the tensor cores up to head_dim 128: grid (B*H, key
+// tiles of kOwn rows, first first); K and V are the block's own tiles, Q
+// and dO stream.  The products run transposed (S^T = K Q^T, dP^T = V
+// dO^T), so P^T and dS^T come out as the A fragments of dV += P^T dO and
+// dK += dS^T Q.
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dkv_tc(const __grid_constant__ CUtensorMap tk,
@@ -1055,18 +1132,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  __nv_bfloat16* __restrict__ dv, int S, int H, float scale,
                  float scale_log2, int causal, int window) {
   using G = Geo<D>;
-  using L = Smem<D, 2>;
+  using L = Smem<D, 2, kOwn, kTile>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
   const uint32_t bars = setup(smem_raw, L::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kOwn;
   int lo, hi;
-  queries_for(k0, kOwn, S, causal, window, &lo, &hi);
+  queries_for(k0, kOwn, kTile, S, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
-      produce<D, 2>(base, bars, &tk, &tv, &tq, &tdo, h, b, k0, lo, hi);
+      produce<D, 2, kOwn, kTile>(base, bars, &tk, &tv, &tq, &tdo, h, b, k0,
+                                 lo, hi);
     return;
   }
   consumer_regs();
@@ -1075,7 +1153,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int kw = k0 + wg * kTile;
   const int row = kw + wi * 16 + g;  // keys row and row + 8
   int wlo, whi;
-  queries_for(kw, kTile, S, causal, window, &wlo, &whi);
+  queries_for(kw, kTile, kTile, S, causal, window, &wlo, &whi);
   const long long rbase = static_cast<long long>(bh) * S;
   float acc_k[G::NB][G::CW / 2], acc_v[G::NB][G::CW / 2];
 #pragma unroll
@@ -1108,14 +1186,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < G::KSTEPS; ++ks) {
-        wgmma_ss_n64(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
-                     desc_k<D>(q_s, kTile, 0, ks), 1);
-        wgmma_ss_n64(dp, desc_k<D>(v_own, kOwn, wg * kTile, ks),
-                     desc_k<D>(do_s, kTile, 0, ks), 1);
+        wgmma_ss(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                 desc_k<D>(q_s, kTile, 0, ks), 1);
+        wgmma_ss(dp, desc_k<D>(v_own, kOwn, wg * kTile, ks),
+                 desc_k<D>(do_s, kTile, 0, ks), 1);
       }
       wg_commit();
       wg_wait0();
-      const bool mask = !all_visible(q0, kw, S, causal, window);
+      const bool mask = !all_visible(q0, kTile, kw, kTile, S, causal, window);
       uint32_t pa[4][4], da[4][4];
 #pragma unroll
       for (int e = 0; e < 32; e += 2) {
@@ -1154,21 +1232,139 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   store_rows<D>(dv, obase, row_stride, row, S, acc_v, one);
 }
 
+// K8, dk/dv pass on the tensor cores at head_dim 256 (Bwd<D>::kSplit):
+// grid (B*H, key tiles of 64 rows, first first).  dK and dV of 64 keys
+// are 2 x 128 f32 accumulators a thread, past the 255-register cap, so
+// the two consumer warpgroups share the block's 64 keys: warpgroup 0
+// accumulates dV += P^T dO, warpgroup 1 dK += dS^T Q, each in 128
+// registers.  Both form S^T = K Q^T (so the pass does five products per
+// tile instead of four); warpgroup 1 also forms dP^T = V dO^T.  K and V
+// are the block's own tiles; Q and dO stream in TN-row tiles.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dkv_split_tc(const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int S, int H,
+                       float scale, float scale_log2, int causal,
+                       int window) {
+  using G = Geo<D>;
+  constexpr int TN = Bwd<D>::TN;
+  constexpr int NS = TN / 2;   // accumulators of a 64 x TN score tile
+  constexpr int KK = TN / 16;  // reduction steps over a streamed tile
+  constexpr int NC = TN / 4;   // query columns a lane holds
+  using L = Smem<D, 2, kTile, TN>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kTile;
+  int lo, hi;
+  queries_for(k0, kTile, TN, S, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 2, kTile, TN>(base, bars, &tk, &tv, &tq, &tdo, h, b, k0, lo,
+                               hi);
+    return;
+  }
+  consumer_regs();
+  const bool dk_role = threadIdx.x >= 128;  // warpgroup 1: dK
+  const int wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int row = k0 + wi * 16 + g;  // keys row and row + 8
+  const long long rbase = static_cast<long long>(bh) * S;
+  float acc[G::NB][G::CW / 2];
+#pragma unroll
+  for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < G::CW / 2; ++e) acc[nb][e] = 0.0f;
+  const uint32_t v_own = base + L::own;
+  mbar_wait(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const int q0 = j * TN;
+    // lse (base 2) and, for dK, delta of this lane's NC query columns
+    float lq[NC], dl[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int q = q0 + 8 * (c >> 1) + 2 * t + (c & 1);
+      lq[c] = q < S ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
+      dl[c] = dk_role && q < S ? delta[rbase + q] : 0.0f;
+    }
+    mbar_wait(full_bar(bars, s), (i / kStages) & 1);
+    const uint32_t q_s = base + L::stream + s * 2 * L::tile;
+    const uint32_t do_s = q_s + L::tile;
+    float sc[NS], dp[NS];
+#pragma unroll
+    for (int e = 0; e < NS; ++e) sc[e] = dp[e] = 0.0f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < G::KSTEPS; ++ks)
+      wgmma_ss(sc, desc_k<D>(base, kTile, 0, ks), desc_k<D>(q_s, TN, 0, ks),
+               1);
+    if (dk_role) {
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks)
+        wgmma_ss(dp, desc_k<D>(v_own, kTile, 0, ks),
+                 desc_k<D>(do_s, TN, 0, ks), 1);
+    }
+    wg_commit();
+    wg_wait0();
+    const bool mask = !all_visible(q0, TN, k0, kTile, S, causal, window);
+    uint32_t fa[KK][4];  // P^T (dV) or dS^T (dK), rounded to bf16
+#pragma unroll
+    for (int e = 0; e < NS; e += 2) {
+      const int hf = (e >> 1) & 1;
+      float f[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = e + u;
+        const int c = 2 * (x >> 2) + u;  // this lane's column index
+        float p = 0.0f;
+        if (!mask || visible(q0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf, S,
+                             causal, window))
+          p = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
+        f[u] = dk_role ? __fmul_rn(__fmul_rn(p, dp[x] - dl[c]), scale) : p;
+      }
+      fa[e >> 3][(e >> 1) & 3] = pack_bf16(f[0], f[1]);
+    }
+    const uint32_t rhs = dk_role ? q_s : do_s;
+    wg_fence();
+#pragma unroll
+    for (int nb = 0; nb < G::NB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+        wgmma_rs(acc[nb], fa[kk], desc_n<D>(rhs, TN, kk, nb));
+    wg_commit();
+    wg_wait0();
+    mbar_arrive(empty_bar(bars, s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<D>(dk_role ? dk : dv,
+                (static_cast<long long>(b) * S * H + h) * D,
+                static_cast<long long>(H) * D, row, S, acc, one);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int R>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kB * (D + 1) + kB * kPitchP);
+  return sizeof(float) * (3 * R * (D + 1) + R * (R + 1));
 }
-template <int D>
+template <int D, int R>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kB * (D + 1) + kB * kPitchP + 2 * kB);
+  return sizeof(float) * (4 * R * (D + 1) + R * (R + 1) + 2 * R);
 }
-template <int D>
+template <int D, int R>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * kPitchP + 2 * kB);
+  return sizeof(float) * (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R);
 }
 
 template <typename Kernel>
@@ -1182,10 +1378,12 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         int B, int S, int H, float scale, int causal, int window,
         cudaStream_t stream) {
-  const int rc = prepare(flash_fwd_kernel<T, D>, fwd_smem<D>());
+  constexpr size_t smem = fwd_smem<D, kB>();
+  static_assert(smem <= kSmemLimit, "f32 forward tiles exceed shared memory");
+  const int rc = prepare(flash_fwd_kernel<T, D, kB>, smem);
   if (rc != 0) return rc;
   const dim3 grid((S + kB - 1) / kB, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
+  flash_fwd_kernel<T, D, kB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, scale,
       causal, window);
@@ -1197,18 +1395,22 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dq, void* dk, void* dv,
         int B, int S, int H, float scale, int causal, int window,
         cudaStream_t stream) {
-  int rc = prepare(flash_bwd_dq_kernel<T, D>, dq_smem<D>());
+  constexpr int R = f32_bwd_rows<D>();
+  constexpr size_t smem_dq = dq_smem<D, R>(), smem_dkv = dkv_smem<D, R>();
+  static_assert(smem_dq <= kSmemLimit && smem_dkv <= kSmemLimit,
+                "f32 backward tiles exceed shared memory");
+  int rc = prepare(flash_bwd_dq_kernel<T, D, R>, smem_dq);
   if (rc != 0) return rc;
-  rc = prepare(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>());
+  rc = prepare(flash_bwd_dkv_kernel<T, D, R>, smem_dkv);
   if (rc != 0) return rc;
-  const dim3 grid((S + kB - 1) / kB, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem<D>(), stream>>>(
+  const dim3 grid((S + R - 1) / R, B * H);
+  flash_bwd_dq_kernel<T, D, R><<<grid, kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), S, H, scale, causal, window);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, dkv_smem<D>(), stream>>>(
+  flash_bwd_dkv_kernel<T, D, R><<<grid, kThreads, smem_dkv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal, window);
@@ -1278,7 +1480,7 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out,
   if (rc == 0) rc = make_map<D>(&mk, k, B, S, H, kTile);
   if (rc == 0) rc = make_map<D>(&mv, v, B, S, H, kTile);
   if (rc != 0) return rc;
-  constexpr uint32_t smem = Smem<D, 1>::bytes;
+  constexpr uint32_t smem = TcSmem<D>::fwd;
   rc = prepare(flash_fwd_tc<D>, smem);
   if (rc != 0) return rc;
   const dim3 grid(B * H, (S + kOwn - 1) / kOwn);
@@ -1293,32 +1495,43 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
            int B, int S, int H, float scale, int causal, int window,
            cudaStream_t stream) {
+  constexpr int TN = Bwd<D>::TN, OWN_KV = Bwd<D>::OWN_KV;
   CUtensorMap q_own, do_own, k_str, v_str, k_own, v_own, q_str, do_str;
   int rc = make_map<D>(&q_own, q, B, S, H, kOwn);
   if (rc == 0) rc = make_map<D>(&do_own, dout, B, S, H, kOwn);
-  if (rc == 0) rc = make_map<D>(&k_str, k, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&v_str, v, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&k_own, k, B, S, H, kOwn);
-  if (rc == 0) rc = make_map<D>(&v_own, v, B, S, H, kOwn);
-  if (rc == 0) rc = make_map<D>(&q_str, q, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&do_str, dout, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&k_str, k, B, S, H, TN);
+  if (rc == 0) rc = make_map<D>(&v_str, v, B, S, H, TN);
+  if (rc == 0) rc = make_map<D>(&k_own, k, B, S, H, OWN_KV);
+  if (rc == 0) rc = make_map<D>(&v_own, v, B, S, H, OWN_KV);
+  if (rc == 0) rc = make_map<D>(&q_str, q, B, S, H, TN);
+  if (rc == 0) rc = make_map<D>(&do_str, dout, B, S, H, TN);
   if (rc != 0) return rc;
-  constexpr uint32_t smem = Smem<D, 2>::bytes;
-  rc = prepare(flash_dq_tc<D>, smem);
-  if (rc == 0) rc = prepare(flash_dkv_tc<D>, smem);
+  constexpr uint32_t smem_dq = TcSmem<D>::dq, smem_dkv = TcSmem<D>::dkv;
+  rc = prepare(flash_dq_tc<D>, smem_dq);
+  if (rc != 0) return rc;
+  if constexpr (Bwd<D>::kSplit)
+    rc = prepare(flash_dkv_split_tc<D>, smem_dkv);
+  else
+    rc = prepare(flash_dkv_tc<D>, smem_dkv);
   if (rc != 0) return rc;
   const float scale_log2 = scale * kLog2e;
-  const dim3 grid(B * H, (S + kOwn - 1) / kOwn);
-  flash_dq_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      q_own, do_own, k_str, v_str, lse, delta,
-      static_cast<__nv_bfloat16*>(dq), S, H, scale, scale_log2, causal,
-      window);
+  flash_dq_tc<D><<<dim3(B * H, (S + kOwn - 1) / kOwn), kTcThreads, smem_dq,
+                   stream>>>(q_own, do_own, k_str, v_str, lse, delta,
+                             static_cast<__nv_bfloat16*>(dq), S, H, scale,
+                             scale_log2, causal, window);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  flash_dkv_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      k_own, v_own, q_str, do_str, lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H,
-      scale, scale_log2, causal, window);
+  const dim3 grid_kv(B * H, (S + OWN_KV - 1) / OWN_KV);
+  __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
+  if constexpr (Bwd<D>::kSplit)
+    flash_dkv_split_tc<D><<<grid_kv, kTcThreads, smem_dkv, stream>>>(
+        k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
+        scale_log2, causal, window);
+  else
+    flash_dkv_tc<D><<<grid_kv, kTcThreads, smem_dkv, stream>>>(
+        k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
+        scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1329,12 +1542,20 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
     case 32: return dtype == 0 ? F32(32) : BF16(32);      \
     case 64: return dtype == 0 ? F32(64) : BF16(64);      \
     case 128: return dtype == 0 ? F32(128) : BF16(128);   \
+    case 256: return dtype == 0 ? F32(256) : BF16(256);   \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+template <int D>
+int tc_smem(int kernel) {
+  return static_cast<int>(kernel == 0   ? TcSmem<D>::fwd
+                          : kernel == 1 ? TcSmem<D>::dq
+                                        : TcSmem<D>::dkv);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim one of 16, 32, 64, 128.
+// dtype: 0 = float32, 1 = bfloat16; head_dim one of 16, 32, 64, 128, 256.
 // Each returns a cudaError_t, or kMapError (+ the CUresult) when a
 // tensor map cannot be made.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
@@ -1360,10 +1581,11 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
 extern "C" int flash_attention_tc_smem(int kernel, int head_dim) {
   if (kernel < 0 || kernel > 2) return 0;
   switch (head_dim) {
-    case 16: return kernel == 0 ? Smem<16, 1>::bytes : Smem<16, 2>::bytes;
-    case 32: return kernel == 0 ? Smem<32, 1>::bytes : Smem<32, 2>::bytes;
-    case 64: return kernel == 0 ? Smem<64, 1>::bytes : Smem<64, 2>::bytes;
-    case 128: return kernel == 0 ? Smem<128, 1>::bytes : Smem<128, 2>::bytes;
+    case 16: return tc_smem<16>(kernel);
+    case 32: return tc_smem<32>(kernel);
+    case 64: return tc_smem<64>(kernel);
+    case 128: return tc_smem<128>(kernel);
+    case 256: return tc_smem<256>(kernel);
     default: return 0;
   }
 }

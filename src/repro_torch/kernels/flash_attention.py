@@ -15,8 +15,11 @@ bfloat16 runs on the tensor cores: ``wgmma`` with bf16 operands and f32
 accumulators, P and dS fed from registers rounded to bf16, K/V (Q/dO in
 the dk/dv pass) streamed by TMA through a two-stage ring by one thread
 of a producer warpgroup, two consumer warpgroups of 64 rows per block.
-TMA needs every pointer 16-byte aligned, which the wrapper checks.
-float32 stays on the CUDA cores (64×64 f32 tiles): the tensor cores take
+TMA needs every pointer 16-byte aligned, which the wrapper checks.  At
+``dh`` 256 (gemma-7b) the backward streams 32-row tiles and its dk/dv
+pass gives dV and dK one consumer warpgroup each, to fit the block's
+shared memory and registers.  float32 stays on the CUDA cores (64×64
+f32 tiles, 32×32 in the backward at ``dh`` 256): the tensor cores take
 f32 only as TF32.
 
 Shapes: ``q, k, v`` are ``(B, S, H, dh)`` with the kv heads already
@@ -52,7 +55,7 @@ import torch.nn.functional as F
 from . import backend
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -48,9 +48,12 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_trainer(args, group=None, verbose: bool = True):
+def build_trainer(args, group=None, verbose: bool = True, spec=None):
     """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
-    for this rank (``group``: the data axis)."""
+    for this rank (``group``: the data axis).  ``spec``, when given, is
+    the model's :class:`~repro_torch.models.common.ModelSpec` as it is
+    (a depth-cut or otherwise altered spec), in place of ``args.arch``,
+    ``args.full`` and ``args.dtype``; it has no command-line flag."""
     from repro_torch.configs import get_spec
     from repro_torch.core import AggregatorConfig
     from repro_torch.data.synthetic import SyntheticText
@@ -58,11 +61,12 @@ def build_trainer(args, group=None, verbose: bool = True):
     from repro_torch.optim import adamw, cosine_warmup, sgd
     from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 
-    spec = get_spec(args.arch)
-    if not args.full:
-        spec = spec.reduced()
-    if args.dtype:
-        spec = dataclasses.replace(spec, dtype=args.dtype)
+    if spec is None:
+        spec = get_spec(args.arch)
+        if not args.full:
+            spec = spec.reduced()
+        if args.dtype:
+            spec = dataclasses.replace(spec, dtype=args.dtype)
     data = SyntheticText(spec.vocab_size, batch=args.batch,
                          seq_len=args.seq, seed=args.seed)
     lr = cosine_warmup(args.lr, max(args.steps // 20, 1), args.steps)

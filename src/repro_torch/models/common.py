@@ -210,12 +210,35 @@ def apply_rope(x, positions, theta: float):
 # losses
 # ---------------------------------------------------------------------------
 
+class _TokenNLL(torch.autograd.Function):
+    """``logsumexp(x) - x[label]`` per token in f32, with the gradient
+    autograd gives the composite (``exp(x - lse) * g``, and ``-g`` added
+    at each label), but leaner: it keeps the logits as given (bf16 at
+    half the f32 bytes) rather than their f32 copy, and builds the
+    gradient in one f32 buffer, where the composite's backward holds
+    three or four of them at once.  At a 256000-word vocabulary and 4096
+    tokens each such buffer is 4.2 GB."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        x = logits.to(torch.float32)
+        lse = torch.logsumexp(x, dim=-1)
+        ll = torch.gather(x, -1, labels[..., None])[..., 0]
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        grad = logits.to(torch.float32, copy=True)
+        grad.sub_(lse[..., None]).exp_().mul_(g[..., None])
+        grad.scatter_add_(-1, labels[..., None], -g[..., None])
+        return grad.to(logits.dtype), None
+
+
 def cross_entropy(logits, labels, mask=None):
     """Token-mean CE; logits (..., V) any dtype, stats in fp32."""
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    nll = _TokenNLL.apply(logits, labels.long())
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

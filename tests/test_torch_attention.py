@@ -11,7 +11,8 @@ They are held, on the same numpy inputs, to:
   the last key), at S = 128 and a ragged S = 100 that forces padding.
   The kv gradients come back summed over each group of repeated heads;
 * the Pallas ``flash_attention_fwd/bwd`` in interpret mode at
-  (1, 128, 2, 64);
+  (1, 128, 2, 64) and at gemma-7b's head_dim, (1, 128, 2, 256), which
+  is also held to ``sdpa_chunked`` in all three modes;
 * the naive oracle ``repro.kernels.ref.flash_attention_ref`` and its
   ``jax.grad``.
 
@@ -82,40 +83,56 @@ def _port_grads(fn, arrays, do):
     return out.detach().numpy(), [t.grad.numpy() for t in ts]
 
 
-@pytest.mark.parametrize("s", [128, 100])
-@pytest.mark.parametrize("causal,window", MODES)
-def test_sdpa_chunked_forward_matches_reference(s, causal, window):
-    q, k, v, _ = _qkvo((1, s, 4, 16), 2, seed=s + window)
+def _check_sdpa_forward(shape, kv_heads, causal, window, seed):
+    s = shape[1]
+    q, k, v, _ = _qkvo(shape, kv_heads, seed=seed)
     q_pos, k_pos = _jax_positions(s, causal)
     want = jattn.sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               q_pos, k_pos, window, 16)
     with torch.no_grad():
         got = _port_sdpa(causal, window)(
             torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
-    assert got.shape == (1, s, 4, 16)
+    assert got.shape == shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
 
 
-@pytest.mark.parametrize("s", [128, 100])
-@pytest.mark.parametrize("causal,window", MODES)
-def test_sdpa_chunked_vjp_matches_reference(s, causal, window):
-    q, k, v, do = _qkvo((1, s, 4, 16), 2, seed=3 * s + window)
-    q_pos, k_pos = _jax_positions(s, causal)
+def _check_sdpa_vjp(shape, kv_heads, causal, window, seed):
+    q, k, v, do = _qkvo(shape, kv_heads, seed=seed)
+    q_pos, k_pos = _jax_positions(shape[1], causal)
     _, vjp = jax.vjp(lambda a, b, c: jattn.sdpa_chunked(
         a, b, c, q_pos, k_pos, window, 16),
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(do))
     _, got = _port_grads(_port_sdpa(causal, window), (q, k, v), do)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
-        assert g.shape == w.shape, name          # summed back to 2 kv heads
+        assert g.shape == w.shape, name          # summed back to the kv heads
         np.testing.assert_allclose(g, np.asarray(w), err_msg=name, **BWD)
 
 
+@pytest.mark.parametrize("s", [128, 100])
 @pytest.mark.parametrize("causal,window", MODES)
-def test_plain_versions_match_pallas_interpreter(causal, window):
-    """(1, 128, 2, 64) against the Pallas kernels run by the interpreter:
-    out and lse forward, then (dq, dk, dv) from each side's own out/lse."""
-    q, k, v, do = _qkvo((1, 128, 2, 64), 2, seed=7)
+def test_sdpa_chunked_forward_matches_reference(s, causal, window):
+    _check_sdpa_forward((1, s, 4, 16), 2, causal, window, seed=s + window)
+
+
+@pytest.mark.parametrize("s", [128, 100])
+@pytest.mark.parametrize("causal,window", MODES)
+def test_sdpa_chunked_vjp_matches_reference(s, causal, window):
+    _check_sdpa_vjp((1, s, 4, 16), 2, causal, window, seed=3 * s + window)
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_sdpa_chunked_at_head_dim_256_matches_reference(causal, window):
+    """gemma-7b's head width, (1, 128, 2, 256): forward and ``jax.vjp``."""
+    _check_sdpa_forward((1, 128, 2, 256), 2, causal, window,
+                        seed=256 + window)
+    _check_sdpa_vjp((1, 128, 2, 256), 2, causal, window, seed=512 + window)
+
+
+def _check_plain_vs_interpreter(shape, causal, window):
+    """``shape`` against the Pallas kernels run by the interpreter: out
+    and lse forward, then (dq, dk, dv) from each side's own out/lse."""
+    q, k, v, do = _qkvo(shape, shape[2], seed=7)
     jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
     jout, jlse = jfa.flash_attention_fwd(jq, jk, jv, causal=causal,
                                          window=window, interpret=True,
@@ -133,6 +150,20 @@ def test_plain_versions_match_pallas_interpreter(causal, window):
     for g, w, name in zip(grads, jgrads, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
                                    **BWD)
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_plain_versions_match_pallas_interpreter(causal, window):
+    """(1, 128, 2, 64) against the Pallas kernels (interpret mode)."""
+    _check_plain_vs_interpreter((1, 128, 2, 64), causal, window)
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_plain_versions_match_pallas_interpreter_at_head_dim_256(causal,
+                                                                 window):
+    """(1, 128, 2, 256), gemma-7b's head width, against the Pallas
+    kernels (interpret mode), which take any head_dim."""
+    _check_plain_vs_interpreter((1, 128, 2, 256), causal, window)
 
 
 @pytest.mark.parametrize("causal,window", MODES)
@@ -239,6 +270,9 @@ def _tc_emulate(q, k, v, do, causal, window, tile=64):
     """What K7/K8's bf16 kernels compute: bf16 operands with f32 sums,
     the softmax in base 2 over 64-key tiles with a running max, P rounded
     to bf16 before P·V and dS rounded to bf16 before dS·K and dSᵀ·Q.
+    At head_dim 256 the backward streams 32-row tiles and splits dK from
+    dV across warpgroups, but P and dS are elementwise there (from the
+    forward's lse), so the rounding, and this emulation, are unchanged.
     Takes and returns (B, S, H, dh) bf16; lse (B, H, S) f32."""
     b, s, h, dh = q.shape
     n = -(-s // tile) * tile
@@ -287,7 +321,8 @@ def _close(got, want, name):
                                **BF16)
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32)])
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32),
+                                   (1, 128, 2, 256)])
 @pytest.mark.parametrize("causal,window", TC_MODES)
 def test_tensor_core_rounding_matches_pallas_interpreter(shape, causal,
                                                          window):
@@ -310,7 +345,8 @@ def test_tensor_core_rounding_matches_pallas_interpreter(shape, causal,
         _close(g, w, name)
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32)])
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32),
+                                   (1, 128, 2, 256)])
 @pytest.mark.parametrize("causal,window", TC_MODES)
 def test_tensor_core_rounding_matches_sdpa_chunked(shape, causal, window):
     """The emulated bf16 kernel arithmetic against the reference model's

@@ -202,12 +202,9 @@ def _bf16_ulp_distance(a, b) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [37, 4096])
-def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, dtype):
-    """K6: f32 within rtol 1e-5, bf16 within one bf16 ulp."""
-    x = _normal(rows * 960, 8).reshape(rows, 960).to(cuda, dtype)
-    s = (_normal(960, 9) * 0.1).to(cuda)
+def _check_rmsnorm(cuda, rows, d, dtype):
+    x = _normal(rows * d, 8).reshape(rows, d).to(cuda, dtype)
+    s = (_normal(d, 9) * 0.1).to(cuda)
     before = frn.fused_rmsnorm.launches
     y, rstd = frn.fused_rmsnorm(x, s)
     assert frn.fused_rmsnorm.launches == before + 1
@@ -217,6 +214,20 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, dtype):
         torch.testing.assert_close(y, yp, rtol=1e-5, atol=0)
     else:
         assert _bf16_ulp_distance(y, yp) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [37, 4096])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, dtype):
+    """K6: f32 within rtol 1e-5, bf16 within one bf16 ulp."""
+    _check_rmsnorm(cuda, rows, 960, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [37, 4096])
+def test_rmsnorm_kernel_at_gemma_width_on_card(cuda, rows, dtype):
+    """K6 at gemma-7b's d_model, 3072, to the same bounds."""
+    _check_rmsnorm(cuda, rows, 3072, dtype)
 
 
 def _attn_inputs(shape, dtype, cuda, seed):
@@ -229,7 +240,8 @@ def _attn_inputs(shape, dtype, cuda, seed):
     (256, 64, True, 0), (300, 64, True, 100), (300, 64, False, 0),
     (130, 16, True, 0), (100, 128, False, 0), (256, 32, True, 0),
     (257, 32, True, 50), (190, 32, False, 0), (77, 16, False, 0),
-    (333, 128, True, 0)])
+    (333, 128, True, 0), (256, 256, True, 0), (333, 256, True, 100),
+    (333, 256, False, 0), (77, 256, True, 0)])
 def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
                                            dtype):
     """K7 (out, lse) and K8 (dq, dk, dv) against the chunked plain
@@ -237,7 +249,8 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
     3e-2 (the kernel forms its scores in f32, the plain version in bf16,
     as the reference's two routes do).  Every head width runs at a
     ragged S, so bf16 covers each TMA swizzle (32-, 64-, 128-byte rows
-    and two 128-byte boxes at dh 128) and the zero fill past S."""
+    and two or four 128-byte boxes at dh 128 and 256) and the zero fill
+    past S; at dh 256 the backward's 32-row tiles and split dk/dv pass."""
     q, k, v, do = _attn_inputs((2, s, 3, dh), dtype, cuda, seed=s + dh)
     kw = dict(causal=causal, window=window, chunk=64)
     fwd = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 \
@@ -260,12 +273,13 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
 
 @pytest.mark.parametrize("s,dh,causal,window", [
     (4096, 64, True, 0), (300, 64, True, 100), (257, 32, False, 0),
-    (130, 16, True, 0), (333, 128, True, 0)])
+    (130, 16, True, 0), (333, 128, True, 0), (4096, 256, True, 0),
+    (333, 256, True, 100)])
 def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
                                                       window):
     """Two bf16 calls of K7 and of K8 give the same bits: every output
     tile has one owner and there are no atomics."""
-    b, h = (1, 15) if s == 4096 else (2, 3)
+    b, h = ((1, 15) if dh == 64 else (1, 16)) if s == 4096 else (2, 3)
     q, k, v, do = _attn_inputs((b, s, h, dh), torch.bfloat16, cuda,
                                seed=s + dh)
     kw = dict(causal=causal, window=window)
