@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    kernel's registers and spills from ptxas; for K7/K8 also the shared
    memory, and the HGMMA (wgmma) and HMMA instructions in its SASS where
    cuobjdump exists: the bf16 kernels must hold HGMMA, the f32 ones none
-   (head widths 16 to 256; at 256 the bf16 dk/dv pass is
-   ``flash_dkv_split_tc``).
+   (head widths 16 to 256).  The bf16 backward at head_dim 256
+   (``flash_dq_wide_tc``, ``flash_dkv_wide_tc``) must report no spill
+   bytes and no ptxas "Performance Loss" line.
 2. Hold each kernel against its plain torch version on the card.  K1–K3
    at a 1 Mi-element bucket, a ragged n, phase 3's largest hop (16, 960,
    2560) and phase 6's (393,216,000 elements, the first RHD hop of
@@ -29,19 +30,23 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    bf16 cases, the [1024, 1, ..., 1] bf16 column (k = 256, exactly
    1279) and integer-valued ragged rows (exact), and subnormals.  K6 at phase 4's
    (4096, 960) rows and a ragged (37, 960), f32 within rtol 1e-5 and
-   bf16 within 1 ulp, and the same at phase 6's width 3072.  K7/K8
+   bf16 within 1 ulp, and the same at phase 6's width 3072; then one row,
+   widths 2048, 1000, 1001 and 7 and a view one element into its
+   storage, on the path expected (``scalar_launches``).  K7/K8
    causal at phase 4's (1, 4096, 15, 64) and phase 6's (1, 4096, 16, 256)
    in f32 and bf16, plus window 100, non-causal and other head widths at
-   ragged S (dh 256 at S = 333), at the reference's tolerances; each
-   bf16 case twice, bit for bit.  Times each kernel, its plain version
+   ragged S (dh 256 at S = 64, 333 and 513, and window 1024 at 4096), at
+   the reference's tolerances; each bf16 case twice, bit for bit.
+   Times each kernel, its plain version
    and, where one exists, one PyTorch call computing the same function
    (a yardstick the port never calls); K1–K3 take their inputs in turn
    from three buffers larger than L2, K2 also as its int8/fp8 quantize
    pass alone; K1–K3 (int8) and K5 also at phase 6's hop and leaf
    (``variants``); each kernel in turns with its yardstick; K7/K8 in bf16
    (tensor cores, the main path) and in f32 (CUDA cores, against the
-   f32 peak), at dh 64 and at dh 256 (``variants``); K6 also at
-   (4096, 3072).
+   f32 peak), at dh 64 and at dh 256 (``variants``), and K8 bf16 at dh 256
+   also split into its parts: rowsum(dO*O), the dq pass and the dk/dv
+   pass, each alone; K6 also at (4096, 3072).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
    batch 2 per rank, seq 512, ``rhd_rsa`` + ``int8`` fused hops and the
@@ -235,6 +240,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                             "src/repro/kernels/flash_attention.py:129"),
 }
 MAX_ERR = {k: 0.0 for k in KERNELS}
+# K8's bf16 kernels at head_dim 256, which must build without spills or a
+# serialising ptxas "Performance Loss".
+WIDE_KERNELS = ("flash_dq_wide_tc<256>", "flash_dkv_wide_tc<256>")
 
 
 def agree(key, a, b, what):
@@ -318,12 +326,14 @@ def report_build(source, text):
     names = dict(zip(mangled, [_kernel_name(m) for m in mangled] if flash
                      else _demangle(mangled)))
     smem_kind = {"flash_fwd_tc": 0, "flash_dq_tc": 1, "flash_dkv_tc": 2,
-                 "flash_dkv_split_tc": 2}
+                 "flash_dq_wide_tc": 1, "flash_dkv_wide_tc": 2}
     entry, props, spill = None, None, ""
+    spills, losses = {}, set()
     for line in text.splitlines():
         if "Performance Loss" in line:
             what = line.split("Performance Loss:")[1].split(" for the function")[0]
             mangled_name = line.split(chr(39))[-2]
+            losses.add(names.get(mangled_name, mangled_name))
             log(f"  ptxas: {names.get(mangled_name, mangled_name)}:{what}")
         elif "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -342,9 +352,17 @@ def report_build(source, text):
                         f" B")
             regs = line.split("Used")[1].split(",")[0].strip()
             log(f"  {source}: {name:30s} {regs}{smem}; {spill}")
+            spills[name] = spill
             entry = None
     if not flash:
         return
+    for name in WIDE_KERNELS:
+        require(name in spills, f"ptxas reported nothing for {name}")
+        require("0 bytes spill stores, 0 bytes spill loads" in spills[name],
+                f"{name} spills: {spills[name]}")
+        require(name not in losses, f"ptxas reports a Performance Loss for "
+                                    f"{name}")
+    log(f"  {' and '.join(WIDE_KERNELS)}: no spills, no Performance Loss")
     counts = _sass_counts(backend.library_path("flash_attention"))
     if counts is None:
         log("  cuobjdump not found: SASS not counted")
@@ -654,6 +672,39 @@ def check_rmsnorm(gen):
                                       f"({rows}, {d})")
                     log(f"  K6 fused_rmsnorm bf16 ({rows}, {d}): max "
                         f"{ulp} bf16 ulp, {same:.4%} of outputs bit-equal")
+    # Every path: one row, granite's width, a lane's last vector partial
+    # (1000), widths no multiple of the vector (1001, 7), and a view one
+    # element into its storage; the last three and the view on the scalar
+    # path, counted.
+    for rows, d, offset in ((1, 3072, 0), (37, 2048, 0), (37, 1000, 0),
+                            (37, 1001, 0), (37, 7, 0), (37, 3072, 1),
+                            (1, 960, 1)):
+        scale = torch.randn(d, generator=gen, device=cuda) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.randn(rows * d + offset, generator=gen,
+                               device=cuda).to(dtype)
+            x = flat[offset:].view(rows, d)
+            scalar = offset != 0 or d % (16 // x.element_size()) != 0
+            before = frn.fused_rmsnorm.scalar_launches
+            y, rstd = frn.fused_rmsnorm(x, scale)
+            require(frn.fused_rmsnorm.scalar_launches == before + scalar,
+                    f"K6 ({rows}, {d}) offset {offset} {dtype}: "
+                    f"{'not ' if scalar else ''}on the scalar path")
+            yp, rp = frn.rmsnorm_plain(x, scale)
+            MAX_ERR["fused_rmsnorm"] = max(MAX_ERR["fused_rmsnorm"],
+                                           max_abs(y, yp))
+            rel = float(((rstd - rp).abs() / rp.abs()).max())
+            if dtype == torch.float32:
+                rel = max(rel, float(((y - yp).abs() / yp.abs()
+                                      .clamp_min(1e-30)).max()))
+                require(rel <= 1e-5, f"K6 f32 ({rows}, {d}) offset "
+                                     f"{offset} off by {rel:.2e} rel")
+            else:
+                require(rel <= 1e-5 and bf16_ulp(y, yp) <= 1,
+                        f"K6 bf16 ({rows}, {d}) offset {offset} off")
+    log("  K6 at one row, widths 2048, 1000, 1001 and 7, and views one "
+        "element in: within bounds, on the path expected (scalar for 1001, "
+        "7 and the views)")
 
 
 def _excess(a, b, atol, rtol):
@@ -676,7 +727,9 @@ def check_flash(gen):
              ((2, 300, 3, 64), False, 0, 64), ((1, 200, 2, 16), True, 0, 64),
              ((1, 130, 2, 128), False, 0, 32), ((1, 257, 4, 32), True, 50, 64),
              (GEMMA_ATTN, True, 0, 1024), ((2, 333, 3, 256), True, 100, 64),
-             ((2, 333, 3, 256), False, 0, 64)]
+             ((2, 333, 3, 256), False, 0, 64), ((1, 64, 3, 256), True, 0, 64),
+             ((2, 513, 3, 256), False, 0, 64),
+             (GEMMA_ATTN, True, 1024, 1024)]
     for shape, causal, window, chunk in cases:
         for dtype in (torch.float32, torch.bfloat16):
             if dtype == torch.float32:
@@ -923,6 +976,26 @@ def measure(gen):
                 8 * elems * size + 4 * b * h * s_, 8 * causal_pairs * dh,
                 f"causal {shape} (delta + dq pass + dk/dv pass), {unit}",
                 tensor_cores=name == "bf16")
+            if name == "bf16" and dh == 256:
+                # The parts alone: rowsum(dO*O) (plain torch), then each
+                # pass of the kernel (three products, then four).
+                delta = fla._delta(out, do)
+                io = 5 * elems * size + 8 * b * h * s_
+                for part, fn, n_bytes, n_flops, tc in (
+                        ("delta", lambda: fla._delta(out, do),
+                         2 * elems * size + 4 * b * h * s_, 2 * elems,
+                         False),
+                        ("dq pass", lambda: fla._bwd_launch(
+                            q, k, v, do, lse, delta, True, 0, passes=1),
+                         io, 6 * causal_pairs * dh, True),
+                        ("dk/dv pass", lambda: fla._bwd_launch(
+                            q, k, v, do, lse, delta, True, 0, passes=2),
+                         io + elems * size, 8 * causal_pairs * dh, True)):
+                    bwd_rows[f"bf16 dh256 {part}"] = row(
+                        f"flash_attention_bwd[{part}]", fn, None, None,
+                        n_bytes, n_flops, f"causal {shape} {part} alone",
+                        tensor_cores=tc)
+                del delta
         del q, k, v, do, out, lse, qt, kt, vt, dot, lib_out
         torch.cuda.empty_cache()
     rows["flash_attention_fwd"] = {**fwd_rows["bf16"], "variants": fwd_rows}
@@ -959,7 +1032,7 @@ def _wrappers():
             "flash_attention_bwd": fla.flash_attention_bwd}
 
 
-SCALAR = ("hop_encode", "adamw_update")   # the wrappers with a scalar loop
+SCALAR = ("hop_encode", "adamw_update", "fused_rmsnorm")   # with a scalar loop
 
 
 def _counts():
@@ -1149,7 +1222,8 @@ def run_phase(world, args, small, required, spec=None, small_spec=None):
         log(f"  rank {r['rank']} layers, one step timed alone after the "
             f"main path: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       r["breakdown"].items()))
-    log(f"  scalar-loop launches per rank (K2 hop_encode, K5 adamw_update) "
+    log(f"  scalar-loop launches per rank (K2 hop_encode, K5 adamw_update, "
+        f"K6 fused_rmsnorm) "
         f"over the {args.steps} steps: {[r['scalar'] for r in results]}, of "
         f"{[{k: r['totals'][k] for k in SCALAR} for r in results]} launches")
     for r in results:

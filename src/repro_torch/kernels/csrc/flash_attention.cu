@@ -45,10 +45,14 @@
 //
 // At D = 256 (gemma-7b) the forward keeps this design (64 KiB of Q and a
 // 128 KiB ring: 193 KiB of the 227 KiB a block may have).  The backward
-// would need 256 KiB and, in the dk/dv pass, 256 f32 accumulators a
-// thread; there its streamed tiles are 32 rows and a dk/dv block owns 64
-// keys, dV in one consumer warpgroup and dK in the other (Bwd<D> and
-// flash_dkv_split_tc below).  P and dS round to bf16 as at other widths.
+// has a design of its own there (flash_dq_wide_tc, flash_dkv_wide_tc):
+// 128 own rows would take 128 KiB beside the ring, and the dk/dv pass
+// would hold dK and dV in 2 x 128 f32 registers a thread.  A block owns
+// 64 rows, streams the other side in 64-row tiles, and its two consumer
+// warpgroups split each tile by columns: each forms its half of the score
+// products, the halves of P and dS meet in shared memory, and each
+// warpgroup accumulates its half of the head dimension (WideSmem below).
+// P and dS round to bf16 as at other widths.
 //
 // float32 stays on the CUDA cores: the tensor cores would take it only as
 // TF32 (about 3 digits), which the f32 tolerances refuse.  Its kernels
@@ -534,8 +538,9 @@ constexpr int kConsumers = 256;
 constexpr int kTcThreads = kConsumers + 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// A wait that outlasts this many cycles (~9 s at 1.98 GHz) traps: a lost
-// copy then fails the launch instead of hanging the card.
+// A wait that outlasts this many cycles (~9 s at 1.98 GHz) traps (or
+// faults, in the wide kernels: mbar_wait): a lost copy then fails the
+// launch instead of hanging the card.
 constexpr long long kWaitLimit = 1ll << 34;
 constexpr uint32_t kSmemLimit = 232448;  // opt-in shared memory of a block
 
@@ -566,28 +571,35 @@ struct Smem {
   static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// The bf16 backward's tiling at head_dim D.  Up to 128 a block owns 128
-// rows (two consumer warpgroups of 64) and streams the other side in
-// 64-row tiles.  At 256 that needs 2 x 64 KiB of own tiles plus a
-// 128 KiB ring, past the 227 KiB a block may have, and the dk/dv pass
-// would hold dK and dV in 2 x 128 f32 registers a thread, past the 255
-// cap.  So at 256 the other side streams in 32-row tiles (wgmma N = 32;
-// the ring drops to 64 KiB) and a dk/dv block owns 64 keys, whose dV one
-// consumer warpgroup accumulates and dK the other
-// (flash_dkv_split_tc).
+// The bf16 backward above head_dim 128 (the "wide" kernels).  Up to 128 a
+// block owns 128 rows (two consumer warpgroups of 64) and streams the
+// other side in 64-row tiles.  At 256 that needs 2 x 64 KiB of own tiles
+// plus a 128 KiB ring, past the 227 KiB a block may have, and the dk/dv
+// pass would hold dK and dV in 2 x 128 f32 registers a thread.  So a wide
+// block owns 64 rows (2 x 32 KiB) beside the same 128 KiB ring, and after
+// them come NX exchange tiles of 64 x 64 bf16 (8 KiB each): the halves of
+// P and dS that the two consumer warpgroups form, double-buffered (NX =
+// 2 for dS in the dq pass, 4 for P^T and dS^T in the dk/dv pass), then
+// the mbarriers.
 template <int D>
-struct Bwd {
-  static constexpr bool kSplit = D > 128;
-  static constexpr int TN = kSplit ? 32 : kTile;       // streamed rows
-  static constexpr int OWN_KV = kSplit ? kTile : kOwn;  // dk/dv block keys
+constexpr bool kWide = D > 128;
+
+template <int D, int NX>
+struct WideSmem {
+  using S = Smem<D, 2, kTile, kTile>;
+  static constexpr uint32_t xtile = kTile * kTile * 2;
+  static constexpr uint32_t xch = S::bars;  // the exchange tiles
+  static constexpr uint32_t bars = xch + NX * xtile;
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;
 };
 
 template <int D>
 struct TcSmem {
   static constexpr uint32_t fwd = Smem<D, 1, kOwn, kTile>::bytes;
-  static constexpr uint32_t dq = Smem<D, 2, kOwn, Bwd<D>::TN>::bytes;
+  static constexpr uint32_t dq =
+      kWide<D> ? WideSmem<D, 2>::bytes : Smem<D, 2, kOwn, kTile>::bytes;
   static constexpr uint32_t dkv =
-      Smem<D, 2, Bwd<D>::OWN_KV, Bwd<D>::TN>::bytes;
+      kWide<D> ? WideSmem<D, 4>::bytes : Smem<D, 2, kOwn, kTile>::bytes;
   static_assert(fwd <= kSmemLimit && dq <= kSmemLimit && dkv <= kSmemLimit,
                 "a tensor-core kernel's tiles exceed the shared memory");
 };
@@ -618,6 +630,13 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
+// kFault: a wait past kWaitLimit ends the launch with a store to address
+// 0 (an illegal-address fault, cudaError 700) instead of __trap().  With
+// a trap on that path ptxas spills bodies that fit setmaxnreg's 240
+// without one (the wide dk/dv pass stops at R165 and spills; with the
+// store it reaches R198 and spills nothing), so the wide kernels take the
+// store (PERF.md, PR 17).
+template <bool kFault = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long start = clock64();
   uint32_t done = 0;
@@ -630,7 +649,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (clock64() - start > kWaitLimit) __trap();
+    if (clock64() - start > kWaitLimit) {
+      if constexpr (kFault)
+        asm volatile("st.global.u32 [%0], 0;\n" ::"l"(0ull) : "memory");
+      else
+        __trap();
+    }
   }
 }
 
@@ -688,6 +712,16 @@ __device__ __forceinline__ uint64_t desc_n(uint32_t tile, int rows, int ks,
   using G = Geo<D>;
   return make_desc(tile + nb * rows * G::ROWB + ks * 16 * G::ROWB, G::SBO,
                    G::SWZ);
+}
+
+// N-major operand two boxes wide (N = 2 CW): as desc_n from box nb, with
+// box nb + 1 one leading byte offset (rows * ROWB) further along N.
+template <int D>
+__device__ __forceinline__ uint64_t desc_n2(uint32_t tile, int rows, int ks,
+                                            int nb) {
+  using G = Geo<D>;
+  const uint64_t lbo = static_cast<uint64_t>((rows * G::ROWB) >> 4) << 16;
+  return (desc_n<D>(tile, rows, ks, nb) & ~(0x3FFFull << 16)) | lbo;
 }
 
 // D (64xN, f32) (+)= A (64x16, smem) * B (16xN, smem, K-major); N is 64
@@ -781,9 +815,62 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64x128, f32) += A (64x16, smem, K-major) * B (16x128, smem, N-major:
+// the transpose bit set, two swizzle boxes LBO bytes apart).
+__device__ __forceinline__ void wgmma_ss_n(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The wide kernels' consumer warpgroups meet at named barrier 1 (the
+// producer warpgroup has left by then).  A thread that stored to an
+// exchange tile fences its stores into the async proxy first, since the
+// next products read the tile through wgmma.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Stores the bf16 pair v at row r, columns c and c + 1 (c even) of a 64 x
+// 64 bf16 exchange tile, in the 128-byte swizzle that desc_k<64> reads.
+__device__ __forceinline__ void st_xch(uint32_t tile, int r, int c,
+                                       uint32_t v) {
+  const uint32_t off = r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + off), "r"(v)
+               : "memory");
 }
 
 // Accumulator fragments (m64nN, f32): in a warpgroup, warp w holds rows
@@ -823,8 +910,9 @@ __device__ __forceinline__ uint32_t setup(unsigned char* raw,
 
 // The producer (one thread): the block's own tiles of OWN rows (own0,
 // and own1 when NOWN is 2) from row `own_row`, then TN-row tiles lo..hi-1
-// of the streamed pair (str0, str1) through the ring.
-template <int D, int NOWN, int OWN, int TN>
+// of the streamed pair (str0, str1) through the ring.  kFault as in
+// mbar_wait.
+template <int D, int NOWN, int OWN, int TN, bool kFault = false>
 __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
                                         const CUtensorMap* own0,
                                         const CUtensorMap* own1,
@@ -843,7 +931,7 @@ __device__ __forceinline__ void produce(uint32_t base, uint32_t bars,
   }
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int s = i % kStages;
-    mbar_wait(empty_bar(bars, s), ((i / kStages) & 1) ^ 1);
+    mbar_wait<kFault>(empty_bar(bars, s), ((i / kStages) & 1) ^ 1);
     mbar_expect_tx(full_bar(bars, s), 2 * L::tile);
     const uint32_t st = base + L::stream + s * 2 * L::tile;
     for (int nb = 0; nb < G::NB; ++nb) {
@@ -885,6 +973,30 @@ __device__ __forceinline__ void store_rows(
         *reinterpret_cast<uint32_t*>(out + nb * G::CW + 8 * n8 + 2 * t) =
             pack_bf16(acc[nb][e] / div[hf], acc[nb][e + 1] / div[hf]);
       }
+  }
+}
+
+// Stores rows `row` and `row + 8` (this lane's) of a 64 x 128 accumulator
+// (an m64n128 fragment) as bf16 into columns [col0, col0 + 128) of a
+// (B, S, H, D) tensor at element offset `base`; rows at or past S are
+// skipped.
+__device__ __forceinline__ void store_half(__nv_bfloat16* __restrict__ dst,
+                                           long long base,
+                                           long long row_stride, int row,
+                                           int S, int col0,
+                                           const float (&acc)[64]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    if (r >= S) continue;
+    __nv_bfloat16* out = dst + base + r * row_stride + col0;
+#pragma unroll
+    for (int n8 = 0; n8 < 16; ++n8) {
+      const int e = 4 * n8 + 2 * hf;
+      *reinterpret_cast<uint32_t*>(out + 8 * n8 + 2 * t) =
+          pack_bf16(acc[e], acc[e + 1]);
+    }
   }
 }
 
@@ -1010,8 +1122,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             m[hf] * kLn2 + logf(l_safe[hf]);
 }
 
-// K8, dq pass on the tensor cores: grid as the forward's; Q and dO are
-// the block's own tiles, K and V stream in TN-row tiles (Bwd<D>).
+// K8, dq pass on the tensor cores up to head_dim 128: grid as the
+// forward's; Q and dO are the block's own tiles, K and V stream in
+// TN-row tiles.
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dq_tc(const __grid_constant__ CUtensorMap tq,
@@ -1021,8 +1134,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int S, int H, float scale,
                 float scale_log2, int causal, int window) {
+  static_assert(!kWide<D>, "head_dim 256 takes flash_dq_wide_tc");
   using G = Geo<D>;
-  constexpr int TN = Bwd<D>::TN;
+  constexpr int TN = kTile;
   constexpr int NS = TN / 2;   // accumulators of a 64 x TN score tile
   constexpr int KK = TN / 16;  // reduction steps over a streamed tile
   using L = Smem<D, 2, kOwn, TN>;
@@ -1232,122 +1346,242 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   store_rows<D>(dv, obase, row_stride, row, S, acc_v, one);
 }
 
-// K8, dk/dv pass on the tensor cores at head_dim 256 (Bwd<D>::kSplit):
-// grid (B*H, key tiles of 64 rows, first first).  dK and dV of 64 keys
-// are 2 x 128 f32 accumulators a thread, past the 255-register cap, so
-// the two consumer warpgroups share the block's 64 keys: warpgroup 0
-// accumulates dV += P^T dO, warpgroup 1 dK += dS^T Q, each in 128
-// registers.  Both form S^T = K Q^T (so the pass does five products per
-// tile instead of four); warpgroup 1 also forms dP^T = V dO^T.  K and V
-// are the block's own tiles; Q and dO stream in TN-row tiles.
+// The wide kernels' score products for one streamed tile: sc += A0 B0^T
+// and dp += A1 B1^T over the head dimension, A0 and A1 the block's own
+// 64-row tiles, B0 and B1 the 32 rows from col0 of the streamed ones
+// (m64n32k16).  Each k-step builds its own descriptors.  Commits without
+// waiting.
+template <int D>
+__device__ __forceinline__ void wide_scores(float (&sc)[16], float (&dp)[16],
+                                            uint32_t a0, uint32_t b0,
+                                            uint32_t a1, uint32_t b1,
+                                            int col0) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) sc[e] = dp[e] = 0.0f;
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < Geo<D>::KSTEPS; ++ks) {
+    wgmma_ss(sc, desc_k<D>(a0, kTile, 0, ks), desc_k<D>(b0, kTile, col0, ks),
+             1);
+    wgmma_ss(dp, desc_k<D>(a1, kTile, 0, ks), desc_k<D>(b1, kTile, col0, ks),
+             1);
+  }
+  wg_commit();
+}
+
+// acc += X B[:, 128 wg : 128 wg + 128] over a streamed tile's 64 rows: X
+// a 64 x 64 exchange tile (K-major), B the streamed tile read N-major.
+template <int D>
+__device__ __forceinline__ void wide_half(float (&acc)[64], uint32_t x,
+                                          uint32_t b, int wg, int kk) {
+  wgmma_ss_n(acc, desc_k<64>(x, kTile, 0, kk),
+             desc_n2<D>(b, kTile, kk, 2 * wg));
+}
+
+// What a consumer thread of a wide kernel keeps in f32 registers while
+// it forms the score products: the dk/dv pass's dK and dV halves (2 x
+// 64), the S and dP tiles (2 x 16) and the lse and delta of its 8
+// columns, with 48 left for addresses, indices and the softmax's
+// temporaries.  setmaxnreg gives the consumers 240, which ptxas uses once
+// the body cannot reach a trap (mbar_wait<true>).
+constexpr int kConsumerRegs = 240;
+static_assert(2 * 64 + 2 * 16 + 2 * 8 + 48 <= kConsumerRegs,
+              "the dk/dv pass's registers exceed the consumers' budget");
+
+// K8, dq pass on the tensor cores at head_dim 256: grid (B*H, query tiles
+// of 64 rows, last first); Q and dO are the block's own tiles, K and V
+// stream in 64-row tiles.  For each key tile, warpgroup wg forms S = Q K^T
+// and dP = dO V^T for key columns [32 wg, 32 wg + 32) and writes dS there,
+// in bf16, to an exchange tile; after the consumers' barrier it
+// accumulates dq[:, 128 wg : 128 wg + 128] += dS K over all 64 keys.
+// Three products a tile; both warpgroups do the same work.
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
-    flash_dkv_split_tc(const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tdo,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, int S, int H,
-                       float scale, float scale_log2, int causal,
-                       int window) {
-  using G = Geo<D>;
-  constexpr int TN = Bwd<D>::TN;
-  constexpr int NS = TN / 2;   // accumulators of a 64 x TN score tile
-  constexpr int KK = TN / 16;  // reduction steps over a streamed tile
-  constexpr int NC = TN / 4;   // query columns a lane holds
-  using L = Smem<D, 2, kTile, TN>;
+    flash_dq_wide_tc(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, int S, int H,
+                     float scale, float scale_log2, int causal, int window) {
+  static_assert(kWide<D> && Geo<D>::NB % 2 == 0, "a wide kernel");
+  using L = WideSmem<D, 2>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  int lo, hi;
+  keys_for(q0, kTile, kTile, S, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 2, kTile, kTile, true>(base, bars, &tq, &tdo, &tk, &tv, h,
+                                        b, q0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int r0 = wi * 16 + g;  // this lane's tile rows r0 and r0 + 8
+  const int row = q0 + r0;
+  const int c0 = wg * 32;      // this warpgroup's key columns of a tile
+  const long long rbase = static_cast<long long>(bh) * S;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    lse2[hf] = r < S ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
+    dl[hf] = r < S ? delta[rbase + r] : 0.0f;
+  }
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  const uint32_t do_own = base + L::S::own;
+  mbar_wait<true>(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const uint32_t k_s = base + L::S::stream + s * 2 * L::S::tile;
+    const uint32_t v_s = k_s + L::S::tile;
+    const uint32_t ds_s = base + L::xch + (i & 1) * L::xtile;
+    float sc[16], dp[16];
+    mbar_wait<true>(full_bar(bars, s), (i / kStages) & 1);
+    wide_scores<D>(sc, dp, base, k_s, do_own, v_s, c0);
+    wg_wait0();
+    const int k0 = j * kTile;
+    const bool mask = !all_visible(q0, kTile, k0, kTile, S, causal, window);
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      const int hf = (e >> 1) & 1;
+      float ds[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = e + u;
+        float p = 0.0f;
+        if (!mask || visible(row + 8 * hf, k0 + c0 + 8 * (x >> 2) + 2 * t + u,
+                             S, causal, window))
+          p = exp2f(__fmul_rn(sc[x], scale_log2) - lse2[hf]);
+        ds[u] = __fmul_rn(__fmul_rn(p, dp[x] - dl[hf]), scale);
+      }
+      st_xch(ds_s, r0 + 8 * hf, c0 + 8 * (e >> 2) + 2 * t,
+             pack_bf16(ds[0], ds[1]));
+    }
+    consumers_sync();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wide_half<D>(acc, ds_s, k_s, wg, kk);
+    wg_commit();
+    wg_wait0();
+    mbar_arrive(empty_bar(bars, s));
+  }
+  store_half(dq, (static_cast<long long>(b) * S * H + h) * D,
+             static_cast<long long>(H) * D, row, S, 128 * wg, acc);
+}
+
+// K8, dk/dv pass on the tensor cores at head_dim 256: grid (B*H, key
+// tiles of 64 rows, first first); K and V are the block's own tiles, Q
+// and dO stream in 64-row tiles.  For each query tile, warpgroup wg forms
+// S^T = K Q^T and dP^T = V dO^T for query columns [32 wg, 32 wg + 32) and
+// writes P^T and dS^T there, in bf16, to two exchange tiles; after the
+// consumers' barrier it accumulates dV[:, 128 wg : 128 wg + 128] += P^T dO
+// and dK[:, 128 wg : 128 wg + 128] += dS^T Q over all 64 queries.  Four
+// products a tile; both warpgroups do the same work.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dkv_wide_tc(const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int H,
+                      float scale, float scale_log2, int causal,
+                      int window) {
+  static_assert(kWide<D> && Geo<D>::NB % 2 == 0, "a wide kernel");
+  using L = WideSmem<D, 4>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
   const uint32_t bars = setup(smem_raw, L::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kTile;
   int lo, hi;
-  queries_for(k0, kTile, TN, S, causal, window, &lo, &hi);
+  queries_for(k0, kTile, kTile, S, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
-      produce<D, 2, kTile, TN>(base, bars, &tk, &tv, &tq, &tdo, h, b, k0, lo,
-                               hi);
+      produce<D, 2, kTile, kTile, true>(base, bars, &tk, &tv, &tq, &tdo, h,
+                                        b, k0, lo, hi);
     return;
   }
   consumer_regs();
-  const bool dk_role = threadIdx.x >= 128;  // warpgroup 1: dK
-  const int wi = (threadIdx.x / 32) % 4;
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
   const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const int row = k0 + wi * 16 + g;  // keys row and row + 8
+  const int r0 = wi * 16 + g;  // this lane's tile rows r0 and r0 + 8
+  const int row = k0 + r0;     // keys
+  const int c0 = wg * 32;      // this warpgroup's query columns of a tile
   const long long rbase = static_cast<long long>(bh) * S;
-  float acc[G::NB][G::CW / 2];
+  float acc_k[64], acc_v[64];
 #pragma unroll
-  for (int nb = 0; nb < G::NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < G::CW / 2; ++e) acc[nb][e] = 0.0f;
-  const uint32_t v_own = base + L::own;
-  mbar_wait(bars, 0);
+  for (int e = 0; e < 64; ++e) acc_k[e] = acc_v[e] = 0.0f;
+  const uint32_t v_own = base + L::S::own;
+  mbar_wait<true>(bars, 0);
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int s = i % kStages;
-    const int q0 = j * TN;
-    // lse (base 2) and, for dK, delta of this lane's NC query columns
-    float lq[NC], dl[NC];
+    const int q0 = j * kTile;
+    const uint32_t q_s = base + L::S::stream + s * 2 * L::S::tile;
+    const uint32_t do_s = q_s + L::S::tile;
+    const uint32_t pt_s = base + L::xch + (i & 1) * 2 * L::xtile;
+    const uint32_t dst_s = pt_s + L::xtile;
+    float sc[16], dp[16];
+    mbar_wait<true>(full_bar(bars, s), (i / kStages) & 1);
+    wide_scores<D>(sc, dp, base, q_s, v_own, do_s, c0);
+    // lse (base 2) and delta of this lane's 8 query columns, loaded while
+    // the products run
+    float lq[8], dl[8];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int q = q0 + 8 * (c >> 1) + 2 * t + (c & 1);
+    for (int c = 0; c < 8; ++c) {
+      const int q = q0 + c0 + 8 * (c >> 1) + 2 * t + (c & 1);
       lq[c] = q < S ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
-      dl[c] = dk_role && q < S ? delta[rbase + q] : 0.0f;
+      dl[c] = q < S ? delta[rbase + q] : 0.0f;
     }
-    mbar_wait(full_bar(bars, s), (i / kStages) & 1);
-    const uint32_t q_s = base + L::stream + s * 2 * L::tile;
-    const uint32_t do_s = q_s + L::tile;
-    float sc[NS], dp[NS];
-#pragma unroll
-    for (int e = 0; e < NS; ++e) sc[e] = dp[e] = 0.0f;
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < G::KSTEPS; ++ks)
-      wgmma_ss(sc, desc_k<D>(base, kTile, 0, ks), desc_k<D>(q_s, TN, 0, ks),
-               1);
-    if (dk_role) {
-#pragma unroll
-      for (int ks = 0; ks < G::KSTEPS; ++ks)
-        wgmma_ss(dp, desc_k<D>(v_own, kTile, 0, ks),
-                 desc_k<D>(do_s, TN, 0, ks), 1);
-    }
-    wg_commit();
     wg_wait0();
-    const bool mask = !all_visible(q0, TN, k0, kTile, S, causal, window);
-    uint32_t fa[KK][4];  // P^T (dV) or dS^T (dK), rounded to bf16
+    const bool mask = !all_visible(q0, kTile, k0, kTile, S, causal, window);
 #pragma unroll
-    for (int e = 0; e < NS; e += 2) {
+    for (int e = 0; e < 16; e += 2) {
       const int hf = (e >> 1) & 1;
-      float f[2];
+      float p[2], ds[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int x = e + u;
         const int c = 2 * (x >> 2) + u;  // this lane's column index
-        float p = 0.0f;
-        if (!mask || visible(q0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf, S,
-                             causal, window))
-          p = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
-        f[u] = dk_role ? __fmul_rn(__fmul_rn(p, dp[x] - dl[c]), scale) : p;
+        p[u] = 0.0f;
+        if (!mask || visible(q0 + c0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf,
+                             S, causal, window))
+          p[u] = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
+        ds[u] = __fmul_rn(__fmul_rn(p[u], dp[x] - dl[c]), scale);
       }
-      fa[e >> 3][(e >> 1) & 3] = pack_bf16(f[0], f[1]);
+      const int cc = c0 + 8 * (e >> 2) + 2 * t;
+      st_xch(pt_s, r0 + 8 * hf, cc, pack_bf16(p[0], p[1]));
+      st_xch(dst_s, r0 + 8 * hf, cc, pack_bf16(ds[0], ds[1]));
     }
-    const uint32_t rhs = dk_role ? q_s : do_s;
+    consumers_sync();
     wg_fence();
 #pragma unroll
-    for (int nb = 0; nb < G::NB; ++nb)
-#pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
-        wgmma_rs(acc[nb], fa[kk], desc_n<D>(rhs, TN, kk, nb));
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wide_half<D>(acc_v, pt_s, do_s, wg, kk);
+      wide_half<D>(acc_k, dst_s, q_s, wg, kk);
+    }
     wg_commit();
     wg_wait0();
     mbar_arrive(empty_bar(bars, s));
   }
-  const float one[2] = {1.0f, 1.0f};
-  store_rows<D>(dk_role ? dk : dv,
-                (static_cast<long long>(b) * S * H + h) * D,
-                static_cast<long long>(H) * D, row, S, acc, one);
+  const long long obase = (static_cast<long long>(b) * S * H + h) * D;
+  const long long row_stride = static_cast<long long>(H) * D;
+  store_half(dk, obase, row_stride, row, S, 128 * wg, acc_k);
+  store_half(dv, obase, row_stride, row, S, 128 * wg, acc_v);
 }
 
 // ---------------------------------------------------------------------------
@@ -1393,7 +1627,7 @@ int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
 template <typename T, int D>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dq, void* dk, void* dv,
-        int B, int S, int H, float scale, int causal, int window,
+        int B, int S, int H, float scale, int causal, int window, int passes,
         cudaStream_t stream) {
   constexpr int R = f32_bwd_rows<D>();
   constexpr size_t smem_dq = dq_smem<D, R>(), smem_dkv = dkv_smem<D, R>();
@@ -1404,17 +1638,23 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   rc = prepare(flash_bwd_dkv_kernel<T, D, R>, smem_dkv);
   if (rc != 0) return rc;
   const dim3 grid((S + R - 1) / R, B * H);
-  flash_bwd_dq_kernel<T, D, R><<<grid, kThreads, smem_dq, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, scale, causal, window);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  flash_bwd_dkv_kernel<T, D, R><<<grid, kThreads, smem_dkv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
+  if (passes & 1) {
+    flash_bwd_dq_kernel<T, D, R><<<grid, kThreads, smem_dq, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), S, H, scale, causal, window);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (passes & 2) {
+    flash_bwd_dkv_kernel<T, D, R><<<grid, kThreads, smem_dkv, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal,
+        window);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  return rc;
 }
 
 // cuTensorMapEncodeTiled from the driver library the process already has
@@ -1490,49 +1730,63 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// passes: bit 0 launches the dq pass, bit 1 the dk/dv pass.
 template <int D>
 int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
            int B, int S, int H, float scale, int causal, int window,
-           cudaStream_t stream) {
-  constexpr int TN = Bwd<D>::TN, OWN_KV = Bwd<D>::OWN_KV;
+           int passes, cudaStream_t stream) {
+  constexpr int OWN = kWide<D> ? kTile : kOwn;  // rows a block owns
   CUtensorMap q_own, do_own, k_str, v_str, k_own, v_own, q_str, do_str;
-  int rc = make_map<D>(&q_own, q, B, S, H, kOwn);
-  if (rc == 0) rc = make_map<D>(&do_own, dout, B, S, H, kOwn);
-  if (rc == 0) rc = make_map<D>(&k_str, k, B, S, H, TN);
-  if (rc == 0) rc = make_map<D>(&v_str, v, B, S, H, TN);
-  if (rc == 0) rc = make_map<D>(&k_own, k, B, S, H, OWN_KV);
-  if (rc == 0) rc = make_map<D>(&v_own, v, B, S, H, OWN_KV);
-  if (rc == 0) rc = make_map<D>(&q_str, q, B, S, H, TN);
-  if (rc == 0) rc = make_map<D>(&do_str, dout, B, S, H, TN);
+  int rc = make_map<D>(&q_own, q, B, S, H, OWN);
+  if (rc == 0) rc = make_map<D>(&do_own, dout, B, S, H, OWN);
+  if (rc == 0) rc = make_map<D>(&k_str, k, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&v_str, v, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&k_own, k, B, S, H, OWN);
+  if (rc == 0) rc = make_map<D>(&v_own, v, B, S, H, OWN);
+  if (rc == 0) rc = make_map<D>(&q_str, q, B, S, H, kTile);
+  if (rc == 0) rc = make_map<D>(&do_str, dout, B, S, H, kTile);
   if (rc != 0) return rc;
   constexpr uint32_t smem_dq = TcSmem<D>::dq, smem_dkv = TcSmem<D>::dkv;
-  rc = prepare(flash_dq_tc<D>, smem_dq);
-  if (rc != 0) return rc;
-  if constexpr (Bwd<D>::kSplit)
-    rc = prepare(flash_dkv_split_tc<D>, smem_dkv);
-  else
-    rc = prepare(flash_dkv_tc<D>, smem_dkv);
-  if (rc != 0) return rc;
   const float scale_log2 = scale * kLog2e;
-  flash_dq_tc<D><<<dim3(B * H, (S + kOwn - 1) / kOwn), kTcThreads, smem_dq,
-                   stream>>>(q_own, do_own, k_str, v_str, lse, delta,
-                             static_cast<__nv_bfloat16*>(dq), S, H, scale,
-                             scale_log2, causal, window);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const dim3 grid_kv(B * H, (S + OWN_KV - 1) / OWN_KV);
+  const dim3 grid(B * H, (S + OWN - 1) / OWN);
+  __nv_bfloat16* dq_ = static_cast<__nv_bfloat16*>(dq);
   __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
   __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
-  if constexpr (Bwd<D>::kSplit)
-    flash_dkv_split_tc<D><<<grid_kv, kTcThreads, smem_dkv, stream>>>(
-        k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
-        scale_log2, causal, window);
-  else
-    flash_dkv_tc<D><<<grid_kv, kTcThreads, smem_dkv, stream>>>(
-        k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
-        scale_log2, causal, window);
-  return static_cast<int>(cudaGetLastError());
+  if (passes & 1) {
+    if constexpr (kWide<D>) {
+      rc = prepare(flash_dq_wide_tc<D>, smem_dq);
+      if (rc != 0) return rc;
+      flash_dq_wide_tc<D><<<grid, kTcThreads, smem_dq, stream>>>(
+          q_own, do_own, k_str, v_str, lse, delta, dq_, S, H, scale,
+          scale_log2, causal, window);
+    } else {
+      rc = prepare(flash_dq_tc<D>, smem_dq);
+      if (rc != 0) return rc;
+      flash_dq_tc<D><<<grid, kTcThreads, smem_dq, stream>>>(
+          q_own, do_own, k_str, v_str, lse, delta, dq_, S, H, scale,
+          scale_log2, causal, window);
+    }
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (passes & 2) {
+    if constexpr (kWide<D>) {
+      rc = prepare(flash_dkv_wide_tc<D>, smem_dkv);
+      if (rc != 0) return rc;
+      flash_dkv_wide_tc<D><<<grid, kTcThreads, smem_dkv, stream>>>(
+          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
+          scale_log2, causal, window);
+    } else {
+      rc = prepare(flash_dkv_tc<D>, smem_dkv);
+      if (rc != 0) return rc;
+      flash_dkv_tc<D><<<grid, kTcThreads, smem_dkv, stream>>>(
+          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
+          scale_log2, causal, window);
+    }
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  return rc;
 }
 
 // float32 to the CUDA-core kernels, bfloat16 to the tensor-core ones.
@@ -1590,21 +1844,25 @@ extern "C" int flash_attention_tc_smem(int kernel, int head_dim) {
   }
 }
 
+// passes: 3 for the whole backward; 1 (the dq pass alone) and 2 (the dk/dv
+// pass alone) time the passes apart.
 extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v,
                                    const void* dout, const float* lse,
                                    const float* delta, void* dq, void* dk,
                                    void* dv, int B, int S, int H, float scale,
-                                   int causal, int window, void* stream) {
-  if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1)
+                                   int causal, int window, int passes,
+                                   void* stream) {
+  if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1 || passes < 1 ||
+      passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BWD_F32(D)                                                        \
   bwd<float, D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale,    \
-                causal, window, st)
+                causal, window, passes, st)
 #define BWD_BF16(D)                                                       \
   bwd_tc<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale,        \
-            causal, window, st)
+            causal, window, passes, st)
   FLASH_DISPATCH(BWD_F32, BWD_BF16)
 #undef BWD_F32
 #undef BWD_BF16

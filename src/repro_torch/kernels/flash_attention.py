@@ -16,11 +16,13 @@ accumulators, P and dS fed from registers rounded to bf16, K/V (Q/dO in
 the dk/dv pass) streamed by TMA through a two-stage ring by one thread
 of a producer warpgroup, two consumer warpgroups of 64 rows per block.
 TMA needs every pointer 16-byte aligned, which the wrapper checks.  At
-``dh`` 256 (gemma-7b) the backward streams 32-row tiles and its dk/dv
-pass gives dV and dK one consumer warpgroup each, to fit the block's
-shared memory and registers.  float32 stays on the CUDA cores (64×64
-f32 tiles, 32×32 in the backward at ``dh`` 256): the tensor cores take
-f32 only as TF32.
+``dh`` 256 (gemma-7b) the backward has kernels of its own, to fit the
+block's shared memory and registers: a block owns 64 rows, the two
+consumer warpgroups split each streamed tile's score products by
+columns, exchange their halves of P and dS through shared memory, and
+each accumulates half of the head dimension.  float32 stays on the CUDA
+cores (64×64 f32 tiles, 32×32 in the backward at ``dh`` 256): the
+tensor cores take f32 only as TF32.
 
 Shapes: ``q, k, v`` are ``(B, S, H, dh)`` with the kv heads already
 repeated to ``H``; ``lse`` is ``(B, H, S)`` f32.  Positions are
@@ -198,7 +200,7 @@ def _lib():
             + [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p] * 9 + ints + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 9 + ints + [ctypes.c_int, ctypes.c_void_p]
         lib.flash_attention_bwd.restype = ctypes.c_int
         lib.flash_attention_tc_smem.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_tc_smem.restype = ctypes.c_int
@@ -266,6 +268,20 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention_fwd.launches = 0
 
 
+def _bwd_launch(q, k, v, dout, lse, delta, causal, window, passes=3):
+    """K8's kernels on checked CUDA inputs: ``passes`` 3 launches both,
+    1 the dq pass alone, 2 the dk/dv pass alone (the outputs the other
+    pass would write are left unset).  Counts nothing."""
+    b, s, h, dh = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    backend.check(_lib().flash_attention_bwd(
+        _DTYPE_CODE[q.dtype], dh,
+        *(backend.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)),
+        b, s, h, _scale(dh), int(causal), int(window), passes,
+        backend.stream_ptr()), "flash_attention_bwd")
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int = 0, chunk: int = 64):
     """``(dq, dk, dv)`` in the inputs' dtype."""
@@ -275,15 +291,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     delta = _delta(out, dout)
     _check_kernel_inputs("flash_attention_bwd", q, k, v, out, dout,
                          f32=(lse, delta))
-    b, s, h, dh = q.shape
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    backend.check(_lib().flash_attention_bwd(
-        _DTYPE_CODE[q.dtype], dh,
-        *(backend.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)),
-        b, s, h, _scale(dh), int(causal), int(window),
-        backend.stream_ptr()), "flash_attention_bwd")
+    grads = _bwd_launch(q, k, v, dout, lse, delta, causal, window)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attention_bwd.launches = 0

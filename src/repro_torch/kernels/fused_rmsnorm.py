@@ -4,7 +4,16 @@ Counterpart of ``repro/kernels/fused_rmsnorm.py``: the kernel of
 ``csrc/fused_rmsnorm.cu`` replaces the Pallas ``_rmsnorm_kernel``,
 ``y = x·rsqrt(mean(x²)+eps)·(1+scale)`` with f32 statistics per row.
 Device-memory bytes bound it: ``rows·d`` values in and out, plus the
-scale and the per-row ``rstd``; one warp normalises one row.
+scale and the per-row ``rstd``.  The kernel reads each row once: a thread
+keeps its share of the row in registers as 16-byte vectors, the row's
+sum of squares is reduced across a warp (rows of up to 1024 values) or a
+128- or 256-thread block (wider rows), and ``y`` is written from the same
+registers.  It takes that vector path when ``x``, ``y`` and ``scale``
+start on 16-byte boundaries (:func:`backend.vector_aligned`), ``d`` is a
+multiple of the vector width (8 bf16 or 4 f32 values) and the row fits
+the kernel's registers (at most ``16384`` bf16 or ``8192`` f32 values);
+other rows take the scalar loop of the same kernel, which
+``fused_rmsnorm.scalar_launches`` counts.
 
 :func:`fused_rmsnorm` takes :func:`rmsnorm_plain` for CPU tensors and
 launches the kernel for CUDA tensors, or raises.  Both return
@@ -39,9 +48,11 @@ def _lib():
     lib = backend.load("fused_rmsnorm")
     if not getattr(lib, "_typed", False):
         lib.rmsnorm_fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                ctypes.c_void_p]
         lib.rmsnorm_fwd.restype = ctypes.c_int
+        lib.rmsnorm_max_vecs.argtypes = []
+        lib.rmsnorm_max_vecs.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -67,15 +78,21 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
         raise ValueError("fused_rmsnorm of an empty tensor")
     y = torch.empty_like(x)
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
-    backend.check(_lib().rmsnorm_fwd(
+    lib = _lib()
+    width = 16 // x.element_size()
+    vec = (backend.vector_aligned(x, y, scale) and d % width == 0
+           and d // width <= lib.rmsnorm_max_vecs())
+    backend.check(lib.rmsnorm_fwd(
         _DTYPE_CODE[x.dtype], backend.ptr(x), backend.ptr(scale),
-        backend.ptr(y), backend.ptr(rstd), rows, d, float(eps),
+        backend.ptr(y), backend.ptr(rstd), rows, d, float(eps), int(vec),
         backend.stream_ptr()), "fused_rmsnorm")
     fused_rmsnorm.launches += 1
+    fused_rmsnorm.scalar_launches += not vec
     return y, rstd
 
 
 fused_rmsnorm.launches = 0
+fused_rmsnorm.scalar_launches = 0
 
 
 def rmsnorm_grad(x, scale, rstd, gy):

@@ -270,9 +270,10 @@ def _tc_emulate(q, k, v, do, causal, window, tile=64):
     """What K7/K8's bf16 kernels compute: bf16 operands with f32 sums,
     the softmax in base 2 over 64-key tiles with a running max, P rounded
     to bf16 before P·V and dS rounded to bf16 before dS·K and dSᵀ·Q.
-    At head_dim 256 the backward streams 32-row tiles and splits dK from
-    dV across warpgroups, but P and dS are elementwise there (from the
-    forward's lse), so the rounding, and this emulation, are unchanged.
+    At head_dim 256 the backward's own kernels stage P and dS in shared
+    memory between its two consumer warpgroups, rounded to bf16 at the
+    same points (P and dS are elementwise, from the forward's lse), so
+    this emulation holds there too.
     Takes and returns (B, S, H, dh) bf16; lse (B, H, S) f32."""
     b, s, h, dh = q.shape
     n = -(-s // tile) * tile

@@ -230,6 +230,37 @@ def test_rmsnorm_kernel_at_gemma_width_on_card(cuda, rows, dtype):
     _check_rmsnorm(cuda, rows, 3072, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 37])
+@pytest.mark.parametrize("d,offset", [
+    (960, 0), (2048, 0), (3072, 0), (4096, 0), (1000, 0), (1001, 0),
+    (7, 0), (960, 1), (3072, 1)])
+def test_rmsnorm_kernel_every_path_on_card(cuda, d, offset, rows, dtype):
+    """K6 at every d_model of the registered configs (960, 2048, 3072,
+    4096: one warp a row up to 1024 values, a block a row above), at
+    widths that leave a lane's last vector partial (1000) or are no
+    multiple of the vector width (1001, 7), and on a view one element into
+    its storage: f32 within rtol 1e-5, bf16 within one bf16 ulp.
+    ``scalar_launches`` rises exactly for the widths and views that the
+    16-byte vectors cannot take."""
+    n = rows * d
+    flat = _normal(n + offset, d + rows).to(cuda, dtype)
+    x = flat[offset:].view(rows, d)
+    s = (_normal(d, 9) * 0.1).to(cuda)
+    width = 16 // x.element_size()
+    scalar = offset != 0 or d % width != 0
+    before = (frn.fused_rmsnorm.launches, frn.fused_rmsnorm.scalar_launches)
+    y, rstd = frn.fused_rmsnorm(x, s)
+    assert (frn.fused_rmsnorm.launches, frn.fused_rmsnorm.scalar_launches
+            ) == (before[0] + 1, before[1] + scalar)
+    yp, rp = frn.rmsnorm_plain(x, s)
+    torch.testing.assert_close(rstd, rp, rtol=1e-5, atol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=1e-5, atol=0)
+    else:
+        assert _bf16_ulp_distance(y, yp) <= 1
+
+
 def _attn_inputs(shape, dtype, cuda, seed):
     return [_normal(int(np.prod(shape)), seed + i).reshape(shape)
             .to(cuda, dtype) for i in range(4)]
@@ -241,7 +272,8 @@ def _attn_inputs(shape, dtype, cuda, seed):
     (130, 16, True, 0), (100, 128, False, 0), (256, 32, True, 0),
     (257, 32, True, 50), (190, 32, False, 0), (77, 16, False, 0),
     (333, 128, True, 0), (256, 256, True, 0), (333, 256, True, 100),
-    (333, 256, False, 0), (77, 256, True, 0)])
+    (333, 256, False, 0), (77, 256, True, 0), (64, 256, True, 0),
+    (4096, 256, True, 1024), (513, 256, False, 0)])
 def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
                                            dtype):
     """K7 (out, lse) and K8 (dq, dk, dv) against the chunked plain
@@ -250,7 +282,8 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
     as the reference's two routes do).  Every head width runs at a
     ragged S, so bf16 covers each TMA swizzle (32-, 64-, 128-byte rows
     and two or four 128-byte boxes at dh 128 and 256) and the zero fill
-    past S; at dh 256 the backward's 32-row tiles and split dk/dv pass."""
+    past S; at dh 256 the backward's own kernels at one tile (S = 64), a
+    long window, ragged S and non-causal."""
     q, k, v, do = _attn_inputs((2, s, 3, dh), dtype, cuda, seed=s + dh)
     kw = dict(causal=causal, window=window, chunk=64)
     fwd = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 \
@@ -274,7 +307,8 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
 @pytest.mark.parametrize("s,dh,causal,window", [
     (4096, 64, True, 0), (300, 64, True, 100), (257, 32, False, 0),
     (130, 16, True, 0), (333, 128, True, 0), (4096, 256, True, 0),
-    (333, 256, True, 100)])
+    (333, 256, True, 100), (64, 256, True, 0), (4096, 256, True, 1024),
+    (513, 256, False, 0)])
 def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
                                                       window):
     """Two bf16 calls of K7 and of K8 give the same bits: every output
@@ -290,6 +324,24 @@ def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
     grads2 = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     for g, g2 in zip(grads, grads2):
         assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("dh", [64, 256])
+def test_flash_bwd_passes_apart_match_the_whole_call_on_card(cuda, dh):
+    """The dq pass alone and the dk/dv pass alone (how chip_smoke times
+    them) write the same bits as the whole backward, and count no
+    launch."""
+    q, k, v, do = _attn_inputs((2, 333, 3, dh), torch.bfloat16, cuda,
+                               seed=dh)
+    out, lse = fla.flash_attention_fwd(q, k, v)
+    whole = fla.flash_attention_bwd(q, k, v, out, lse, do)
+    delta = fla._delta(out, do)
+    n8 = fla.flash_attention_bwd.launches
+    dq, _, _ = fla._bwd_launch(q, k, v, do, lse, delta, True, 0, passes=1)
+    _, dk, dv = fla._bwd_launch(q, k, v, do, lse, delta, True, 0, passes=2)
+    assert fla.flash_attention_bwd.launches == n8
+    for a, b in zip((dq, dk, dv), whole):
+        assert torch.equal(a, b)
 
 
 def test_bf16_flash_kernels_refuse_unaligned_views_on_card(cuda):

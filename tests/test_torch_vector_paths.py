@@ -1,4 +1,4 @@
-"""The inputs that pick K2's and K5's paths, on the CPU.
+"""The inputs that pick K2's, K5's and K6's paths, on the CPU.
 
 On the card ``hop_encode`` (K2) and ``adamw_update`` (K5) move 16-byte
 vectors when their buffers start on a 16-byte boundary and take their
@@ -11,7 +11,12 @@ path: views 4, 8 and 12 bytes into a 1 Mi buffer, n of 1 to 33, and
 K5 in place with a misaligned ``g``.  K2 must be bit-exact with
 ``repro.core.codec.encode`` and ``repro.kernels.fused_hop.hop_encode``;
 K5 within 1 ulp of ``repro.kernels.ref.adamw_update_ref`` (and bit-exact
-with the port's own ``ref.py``).  The kernels meet these inputs in
+with the port's own ``ref.py``).  K6 (``fused_rmsnorm``) takes 16-byte
+vectors when ``x``, ``y`` and ``scale`` are aligned and ``d`` is a
+multiple of the vector width, and its scalar loop otherwise: its plain
+side is held to ``repro.models.common.rmsnorm`` (rtol 1e-5 in f32, one
+bf16 ulp) at one row, at widths 1000, 1001 and 7, and on views one
+element into their storage.  The kernels meet these inputs in
 tests/test_torch_kernels_on_card.py and chip_smoke.py.
 """
 import numpy as np
@@ -27,6 +32,7 @@ from repro_torch.convert import tensor_to_numpy
 from repro_torch.kernels import backend
 from repro_torch.kernels import fused_adamw as fa
 from repro_torch.kernels import fused_hop as fh
+from repro_torch.kernels import fused_rmsnorm as frn
 from repro_torch.kernels import ref as tref
 
 CODED = ("bf16", "int8", "fp8_e4m3")
@@ -189,3 +195,44 @@ def test_adamw_in_place_with_misaligned_g_matches_reference(offset):
     assert backend.vector_aligned(p, m, v)
     assert not backend.vector_aligned(p, g, m, v)
     _check_adamw(arrays, (p, g, m, v), inplace=True)
+
+
+def _bf16_ulp(a, b) -> int:
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d,offset", [
+    (1, 960, 0), (1, 3072, 0), (5, 1000, 0), (5, 1001, 0), (5, 7, 0),
+    (5, 960, 1), (1, 3072, 1)])
+def test_rmsnorm_inputs_of_every_path_match_reference(rows, d, offset,
+                                                      dtype):
+    """K6 on the CPU (its plain version, no launch) on the inputs that
+    reach each of the kernel's paths: the reference's rmsnorm within
+    rtol 1e-5 (f32) or one bf16 ulp, bit-exact with the port's
+    ``ref.py``, and ``vector_aligned`` false exactly for the views."""
+    from repro.models.common import rmsnorm as jrmsnorm
+    from repro_torch.convert import tensor_from_numpy
+    rng = np.random.default_rng(rows * d + offset)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    s = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    tdtype = getattr(torch, dtype)
+    buf = _storage(rows * d + offset, tdtype)
+    buf[offset:].copy_(torch.from_numpy(x).reshape(-1).to(tdtype))
+    view = buf[offset:].view(rows, d)
+    assert backend.vector_aligned(view) == (offset == 0)
+    counts = (frn.fused_rmsnorm.launches, frn.fused_rmsnorm.scalar_launches)
+    got, rstd = frn.fused_rmsnorm(view, torch.from_numpy(s))
+    assert (frn.fused_rmsnorm.launches,
+            frn.fused_rmsnorm.scalar_launches) == counts
+    assert got.dtype == tdtype and rstd.shape == (rows,)
+    want = jrmsnorm(jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(s))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=0)
+    else:
+        assert _bf16_ulp(got, tensor_from_numpy(np.asarray(want))) <= 1
+    assert torch.equal(tref.rmsnorm_ref(view, torch.from_numpy(s)), got)
