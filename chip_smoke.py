@@ -86,6 +86,28 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    90% of the card's; then a float32 gemma
    (``reduced()`` with head_dim kept at 256) at seq 128 trains on the
    card and on the host's plain versions, which must agree.
+7. The transport: phase 3's smollm-360m and phase 6's gemma-7b again on
+   ``cuda_ipc`` (payloads copied device to device into receive slots
+   the peers mapped once; gloo carries control messages), each rank's
+   parameters bit-identical to phases 3 and 6; phase 5's ResNet-50
+   (ring_rsa, rhd_rsa, fused ps_gather) and MobileNet-v1 (rhd_rsa, fused
+   ps_gather) on gloo and on ``cuda_ipc`` in one spawn, under cuDNN's
+   deterministic algorithms (phase 5 keeps the default ones, which
+   differ from run to run), each rank's parameters bit-identical across
+   the two.  K1-K5 must launch as often as on gloo, phase 6's card stay
+   within 90%, and no aggregate stage a byte through the host; then
+   ``tests/test_torch_transport_on_card.py`` must pass.  Prints both
+   transports' step, aggregate and images/s beside the card, and phase
+   5's images/s beside phase 7's gloo run (the cost of deterministic
+   cuDNN).
+
+In phases 3-7 the executors must be built once each by the end of step
+1, and neither rebuilt nor added to later; the plan cache must only hit
+from step 2.  One aggregate per transport and model is profiled (every
+rank of phases 3, 6 and 7's LMs, ResNet-50 rhd_rsa in phase 7) and
+split into copies host<->device and device<->device, K1-K3/K4, gloo
+waits and control waits; the profiled cuda_ipc aggregates must copy
+nothing between host and card.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
@@ -1050,6 +1072,40 @@ def _reset_counts():
             fn.scalar_launches = 0
 
 
+def _cache_counts():
+    from repro_torch.core import plan_cache
+    return (plan_cache.GLOBAL_PLAN_CACHE.stats(),
+            plan_cache.GLOBAL_EXECUTOR_CACHE.stats())
+
+
+def _cache_delta(before):
+    """A step's plan-cache hits and misses, and the executors' builds
+    against the executors held, after the step."""
+    plans, executors = _cache_counts()
+    return {"plan_hits": plans["hits"] - before[0]["hits"],
+            "plan_misses": plans["misses"] - before[0]["misses"],
+            "executors": executors["interned"],
+            "executor_traces": executors["traces"]}
+
+
+def _require_cached(rank, label, steps):
+    """Executors built once each, by the end of step 1, and none built
+    or added after it; from step 2 on the plan cache only hits."""
+    first = steps[0]
+    built = (first["executors"], first["executor_traces"])
+    require(built[1] == built[0] >= 1,
+            f"rank {rank} {label} step 1: {built[0]} executors built "
+            f"{built[1]} times")
+    for s_, rec in enumerate(steps[1:], 2):
+        require((rec["executors"], rec["executor_traces"]) == built,
+                f"rank {rank} {label} step {s_}: {rec['executors']} "
+                f"executors built {rec['executor_traces']} times, after "
+                f"{built[0]} built {built[1]} times by step 1")
+        require(rec["plan_misses"] == 0 and rec["plan_hits"] >= 1,
+                f"rank {rank} {label} step {s_}: plan cache "
+                f"{rec['plan_hits']} hits, {rec['plan_misses']} misses")
+
+
 def _checksum(params):
     import torch
     from repro_torch import tree
@@ -1059,15 +1115,19 @@ def _checksum(params):
     return total
 
 
-def _step_breakdown(trainer, module, device, step, rank, world):
+def _step_breakdown(trainer, module, device, step, rank, world,
+                    profile=False):
     """Host-clock seconds of the step's layers, each timed alone after
     the main path (synchronised before and after): forward+backward on
     this rank's shard (one rank at a time, so the card is not shared),
     the aggregation of the full gradient tree (all ranks, it is a
-    collective), and the optimizer update."""
+    collective), and the optimizer update; the bytes the transport moved
+    in that aggregate, and with ``profile`` one more aggregate's
+    profiled split."""
     import torch
     import torch.distributed as dist
     from repro_torch import tree
+    from repro_torch.core import dist as core_dist
     from repro_torch.models import param_groups
     from repro_torch.train.step import shard_batch
 
@@ -1099,13 +1159,80 @@ def _step_breakdown(trainer, module, device, step, rank, world):
             t_fb, grads = timed(fwd_bwd)
     if world > 1:
         dist.barrier()
+    before = dict(core_dist.traffic)
     t_agg, reduced = timed(lambda: agg(grads, groups=param_groups(params)))
+    traffic = {k: core_dist.traffic[k] - before[k] for k in before}
+    split = _aggregate_split(lambda: agg(
+        grads, groups=param_groups(params))) if profile else None
     state = trainer.optimizer.init(params)
     t_opt, _ = timed(lambda: trainer.optimizer.update(reduced, state,
                                                       params))
     for p in tree.leaves(params):
         p.grad = None
-    return {"fwd_bwd_s": t_fb, "aggregate_s": t_agg, "optimizer_s": t_opt}
+    return {"fwd_bwd_s": t_fb, "aggregate_s": t_agg, "optimizer_s": t_opt,
+            "traffic": traffic, "split": split}
+
+
+# The aggregate's parts: device time of copies by direction and of the
+# hop (K1-K3) and reduce (K4) kernels, host time in the transport's
+# profiler spans (core/dist.py).
+HOP_KERNELS = ("absmax_kernel", "encode_kernel", "decode_add_kernel")
+REDUCE_KERNELS = ("reduce_vec", "reduce_scalar")
+WAIT_SPANS = {"gloo waits": ("gloo.ppermute", "gloo.all_gather",
+                             "gloo.psum"),
+              "control waits": ("cuda_ipc.notify_wait",
+                                "cuda_ipc.ack_wait")}
+
+
+def _aggregate_split(run):
+    """Run one aggregate under ``torch.profiler`` and split its time:
+    ms of host<->device and device<->device copies, K1-K3 and K4 on the
+    card, ms the host spent in gloo's and in cuda_ipc's control waits,
+    the number of host<->device copies, and the bytes the transport
+    staged through the host or wrote through mappings."""
+    import torch
+    from repro_torch.core import dist
+    act = torch.profiler.ProfilerActivity
+    before = dict(dist.traffic)
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        run()
+        sync()
+    ms = {"host<->device copies": 0.0, "device<->device copies": 0.0,
+          "K1-K3": 0.0, "K4": 0.0, "gloo waits": 0.0, "control waits": 0.0}
+    n_host = 0
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        dev = (e.cuda_time_total if dev is None else dev) / 1e3
+        name = e.key
+        if name.startswith("Memcpy"):
+            if "HtoD" in name or "DtoH" in name:
+                ms["host<->device copies"] += dev
+                n_host += e.count
+            elif "DtoD" in name or "PtoP" in name:
+                ms["device<->device copies"] += dev
+        elif any(k in name for k in HOP_KERNELS):
+            ms["K1-K3"] += dev
+        elif any(k in name for k in REDUCE_KERNELS):
+            ms["K4"] += dev
+        for label, spans in WAIT_SPANS.items():
+            if name in spans:
+                ms[label] += e.cpu_time_total / 1e3
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3, "ms": ms,
+            "host_device_copies": n_host,
+            **{k: dist.traffic[k] - before[k] for k in before}}
+
+
+def _split_line(split):
+    return (f"profiled aggregate {split['wall_ms']:.1f} ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split["ms"].items())
+            + f" (ms); {split['host_device_copies']} host<->device copies, "
+              f"{split['staged_bytes']} B staged through the host, "
+              f"{split['mapped_bytes']} B written through mappings, "
+              f"{split['control_messages']} control messages")
 
 
 def _card_in_use_gib(world):
@@ -1127,7 +1254,8 @@ def _card_in_use_gib(world):
     return (total - free) / 2 ** 30, released / 2 ** 30
 
 
-def train_rank(rank, world, args, small_args, spec=None, small_spec=None):
+def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
+               profile=False):
     import torch
     from repro_torch import tree
     from repro_torch.core import Group
@@ -1145,12 +1273,15 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None):
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()                           # main path starts here
     for s in range(args.steps):
-        before = _counts()
+        before, cache0 = _counts(), _cache_counts()
         module, opt_state, hist = trainer.run(1, module, opt_state,
                                               start_step=s)
         after = _counts()
         steps.append({**hist[0], "launches": {k: after[k] - before[k]
-                                              for k in after}})
+                                              for k in after},
+                      **_cache_delta(cache0),
+                      "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30
+                      if args.device == "cuda" else 0.0})
     totals = _counts()                        # main path ends here
     scalar = _scalar_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
@@ -1162,7 +1293,7 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None):
     checksum = _checksum(module.tree())
     del opt_state             # the breakdown makes its own optimizer state
     breakdown = _step_breakdown(trainer, module, args.device, args.steps,
-                                rank, world)
+                                rank, world, profile)
     del module, trainer
 
     # Small reference check: the same step on the card and on the host's
@@ -1191,21 +1322,52 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None):
             "small_losses": losses, "small_param_diff": param_diff}
 
 
-def run_phase(world, args, small, required, spec=None, small_spec=None):
-    """Train ``args`` (or ``spec``, when given) on ``world`` gloo ranks
-    sharing the card, print each step, and require finite losses, one
-    parameter checksum on every rank, launches of every ``required``
-    kernel, and the small model's (``small``, or ``small_spec``)
-    card-vs-host agreement.  Returns each rank's record."""
+TRANSPORT_NOTE = {
+    "gloo": "CUDA payloads staged through host memory explicitly",
+    "cuda_ipc": "payloads copied device to device into receive slots the "
+                "peers mapped once, gloo for control messages"}
+
+
+def _traffic_line(bd):
+    t = bd["traffic"]
+    return (f"aggregate moved {t['staged_bytes']} B staged through the "
+            f"host, {t['mapped_bytes']} B written through mappings, "
+            f"{t['control_messages']} control messages")
+
+
+def _require_on_card(bd, what):
+    """On cuda_ipc the timed aggregate stages no byte through the host
+    and writes through the mappings; a profiled one shows no copy
+    between host and card."""
+    t, split = bd["traffic"], bd["split"]
+    require(t["staged_bytes"] == 0 and t["mapped_bytes"] > 0,
+            f"{what}: the cuda_ipc aggregate staged through the host: {t}")
+    if split is not None:
+        require(split["host_device_copies"] == 0
+                and split["staged_bytes"] == 0,
+                f"{what}: the profiled cuda_ipc aggregate copied between "
+                f"host and card: {split}")
+
+
+def run_phase(world, args, small, required, spec=None, small_spec=None,
+              backend="gloo", profile=False):
+    """Train ``args`` (or ``spec``, when given) on ``world`` ranks sharing
+    the card over ``backend``, print each step, and require finite
+    losses, one parameter checksum on every rank, launches of every
+    ``required`` kernel, executors built once and plan-cache hits only
+    from step 2, on cuda_ipc an aggregate with no host copy, and the
+    small model's (``small``, or ``small_spec``) card-vs-host agreement.
+    With ``profile`` every rank profiles one aggregate.  Returns each
+    rank's record."""
     from repro_torch.core.dist import run_ranks
-    log(f"  transport: gloo, {world} ranks on one card, CUDA payloads "
-        f"staged through host memory explicitly in ppermute; batch "
-        f"{args.batch // world} per rank, seq {args.seq}, {args.steps} steps")
+    log(f"  transport: {backend}, {world} ranks on one card, "
+        f"{TRANSPORT_NOTE[backend]}; batch {args.batch // world} per rank, "
+        f"seq {args.seq}, {args.steps} steps")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
         results = run_ranks(train_rank, world,
-                            (args, small, spec, small_spec),
-                            backend="gloo", rendezvous_dir=rdv,
+                            (args, small, spec, small_spec, profile),
+                            backend=backend, rendezvous_dir=rdv,
                             threads=max(1, (os.cpu_count() or 1) // world),
                             timeout_s=900)
     log(f"  {world} ranks done in {time.perf_counter() - t0:.1f} s; "
@@ -1217,11 +1379,25 @@ def run_phase(world, args, small, required, spec=None, small_spec=None):
     for s, rec in enumerate(results[0]["steps"]):
         log(f"  step {s + 1}: loss {rec['loss']:.5f} grad_norm "
             f"{rec['grad_norm']:.5f} step_s {rec['step_s']:.3f} buckets "
-            f"{rec['n_buckets']} launches/rank {rec['launches']}")
+            f"{rec['n_buckets']} GiB reserved {rec['reserved_gib']:.2f} "
+            f"launches/rank {rec['launches']}")
     for r in results:
+        bd = r["breakdown"]
         log(f"  rank {r['rank']} layers, one step timed alone after the "
-            f"main path: " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                      r["breakdown"].items()))
+            f"main path: " + ", ".join(f"{k} {bd[k]:.3f}" for k in
+                                      ("fwd_bwd_s", "aggregate_s",
+                                       "optimizer_s")))
+        log(f"    {_traffic_line(bd)}")
+        if bd["split"] is not None:
+            log(f"    {_split_line(bd['split'])}")
+        _require_cached(r["rank"], backend, r["steps"])
+        if backend == "cuda_ipc":
+            _require_on_card(bd, f"rank {r['rank']}")
+    log(f"  executors built once each by step 1 "
+        f"({results[0]['steps'][0]['executors']} per rank); plan cache "
+        f"hits {[rec['plan_hits'] for rec in results[0]['steps']]} and "
+        f"misses {[rec['plan_misses'] for rec in results[0]['steps']]} "
+        f"per step")
     log(f"  scalar-loop launches per rank (K2 hop_encode, K5 adamw_update, "
         f"K6 fused_rmsnorm) "
         f"over the {args.steps} steps: {[r['scalar'] for r in results]}, of "
@@ -1269,46 +1445,51 @@ def cnn_trainer(name, strategy, image, batch, dtype, device, group,
                    device=device, verbose=False)
 
 
-def cnn_rank(rank, world):
+def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile):
     import torch
     from repro_torch import tree
-    from repro_torch.core import Group
+    from repro_torch.core import Group, plan_cache
     from repro_torch.models.common import ParamTree
 
     torch.cuda.set_device(0)
     # float32 convolutions in full precision for the card-vs-host check.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    group = Group()
+    torch.backends.cudnn.deterministic = deterministic
+    groups = {t: Group(transport=t) for t in transports}
     runs = []
-    for name, strategies in CNN_RUNS:
-        for strategy in strategies:
+    for name, strategies in cnn_runs:
+        for strategy, transport in itertools.product(strategies,
+                                                     transports):
             trainer = cnn_trainer(name, strategy, CNN_IMAGE, CNN_BATCH,
-                                  "bfloat16", "cuda", group,
+                                  "bfloat16", "cuda", groups[transport],
                                   data_device="cuda")
             module, opt_state = trainer.init_state(0)
             torch.cuda.reset_peak_memory_stats()
             steps = []
             _reset_counts()                   # main path starts here
             for s in range(CNN_WARMUP + CNN_TIMED):
-                before = _counts()
+                before, cache0 = _counts(), _cache_counts()
                 module, opt_state, hist = trainer.run(1, module, opt_state,
                                                       start_step=s)
                 after = _counts()
                 steps.append({**hist[0], "launches": {
-                    k: after[k] - before[k] for k in after}})
+                    k: after[k] - before[k] for k in after},
+                    **_cache_delta(cache0)})
             totals = _counts()                # main path ends here
             scalar = _scalar_counts()
             peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
             runs.append({
-                "model": name, "strategy": strategy, "steps": steps,
+                "model": name, "strategy": strategy, "transport": transport,
+                "steps": steps,
                 "totals": totals, "scalar": scalar, "peak_gib": peak_gib,
                 "n_params": sum(p.numel() for p in module.parameters()),
                 "checksum": _checksum(module.tree()),
-                "breakdown": _step_breakdown(trainer, module, "cuda",
-                                             CNN_WARMUP + CNN_TIMED, rank,
-                                             world)})
+                "breakdown": _step_breakdown(
+                    trainer, module, "cuda", CNN_WARMUP + CNN_TIMED, rank,
+                    world, profile == (name, strategy))})
             del trainer, module, opt_state
+            plan_cache.GLOBAL_EXECUTOR_CACHE.clear()   # frees the slots
             torch.cuda.empty_cache()
 
     # Small reference check: float32 MobileNet-v1 at image 32 under fused
@@ -1316,7 +1497,7 @@ def cnn_rank(rank, world):
     losses, init = {}, None
     for device in ("cpu", "cuda"):
         small = cnn_trainer("mobilenet", "ps_gather", 32, 2 * world,
-                            "float32", device, group)
+                            "float32", device, groups[transports[0]])
         if init is None:
             init = small.init_state(0)[0].tree()
         mod = ParamTree(tree.tree_map(
@@ -1326,32 +1507,45 @@ def cnn_rank(rank, world):
     return {"rank": rank, "runs": runs, "small_losses": losses}
 
 
-def run_cnn_phase():
-    """Spawn the 4 ranks once, then require for every model and strategy:
-    finite losses, one parameter checksum on every rank, K4 launched once
-    per bucket per step exactly under fused ps_gather and never
-    otherwise, no other kernel launched; then the small card-vs-host
-    agreement.  Returns each rank's record."""
+def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
+                  deterministic=False, profile=None):
+    """Spawn the 4 ranks once, then train every model and strategy of
+    ``runs`` on each of ``transports`` in turn (cuDNN's deterministic
+    algorithms with ``deterministic``; ``profile``, a (model, strategy),
+    has every rank profile one aggregate), and require for each: finite
+    losses, one parameter checksum on every rank, K4 launched once per
+    bucket per step exactly under fused ps_gather and never otherwise,
+    no other kernel launched, executors built once and plan-cache hits
+    only from step 2 (on cuda_ipc, an aggregate with no host copy); then
+    the small card-vs-host agreement.  Returns each rank's record."""
     from repro_torch.core.dist import run_ranks
-    log(f"  transport: gloo, {CNN_WORLD} ranks on one card; global batch "
+    for t in transports:
+        log(f"  transport: {t}, {TRANSPORT_NOTE[t]}")
+    log(f"  {CNN_WORLD} ranks on one card; global batch "
         f"{CNN_BATCH} ({CNN_BATCH // CNN_WORLD} per rank) at "
-        f"{CNN_IMAGE}x{CNN_IMAGE}, bf16; {CNN_WARMUP} warm-up + "
-        f"{CNN_TIMED} timed steps per model and strategy")
+        f"{CNN_IMAGE}x{CNN_IMAGE}, bf16, cuDNN "
+        f"{'deterministic' if deterministic else 'default'} algorithms; "
+        f"{CNN_WARMUP} warm-up + {CNN_TIMED} timed steps per model and "
+        f"strategy")
+    backend = "cuda_ipc" if "cuda_ipc" in transports else "gloo"
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
-        results = run_ranks(cnn_rank, CNN_WORLD, (), backend="gloo",
-                            rendezvous_dir=rdv,
+        results = run_ranks(cnn_rank, CNN_WORLD,
+                            (runs, transports, deterministic, profile),
+                            backend=backend, rendezvous_dir=rdv,
                             threads=max(1, (os.cpu_count() or 1)
                                         // CNN_WORLD),
                             timeout_s=900)
     log(f"  {CNN_WORLD} ranks done in {time.perf_counter() - t0:.1f} s")
     for i, run in enumerate(results[0]["runs"]):
-        model, strategy = run["model"], run["strategy"]
+        model, strategy, transport = (run["model"], run["strategy"],
+                                      run["transport"])
         buckets = CNN_BUCKETS[model]
         k4_per_step = buckets if strategy == "ps_gather" else 0
         timed = run["steps"][CNN_WARMUP:]
         step_s = sum(r["step_s"] for r in timed) / len(timed)
-        log(f"  {model} {strategy}{' (fused, K4)' if k4_per_step else ''}: "
+        log(f"  {model} {strategy}{' (fused, K4)' if k4_per_step else ''} "
+            f"on {transport}: "
             f"{run['n_params']} parameters, images/s "
             f"{CNN_BATCH / step_s:.1f}, timed step_s "
             f"{[round(r['step_s'], 4) for r in timed]}, warm-up "
@@ -1361,11 +1555,23 @@ def run_cnn_phase():
             f"{[round(r['runs'][i]['peak_gib'], 2) for r in results]}")
         for r in results:
             rr = r["runs"][i]
-            require((rr["model"], rr["strategy"]) == (model, strategy),
+            require((rr["model"], rr["strategy"], rr["transport"])
+                    == (model, strategy, transport),
                     "ranks ran the strategies in different orders")
+            bd = rr["breakdown"]
             log(f"    rank {r['rank']} layers, one step timed alone after "
                 f"the main path: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in rr["breakdown"].items()))
+                    f"{k} {bd[k]:.3f}" for k in ("fwd_bwd_s", "aggregate_s",
+                                                 "optimizer_s")))
+            if r["rank"] == 0:
+                log(f"      {_traffic_line(bd)}")
+            if bd["split"] is not None:
+                log(f"      rank {r['rank']} {_split_line(bd['split'])}")
+            _require_cached(r["rank"], f"{model} {strategy} {transport}",
+                            rr["steps"])
+            if transport == "cuda_ipc":
+                _require_on_card(bd, f"rank {r['rank']} {model} "
+                                     f"{strategy}")
             require(all(math.isfinite(s_["loss"]) for s_ in rr["steps"]),
                     f"rank {r['rank']} {model} {strategy}: non-finite loss")
             for s_, rec in enumerate(rr["steps"]):
@@ -1377,8 +1583,8 @@ def run_cnn_phase():
                         f"rank {r['rank']} {model} {strategy} step {s_ + 1}:"
                         f" launches {rec['launches']}, want {want}")
         sums = {r["runs"][i]["checksum"] for r in results}
-        require(len(sums) == 1, f"{model} {strategy}: parameters differ "
-                                f"across ranks: {sums}")
+        require(len(sums) == 1, f"{model} {strategy} {transport}: "
+                                f"parameters differ across ranks: {sums}")
         log(f"    K4 launches per rank per step {k4_per_step}; parameters "
             f"bit-identical on all {CNN_WORLD} ranks (checksum "
             f"{sums.pop()})")
@@ -1395,7 +1601,7 @@ def run_cnn_phase():
 # phase 6: gemma-7b at full width, long context (K7/K8 at head_dim 256)
 # ---------------------------------------------------------------------------
 
-def run_gemma_phase(rows):
+def run_gemma_phase(rows, backend="gloo"):
     """Train full-width gemma-7b, depth cut to ``GEMMA_LAYERS``, at seq
     4096 on 2 ranks through ``run_phase``; require K7 and K8 once per
     layer per step and the ranks' peaks within 90% of the card's memory;
@@ -1422,7 +1628,8 @@ def run_gemma_phase(rows):
                        seq=128, steps=2, dtype="float32")
     results = run_phase(GEMMA_WORLD, args, small,
                         tuple(k for k in KERNELS if k != "fused_reduce"),
-                        spec=spec, small_spec=small_spec)
+                        spec=spec, small_spec=small_spec, backend=backend,
+                        profile=True)
     for r in results:
         for s_, rec in enumerate(r["steps"]):
             for k in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -1451,6 +1658,116 @@ def run_gemma_phase(rows):
         f"{GEMMA_LAYERS} layers) {attn_s:.4f} s of the {fb:.3f} s "
         f"forward+backward of one rank alone: {attn_s / fb:.1%}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 7: phases 3, 5 and 6 on the cuda_ipc transport
+# ---------------------------------------------------------------------------
+
+TRANSPORT_CNN_RUNS = (("resnet50", ("ring_rsa", "rhd_rsa", "ps_gather")),
+                      ("mobilenet", ("rhd_rsa", "ps_gather")))
+PROFILED_CNN = ("resnet50", "rhd_rsa")
+HOP_KERNEL_NAMES = ("hop_absmax", "hop_encode", "hop_decode_add",
+                    "fused_reduce", "adamw_update")
+
+
+def _same_as_gloo(label, gloo, ipc):
+    """Every rank's parameters and K1-K5 launch counts as on gloo
+    (``gloo`` and ``ipc``: one record per rank)."""
+    for g, i in zip(gloo, ipc):
+        require(g["checksum"] == i["checksum"],
+                f"{label} rank {g.get('rank', '')}: parameters differ "
+                f"between gloo ({g['checksum']}) and cuda_ipc "
+                f"({i['checksum']})")
+        for k in HOP_KERNEL_NAMES:
+            require(g["totals"][k] == i["totals"][k],
+                    f"{label}: {k} launched {g['totals'][k]} times on gloo, "
+                    f"{i['totals'][k]} on cuda_ipc")
+    log(f"  {label}: parameters bit-identical to the gloo run on every "
+        f"rank, K1-K5 launches equal")
+
+
+def _lm_times(results):
+    steps = results[0]["steps"][1:]
+    return (f"step_s {[round(r['step_s'], 4) for r in steps]}, aggregate_s "
+            f"{[round(r['breakdown']['aggregate_s'], 4) for r in results]}")
+
+
+def _images_per_s(run):
+    timed = run["steps"][CNN_WARMUP:]
+    return CNN_BATCH * len(timed) / sum(r["step_s"] for r in timed)
+
+
+def run_transport_phase(rows, phase3, phase5, phase6):
+    """Phases 3 and 6 again on cuda_ipc, each held bit for bit to its gloo
+    run; phase 5's ResNet-50 under ring_rsa, rhd_rsa and ps_gather and
+    MobileNet-v1 under rhd_rsa and ps_gather on gloo and on cuda_ipc in
+    one spawn under deterministic cuDNN, held bit for bit to each other;
+    then the card tests of the transport.  Prints both transports' times
+    beside the card, and phase 5's images/s beside phase 7's on gloo."""
+    log("  smollm-360m, seq 512, 4 ranks (phase 3's configuration)")
+    args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
+                      device="cuda")
+    small = train_args(full=False, batch=2 * TRAIN_WORLD, seq=32, steps=2,
+                       dtype="float32")
+    lm = run_phase(TRAIN_WORLD, args, small,
+                   ("hop_absmax", "hop_encode", "hop_decode_add",
+                    "adamw_update", "fused_rmsnorm"), backend="cuda_ipc",
+                   profile=True)
+    _same_as_gloo("smollm-360m", phase3, lm)
+    log("  the paper's CNNs (phase 5's configurations), gloo then cuda_ipc")
+    cnn = run_cnn_phase(TRANSPORT_CNN_RUNS, ("gloo", "cuda_ipc"),
+                        deterministic=True, profile=PROFILED_CNN)
+
+    def by_run(results):
+        """(model, strategy, transport) -> one record per rank."""
+        return {(run["model"], run["strategy"], run["transport"]):
+                [r["runs"][i] for r in results]
+                for i, run in enumerate(results[0]["runs"])}
+
+    phase5_runs, cnn_runs = by_run(phase5), by_run(cnn)
+    for model, strategies in TRANSPORT_CNN_RUNS:
+        for strategy in strategies:
+            _same_as_gloo(f"{model} {strategy}",
+                          cnn_runs[(model, strategy, "gloo")],
+                          cnn_runs[(model, strategy, "cuda_ipc")])
+    log("  gemma-7b, 1 layer, seq 4096, 2 ranks (phase 6's configuration)")
+    gemma = run_gemma_phase(rows, backend="cuda_ipc")
+    _same_as_gloo("gemma-7b", phase6, gemma)
+
+    log("  card tests of the transport (tests/test_torch_transport_on_card"
+        ".py)")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "tests/test_torch_transport_on_card.py"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+        capture_output=True, text=True, timeout=600)
+    log("    " + out.stdout.strip().splitlines()[-1])
+    require(out.returncode == 0 and "skipped" not in out.stdout,
+            f"transport card tests failed:\n{out.stdout}\n{out.stderr}")
+
+    log(f"  both transports on {gpu_line()}:")
+    log(f"    smollm-360m seq 512: gloo {_lm_times(phase3)}; cuda_ipc "
+        f"{_lm_times(lm)}")
+    log(f"    gemma-7b seq 4096: gloo {_lm_times(phase6)}; cuda_ipc "
+        f"{_lm_times(gemma)}")
+    for model, strategies in TRANSPORT_CNN_RUNS:
+        for strategy in strategies:
+            for label, recs in (
+                    ("gloo, default cuDNN (phase 5)",
+                     phase5_runs[(model, strategy, "gloo")]),
+                    ("gloo, deterministic cuDNN",
+                     cnn_runs[(model, strategy, "gloo")]),
+                    ("cuda_ipc, deterministic cuDNN",
+                     cnn_runs[(model, strategy, "cuda_ipc")])):
+                timed = recs[0]["steps"][CNN_WARMUP:]
+                agg_s = [round(r["breakdown"]["aggregate_s"], 4)
+                         for r in recs]
+                log(f"    {model} {strategy} {label}: images/s "
+                    f"{_images_per_s(recs[0]):.1f}, step_s "
+                    f"{[round(r['step_s'], 4) for r in timed]}, "
+                    f"aggregate_s {agg_s}")
+    return {"lm": lm, "cnn": cnn, "gemma": gemma}
 
 
 def main():
@@ -1497,7 +1814,7 @@ def main():
                        dtype="float32")
     main_path = ("hop_absmax", "hop_encode", "hop_decode_add",
                  "adamw_update", "fused_rmsnorm")
-    phase3 = run_phase(TRAIN_WORLD, args, small, main_path)
+    phase3 = run_phase(TRAIN_WORLD, args, small, main_path, profile=True)
 
     log(f"phase 4: long context, full-width smollm-360m at seq {LONG_SEQ}")
     args = train_args(full=True, batch=LONG_WORLD, seq=LONG_SEQ,
@@ -1526,12 +1843,19 @@ def main():
     log(f"phase 6: long context, full-width gemma-7b at seq {LONG_SEQ}")
     phase6 = run_gemma_phase(rows)
 
+    log("phase 7: phases 3, 5 and 6 on the cuda_ipc transport")
+    phase7 = run_transport_phase(rows, phase3, phase5, phase6)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
                 "phase5": sum(run[field][k] for r in phase5
                               for run in r["runs"]),
-                "phase6": sum(r[field][k] for r in phase6)}
+                "phase6": sum(r[field][k] for r in phase6),
+                "phase7": sum(r[field][k] for r in phase7["lm"]
+                              + phase7["gemma"])
+                + sum(run[field][k] for r in phase7["cnn"]
+                      for run in r["runs"])}
 
     def scalar(k):
         if k not in SCALAR:

@@ -3,8 +3,13 @@
 Counterpart of ``repro/core/aggregator.py``: fusion ∘ reduction
 algorithm, applied post-backward to a gradient tree over the data
 process group, returning the MEAN gradient over all ranks.  Resolution
-goes through :func:`repro_torch.core.schedule.plan`; execution is
-stage by stage (:func:`repro_torch.core.reducers.execute_stages`).
+goes through :func:`repro_torch.core.schedule.plan`, interned in a
+:class:`~repro_torch.core.plan_cache.PlanCache` (the process-global one
+by default); execution goes through the schedule's cached
+:class:`~repro_torch.core.plan_cache.StageExecutor`, which owns the
+fused buffers and, on ``cuda_ipc``, the mapped receive slots, and runs
+each bucket stage by stage (:func:`repro_torch.core.reducers.
+execute_stages`).
 
 This slice covers the post-backward path on one data axis, with every
 codec, the fused-hop default and error feedback.  ``overlap=True`` and
@@ -17,21 +22,12 @@ from typing import Mapping, Sequence
 
 import torch
 
+from .. import tree as tree_mod
 from . import codec as codec_mod
 from . import dist as dist_mod
-from . import reducers, schedule as schedule_mod
+from . import schedule as schedule_mod
+from .plan_cache import GLOBAL_EXECUTOR_CACHE, GLOBAL_PLAN_CACHE, PlanCache
 from .schedule import ReduceSchedule
-
-
-def _chunk_axis(group, ndim: int) -> int:
-    """First unsharded dim of a leaf whose fusion-group tag is its
-    tuple-ized PartitionSpec (None entries = unsharded)."""
-    if not isinstance(group, tuple) or ndim == 0:
-        return 0
-    for i in range(ndim):
-        if i >= len(group) or group[i] is None:
-            return i
-    return 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +80,13 @@ class GradientAggregator:
     """Mean-allreduces gradient trees over the data process group(s).
 
     ``groups`` maps each name of ``dp_axes`` to its
-    :class:`~repro_torch.core.dist.Group`."""
+    :class:`~repro_torch.core.dist.Group`.  ``cache`` interns resolved
+    schedules (default: the process-global one); their stage executors
+    live in the process-global executor cache."""
 
     def __init__(self, config: AggregatorConfig, dp_axes: Sequence[str],
-                 groups: Mapping[str, "dist_mod.Group"]):
+                 groups: Mapping[str, "dist_mod.Group"],
+                 cache: PlanCache | None = None):
         config.validate()
         self.config = config
         self.dp_axes = tuple(dp_axes)
@@ -99,6 +98,7 @@ class GradientAggregator:
         if missing:
             raise ValueError(f"no process group for dp axes {missing}")
         self.groups = dict(groups)
+        self.cache = cache if cache is not None else GLOBAL_PLAN_CACHE
         self.last_schedule: ReduceSchedule | None = None
 
     def _wire_dtype(self) -> str:
@@ -119,7 +119,7 @@ class GradientAggregator:
             fuse=cfg.fuse, groups=groups, wire_dtype=self._wire_dtype(),
             placement=cfg.placement, intra=cfg.selector_link,
             codec=cfg.codec or "none", error_feedback=cfg.error_feedback,
-            fused_hops=cfg.fused_hops)
+            fused_hops=cfg.fused_hops, cache=self.cache)
         self.last_schedule = sched
         return sched
 
@@ -130,36 +130,6 @@ class GradientAggregator:
         for s in sizes:
             dp_size *= s
         return sched, 1.0 / dp_size
-
-    def _reduce_buffer(self, bucket, group, buf, scale, residual=None):
-        """Reduce ONE bucket's fused buffer: cast to the wire/accum dtype,
-        run its stages, apply the mean scale, cast back.  With
-        ``residual`` (error feedback) the bucket sends ``q(g + r)`` and
-        returns the new residual beside the reduced buffer."""
-        accum = schedule_mod.DTYPES[self._wire_dtype()]
-        orig = buf.dtype
-        new_residual = None
-        if residual is not None:
-            cname = next((st.codec for st in bucket.stages
-                          if st.codec != "none"), "none")
-            if cname != "none":
-                buf, new_residual = codec_mod.ef_quantize(cname, buf,
-                                                          residual)
-                buf = buf.to(orig)
-            else:
-                new_residual = residual
-        if orig != accum:
-            buf = buf.to(accum)
-        axis = _chunk_axis(group, buf.ndim)
-        if axis != 0:
-            buf = torch.movedim(buf, axis, 0).contiguous()
-        buf = reducers.execute_stages(buf, bucket.stages, self.groups)
-        if axis != 0:
-            buf = torch.movedim(buf, 0, axis)
-        out = (buf * scale).to(orig)
-        if residual is not None:
-            return out, new_residual
-        return out
 
     def init_residuals(self, grads, groups=None):
         """Zero error-feedback state: one float32 buffer per bucket."""
@@ -173,25 +143,9 @@ class GradientAggregator:
         of sharding-group tags matching ``grads``.  With ``residuals``
         returns ``(reduced_grads, new_residuals)``."""
         sched, scale = self._context(grads, groups)
-        plan = sched.plan
-        bufs = plan.flatten(grads)
-        if residuals is not None and len(residuals) != len(bufs):
-            raise ValueError(
-                f"{len(residuals)} residual buffers for {len(bufs)} "
-                f"fusion buckets — pass init_residuals() output")
-        reduced, new_residuals = [], []
-        for i, (bucket, buf) in enumerate(zip(sched.buckets, bufs)):
-            group = plan.buckets[bucket.index].group
-            if residuals is not None:
-                out, r = self._reduce_buffer(bucket, group, buf, scale,
-                                             residual=residuals[i])
-                new_residuals.append(r)
-            else:
-                out = self._reduce_buffer(bucket, group, buf, scale)
-            reduced.append(out)
-        if residuals is not None:
-            return plan.unflatten(reduced), tuple(new_residuals)
-        return plan.unflatten(reduced)
+        device = tree_mod.leaves(grads)[0].device
+        ex = GLOBAL_EXECUTOR_CACHE.executor_for(sched, self.groups, device)
+        return ex(grads, scale, residuals)
 
     def mean_scalar(self, x: torch.Tensor) -> torch.Tensor:
         """Mean of a scalar metric over the data ranks."""

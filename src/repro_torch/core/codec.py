@@ -153,14 +153,20 @@ def roundtrip(name: str, x: torch.Tensor) -> torch.Tensor:
     return decode(name, payload, scale)
 
 
-def _wire(payload, scale, group, perm):
-    """Ship ``payload`` as raw bytes and ``scale`` beside it."""
-    raw = dist_mod.ppermute(payload.reshape(-1).view(torch.uint8), group,
-                            perm)
-    recv = raw.view(payload.dtype).reshape(payload.shape)
+def _wire(payload, scale, group, perm, consume):
+    """Ship ``payload`` as raw bytes and ``scale`` beside it, and return
+    ``consume(received payload, received scale)``.  On gloo the two go
+    as two ppermutes; on cuda_ipc the scale rides in its payload's slot
+    (one handshake) and ``consume`` reads the slot in place."""
+    parts = [payload.reshape(-1).view(torch.uint8)]
     if scale is not None:
-        scale = dist_mod.ppermute(scale.reshape(1), group, perm)[0]
-    return recv, scale
+        parts.append(scale.reshape(1))
+
+    def unpack(raw, rscale=None):
+        recv = raw.view(payload.dtype).reshape(payload.shape)
+        return consume(recv, None if rscale is None else rscale[0])
+
+    return dist_mod.ppermute_parts(parts, group, perm, consume=unpack)
 
 
 def permuter(name: str, fused: bool = False):
@@ -189,8 +195,8 @@ def permuter(name: str, fused: bool = False):
             out = recv if add is None else dec("none", recv, None, add)
             return (out, x) if keep_sent else out
         payload, scale = enc(c.name, x)
-        recv, rscale = _wire(payload, scale, group, perm)
-        out = dec(c.name, recv, rscale, add)
+        out = _wire(payload, scale, group, perm,
+                    lambda recv, rscale: dec(c.name, recv, rscale, add))
         if keep_sent:
             return out, dec(c.name, payload, scale)
         return out

@@ -7,46 +7,118 @@ one mesh axis: ``axis_index``/``axis_size`` read its rank and size, and
 initialised process group a ``Group`` is the single-rank axis, so a
 ``world=1`` step needs no ``torch.distributed`` at all.
 
-Two transports, chosen by the caller through the process group's backend
-and never swapped silently:
+Three transports, chosen by the caller (``run_ranks(backend=...)``, or
+``Group(transport=...)``) and never swapped silently:
 
-``gloo``  Any device.  CUDA payloads are staged through host memory
-          explicitly (copy to the host, send, copy back), which lets
-          several ranks share one card.
-``nccl``  One rank per card, CUDA tensors sent from device memory.  A
-          group refuses to form when two ranks share a device, because
-          NCCL refuses that.  Unverified until a multi-card run exists.
+``gloo``      Any device.  CUDA payloads are staged through host memory
+              explicitly (copy to the host, send, copy back), which lets
+              several ranks share one card.
+``nccl``      One rank per card, CUDA tensors sent from device memory.  A
+              group refuses to form when two ranks share a device,
+              because NCCL refuses that.  Unverified until a multi-card
+              run exists.
+``cuda_ipc``  Ranks of one host, any number to a card.  A gloo process
+              group carries small control messages only; ``ppermute``
+              and ``all_gather`` payloads stay in device memory.  Each
+              rank owns receive slots that its peers map once
+              (:class:`IpcChannel`, the paper's pointer cache); a hop is
+              a device-to-device copy into the target's slot through
+              that mapping, an interprocess CUDA event and a control
+              message.  CPU tensors take the same protocol over shared
+              memory.  ``psum`` stays gloo's host-staged allreduce: it
+              is the vendor baseline (NCCL2's), which ranks sharing one
+              card cannot run.  A group refuses to form unless every
+              rank is on this host, and an export or a mapping that
+              fails raises on every rank; nothing falls back to staging.
 
 :func:`run_ranks` spawns the ranks of a job with file rendezvous.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import socket
 import time
 import traceback
 
 import torch
 import torch.distributed as dist
+from torch.multiprocessing import reductions
+
+TRANSPORTS = ("gloo", "nccl", "cuda_ipc")
+
+# Bytes each transport moved, for the trace split: payload bytes gloo
+# staged between the card and the host, bytes written into peers' slots
+# through the cuda_ipc mappings, and cuda_ipc control messages.
+traffic = {"staged_bytes": 0, "mapped_bytes": 0, "control_messages": 0}
+
+# The transport the world group was started with (init_process_group);
+# a cuda_ipc world runs on a gloo process group, so the backend alone
+# cannot say which transport the caller chose.
+_world_transport: str | None = None
+
+# Channels open in this process, in the order they were opened (close
+# order of close_channels()).
+_open_channels: list = []
+_channels_opened = 0
+
+
+def _span(name: str):
+    return torch.profiler.record_function(name)
+
+
+def init_process_group(transport: str, init_method: str, rank: int,
+                       world_size: int) -> None:
+    """``torch.distributed.init_process_group`` for one of
+    :data:`TRANSPORTS` (``cuda_ipc`` runs on a gloo group); the world
+    :class:`Group` takes ``transport`` as its own."""
+    global _world_transport
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport {transport!r} not in {TRANSPORTS}")
+    backend = "gloo" if transport == "cuda_ipc" else transport
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+    _world_transport = transport
 
 
 class Group:
-    """One mesh axis: a process group (``None`` = the world group)."""
+    """One mesh axis: a process group (``None`` = the world group).
 
-    def __init__(self, pg=None, name: str = "data"):
+    ``transport`` defaults to what the world was started with for a
+    gloo group (``gloo`` or ``cuda_ipc``), else the group's backend.  A
+    cuda_ipc group moves payloads only once a channel is bound to it
+    (:class:`IpcChannel`; a ``StageExecutor`` opens one)."""
+
+    def __init__(self, pg=None, name: str = "data",
+                 transport: str | None = None):
         self.name = name
         self.pg = pg
+        self.channel = None
         if dist.is_available() and dist.is_initialized():
             self.backend = dist.get_backend(pg)
             self.size = dist.get_world_size(pg)
             self.rank = dist.get_rank(pg)
             self._global = [r if pg is None else dist.get_global_rank(pg, r)
                             for r in range(self.size)]
-            if self.backend == "nccl":
+            if transport is None:
+                transport = (_world_transport if self.backend == "gloo"
+                             and _world_transport == "cuda_ipc"
+                             else self.backend)
+            want = "gloo" if transport == "cuda_ipc" else transport
+            if transport not in TRANSPORTS or want != self.backend:
+                raise ValueError(f"group {name!r}: transport {transport!r} "
+                                 f"cannot run on a {self.backend} process "
+                                 f"group")
+            self.transport = transport
+            if transport == "nccl":
                 self._check_one_rank_per_device()
+            elif transport == "cuda_ipc":
+                self._check_one_host()
         else:
-            self.backend = None
+            self.backend = self.transport = None
             self.size, self.rank, self._global = 1, 0, [0]
 
     def _check_one_rank_per_device(self):
@@ -58,11 +130,26 @@ class Group:
                 f"nccl group {self.name!r}: ranks share a device "
                 f"{devices}; NCCL needs one rank per card (use gloo)")
 
+    def _check_one_host(self):
+        hosts = [None] * self.size
+        dist.all_gather_object(hosts, socket.gethostname(), group=self.pg)
+        if len(set(hosts)) != 1:
+            raise RuntimeError(
+                f"cuda_ipc group {self.name!r} spans hosts {hosts}; CUDA "
+                f"IPC maps memory of one host only (use gloo or nccl)")
+
     def global_rank(self, r: int) -> int:
         return self._global[r]
 
+    def bind(self, channel) -> "Group":
+        """This group with ``channel`` carrying its payloads."""
+        bound = copy.copy(self)
+        bound.channel = channel
+        return bound
+
     def host_staged(self, x: torch.Tensor) -> bool:
-        """True when ``x`` must travel through host memory."""
+        """True when ``x`` must travel through host memory (gloo's
+        point-to-point and every gloo collective)."""
         return self.backend == "gloo" and x.device.type == "cuda"
 
 
@@ -74,53 +161,446 @@ def axis_size(group: Group) -> int:
     return group.size
 
 
-def ppermute(x: torch.Tensor, group: Group, perm) -> torch.Tensor:
-    """Send ``x`` along the ``(src, dst)`` pairs of ``perm`` (group
-    ranks).  Like ``jax.lax.ppermute``, a rank that is no pair's target
-    receives ZEROS: the RHD pre-fold and the codec's zero decode rely on
-    it, and torch's point-to-point leaves a receive buffer untouched, so
-    the buffer is zero-filled here."""
+# ---------------------------------------------------------------------------
+# cuda_ipc: receive slots mapped once, device copies, control messages
+# ---------------------------------------------------------------------------
+
+SLOTS = 2          # receive slots per ordered pair of ranks
+ALIGN = 16         # every part of a payload starts 16-byte aligned
+_TAG_BASE = 1000   # control-message tags, clear of torch's default 0
+
+
+def _round_up(n: int) -> int:
+    return -(-int(n) // ALIGN) * ALIGN
+
+
+def slot_bytes(part_nbytes) -> int:
+    """Bytes of the slot that holds payload parts of these sizes."""
+    return sum(_round_up(n) for n in part_nbytes)
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _export(t: torch.Tensor):
+    """A picklable handle to ``t``'s memory: CUDA IPC for a CUDA tensor
+    (``reduce_tensor``), a shared-memory file for a CPU tensor."""
+    if t.is_cuda:
+        return ("cuda", reductions.reduce_tensor(t))
+    return ("shm", t.untyped_storage()._share_filename_cpu_(),
+            tuple(t.shape))
+
+
+def _import(handle) -> torch.Tensor:
+    """Map a peer's exported tensor into this process."""
+    kind, *rest = handle
+    if kind == "cuda":
+        rebuild, args = rest[0]
+        return rebuild(*args)
+    meta, shape = rest
+    storage = torch.UntypedStorage._new_shared_filename_cpu(*meta)
+    return torch.empty(0, dtype=torch.uint8).set_(
+        storage, 0, shape, torch.empty(shape, device="meta").stride())
+
+
+def _gather_or_raise(group: Group, what: str, err) -> list:
+    """All-gather each rank's failure (or None) so that a failure on
+    one rank raises on every rank instead of leaving them waiting."""
+    errs = [None] * group.size
+    dist.all_gather_object(errs, None if err is None else repr(err),
+                           group=group.pg)
+    bad = {r: e for r, e in enumerate(errs) if e is not None}
+    if bad:
+        raise RuntimeError(f"cuda_ipc group {group.name!r}: {what} failed "
+                           f"on rank(s) {bad}") from err
+    return errs
+
+
+class IpcChannel:
+    """The cuda_ipc transport between the ranks of one group.
+
+    Each rank owns, for every peer, ``SLOTS`` receive slots of
+    ``slot_bytes`` on ``device`` that only that peer writes.  Opening a
+    channel is collective: every rank exports its slots (and, on CUDA,
+    its interprocess events) once, gathers the peers' handles, and maps
+    each once, keyed by peer; later hops reuse those mappings (the
+    paper's pointer cache, Sec. V-B).  ``channel.group`` is the group
+    with this channel bound.
+
+    A hop from ``s`` to ``t`` (:meth:`post`, :meth:`take`,
+    :meth:`finish`): ``s`` makes its stream wait for ``t``'s
+    acknowledgement of the payload that last used the slot, copies into
+    the slot through its mapping, records its event for the slot, and
+    only then sends a control message ``(seq, slot, bytes)`` over gloo.
+    ``t`` waits for the message, makes its stream wait for that event,
+    consumes the slot in place, records its own event and sends the
+    acknowledgement, which ``s`` receives before the collective call
+    returns.  So no control message outlives the call that sent it, and
+    with two slots a payload is written while the one before it may
+    still be read on the card.
+
+    :meth:`close` is collective too: it unmaps the peers' slots on every
+    rank, and only then frees this rank's own."""
+
+    def __init__(self, group: Group, slot_bytes: int, device):
+        global _channels_opened
+        if group.transport != "cuda_ipc":
+            raise ValueError(f"group {group.name!r} uses transport "
+                             f"{group.transport!r}, not cuda_ipc")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.slot_bytes = _round_up(max(int(slot_bytes), 1))
+        self.closed = False
+        self.group = group.bind(self)
+        self._cuda = self.device.type == "cuda"
+        me = group.rank
+        self._peers = [q for q in range(group.size) if q != me]
+        # The tag pair: the same on every rank, apart from every other
+        # channel this process has opened.
+        idx = [None] * group.size
+        dist.all_gather_object(idx, _channels_opened, group=group.pg)
+        index = max(idx)
+        _channels_opened = index + 1
+        self._tag_notify = _TAG_BASE + 2 * index
+        self._tag_ack = self._tag_notify + 1
+        self._sent = {q: 0 for q in self._peers}
+        self._taken = {q: 0 for q in self._peers}
+        self._pending: list = []          # this call's sends
+        self._register()
+        _open_channels.append(self)
+
+    # -- registration -------------------------------------------------------
+
+    def _event(self):
+        return torch.cuda.Event(enable_timing=False, blocking=False,
+                                interprocess=True)
+
+    def _register(self):
+        g, me = self.group, self.group.rank
+        record, err = None, None
+        try:
+            # recv[q]: slots q writes into; notify[q]: recorded after
+            # this rank writes into q's slots; ack[q]: recorded after
+            # this rank has consumed what q wrote.  On CUDA the slots
+            # take a memory pool of their own: they live as long as the
+            # channel, and carved out of a cached block they left the
+            # step's temporaries too little room (phase 6, gemma-7b on
+            # one H100: the card held 71.32 GiB with them in the shared
+            # pool, 66.20 with a pool of their own).
+            self._pool = torch.cuda.MemPool() if self._cuda else None
+            with torch.cuda.use_mem_pool(self._pool) if self._cuda \
+                    else contextlib.nullcontext():
+                self._recv = {q: torch.zeros((SLOTS, self.slot_bytes),
+                                             dtype=torch.uint8,
+                                             device=self.device)
+                              for q in self._peers}
+            self._notify = {q: [self._event() for _ in range(SLOTS)]
+                            if self._cuda else None for q in self._peers}
+            self._ack = {q: [self._event() for _ in range(SLOTS)]
+                         if self._cuda else None for q in self._peers}
+            record = {q: (_export(self._recv[q]),
+                          self._ipc_handles(self._notify[q]),
+                          self._ipc_handles(self._ack[q]))
+                      for q in self._peers}
+        except (RuntimeError, OSError) as e:
+            err = e
+        _gather_or_raise(g, "exporting receive slots", err)
+        records = [None] * g.size
+        dist.all_gather_object(records, record, group=g.pg)
+        self._send, self._peer_notify, self._peer_ack = {}, {}, {}
+        try:
+            for q in self._peers:
+                area, notify, ack = records[q][me]
+                self._send[q] = _import(area)
+                self._peer_notify[q] = self._open_events(notify)
+                self._peer_ack[q] = self._open_events(ack)
+                if self._send[q].shape != (SLOTS, self.slot_bytes):
+                    raise RuntimeError(f"rank {q}'s slots have shape "
+                                       f"{tuple(self._send[q].shape)}")
+        except (RuntimeError, OSError) as e:
+            err = e
+        _gather_or_raise(g, "mapping the peers' receive slots", err)
+
+    def _ipc_handles(self, events):
+        return None if events is None else [e.ipc_handle() for e in events]
+
+    def _open_events(self, handles):
+        if handles is None:
+            return None
+        return [torch.cuda.Event.from_ipc_handle(self.device, h)
+                for h in handles]
+
+    # -- control messages ---------------------------------------------------
+
+    def _isend(self, q: int, tag: int, values) -> None:
+        msg = torch.tensor(values, dtype=torch.int64)
+        self._pending.append((dist.isend(msg, dst=self.group.global_rank(q),
+                                         group=self.group.pg, tag=tag), msg))
+        traffic["control_messages"] += 1
+
+    def _recv_msg(self, q: int, tag: int, n: int) -> list:
+        msg = torch.empty(n, dtype=torch.int64)
+        dist.recv(msg, src=self.group.global_rank(q), group=self.group.pg,
+                  tag=tag)
+        return msg.tolist()
+
+    # -- a hop --------------------------------------------------------------
+
+    def _layout(self, parts) -> list:
+        """Byte offset of each part in a slot; raises when they do not
+        fit."""
+        offsets, off = [], 0
+        for p in parts:
+            if p.device != self.device:
+                raise ValueError(f"cuda_ipc: a {p.device} payload on a "
+                                 f"{self.device} channel")
+            offsets.append(off)
+            off += _round_up(p.numel() * p.element_size())
+        if off > self.slot_bytes:
+            raise ValueError(f"cuda_ipc: a hop of {off} bytes does not fit "
+                             f"the channel's {self.slot_bytes}-byte slots")
+        return offsets
+
+    def post(self, q: int, parts) -> None:
+        """Write ``parts`` into the next slot ``q`` reads from this rank."""
+        offsets = self._layout(parts)
+        seq = self._sent[q]
+        k = seq % SLOTS
+        stream = torch.cuda.current_stream(self.device) if self._cuda \
+            else None
+        if self._cuda and seq >= SLOTS:   # q has read the slot's last payload
+            stream.wait_event(self._peer_ack[q][k])
+        slot = self._send[q][k]
+        nbytes = 0
+        for p, off in zip(parts, offsets):
+            b = _as_bytes(p)
+            slot[off:off + b.numel()].copy_(b)
+            nbytes += b.numel()
+        if self._cuda:
+            self._notify[q][k].record(stream)
+        self._isend(q, self._tag_notify, [seq, k, nbytes])
+        traffic["mapped_bytes"] += nbytes
+        self._sent[q] = seq + 1
+
+    def take(self, q: int, like, consume):
+        """Wait for ``q``'s next payload, shaped as the tensors ``like``,
+        and return ``consume(*views of the slot)``.  The views are valid
+        only inside ``consume``, which must not return one of them."""
+        offsets = self._layout(like)
+        seq = self._taken[q]
+        k = seq % SLOTS
+        nbytes = sum(t.numel() * t.element_size() for t in like)
+        with _span("cuda_ipc.notify_wait"):
+            got = self._recv_msg(q, self._tag_notify, 3)
+        if got != [seq, k, nbytes]:
+            raise RuntimeError(f"cuda_ipc: rank {q} sent {got}, expected "
+                               f"(seq, slot, bytes) {[seq, k, nbytes]}")
+        if self._cuda:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._peer_notify[q][k])
+        slot = self._recv[q][k]
+        views = [slot[off:off + t.numel() * t.element_size()]
+                 .view(t.dtype).reshape(t.shape)
+                 for t, off in zip(like, offsets)]
+        out = consume(*views)
+        self._check_not_slot(out, slot)
+        if self._cuda:
+            self._ack[q][k].record(torch.cuda.current_stream(self.device))
+        self._isend(q, self._tag_ack, [seq])
+        self._taken[q] = seq + 1
+        return out
+
+    def finish(self, posted) -> None:
+        """End a collective call: receive the acknowledgement of what
+        this rank posted to each of ``posted``, then complete every
+        send of the call (each peer has read them by now)."""
+        for q in posted:
+            seq = self._sent[q] - 1
+            with _span("cuda_ipc.ack_wait"):
+                got = self._recv_msg(q, self._tag_ack, 1)
+            if got != [seq]:
+                raise RuntimeError(f"cuda_ipc: rank {q} acknowledged {got}, "
+                                   f"expected payload {seq}")
+        for work, _ in self._pending:
+            work.wait()
+        self._pending = []
+
+    @staticmethod
+    def _check_not_slot(out, slot):
+        base = slot.untyped_storage().data_ptr()
+        for t in out if isinstance(out, (list, tuple)) else [out]:
+            if isinstance(t, torch.Tensor) and \
+                    t.untyped_storage().data_ptr() == base:
+                raise RuntimeError("cuda_ipc: a consumer returned a view "
+                                   "of its receive slot, which the next "
+                                   "payload overwrites")
+
+    # -- tear-down ----------------------------------------------------------
+
+    def close(self) -> None:
+        """Collective: unmap the peers' slots and events on every rank,
+        then free this rank's own."""
+        if self.closed:
+            return
+        self.closed = True
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group.pg)
+        self._send = self._peer_notify = self._peer_ack = None
+        dist.barrier(group=self.group.pg)
+        self._recv = self._notify = self._ack = self._pool = None
+        if self._cuda:
+            torch.cuda.ipc_collect()
+        _open_channels.remove(self)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def close_channels() -> None:
+    """Close every channel this process has open (collective: every
+    rank must call it at the same point)."""
+    for ch in list(_open_channels):
+        ch.close()
+
+
+def _channel(group: Group) -> IpcChannel:
+    ch = group.channel
+    if ch is None:
+        raise RuntimeError(
+            f"cuda_ipc group {group.name!r} has no channel: open one with "
+            f"IpcChannel(group, slot_bytes, device) and use its .group "
+            f"(a StageExecutor does)")
+    if ch.closed:
+        raise RuntimeError(f"cuda_ipc group {group.name!r}: its channel "
+                           f"is closed")
+    return ch
+
+
+def _clone_all(*recv):
+    return [t.clone() for t in recv]
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+def _pair(group: Group, perm):
     me = group.rank
     dsts = [d for s, d in perm if s == me]
     srcs = [s for s, d in perm if d == me]
     if len(dsts) > 1 or len(srcs) > 1:
         raise ValueError(f"perm {perm} is not a permutation at rank {me}")
+    return (dsts[0] if dsts else None), (srcs[0] if srcs else None)
+
+
+def _gloo_ppermute(x: torch.Tensor, group: Group, dst, src) -> torch.Tensor:
     stage = group.host_staged(x)
     send = x.contiguous()
     if stage:
         send = send.cpu()
-    recv = torch.empty_like(send) if srcs else torch.zeros_like(send)
+    recv = torch.empty_like(send) if src is not None \
+        else torch.zeros_like(send)
     ops = []
-    if dsts:
-        ops.append(dist.P2POp(dist.isend, send, group.global_rank(dsts[0]),
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, send, group.global_rank(dst),
                               group=group.pg))
-    if srcs:
-        ops.append(dist.P2POp(dist.irecv, recv, group.global_rank(srcs[0]),
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, group.global_rank(src),
                               group=group.pg))
     if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return recv.to(x.device) if stage else recv
+        with _span("gloo.ppermute"):
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+    if stage:
+        traffic["staged_bytes"] += send.nbytes + recv.nbytes
+        return recv.to(x.device)
+    return recv
+
+
+def ppermute_parts(parts, group: Group, perm, consume=None):
+    """Send the tensors ``parts`` along the ``(src, dst)`` pairs of
+    ``perm`` (group ranks) as ONE payload, and return
+    ``consume(*received)`` (default: the received tensors, as a list).
+
+    Like ``jax.lax.ppermute``, a rank that is no pair's target receives
+    ZEROS: the RHD pre-fold and the codec's zero decode rely on it.  On
+    gloo each part is its own point-to-point exchange.  On cuda_ipc the
+    parts share one slot and one handshake, and ``consume`` reads the
+    slot in place; it must return new tensors, never a view of what it
+    was given."""
+    parts = list(parts)
+    dst, src = _pair(group, perm)
+    if group.transport == "cuda_ipc" and group.size > 1:
+        ch = _channel(group)
+        consume = consume or _clone_all
+        if group.rank in (dst, src):
+            raise ValueError(f"perm {perm} maps rank {group.rank} to "
+                             f"itself")
+        if dst is not None:
+            ch.post(dst, parts)
+        if src is not None:
+            out = ch.take(src, parts, consume)
+        else:
+            out = consume(*[torch.zeros_like(p) for p in parts])
+        ch.finish([] if dst is None else [dst])
+        return out
+    recv = [_gloo_ppermute(p, group, dst, src) for p in parts]
+    return consume(*recv) if consume is not None else recv
+
+
+def ppermute(x: torch.Tensor, group: Group, perm) -> torch.Tensor:
+    """Send ``x`` along the ``(src, dst)`` pairs of ``perm`` (group
+    ranks); a rank that is no pair's target receives zeros (see
+    :func:`ppermute_parts`)."""
+    return ppermute_parts([x], group, perm)[0]
 
 
 def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """``(p, *x.shape)``: every rank's ``x`` in rank order."""
+    """``(p, *x.shape)``: every rank's ``x`` in rank order.  On cuda_ipc
+    every rank writes ``x`` into each peer's slot through its mapping
+    and copies what the peers wrote into a new device tensor."""
     if group.size == 1:
         return x.unsqueeze(0)
+    if group.transport == "cuda_ipc":
+        ch = _channel(group)
+        peers = [q for q in range(group.size) if q != group.rank]
+        for q in peers:
+            ch.post(q, [x])
+        out = torch.empty((group.size,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        out[group.rank].copy_(x)
+        for q in peers:
+            ch.take(q, [x], out[q].copy_)
+        ch.finish(peers)
+        return out
     stage = group.host_staged(x)
     src = x.contiguous().cpu() if stage else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(group.size)]
-    dist.all_gather(parts, src, group=group.pg)
-    return torch.stack(parts).to(x.device)
+    with _span("gloo.all_gather"):
+        dist.all_gather(parts, src, group=group.pg)
+    out = torch.stack(parts).to(x.device)
+    if stage:
+        traffic["staged_bytes"] += src.nbytes + out.nbytes
+    return out
 
 
 def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """Sum over the group (the vendor allreduce, NCCL2's baseline)."""
+    """Sum over the group (the vendor allreduce, NCCL2's baseline).  On
+    gloo and cuda_ipc a CUDA ``x`` is staged through host memory."""
     if group.size == 1:
         return x
     stage = group.host_staged(x)
     y = x.detach().cpu().clone() if stage else x.detach().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group.pg)
+    with _span("gloo.psum"):
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group.pg)
+    if stage:
+        traffic["staged_bytes"] += 2 * y.nbytes
     return y.to(x.device)
 
 
@@ -133,10 +613,11 @@ def _rank_entry(rank, world, backend, init_file, threads, fn, args, results):
         torch.set_num_threads(threads)
     if backend == "nccl":
         torch.cuda.set_device(rank)
-    dist.init_process_group(backend, init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
+    init_process_group(backend, f"file://{init_file}", rank, world)
     try:
-        results.put((rank, True, fn(rank, world, *args)))
+        out = fn(rank, world, *args)
+        close_channels()
+        results.put((rank, True, out))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -148,13 +629,14 @@ def run_ranks(fn, world: int, args: tuple = (), *, backend: str = "gloo",
               rendezvous_dir: str, threads: int | None = None,
               timeout_s: float = 600.0) -> list:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes that
-    share one ``backend`` process group (file rendezvous in
-    ``rendezvous_dir``).  Returns each rank's result in rank order.
-    Raises when a rank fails or the job outlasts ``timeout_s``; every
-    process is stopped before it returns.  ``fn`` must be importable
-    (a module-level function)."""
-    if backend not in ("gloo", "nccl"):
-        raise ValueError(f"backend {backend!r} not in ('gloo', 'nccl')")
+    share one process group of transport ``backend`` (one of
+    :data:`TRANSPORTS`; file rendezvous in ``rendezvous_dir``).  Returns
+    each rank's result in rank order; the channels ``fn`` left open are
+    closed after it returns.  Raises when a rank fails or the job
+    outlasts ``timeout_s``; every process is stopped before it returns.
+    ``fn`` must be importable (a module-level function)."""
+    if backend not in TRANSPORTS:
+        raise ValueError(f"backend {backend!r} not in {TRANSPORTS}")
     init_file = os.path.join(rendezvous_dir, f"rendezvous-{os.getpid()}-"
                                              f"{time.monotonic_ns()}")
     ctx = mp.get_context("spawn")

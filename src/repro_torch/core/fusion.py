@@ -50,12 +50,17 @@ class FusionPlan:
     buckets: tuple[Bucket, ...]
     threshold_bytes: int
 
-    def flatten_bucket(self, bucket: Bucket,
-                       leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    def flatten_bucket(self, bucket: Bucket, leaves: Sequence[torch.Tensor],
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+        """One bucket's fused buffer: a single leaf as it is (at least
+        1-d), several concatenated.  With ``out`` the leaves are written
+        into it instead (cast to its dtype) and ``out`` is returned."""
         if len(bucket.leaf_indices) == 1:
             leaf = leaves[0]
+            if out is not None:
+                return out.copy_(leaf.reshape(out.shape))
             return leaf if leaf.ndim >= 1 else leaf.reshape(1)
-        return torch.cat([x.reshape(-1) for x in leaves])
+        return torch.cat([x.reshape(-1) for x in leaves], out=out)
 
     def unflatten_bucket(self, bucket: Bucket,
                          buf: torch.Tensor) -> list[torch.Tensor]:
@@ -68,11 +73,13 @@ class FusionPlan:
             off += m.size
         return out
 
-    def flatten(self, tree) -> list[torch.Tensor]:
-        """tree -> one fused buffer per bucket."""
+    def flatten(self, tree, out=None) -> list[torch.Tensor]:
+        """tree -> one fused buffer per bucket.  ``out``: one buffer (or
+        None, for a fresh one) per bucket to write into."""
         flat = tree_mod.leaves(tree)
-        return [self.flatten_bucket(b, [flat[i] for i in b.leaf_indices])
-                for b in self.buckets]
+        out = [None] * len(self.buckets) if out is None else out
+        return [self.flatten_bucket(b, [flat[i] for i in b.leaf_indices], o)
+                for b, o in zip(self.buckets, out)]
 
     def unflatten(self, buffers: Sequence[torch.Tensor]):
         flat: list = [None] * len(self.leaves)
@@ -80,6 +87,18 @@ class FusionPlan:
             for i, leaf in zip(b.leaf_indices, self.unflatten_bucket(b, buf)):
                 flat[i] = leaf
         return tree_mod.unflatten(self.like, flat)
+
+
+def chunk_axis(group, ndim: int) -> int:
+    """The dim a bucket's reducers chunk: the first unsharded dim of a
+    leaf whose fusion-group tag is its tuple-ized PartitionSpec (None
+    entries = unsharded), else 0."""
+    if not isinstance(group, tuple) or ndim == 0:
+        return 0
+    for i in range(ndim):
+        if i >= len(group) or group[i] is None:
+            return i
+    return 0
 
 
 def _replicated(tag) -> bool:

@@ -270,6 +270,31 @@ def execute_stages(x: torch.Tensor, stages, groups) -> torch.Tensor:
 # closed forms
 # ---------------------------------------------------------------------------
 
+def hop_elements(algorithm: str, shape, p: int) -> tuple[int, int]:
+    """``(largest ppermute payload, all_gather row)`` in elements, for
+    one allreduce of a buffer of ``shape`` over ``p`` ranks: what a
+    transport's receive slots must hold.  Ring hops carry one chunk of
+    the padded rows; RHD's first halving hop half the rows, its pre- and
+    post-fold (non-power-of-two p) all of them; ``ps_gather`` gathers
+    the whole buffer; ``psum`` has no hop."""
+    p = int(p)
+    rows = int(shape[0]) if len(shape) else 1
+    inner = 1
+    for d in tuple(shape)[1:]:
+        inner *= int(d)
+    if p == 1 or algorithm == "psum":
+        return 0, 0
+    if algorithm == "ring_rsa":
+        return -(-rows // p) * inner, 0
+    if algorithm == "rhd_rsa":
+        core = _pow2_core(p)
+        padded = -(-rows // core) * core
+        return (padded if core != p else padded // 2) * inner, 0
+    if algorithm == "ps_gather":
+        return 0, rows * inner
+    raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
+
+
 def wire_bytes(strategy: str, n_bytes: int, p: int) -> int:
     """Algorithmic wire bytes per device (critical path) of one
     allreduce over ``p`` ranks (non-pow2 ``rhd_rsa`` adds the 2N

@@ -11,17 +11,20 @@ This slice plans fixed strategies on a single data axis: ``psum``,
 ``ring_rsa``, ``rhd_rsa`` and ``ps_gather`` (``hierarchical`` degenerates
 to ``ring_rsa`` there, as in the reference), with every codec and the
 fused-hop default.  Composed two-level names, the ``auto`` selector and
-the model bracket raise ``NotImplementedError``.
+the model bracket raise ``NotImplementedError``.  ``plan(..., cache=)``
+interns resolved schedules in a :class:`~repro_torch.core.plan_cache.
+PlanCache` keyed by :class:`ScheduleRequest`.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
-from typing import Sequence
+from typing import Hashable, Sequence
 
 import torch
 
+from .. import tree as tree_mod
 from . import codec as codec_mod
 from . import cost_model, fusion, overlap as overlap_mod, reducers
 
@@ -299,6 +302,48 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
 # The planner
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class ScheduleRequest:
+    """Everything that determines a resolved schedule: the plan cache's
+    key (``fingerprint()``), derived from the gradient tree itself, so a
+    stale schedule is impossible by construction (the reference's
+    ``ScheduleRequest``; the port has one link and no model bracket)."""
+    treedef: Hashable
+    shapes: tuple
+    dtypes: tuple
+    groups_key: Hashable
+    threshold_bytes: int
+    fuse: bool
+    wire_dtype: str
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    strategy_context: Hashable     # the resolved fixed strategy name
+    switch_points: tuple[int, ...]
+    placement: str
+    link_key: tuple                # (alpha, bandwidth) of the link
+    codec: str = "none"
+    error_feedback: bool = False
+    model_key: Hashable = None
+    fused: bool = False
+
+    def fingerprint(self) -> Hashable:
+        return (self.treedef, self.shapes, self.dtypes, self.groups_key,
+                self.threshold_bytes, self.fuse, self.wire_dtype,
+                self.axis_names, self.axis_sizes, self.strategy_context,
+                self.switch_points, self.placement, self.link_key,
+                self.codec, self.error_feedback, self.model_key) \
+            + (("fused_hops",) if self.fused else ())
+
+
+def _tree_meta(tree, groups):
+    """``(treedef, shapes, dtypes, groups_key)`` of a gradient tree."""
+    flat = tree_mod.leaves(tree)
+    shapes = tuple(tuple(int(d) for d in x.shape) for x in flat)
+    dtypes = tuple(str(x.dtype) for x in flat)
+    gkey = None if groups is None else tuple(tree_mod.leaves(groups))
+    return tree_mod.structure(tree), shapes, dtypes, gkey
+
+
 def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
          strategy: str = "rhd_rsa", selector=None,
          threshold_bytes: int = 4 << 20, fuse: bool = True,
@@ -307,10 +352,12 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
          intra=cost_model.ICI, codec: str = "none",
          error_feedback: bool = False,
          model_axis: "str | None" = None, model_axis_size: int = 1,
-         fused_hops: "bool | None" = None) -> ReduceSchedule:
+         fused_hops: "bool | None" = None, cache=None) -> ReduceSchedule:
     """Resolve ``tree`` (tensors, or anything with ``.shape``/``.dtype``)
     into a :class:`ReduceSchedule`.  ``fused_hops=None`` fuses exactly
-    the coded schedules, as the reference does."""
+    the coded schedules, as the reference does.  ``cache`` (a
+    :class:`~repro_torch.core.plan_cache.PlanCache`) interns the result
+    by :class:`ScheduleRequest`: a hit returns the identical schedule."""
     if selector is not None:
         raise NotImplementedError("the auto selector is not ported yet")
     if model_axis is not None and int(model_axis_size) > 1:
@@ -331,26 +378,40 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
     fused = (codec != "none") if fused_hops is None else bool(fused_hops)
     strat = normalize_strategy(strategy, len(names))
 
-    fplan = fusion.build_plan(tree, int(threshold_bytes), groups=groups,
-                              fuse=fuse)
-    order = overlap_mod.readiness_order(fplan)
-    rank = {bi: r for r, bi in enumerate(order)}
-    buckets = []
-    for i, bucket in enumerate(fplan.buckets):
-        n_bytes = int(bucket.size) * wire_itemsize
-        stages = decompose(strat, n_bytes, names, sizes, intra=intra,
-                           codec=codec, wire_itemsize=wire_itemsize,
-                           fused=fused)
-        buckets.append(BucketSchedule(
-            index=i, leaf_indices=bucket.leaf_indices,
-            size=int(bucket.size), n_bytes=n_bytes,
-            readiness_rank=rank[i], strategy=strat, stages=stages,
-            predicted_s=sum(st.predicted_s for st in stages)))
-    return ReduceSchedule(
-        axis_names=names, axis_sizes=sizes, wire_dtype=wire_dtype,
-        placement=placement, threshold_bytes=int(threshold_bytes),
-        switch_points=(), buckets=tuple(buckets), codec=codec,
-        error_feedback=error_feedback, plan=fplan)
+    def _resolve() -> ReduceSchedule:
+        fplan = fusion.build_plan(tree, int(threshold_bytes), groups=groups,
+                                  fuse=fuse)
+        order = overlap_mod.readiness_order(fplan)
+        rank = {bi: r for r, bi in enumerate(order)}
+        buckets = []
+        for i, bucket in enumerate(fplan.buckets):
+            n_bytes = int(bucket.size) * wire_itemsize
+            stages = decompose(strat, n_bytes, names, sizes, intra=intra,
+                               codec=codec, wire_itemsize=wire_itemsize,
+                               fused=fused)
+            buckets.append(BucketSchedule(
+                index=i, leaf_indices=bucket.leaf_indices,
+                size=int(bucket.size), n_bytes=n_bytes,
+                readiness_rank=rank[i], strategy=strat, stages=stages,
+                predicted_s=sum(st.predicted_s for st in stages)))
+        return ReduceSchedule(
+            axis_names=names, axis_sizes=sizes, wire_dtype=wire_dtype,
+            placement=placement, threshold_bytes=int(threshold_bytes),
+            switch_points=(), buckets=tuple(buckets), codec=codec,
+            error_feedback=error_feedback, plan=fplan)
+
+    if cache is None:
+        return _resolve()
+    link = cost_model.resolve_link(intra)
+    treedef, shapes, dtypes, gkey = _tree_meta(tree, groups)
+    request = ScheduleRequest(
+        treedef=treedef, shapes=shapes, dtypes=dtypes, groups_key=gkey,
+        threshold_bytes=int(threshold_bytes), fuse=bool(fuse),
+        wire_dtype=wire_dtype, axis_names=names, axis_sizes=sizes,
+        strategy_context=strat, switch_points=(), placement=placement,
+        link_key=(link.alpha_s, link.bandwidth), codec=codec,
+        error_feedback=bool(error_feedback), fused=fused)
+    return cache.resolve(request, _resolve)
 
 
 def with_fused_hops(sched: ReduceSchedule,

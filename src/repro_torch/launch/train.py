@@ -7,6 +7,8 @@
 Spawns ``--world`` ranks with file rendezvous (``--world 1`` runs in
 this process without ``torch.distributed``).  ``--backend gloo`` may put
 several ranks on one card (payloads staged through host memory);
+``--backend cuda_ipc`` too, with the hop payloads kept in device memory
+(a gloo group carries control messages only; ranks of one host);
 ``--backend nccl`` needs one card per rank.  Runs on CUDA unless
 ``--device cpu``.  Keeps ``repro.launch.train``'s flags, except the
 JAX-only ``--mesh``/``--host-devices`` (the data axis is ``--world``)
@@ -29,7 +31,8 @@ def parser() -> argparse.ArgumentParser:
                     help="global batch (split evenly over the ranks)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--world", type=int, default=1)
-    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
+    ap.add_argument("--backend", choices=("gloo", "nccl", "cuda_ipc"),
+                    default="gloo")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--strategy", default="rhd_rsa")

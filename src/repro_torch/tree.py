@@ -37,6 +37,17 @@ def leaves_with_path(tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
             for item in leaves_with_path(child, prefix + (k,))]
 
 
+def structure(tree):
+    """A hashable description of ``tree``'s nesting, its leaves left
+    out: two trees have equal structures exactly when they flatten in
+    the same order into the same paths (the plan cache's treedef)."""
+    items = _items(tree)
+    if items is None:
+        return None
+    kind = "dict" if isinstance(tree, dict) else "list"
+    return (kind, tuple((k, structure(child)) for k, child in items))
+
+
 _END = object()
 
 

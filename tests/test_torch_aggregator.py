@@ -11,7 +11,7 @@ import torch
 from repro.core import codec as jcodec
 
 from repro_torch.core import AggregatorConfig, GradientAggregator, Group
-from repro_torch.core.aggregator import _chunk_axis
+from repro_torch.core.fusion import chunk_axis as _chunk_axis
 
 
 def _agg(**cfg):
