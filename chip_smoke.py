@@ -101,7 +101,27 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    5's images/s beside phase 7's gloo run (the cost of deterministic
    cuDNN).
 
-In phases 3-7 the executors must be built once each by the end of step
+8. ``strategy="auto"`` and ``overlap=True``: phase 7's smollm-360m on
+   ``cuda_ipc`` + ``int8`` with each bucket reduced inside the backward
+   on a channel of its own (``AggregatorConfig(overlap=True)``).  Under
+   ``rhd_rsa`` each rank's parameters and K1-K5 launches must equal
+   phase 7's cuda_ipc run.  Under ``strategy="auto"`` with a tuning
+   table that picks ``rhd_rsa`` below 64 MiB and ``ring_rsa`` above, so
+   that one backward runs both algorithms through slots sized for both,
+   the per-bucket algorithms must equal a host ``plan()`` of the same
+   tree and table, and each rank's parameters and launches must equal a
+   post-backward run of the same schedule.  No channel may stage a byte
+   through the host.  Then phase 7's ResNet-50 ``rhd_rsa`` on
+   ``cuda_ipc`` with ``overlap=True`` under deterministic cuDNN, bit for
+   bit to phase 7's, every rank's first bucket reduction starting before
+   its backward ends (smollm's buckets, stacked over the layers or
+   holding the tied embedding, complete only at the end of backward, so
+   there it is printed, not required).  Prints each bucket's ready,
+   start and end times, hidden and exposed communication, the measured
+   overlap fraction beside ``overlap.simulate``'s (fed with the measured
+   ready and communication times), and the step times beside phase 7's.
+
+In phases 3-8 the executors must be built once each by the end of step
 1, and neither rebuilt nor added to later; the plan cache must only hit
 from step 2.  One aggregate per transport and model is profiled (every
 rank of phases 3, 6 and 7's LMs, ResNet-50 rhd_rsa in phase 7) and
@@ -1425,10 +1445,11 @@ def run_phase(world, args, small, required, spec=None, small_spec=None,
 # ---------------------------------------------------------------------------
 
 def cnn_trainer(name, strategy, image, batch, dtype, device, group,
-                data_device=None):
+                data_device=None, overlap=False):
     """The CNN step of the tf_cnn_benchmarks analogue: ``make_train_step``
     with SGD ``p - 0.05 g`` (no momentum) and a clip that never clips;
-    ``ps_gather`` fuses its terminal sum (K4)."""
+    ``ps_gather`` fuses its terminal sum (K4); ``overlap`` reduces the
+    buckets inside the backward."""
     from repro_torch.core import AggregatorConfig
     from repro_torch.data import SyntheticImages
     from repro_torch.models import CnnSpec, build_cnn
@@ -1436,7 +1457,7 @@ def cnn_trainer(name, strategy, image, batch, dtype, device, group,
     from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
     agg = AggregatorConfig(strategy=strategy,
                            fused_hops=True if strategy == "ps_gather"
-                           else None)
+                           else None, overlap=overlap)
     cfg = TrainerConfig(steps=CNN_WARMUP + CNN_TIMED, step=TrainStepConfig(
         aggregator=agg, clip_norm=1e30))
     data = SyntheticImages(batch, image_size=image, device=data_device)
@@ -1445,7 +1466,8 @@ def cnn_trainer(name, strategy, image, batch, dtype, device, group,
                    device=device, verbose=False)
 
 
-def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile):
+def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile,
+             overlap=False):
     import torch
     from repro_torch import tree
     from repro_torch.core import Group, plan_cache
@@ -1463,7 +1485,7 @@ def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile):
                                                      transports):
             trainer = cnn_trainer(name, strategy, CNN_IMAGE, CNN_BATCH,
                                   "bfloat16", "cuda", groups[transport],
-                                  data_device="cuda")
+                                  data_device="cuda", overlap=overlap)
             module, opt_state = trainer.init_state(0)
             torch.cuda.reset_peak_memory_stats()
             steps = []
@@ -1475,7 +1497,8 @@ def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile):
                 after = _counts()
                 steps.append({**hist[0], "launches": {
                     k: after[k] - before[k] for k in after},
-                    **_cache_delta(cache0)})
+                    **_cache_delta(cache0),
+                    "overlap": _overlap_summary(trainer)})
             totals = _counts()                # main path ends here
             scalar = _scalar_counts()
             peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1485,7 +1508,7 @@ def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile):
                 "totals": totals, "scalar": scalar, "peak_gib": peak_gib,
                 "n_params": sum(p.numel() for p in module.parameters()),
                 "checksum": _checksum(module.tree()),
-                "breakdown": _step_breakdown(
+                "breakdown": None if overlap else _step_breakdown(
                     trainer, module, "cuda", CNN_WARMUP + CNN_TIMED, rank,
                     world, profile == (name, strategy))})
             del trainer, module, opt_state
@@ -1508,7 +1531,7 @@ def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile):
 
 
 def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
-                  deterministic=False, profile=None):
+                  deterministic=False, profile=None, overlap=False):
     """Spawn the 4 ranks once, then train every model and strategy of
     ``runs`` on each of ``transports`` in turn (cuDNN's deterministic
     algorithms with ``deterministic``; ``profile``, a (model, strategy),
@@ -1517,7 +1540,10 @@ def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
     bucket per step exactly under fused ps_gather and never otherwise,
     no other kernel launched, executors built once and plan-cache hits
     only from step 2 (on cuda_ipc, an aggregate with no host copy); then
-    the small card-vs-host agreement.  Returns each rank's record."""
+    the small card-vs-host agreement.  With ``overlap`` the buckets are
+    reduced inside the backward, and no aggregate is timed alone (each
+    step's channel staged nothing on cuda_ipc).  Returns each rank's
+    record."""
     from repro_torch.core.dist import run_ranks
     for t in transports:
         log(f"  transport: {t}, {TRANSPORT_NOTE[t]}")
@@ -1526,12 +1552,13 @@ def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
         f"{CNN_IMAGE}x{CNN_IMAGE}, bf16, cuDNN "
         f"{'deterministic' if deterministic else 'default'} algorithms; "
         f"{CNN_WARMUP} warm-up + {CNN_TIMED} timed steps per model and "
-        f"strategy")
+        f"strategy{'; buckets reduced inside the backward' if overlap else ''}")
     backend = "cuda_ipc" if "cuda_ipc" in transports else "gloo"
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
         results = run_ranks(cnn_rank, CNN_WORLD,
-                            (runs, transports, deterministic, profile),
+                            (runs, transports, deterministic, profile,
+                             overlap),
                             backend=backend, rendezvous_dir=rdv,
                             threads=max(1, (os.cpu_count() or 1)
                                         // CNN_WORLD),
@@ -1559,19 +1586,23 @@ def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
                     == (model, strategy, transport),
                     "ranks ran the strategies in different orders")
             bd = rr["breakdown"]
-            log(f"    rank {r['rank']} layers, one step timed alone after "
-                f"the main path: " + ", ".join(
-                    f"{k} {bd[k]:.3f}" for k in ("fwd_bwd_s", "aggregate_s",
-                                                 "optimizer_s")))
-            if r["rank"] == 0:
-                log(f"      {_traffic_line(bd)}")
-            if bd["split"] is not None:
-                log(f"      rank {r['rank']} {_split_line(bd['split'])}")
+            if bd is not None:
+                log(f"    rank {r['rank']} layers, one step timed alone "
+                    f"after the main path: " + ", ".join(
+                        f"{k} {bd[k]:.3f}" for k in (
+                            "fwd_bwd_s", "aggregate_s", "optimizer_s")))
+                if r["rank"] == 0:
+                    log(f"      {_traffic_line(bd)}")
+                if bd["split"] is not None:
+                    log(f"      rank {r['rank']} {_split_line(bd['split'])}")
+                if transport == "cuda_ipc":
+                    _require_on_card(bd, f"rank {r['rank']} {model} "
+                                         f"{strategy}")
+            else:
+                _require_overlapped(f"rank {r['rank']} {model} {strategy}",
+                                    rr["steps"], transport)
             _require_cached(r["rank"], f"{model} {strategy} {transport}",
                             rr["steps"])
-            if transport == "cuda_ipc":
-                _require_on_card(bd, f"rank {r['rank']} {model} "
-                                     f"{strategy}")
             require(all(math.isfinite(s_["loss"]) for s_ in rr["steps"]),
                     f"rank {r['rank']} {model} {strategy}: non-finite loss")
             for s_, rec in enumerate(rr["steps"]):
@@ -1671,20 +1702,20 @@ HOP_KERNEL_NAMES = ("hop_absmax", "hop_encode", "hop_decode_add",
                     "fused_reduce", "adamw_update")
 
 
-def _same_as_gloo(label, gloo, ipc):
-    """Every rank's parameters and K1-K5 launch counts as on gloo
-    (``gloo`` and ``ipc``: one record per rank)."""
-    for g, i in zip(gloo, ipc):
+def _same_as(label, base, new, base_name="gloo", new_name="cuda_ipc"):
+    """Every rank's parameters and K1-K5 launch counts as in the run it
+    is held to (``base`` and ``new``: one record per rank)."""
+    for rank, (g, i) in enumerate(zip(base, new)):
         require(g["checksum"] == i["checksum"],
-                f"{label} rank {g.get('rank', '')}: parameters differ "
-                f"between gloo ({g['checksum']}) and cuda_ipc "
+                f"{label} rank {rank}: parameters differ between "
+                f"{base_name} ({g['checksum']}) and {new_name} "
                 f"({i['checksum']})")
         for k in HOP_KERNEL_NAMES:
             require(g["totals"][k] == i["totals"][k],
-                    f"{label}: {k} launched {g['totals'][k]} times on gloo, "
-                    f"{i['totals'][k]} on cuda_ipc")
-    log(f"  {label}: parameters bit-identical to the gloo run on every "
-        f"rank, K1-K5 launches equal")
+                    f"{label}: {k} launched {g['totals'][k]} times on "
+                    f"{base_name}, {i['totals'][k]} on {new_name}")
+    log(f"  {label}: parameters bit-identical to the {base_name} run on "
+        f"every rank, K1-K5 launches equal")
 
 
 def _lm_times(results):
@@ -1714,7 +1745,7 @@ def run_transport_phase(rows, phase3, phase5, phase6):
                    ("hop_absmax", "hop_encode", "hop_decode_add",
                     "adamw_update", "fused_rmsnorm"), backend="cuda_ipc",
                    profile=True)
-    _same_as_gloo("smollm-360m", phase3, lm)
+    _same_as("smollm-360m", phase3, lm)
     log("  the paper's CNNs (phase 5's configurations), gloo then cuda_ipc")
     cnn = run_cnn_phase(TRANSPORT_CNN_RUNS, ("gloo", "cuda_ipc"),
                         deterministic=True, profile=PROFILED_CNN)
@@ -1728,12 +1759,12 @@ def run_transport_phase(rows, phase3, phase5, phase6):
     phase5_runs, cnn_runs = by_run(phase5), by_run(cnn)
     for model, strategies in TRANSPORT_CNN_RUNS:
         for strategy in strategies:
-            _same_as_gloo(f"{model} {strategy}",
+            _same_as(f"{model} {strategy}",
                           cnn_runs[(model, strategy, "gloo")],
                           cnn_runs[(model, strategy, "cuda_ipc")])
     log("  gemma-7b, 1 layer, seq 4096, 2 ranks (phase 6's configuration)")
     gemma = run_gemma_phase(rows, backend="cuda_ipc")
-    _same_as_gloo("gemma-7b", phase6, gemma)
+    _same_as("gemma-7b", phase6, gemma)
 
     log("  card tests of the transport (tests/test_torch_transport_on_card"
         ".py)")
@@ -1768,6 +1799,296 @@ def run_transport_phase(rows, phase3, phase5, phase6):
                     f"{[round(r['step_s'], 4) for r in timed]}, "
                     f"aggregate_s {agg_s}")
     return {"lm": lm, "cnn": cnn, "gemma": gemma}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: strategy="auto" and overlap=True
+# ---------------------------------------------------------------------------
+
+# (label, strategy, overlap): rhd_rsa is held to phase 7's cuda_ipc run;
+# auto, under _mixed_table, is held to its own post-backward run.
+OVERLAP_RUNS = (("rhd_rsa overlap", "rhd_rsa", True),
+                ("auto overlap", "auto", True),
+                ("auto post-backward", "auto", False))
+# A forced tuning table: rhd_rsa below 64 MiB, ring_rsa from there on.
+# smollm-360m's buckets span 0.09-118 MB, so one backward runs both
+# algorithms, and the executor sizes its slots from both.
+MIXED_SWITCH_BYTES = 64 << 20
+OVERLAP_CNN_RUNS = (("resnet50", ("rhd_rsa",)),)
+LM_KERNELS = ("hop_absmax", "hop_encode", "hop_decode_add", "adamw_update",
+              "fused_rmsnorm")
+
+
+def _overlap_summary(trainer):
+    """The overlapped step's channel record (None after a post-backward
+    step): each bucket's host seconds from the start of backward (ready,
+    start, end), the bytes the transport moved meanwhile, and the
+    measured timeline beside ``overlap.simulate``'s, fed with the
+    measured ready and communication times."""
+    rec = trainer.extras["aggregator"].last_overlap
+    if rec is None:
+        return None
+    return {"backward_s": rec.backward_s,
+            "buckets": [(b.index, b.strategy, b.ready_s, b.start_s,
+                         b.end_s) for b in rec.buckets],
+            "traffic": rec.traffic,
+            "measured": rec.timeline().to_dict(),
+            "simulated": rec.simulated().to_dict()}
+
+
+def _require_overlapped(label, steps, transport, early=True):
+    """Every step reduced every bucket on the channel; on cuda_ipc it
+    staged nothing through the host; with ``early`` the first bucket's
+    reduction started before backward ended."""
+    for s_, rec in enumerate(steps, 1):
+        ov = rec["overlap"]
+        require(ov is not None and len(ov["buckets"]) == rec["n_buckets"],
+                f"{label} step {s_}: the channel did not reduce every "
+                f"bucket: {ov}")
+        if transport == "cuda_ipc":
+            t = ov["traffic"]
+            require(t["staged_bytes"] == 0 and t["mapped_bytes"] > 0,
+                    f"{label} step {s_}: the channel staged through the "
+                    f"host: {t}")
+        if early:
+            start = ov["buckets"][0][3]
+            require(start < ov["backward_s"],
+                    f"{label} step {s_}: the first bucket's reduction "
+                    f"started at {start:.4f} s, after backward ended at "
+                    f"{ov['backward_s']:.4f} s")
+
+
+def _overlap_lines(label, results, steps_of):
+    """Rank 0's last step bucket by bucket, then every rank's last step:
+    backward, the first bucket's start, hidden and exposed
+    communication, and the measured overlap beside the simulator's."""
+    ov = steps_of(results[0])[-1]["overlap"]
+    log(f"    {label}, rank 0, last step, channel order (ms from the start "
+        f"of backward; backward {ov['backward_s'] * 1e3:.2f}):")
+    for index, strategy, ready, start, end in ov["buckets"]:
+        log(f"      bucket {index:3d} {strategy:8s} ready {ready * 1e3:8.2f} "
+            f"start {start * 1e3:8.2f} end {end * 1e3:8.2f}")
+    for r in results:
+        ov = steps_of(r)[-1]["overlap"]
+        m, sim = ov["measured"], ov["simulated"]
+        log(f"    {label}, rank {r['rank']}: backward "
+            f"{ov['backward_s'] * 1e3:.2f} ms, first bucket started "
+            f"{ov['buckets'][0][3] * 1e3:.2f} ms; communication "
+            f"{m['comm_s'] * 1e3:.2f} ms, hidden {m['hidden_comm_s'] * 1e3:.2f}"
+            f", exposed {m['exposed_comm_s'] * 1e3:.2f}; overlap fraction "
+            f"measured {m['overlap_fraction']:.3f}, overlap.simulate "
+            f"{sim['overlap_fraction']:.3f} (hidden "
+            f"{sim['hidden_comm_s'] * 1e3:.2f}, exposed "
+            f"{sim['exposed_comm_s'] * 1e3:.2f})")
+
+
+def _mixed_table(p):
+    from repro_torch.core.selector import TABLE_SCHEMA
+    return {"schema": TABLE_SCHEMA, "entries": [
+        {"p": p, "bytes": 0, "latency_us": {"rhd_rsa": 1.0, "ring_rsa": 5.0}},
+        {"p": p, "bytes": MIXED_SWITCH_BYTES,
+         "latency_us": {"rhd_rsa": 5.0, "ring_rsa": 1.0}}]}
+
+
+def _overlap_config(args, overlap, table):
+    """The aggregator configuration the launcher builds from ``args``,
+    with ``overlap`` set on it as a ``Trainer`` user sets it, and
+    strategy="auto" reading the tuning table at ``table``."""
+    import dataclasses
+    from repro_torch.launch.train import aggregator_config
+    cfg = dataclasses.replace(aggregator_config(args), overlap=overlap)
+    if cfg.strategy == "auto":
+        cfg = dataclasses.replace(cfg, selector_mode="empirical",
+                                  selector_table=table)
+    return cfg
+
+
+def overlap_rank(rank, world, args, runs_spec, table):
+    """Train ``args`` once per ``(label, strategy, overlap)`` of
+    ``runs_spec`` (:func:`_overlap_config`), counting launches, cache use
+    and the channel's record per step."""
+    import torch
+    from repro_torch.core import Group, plan_cache
+    from repro_torch.launch.train import build_trainer
+
+    if args.device == "cuda":
+        torch.cuda.set_device(0)
+    group = Group()
+    runs = []
+    for label, strategy, overlap in runs_spec:
+        a = argparse.Namespace(**{**vars(args), "strategy": strategy})
+        trainer = build_trainer(a, group=group, verbose=False,
+                                aggregator=_overlap_config(a, overlap,
+                                                           table))
+        module, opt_state = trainer.init_state(args.seed)
+        steps = []
+        _reset_counts()                       # main path starts here
+        for s in range(args.steps):
+            before, cache0 = _counts(), _cache_counts()
+            module, opt_state, hist = trainer.run(1, module, opt_state,
+                                                  start_step=s)
+            after = _counts()
+            steps.append({**hist[0], "launches": {k: after[k] - before[k]
+                                                  for k in after},
+                          **_cache_delta(cache0),
+                          "overlap": _overlap_summary(trainer)})
+        totals = _counts()                    # main path ends here
+        sched = trainer.extras["aggregator"].last_schedule
+        runs.append({"label": label, "strategy": strategy,
+                     "overlap": overlap, "steps": steps, "totals": totals,
+                     "scalar": _scalar_counts(),
+                     "checksum": _checksum(module.tree()),
+                     "buckets": [(b.index, b.strategy, b.leaf_indices)
+                                 for b in sched.buckets],
+                     "fingerprint": sched.fingerprint()})
+        del trainer, module, opt_state
+        plan_cache.GLOBAL_EXECUTOR_CACHE.clear()     # frees the slots
+        if args.device == "cuda":
+            torch.cuda.empty_cache()
+    return {"rank": rank, "runs": runs}
+
+
+def _host_plan(args, world, table):
+    """``strategy="auto"``'s schedule of ``args``' model under the tuning
+    table at ``table``, planned on the host (meta tensors, no rank), as
+    the ranks' aggregators resolve it."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.core import GradientAggregator, Group
+    from repro_torch.models import param_groups
+    from repro_torch.models.transformer import init_params
+    spec = get_spec(args.arch)
+    with torch.device("meta"):
+        params = init_params(torch.Generator(),
+                             spec if args.full else spec.reduced(), "meta")
+    agg = GradientAggregator(_overlap_config(args, True, table), ("data",),
+                             {"data": Group()})
+    return agg.resolve(params, (world,), groups=param_groups(params))
+
+
+def run_overlap_phase(phase7):
+    """Phase 7's smollm-360m on cuda_ipc with overlap=True under rhd_rsa +
+    int8, held bit for bit to phase 7's cuda_ipc run; under
+    strategy="auto" with a tuning table that mixes rhd_rsa and ring_rsa,
+    its buckets held to a host plan and its parameters to a post-backward
+    run of the same schedule; and phase 7's ResNet-50 rhd_rsa with
+    overlap=True under deterministic cuDNN, held to phase 7's cuda_ipc
+    run.  Returns each run's records."""
+    from repro_torch.core.dist import run_ranks
+    args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
+                      device="cuda")
+    log(f"  smollm-360m, seq 512, {TRAIN_WORLD} ranks on cuda_ipc (phase "
+        f"7's configuration) + int8, {args.steps} steps per run: "
+        f"{[label for label, _, _ in OVERLAP_RUNS]}; overlap runs reduce "
+        f"their buckets inside the backward on a channel of their own; "
+        f"auto reads a tuning table that picks rhd_rsa below "
+        f"{MIXED_SWITCH_BYTES} B and ring_rsa from there on")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        table = os.path.join(rdv, "mixed_table.json")
+        with open(table, "w") as f:
+            json.dump(_mixed_table(TRAIN_WORLD), f)
+        host = _host_plan(argparse.Namespace(**{**vars(args),
+                                                "strategy": "auto"}),
+                          TRAIN_WORLD, table)
+        results = run_ranks(overlap_rank, TRAIN_WORLD,
+                            (args, OVERLAP_RUNS, table), backend="cuda_ipc",
+                            rendezvous_dir=rdv,
+                            threads=max(1, (os.cpu_count() or 1)
+                                        // TRAIN_WORLD),
+                            timeout_s=600)
+    log(f"  {TRAIN_WORLD} ranks done in {time.perf_counter() - t0:.1f} s")
+    by = {label: [r["runs"][i] for r in results]
+          for i, (label, _, _) in enumerate(OVERLAP_RUNS)}
+    for label, recs in by.items():
+        name = f"smollm-360m {label}"
+        for rank, rec in enumerate(recs):
+            require(rec["label"] == label,
+                    "ranks ran the configurations in different orders")
+            _require_cached(rank, name, rec["steps"])
+            if rec["overlap"]:
+                # Every smollm bucket holds leaves stacked over the 32
+                # layers or the tied embedding: each is complete only
+                # when backward reaches layer 0 and the embedding, at its
+                # very end.  So the first bucket's start is printed here,
+                # and required before the end of backward on ResNet-50,
+                # whose last stage's bucket is complete early.
+                _require_overlapped(f"rank {rank} {name}", rec["steps"],
+                                    "cuda_ipc", early=False)
+            else:
+                require(all(s_["overlap"] is None for s_ in rec["steps"]),
+                        f"rank {rank} {name}: a post-backward step ran "
+                        f"the channel")
+            require(all(rec["totals"][k] > 0 for k in LM_KERNELS),
+                    f"rank {rank} {name}: a kernel never launched "
+                    f"{rec['totals']}")
+            require(all(math.isfinite(s_["loss"]) for s_ in rec["steps"]),
+                    f"rank {rank} {name}: non-finite loss")
+        sums = {rec["checksum"] for rec in recs}
+        require(len(sums) == 1, f"{name}: parameters differ across ranks "
+                                f"{sums}")
+        for s_, step in enumerate(recs[0]["steps"], 1):
+            log(f"  {name} step {s_}: loss {step['loss']:.5f} step_s "
+                f"{step['step_s']:.3f} buckets {step['n_buckets']} "
+                f"launches/rank {step['launches']}")
+        log(f"  {name}: parameters bit-identical on all {TRAIN_WORLD} "
+            f"ranks (checksum {sums.pop()}), executors built once")
+    _same_as("smollm-360m rhd_rsa overlap", phase7["lm"],
+             by["rhd_rsa overlap"], "phase 7 cuda_ipc", "overlap")
+    want = [(b.index, b.strategy, b.leaf_indices) for b in host.buckets]
+    require({st for _, st, _ in want} == {"rhd_rsa", "ring_rsa"},
+            f"the mixed table's host plan does not mix rhd_rsa and "
+            f"ring_rsa: {want}")
+    for label in ("auto overlap", "auto post-backward"):
+        for rank, rec in enumerate(by[label]):
+            # The host plan is the overlapped one: its fingerprint also
+            # names the placement.
+            require([tuple(b) for b in rec["buckets"]] == want
+                    and (rec["fingerprint"] == host.fingerprint())
+                    == rec["overlap"],
+                    f"rank {rank} {label}: buckets {rec['buckets']} are "
+                    f"not the host plan's {want}")
+    log(f"  auto: each bucket's algorithm, as a host plan() of the same "
+        f"tree and table chose it: "
+        + ", ".join(f"{i}:{st}" for i, st, _ in want))
+    _same_as("smollm-360m auto overlap", by["auto post-backward"],
+             by["auto overlap"], "auto post-backward", "auto overlap")
+    for label, recs in by.items():
+        if recs[0]["overlap"]:
+            _overlap_lines(f"smollm-360m {label}",
+                           [{"rank": i, **rec} for i, rec in enumerate(recs)],
+                           lambda r: r["steps"])
+
+    log("  ResNet-50 rhd_rsa on cuda_ipc, overlap=True (phase 7's "
+        "configuration)")
+    cnn = run_cnn_phase(OVERLAP_CNN_RUNS, ("cuda_ipc",), deterministic=True,
+                        overlap=True)
+    ipc7 = {(run["model"], run["strategy"]): [r["runs"][i]
+                                              for r in phase7["cnn"]]
+            for i, run in enumerate(phase7["cnn"][0]["runs"])
+            if run["transport"] == "cuda_ipc"}
+    for i, run in enumerate(cnn[0]["runs"]):
+        key = (run["model"], run["strategy"])
+        _same_as(f"{key[0]} {key[1]} overlap", ipc7[key],
+                 [r["runs"][i] for r in cnn], "phase 7 cuda_ipc", "overlap")
+        _overlap_lines(f"{key[0]} {key[1]}",
+                       [{"rank": r["rank"], **r["runs"][i]} for r in cnn],
+                       lambda r: r["steps"])
+
+    log(f"  step time beside phase 7's on {gpu_line()}:")
+    log(f"    smollm-360m seq 512 phase 7 cuda_ipc: "
+        f"{[round(s_['step_s'], 4) for s_ in phase7['lm'][0]['steps']]}")
+    for label, recs in by.items():
+        log(f"    smollm-360m seq 512 {label}: "
+            f"{[round(s_['step_s'], 4) for s_ in recs[0]['steps']]}")
+    for i, run in enumerate(cnn[0]["runs"]):
+        key = (run["model"], run["strategy"])
+        for label, rec in (("phase 7 cuda_ipc", ipc7[key][0]),
+                           ("overlap", run)):
+            log(f"    {key[0]} {key[1]} {label}: images/s "
+                f"{_images_per_s(rec):.1f}, step_s "
+                f"{[round(s_['step_s'], 4) for s_ in rec['steps']]}")
+    return {"lm": results, "cnn": cnn}
 
 
 def main():
@@ -1846,6 +2167,10 @@ def main():
     log("phase 7: phases 3, 5 and 6 on the cuda_ipc transport")
     phase7 = run_transport_phase(rows, phase3, phase5, phase6)
 
+    log("phase 8: strategy='auto' and overlap=True (in-backward "
+        "reductions) on cuda_ipc")
+    phase8 = run_overlap_phase(phase7)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -1855,7 +2180,9 @@ def main():
                 "phase7": sum(r[field][k] for r in phase7["lm"]
                               + phase7["gemma"])
                 + sum(run[field][k] for r in phase7["cnn"]
-                      for run in r["runs"])}
+                      for run in r["runs"]),
+                "phase8": sum(run[field][k] for r in phase8["lm"]
+                              + phase8["cnn"] for run in r["runs"])}
 
     def scalar(k):
         if k not in SCALAR:

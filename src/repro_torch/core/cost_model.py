@@ -1,9 +1,13 @@
-"""Alpha-beta-gamma cost model (the part the planner needs).
+"""Alpha-beta-gamma cost model (the part the planner and the selector
+price with).
 
 Counterpart of ``repro/core/cost_model.py``: the same formulas and the
-same constants, so ``plan()``'s ``predicted_s`` — part of a schedule's
-JSON — is bit-identical to the reference's.  The constants model the
-reference's TPU target (``hw.V5E``); they are not H100 measurements.
+same constants, so ``plan()``'s ``predicted_s`` (part of a schedule's
+JSON) and every choice of ``strategy="auto"``'s analytic selector are
+bit-identical to the reference's.  The constants model the reference's
+TPU target (``hw.V5E``) and its link profiles; they are not H100
+measurements, and no H100 link profile exists until the
+micro-benchmark's measured table does.
 """
 from __future__ import annotations
 

@@ -49,6 +49,7 @@ class FusionPlan:
     leaves: tuple[LeafMeta, ...]
     buckets: tuple[Bucket, ...]
     threshold_bytes: int
+    switch_points: tuple[int, ...] = ()
 
     def flatten_bucket(self, bucket: Bucket, leaves: Sequence[torch.Tensor],
                        out: torch.Tensor | None = None) -> torch.Tensor:
@@ -106,12 +107,32 @@ def _replicated(tag) -> bool:
                            and all(t is None for t in tag))
 
 
-def build_plan(tree, threshold_bytes: int, groups=None,
-               fuse: bool = True) -> FusionPlan:
+def build_plan(tree, threshold_bytes: int, groups=None, fuse: bool = True,
+               switch_points: Sequence[int] | None = None,
+               switch_itemsize: int = 0) -> FusionPlan:
     """Bucket the leaves of ``tree`` (anything with ``.shape`` and a
     torch ``.dtype``).  ``groups``: a tree of the same structure holding
-    sharding-group tags (tuples; None = replicated).  The selector's
-    switch-point alignment is not ported (no ``auto`` strategy yet)."""
+    sharding-group tags (tuples; None = replicated).
+
+    ``switch_points``: ascending byte sizes at which the selector's
+    chosen algorithm changes.  A fused bucket is never grown across one:
+    if a leaf would carry it from below a switch point to above, the
+    bucket is closed first, so each fused message sits inside one
+    algorithm regime (a single leaf larger than a switch point is
+    bucketed as usual).  ``switch_itemsize``: the element size the
+    switch points are counted in, the WIRE dtype's, which is what the
+    selector sees; crossing is then judged on element counts times it.
+    0 compares leaf bytes."""
+    switch = tuple(sorted(int(s) for s in switch_points)) \
+        if switch_points else ()
+
+    def _crosses(cur: dict, m: LeafMeta) -> bool:
+        if switch_itemsize:
+            a, b = cur["size"] * switch_itemsize, m.size * switch_itemsize
+        else:
+            a, b = cur["bytes"], m.nbytes
+        return any(a < s < a + b for s in switch)
+
     flat = tree_mod.leaves(tree)
     tags = [None] * len(flat) if groups is None else tree_mod.leaves(groups)
     if len(tags) != len(flat):
@@ -133,7 +154,8 @@ def build_plan(tree, threshold_bytes: int, groups=None,
                 continue
             cur = open_buckets.get(key)
             if cur is not None \
-                    and cur["bytes"] + m.nbytes <= threshold_bytes:
+                    and cur["bytes"] + m.nbytes <= threshold_bytes \
+                    and not _crosses(cur, m):
                 cur["idx"].append(m.index)
                 cur["bytes"] += m.nbytes
                 cur["size"] += m.size
@@ -148,4 +170,4 @@ def build_plan(tree, threshold_bytes: int, groups=None,
                                   cur["size"]))
     return FusionPlan(like=tree_mod.tree_map(lambda _: None, tree),
                       leaves=leaves, buckets=tuple(buckets),
-                      threshold_bytes=threshold_bytes)
+                      threshold_bytes=threshold_bytes, switch_points=switch)

@@ -28,6 +28,7 @@ from typing import Hashable
 
 import torch
 
+from .. import tree as tree_mod
 from . import codec as codec_mod
 from . import dist as dist_mod
 from . import fusion, reducers
@@ -260,24 +261,41 @@ class StageExecutor:
             buf = torch.movedim(buf, 0, axis)
         return (buf * scale).to(orig), new_residual
 
+    def _check_open(self):
+        if self.channels and self.channels[0].closed:
+            raise RuntimeError("StageExecutor: its channel is closed")
+
+    def reduce_bucket(self, i: int, leaves, scale: float = 1.0,
+                      residual=None):
+        """Reduce bucket ``i`` of the schedule from its ``leaves`` (in
+        the bucket's leaf order): flatten into the executor's buffer,
+        then the stages.  Returns ``(reduced buffer, new residual)``; the
+        in-backward channel calls it bucket by bucket, :meth:`__call__`
+        for every bucket of a tree, so both reduce the same bits."""
+        self._check_open()
+        plan, bucket = self.schedule.plan, self.schedule.buckets[i]
+        pb = plan.buckets[bucket.index]
+        buf = plan.flatten_bucket(pb, leaves, self.buffers[bucket.index])
+        return self._reduce_bucket(bucket, pb.group, buf, scale, residual)
+
     def __call__(self, tree, scale: float = 1.0, residuals=None):
         """Reduce ``tree`` (laid out as the schedule's plan) and scale it
         by ``scale``.  With ``residuals`` (one per bucket) returns
         ``(reduced_tree, new_residuals)``."""
-        if self.channels and self.channels[0].closed:
-            raise RuntimeError("StageExecutor: its channel is closed")
+        self._check_open()
         plan = self.schedule.plan
-        bufs = plan.flatten(tree, out=self.buffers)
-        if residuals is not None and len(residuals) != len(bufs):
+        if residuals is not None and len(residuals) != len(plan.buckets):
             raise ValueError(
-                f"{len(residuals)} residual buffers for {len(bufs)} "
-                f"fusion buckets — pass init_residuals() output")
+                f"{len(residuals)} residual buffers for "
+                f"{len(plan.buckets)} fusion buckets — pass "
+                f"init_residuals() output")
+        flat = tree_mod.leaves(tree)
         self.calls += 1
         reduced, new_residuals = [], []
-        for i, (bucket, buf) in enumerate(zip(self.schedule.buckets, bufs)):
-            out, r = self._reduce_bucket(
-                bucket, plan.buckets[bucket.index].group, buf, scale,
-                None if residuals is None else residuals[i])
+        for i, bucket in enumerate(self.schedule.buckets):
+            out, r = self.reduce_bucket(
+                i, [flat[j] for j in plan.buckets[bucket.index].leaf_indices],
+                scale, None if residuals is None else residuals[i])
             reduced.append(out)
             new_residuals.append(r)
         if residuals is not None:

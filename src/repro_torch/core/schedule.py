@@ -7,13 +7,16 @@ JSON-serialisable :class:`ReduceSchedule` whose ``to_json()`` (schema
 reference's for the same leaves and config — one bucket per fusion
 bucket, each with its decomposition tree of :class:`Stage` s.
 
-This slice plans fixed strategies on a single data axis: ``psum``,
+This slice plans a single data axis: the fixed strategies ``psum``,
 ``ring_rsa``, ``rhd_rsa`` and ``ps_gather`` (``hierarchical`` degenerates
 to ``ring_rsa`` there, as in the reference), with every codec and the
-fused-hop default.  Composed two-level names, the ``auto`` selector and
-the model bracket raise ``NotImplementedError``.  ``plan(..., cache=)``
-interns resolved schedules in a :class:`~repro_torch.core.plan_cache.
-PlanCache` keyed by :class:`ScheduleRequest`.
+fused-hop default, and the per-bucket choice of a
+:class:`~repro_torch.core.selector.Selector` (``plan(selector=...)``,
+``strategy="auto"``), whose switch points align the fusion buckets.
+Composed two-level names, multi-axis schedules and the model bracket
+raise ``NotImplementedError``.  ``plan(..., cache=)`` interns resolved
+schedules in a :class:`~repro_torch.core.plan_cache.PlanCache` keyed by
+:class:`ScheduleRequest`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,11 @@ from . import cost_model, fusion, overlap as overlap_mod, reducers
 SCHEMA = "repro/schedule/v1"
 SEP = "×"
 PLACEMENTS = ("post_backward", "in_backward")
+# Composed two-level names (``"<inner>×<outer>"``): the reference's
+# per-level choices.  The port parses them (tuning tables may hold
+# their measurements) but does not plan them yet.
+INNER_ALGORITHMS = ("ring_rsa",)
+OUTER_ALGORITHMS = ("rhd_rsa", "ring_rsa", "psum")
 SHORT_ALG = {"ring_rsa": "ring", "rhd_rsa": "rhd", "psum": "psum",
              "ps_gather": "ps"}
 
@@ -39,20 +47,56 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
+def composed_name(inner: str, outer: str) -> str:
+    return f"{inner}{SEP}{outer}"
+
+
+def split_strategy(name: str) -> tuple[str, ...]:
+    """``("alg",)`` for a flat strategy, ``("inner", "outer")`` for a
+    composed two-level one (ASCII ``x`` accepted); raises ValueError on
+    anything else, as the reference does."""
+    parts = tuple(name.replace("x", SEP).split(SEP)) \
+        if (SEP in name or ("x" in name and name not in
+                            reducers.STRATEGIES)) else (name,)
+    if len(parts) == 1:
+        if name not in reducers.STRATEGIES + ("hierarchical",):
+            raise ValueError(f"unknown strategy {name!r}; a flat name "
+                             f"from {reducers.STRATEGIES} or a composed "
+                             f"'<inner>{SEP}<outer>' name")
+        return (name,)
+    if len(parts) != 2:
+        raise ValueError(f"composed strategy {name!r} must have exactly "
+                         f"two levels '<inner>{SEP}<outer>'")
+    inner, outer = parts
+    if inner not in INNER_ALGORITHMS:
+        raise ValueError(f"composed inner level {inner!r} not in "
+                         f"{INNER_ALGORITHMS}")
+    if outer not in OUTER_ALGORITHMS:
+        raise ValueError(f"composed outer level {outer!r} not in "
+                         f"{OUTER_ALGORITHMS}")
+    return (inner, outer)
+
+
+def is_strategy(name: str) -> bool:
+    try:
+        split_strategy(name)
+        return True
+    except ValueError:
+        return False
+
+
 def normalize_strategy(name: str, n_axes: int) -> str:
     """A flat strategy name (``hierarchical`` is ``ring_rsa`` on one
-    axis).  Composed and ``auto`` schedules are not ported yet."""
+    axis).  Names that are no strategy (``auto`` among them: the
+    selector resolves it before this) raise ValueError; composed and
+    multi-axis ``hierarchical`` schedules are not ported yet."""
     if name == "hierarchical" and n_axes == 1:
         return "ring_rsa"
-    if name in reducers.STRATEGIES:
+    if len(split_strategy(name)) == 1 and name != "hierarchical":
         return name
-    if name == "auto" or SEP in name or "x" in name \
-            or name == "hierarchical":
-        raise NotImplementedError(
-            f"strategy {name!r}: composed, hierarchical and auto "
-            f"schedules are not ported yet")
-    raise ValueError(f"unknown strategy {name!r}; one of "
-                     f"{reducers.STRATEGIES}")
+    raise NotImplementedError(
+        f"strategy {name!r}: composed and hierarchical schedules are not "
+        f"ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +188,16 @@ class ReduceSchedule:
     @property
     def predicted_s(self) -> float:
         return sum(b.predicted_s for b in self.buckets)
+
+    def strategies(self) -> tuple[str, ...]:
+        """Distinct strategy names, sorted."""
+        return tuple(sorted({b.strategy for b in self.buckets}))
+
+    def readiness_order(self) -> tuple[int, ...]:
+        """Bucket indices in issue order (readiness rank ascending): the
+        order the in-backward channel reduces them in."""
+        return tuple(sorted(range(len(self.buckets)),
+                            key=lambda i: self.buckets[i].readiness_rank))
 
     def render(self) -> str:
         counts: dict = {}
@@ -298,6 +352,24 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
         fused=fused),)
 
 
+def strategy_latency(strategy: str, n_bytes: float,
+                     axis_sizes: Sequence[int], intra=cost_model.ICI,
+                     codec: str = "none", wire_itemsize: int = 4,
+                     fused: bool = False) -> float:
+    """Cost-model latency of one allreduce of ``n_bytes`` with
+    ``strategy`` over ``axis_sizes``: the stage sum of its decomposition
+    tree, the selector's argmin objective.  One axis only: the
+    reference's ``inter`` (cross-pod) link prices the outer axis of two,
+    which is not ported yet."""
+    sizes = tuple(int(s) for s in axis_sizes)
+    names = tuple(f"ax{i}" for i in range(len(sizes)))
+    return sum(st.predicted_s
+               for st in decompose(strategy, int(n_bytes), names, sizes,
+                                   intra=intra, codec=codec,
+                                   wire_itemsize=wire_itemsize,
+                                   fused=fused))
+
+
 # ---------------------------------------------------------------------------
 # The planner
 # ---------------------------------------------------------------------------
@@ -317,7 +389,8 @@ class ScheduleRequest:
     wire_dtype: str
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
-    strategy_context: Hashable     # the resolved fixed strategy name
+    strategy_context: Hashable     # fixed name, or ("auto", selector
+                                   # fingerprint)
     switch_points: tuple[int, ...]
     placement: str
     link_key: tuple                # (alpha, bandwidth) of the link
@@ -348,18 +421,21 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
          strategy: str = "rhd_rsa", selector=None,
          threshold_bytes: int = 4 << 20, fuse: bool = True,
          groups=None, wire_dtype: str = "float32",
-         placement: str = "post_backward",
+         align_buckets: bool = True, placement: str = "post_backward",
          intra=cost_model.ICI, codec: str = "none",
          error_feedback: bool = False,
          model_axis: "str | None" = None, model_axis_size: int = 1,
          fused_hops: "bool | None" = None, cache=None) -> ReduceSchedule:
     """Resolve ``tree`` (tensors, or anything with ``.shape``/``.dtype``)
-    into a :class:`ReduceSchedule`.  ``fused_hops=None`` fuses exactly
-    the coded schedules, as the reference does.  ``cache`` (a
-    :class:`~repro_torch.core.plan_cache.PlanCache`) interns the result
-    by :class:`ScheduleRequest`: a hit returns the identical schedule."""
-    if selector is not None:
-        raise NotImplementedError("the auto selector is not ported yet")
+    into a :class:`ReduceSchedule`.  ``selector`` (a
+    :class:`~repro_torch.core.selector.Selector`) chooses each bucket's
+    strategy and ``predicted_s`` from its wire bytes, and with ``fuse``
+    and ``align_buckets`` its switch points align the bucket edges;
+    ``strategy`` is the fixed name used when ``selector`` is None.
+    ``fused_hops=None`` fuses exactly the coded schedules, as the
+    reference does.  ``cache`` (a :class:`~repro_torch.core.plan_cache.
+    PlanCache`) interns the result by :class:`ScheduleRequest`: a hit
+    returns the identical schedule."""
     if model_axis is not None and int(model_axis_size) > 1:
         raise NotImplementedError("the model bracket is not ported yet")
     names = tuple(axis_names)
@@ -376,28 +452,45 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
     if error_feedback and codec == "none":
         raise ValueError("error_feedback requires a wire codec")
     fused = (codec != "none") if fused_hops is None else bool(fused_hops)
-    strat = normalize_strategy(strategy, len(names))
+
+    switch: tuple[int, ...] = ()
+    if selector is not None and fuse and align_buckets:
+        switch = tuple(selector.switch_points(
+            sizes, hi=max(int(threshold_bytes), 257)))
+    strategy_context: Hashable = \
+        ("auto", selector.fingerprint()) if selector is not None \
+        else normalize_strategy(strategy, len(names))
 
     def _resolve() -> ReduceSchedule:
-        fplan = fusion.build_plan(tree, int(threshold_bytes), groups=groups,
-                                  fuse=fuse)
+        fplan = fusion.build_plan(
+            tree, int(threshold_bytes), groups=groups, fuse=fuse,
+            switch_points=switch or None, switch_itemsize=wire_itemsize)
         order = overlap_mod.readiness_order(fplan)
         rank = {bi: r for r, bi in enumerate(order)}
         buckets = []
         for i, bucket in enumerate(fplan.buckets):
             n_bytes = int(bucket.size) * wire_itemsize
+            predicted = None
+            if selector is not None:
+                choice = selector.choose(n_bytes, sizes)
+                strat = normalize_strategy(choice.strategy, len(names))
+                predicted = choice.predicted_s
+            else:
+                strat = normalize_strategy(strategy, len(names))
             stages = decompose(strat, n_bytes, names, sizes, intra=intra,
                                codec=codec, wire_itemsize=wire_itemsize,
                                fused=fused)
+            if predicted is None:
+                predicted = sum(st.predicted_s for st in stages)
             buckets.append(BucketSchedule(
                 index=i, leaf_indices=bucket.leaf_indices,
                 size=int(bucket.size), n_bytes=n_bytes,
                 readiness_rank=rank[i], strategy=strat, stages=stages,
-                predicted_s=sum(st.predicted_s for st in stages)))
+                predicted_s=predicted))
         return ReduceSchedule(
             axis_names=names, axis_sizes=sizes, wire_dtype=wire_dtype,
             placement=placement, threshold_bytes=int(threshold_bytes),
-            switch_points=(), buckets=tuple(buckets), codec=codec,
+            switch_points=switch, buckets=tuple(buckets), codec=codec,
             error_feedback=error_feedback, plan=fplan)
 
     if cache is None:
@@ -408,9 +501,9 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
         treedef=treedef, shapes=shapes, dtypes=dtypes, groups_key=gkey,
         threshold_bytes=int(threshold_bytes), fuse=bool(fuse),
         wire_dtype=wire_dtype, axis_names=names, axis_sizes=sizes,
-        strategy_context=strat, switch_points=(), placement=placement,
-        link_key=(link.alpha_s, link.bandwidth), codec=codec,
-        error_feedback=bool(error_feedback), fused=fused)
+        strategy_context=strategy_context, switch_points=switch,
+        placement=placement, link_key=(link.alpha_s, link.bandwidth),
+        codec=codec, error_feedback=bool(error_feedback), fused=fused)
     return cache.resolve(request, _resolve)
 
 

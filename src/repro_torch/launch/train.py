@@ -51,14 +51,26 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_trainer(args, group=None, verbose: bool = True, spec=None):
+def aggregator_config(args):
+    """The :class:`~repro_torch.core.AggregatorConfig` that ``args``
+    describe."""
+    from repro_torch.core import AggregatorConfig
+    return AggregatorConfig(strategy=args.strategy, codec=args.codec,
+                            fusion_threshold_mb=args.fusion_mb,
+                            fuse=not args.no_fuse)
+
+
+def build_trainer(args, group=None, verbose: bool = True, spec=None,
+                  aggregator=None):
     """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
     for this rank (``group``: the data axis).  ``spec``, when given, is
     the model's :class:`~repro_torch.models.common.ModelSpec` as it is
     (a depth-cut or otherwise altered spec), in place of ``args.arch``,
-    ``args.full`` and ``args.dtype``; it has no command-line flag."""
+    ``args.full`` and ``args.dtype``; ``aggregator``, an
+    :class:`~repro_torch.core.AggregatorConfig` in place of
+    :func:`aggregator_config`'s (``overlap=True``, for one).  Neither
+    has a command-line flag."""
     from repro_torch.configs import get_spec
-    from repro_torch.core import AggregatorConfig
     from repro_torch.data.synthetic import SyntheticText
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup, sgd
@@ -76,9 +88,8 @@ def build_trainer(args, group=None, verbose: bool = True, spec=None):
     opt = adamw(lr) if args.optimizer == "adamw" else sgd(lr)
     cfg = TrainerConfig(
         steps=args.steps, log_every=args.log_every,
-        step=TrainStepConfig(aggregator=AggregatorConfig(
-            strategy=args.strategy, codec=args.codec,
-            fusion_threshold_mb=args.fusion_mb, fuse=not args.no_fuse)))
+        step=TrainStepConfig(aggregator=aggregator
+                             or aggregator_config(args)))
     return Trainer(build_model(spec), opt, data.batch_at, cfg, group=group,
                    device=args.device, verbose=verbose)
 

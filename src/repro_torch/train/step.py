@@ -5,6 +5,8 @@ Counterpart of ``repro/train/step.py`` (its data-parallel path):
     loss.backward()                  # this rank's shard of the batch
     GradientAggregator(grads)        # ← the technique: fused buckets,
                                      #   explicit RHD/ring hops, codecs
+                                     #   (overlap=True: each bucket inside
+                                     #   the backward, overlap_params)
     clip_by_global_norm              # on AGGREGATED grads (global norm)
     optimizer.update                 # K5 AdamW, parameters in place
 
@@ -74,10 +76,22 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
         leaves = tree_mod.leaves(params)
         for p in leaves:
             p.grad = None
-        loss, metrics = model.loss(params, local)
-        loss.backward()
-        grads = tree_mod.unflatten(params, [p.grad for p in leaves])
-        grads = agg(grads, groups=param_groups(params))    # ← the technique
+        groups = param_groups(params)
+        if cfg.aggregator.overlap:
+            # In-backward aggregation: each bucket is reduced on the
+            # aggregator's channel as its gradients complete; backward
+            # returns once they are all reduced.
+            run = agg.overlap_params(params, groups=groups)
+            loss, metrics = model.loss(params, local)
+            grads = run.backward(loss)                  # ← the technique
+        else:
+            loss, metrics = model.loss(params, local)
+            loss.backward()
+            # A leaf with no gradient reduces as zeros (JAX's cotangent).
+            grads = tree_mod.unflatten(params, [
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in leaves])
+            grads = agg(grads, groups=groups)          # ← the technique
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
         opt_state = optimizer.update(grads, opt_state, params)
         for p in leaves:

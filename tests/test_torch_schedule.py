@@ -125,15 +125,27 @@ def test_wire_bytes_and_steps_tables_match_reference(strategy):
 
 
 def test_unported_plans_raise(shapes):
+    """Composed and multi-axis schedules raise ``NotImplementedError``;
+    ``auto`` as a fixed name (no selector) is no strategy, a ValueError
+    as in the reference.  ``AggregatorConfig(strategy="auto")`` and
+    ``overlap=True`` validate since the selector and the overlap channel
+    were ported."""
+    from repro_torch.core import selector
     _, tstruct = shapes
-    for strategy in ("auto", "ring_rsa×rhd_rsa"):
-        with pytest.raises(NotImplementedError):
-            schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
-                          strategy=strategy)
+    with pytest.raises(NotImplementedError):
+        schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
+                      strategy="ring_rsa×rhd_rsa")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
+                      strategy="auto")
     with pytest.raises(NotImplementedError):
         schedule.plan(tstruct, axis_names=("pod", "data"),
                       axis_sizes=(2, 2))
-    for cfg in (AggregatorConfig(strategy="auto"),
-                AggregatorConfig(overlap=True)):
-        with pytest.raises(NotImplementedError):
-            cfg.validate()
+    with pytest.raises(NotImplementedError):
+        schedule.plan(tstruct, axis_names=("pod", "data"),
+                      axis_sizes=(2, 2),
+                      selector=selector.AnalyticSelector())
+    with pytest.raises(NotImplementedError):
+        AggregatorConfig(strategy="ring_rsa×rhd_rsa").validate()
+    AggregatorConfig(strategy="auto").validate()
+    AggregatorConfig(overlap=True).validate()
