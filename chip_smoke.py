@@ -121,7 +121,27 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    overlap fraction beside ``overlap.simulate``'s (fed with the measured
    ready and communication times), and the step times beside phase 7's.
 
-In phases 3-8 the executors must be built once each by the end of step
+9. Two dp axes: full-width smollm-360m on the 4 ranks laid out as a
+   2 (pod) x 2 (data) mesh (``launch/mesh.py``'s groups, pod major),
+   ``ring_rsa×rhd_rsa`` (ring reduce-scatter inside a pod, RHD of the
+   half across pods, ring all-gather) with the per-level codec
+   ``bf16×int8`` and fused hops, K5, 3 steps per run in one spawn: on
+   gloo, on ``cuda_ipc`` (a channel per axis, each sized to its axis's
+   largest hop) and on ``cuda_ipc`` overlapped, each rank's parameters
+   and K1-K5 launches equal across the three; then ``strategy="auto"``
+   under a forced two-axis table (the flat RHD fold below 64 MiB, the
+   composed schedule above), overlapped and post-backward, its buckets
+   as a host ``plan()`` chose them and bit for bit to each other.  K1-K3
+   must launch each step exactly as the plan's hops imply, K5 and K6
+   must run, losses be finite, parameters bit-identical on every rank,
+   and no cuda_ipc aggregate stage a byte through the host.  Step 1's
+   gradient under the composed schedule must lie within both
+   schedules' bound (``codec.tolerance`` per level) of flat ``rhd_rsa``
+   + int8's on the same inputs.  Prints each run's steps, plan, hops
+   per bucket per axis, and its aggregate timed alone beside phase 7's
+   and beside flat ``rhd_rsa`` + int8 on the same gradient.
+
+In phases 3-9 the executors must be built once each by the end of step
 1, and neither rebuilt nor added to later; the plan cache must only hit
 from step 2.  One aggregate per transport and model is profiled (every
 rank of phases 3, 6 and 7's LMs, ResNet-50 rhd_rsa in phase 7) and
@@ -133,6 +153,7 @@ The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
 """
 import argparse
+import collections
 import itertools
 import json
 import math
@@ -1165,7 +1186,8 @@ def _step_breakdown(trainer, module, device, step, rank, world,
     params = module.tree()
     agg = trainer.extras["aggregator"]
     batch = {k: v.to(device) for k, v in shard_batch(
-        trainer.data_iter_fn(step), agg.groups["data"]).items()}
+        trainer.data_iter_fn(step),
+        [agg.groups[ax] for ax in agg.dp_axes]).items()}
 
     def fwd_bwd():
         loss, _ = trainer.model.loss(params, batch)
@@ -2091,6 +2113,397 @@ def run_overlap_phase(phase7):
     return {"lm": results, "cnn": cnn}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: two dp axes, pod x data
+# ---------------------------------------------------------------------------
+
+PODS, POD_DATA = 2, 2                 # the mesh: 2 pods of 2 ranks
+TWO_AXIS_MESH = f"{PODS}x{POD_DATA}x1"
+COMPOSED = "ring_rsa×rhd_rsa"
+LEVEL_CODECS = "bf16×int8"            # bf16 inside a pod, int8 across pods
+# (label, transport, strategy, overlap): gloo, cuda_ipc and cuda_ipc
+# overlapped are held to each other bit for bit; auto, under
+# _axes_table, is held to its own post-backward run.
+TWO_AXIS_RUNS = (("gloo", "gloo", COMPOSED, False),
+                 ("cuda_ipc", "cuda_ipc", COMPOSED, False),
+                 ("cuda_ipc overlap", "cuda_ipc", COMPOSED, True),
+                 ("auto overlap", "cuda_ipc", "auto", True),
+                 ("auto post-backward", "cuda_ipc", "auto", False))
+
+
+def _axes_table():
+    """A forced two-axis tuning table: the flat RHD fold below 64 MiB,
+    the composed schedule from there on, so one step runs both."""
+    from repro_torch.core.selector import TABLE_SCHEMA
+    axes = [PODS, POD_DATA]
+    return {"schema": TABLE_SCHEMA, "entries": [
+        {"p": PODS * POD_DATA, "axes": axes, "bytes": 0,
+         "latency_us": {"rhd_rsa": 1.0, COMPOSED: 5.0}},
+        {"p": PODS * POD_DATA, "axes": axes, "bytes": MIXED_SWITCH_BYTES,
+         "latency_us": {"rhd_rsa": 5.0, COMPOSED: 1.0}}]}
+
+
+def _stage_hops(st):
+    """``(accumulating hops, forwarding hops)`` a stage makes on every
+    rank: a ring reduce-scatter d-1 and d-1, an all-gather d-1
+    forwarding; an allreduce its reduce-scatter and all-gather halves
+    (RHD over log2 of its pow2 core, plus the pre-fold and post-broadcast
+    of a non-pow2 size); psum and ps_gather none."""
+    p = st.axis_size
+    if p == 1 or st.algorithm in ("psum", "ps_gather"):
+        return 0, 0
+    if st.op == "reduce_scatter":
+        return p - 1, 0
+    if st.op == "all_gather":
+        return 0, p - 1
+    if st.algorithm == "ring_rsa":
+        return p - 1, p - 1
+    core = 1 << (p.bit_length() - 1)
+    levels = core.bit_length() - 1
+    fold = int(core != p)
+    return levels + fold, levels + fold
+
+
+def _plan_hop_launches(sched):
+    """K1-K3 launches one aggregate of ``sched`` makes on every rank.  A
+    fused stage's accumulating hop encodes (K1 when the codec has a
+    scale, K2 when it has a codec) and decodes onto its partial sum
+    (K3); a forwarding hop encodes and decodes both what it received and
+    what it sent (K3 twice), or, uncoded, launches nothing.  An unfused
+    stage (the all-gather leg) runs the plain torch versions."""
+    from repro_torch.core import codec
+    n = {"hop_absmax": 0, "hop_encode": 0, "hop_decode_add": 0}
+    for b in sched.buckets:
+        for st in b.stages:
+            if not st.fused_hop:
+                continue
+            acc, fwd = _stage_hops(st)
+            coded = st.codec != "none"
+            n["hop_absmax"] += (acc + fwd) * codec.get(st.codec).scaled
+            n["hop_encode"] += (acc + fwd) * coded
+            n["hop_decode_add"] += acc + 2 * fwd * coded
+    return n
+
+
+def _hops_per_axis(bucket):
+    hops = {}
+    for st in bucket.stages:
+        hops[st.axis] = hops.get(st.axis, 0) + sum(_stage_hops(st))
+    return hops
+
+
+def _grown_bound(stages):
+    """The error bound of a coded reduction relative to the largest
+    input absmax: per coded stage ``codec.tolerance`` over the stage's
+    hops (``allreduce_steps`` of an allreduce, size-1 of a reduce-scatter
+    or all-gather), scaled by the magnitude its hops carry when the
+    ranks' inputs are alike (gradients of one model): the input absmax
+    times the sizes of the axes reduced before the stage, times the
+    stage's own size where it sums (int8's tolerance already holds that
+    growth)."""
+    from repro_torch.core import codec, reducers
+    total, grown = 0.0, 1
+    for st in stages:
+        sums = st.op in ("reduce_scatter", "allreduce")
+        if st.codec != "none":
+            hops = reducers.allreduce_steps(st.algorithm, st.axis_size) \
+                if st.op == "allreduce" else st.axis_size - 1
+            within = st.axis_size if sums and st.codec != "int8" else 1
+            total += codec.tolerance(st.codec, st.axis_size, hops=hops) \
+                * grown * within
+        if sums:
+            grown *= st.axis_size
+    return total
+
+
+def _two_axis_config(args, strategy, overlap, table):
+    return _overlap_config(
+        argparse.Namespace(**{**vars(args), "strategy": strategy}),
+        overlap, table)
+
+
+def _gradient_check(args, trainer, groups):
+    """Step 1's local gradient, aggregated by the composed schedule
+    (``trainer``'s aggregator) and by phase 7's flat ``rhd_rsa`` + int8
+    over the 4 ranks, and both schedules uncoded, each timed alone (its
+    second call, after the executor's build).  Per bucket, the two coded
+    means may differ by the sum of both bounds (:func:`_grown_bound`)
+    times the bucket's largest input absmax on any rank, over 4.
+    Returns the largest difference over its bound and the four
+    aggregates' seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.core import AggregatorConfig, GradientAggregator, Group
+    from repro_torch.launch.mesh import DP_AXES
+    from repro_torch.models import param_groups
+    from repro_torch.train.step import shard_batch
+
+    sync = torch.cuda.synchronize if args.device == "cuda" \
+        else (lambda: None)
+    module, _ = trainer.init_state(args.seed)
+    params = module.tree()
+    agg = trainer.extras["aggregator"]
+    batch = {k: v.to(args.device) for k, v in shard_batch(
+        trainer.data_iter_fn(0), [groups[a] for a in agg.dp_axes]).items()}
+    loss, _ = trainer.model.loss(params, batch)
+    loss.backward()
+    grads = tree.tree_map(lambda p: p.grad, params)
+    pg = param_groups(params)
+    world = {"data": Group()}
+    flat = GradientAggregator(AggregatorConfig(
+        strategy="rhd_rsa", codec="int8"), ("data",), world)
+    out, secs = {}, {}
+    for name, a in (
+            ("composed", agg), ("flat", flat),
+            ("composed uncoded", GradientAggregator(
+                AggregatorConfig(strategy=COMPOSED), DP_AXES, groups)),
+            ("flat uncoded", GradientAggregator(
+                AggregatorConfig(strategy="rhd_rsa"), ("data",), world))):
+        for _ in range(2):
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            reduced = a(grads, groups=pg)
+            sync()
+            secs[name] = time.perf_counter() - t0
+        if name in ("composed", "flat"):
+            out[name] = reduced
+        del reduced
+    sched, fsched = agg.last_schedule, flat.last_schedule
+    require([b.leaf_indices for b in sched.buckets]
+            == [b.leaf_indices for b in fsched.buckets],
+            "the composed and flat plans bucket the tree differently")
+    local = tree.leaves(grads)
+    absmax = torch.tensor([max(float(local[i].abs().max())
+                               for i in b.leaf_indices)
+                           for b in sched.buckets])
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX)
+    worst = 0.0
+    got, want = tree.leaves(out["composed"]), tree.leaves(out["flat"])
+    for b, fb, m in zip(sched.buckets, fsched.buckets, absmax.tolist()):
+        bound = (_grown_bound(b.stages) + _grown_bound(fb.stages)) * m \
+            / (PODS * POD_DATA)
+        diff = max(float((got[i].float() - want[i].float()).abs().max())
+                   for i in b.leaf_indices)
+        require(diff <= bound, f"bucket {b.index}: the composed gradient "
+                               f"is {diff:.3e} from flat rhd_rsa + int8, "
+                               f"over the bound {bound:.3e}")
+        worst = max(worst, diff / bound)
+    for p in tree.leaves(params):
+        p.grad = None
+    return {"worst_ratio": worst, "secs": secs,
+            "n_buckets": len(sched.buckets),
+            "bound_rel": _grown_bound(sched.buckets[0].stages)
+            + _grown_bound(fsched.buckets[0].stages)}
+
+
+def two_axis_rank(rank, world, args, table):
+    """Train ``args`` on the 2 x 2 mesh once per run of
+    :data:`TWO_AXIS_RUNS`, every group built by ``launch.mesh.make_groups``
+    (the gloo groups first, then the cuda_ipc ones, on every rank),
+    counting launches, cache use, the channel's record and the traffic
+    of an aggregate timed alone; after the cuda_ipc run, the gradient
+    check against flat rhd_rsa + int8."""
+    import torch
+    from repro_torch.core import plan_cache
+    from repro_torch.launch.mesh import make_groups
+    from repro_torch.launch.train import build_trainer
+
+    if args.device == "cuda":
+        torch.cuda.set_device(0)
+    groups = {"gloo": make_groups(PODS, POD_DATA, transport="gloo"),
+              "cuda_ipc": make_groups(PODS, POD_DATA)}
+    require(groups["cuda_ipc"]["pod"].transport == "cuda_ipc",
+            "the mesh's groups are not on cuda_ipc")
+    runs, check = [], None
+    for label, transport, strategy, overlap in TWO_AXIS_RUNS:
+        g = groups[transport]
+        trainer = build_trainer(args, verbose=False, groups=g,
+                                aggregator=_two_axis_config(
+                                    args, strategy, overlap, table))
+        module, opt_state = trainer.init_state(args.seed)
+        steps = []
+        _reset_counts()                       # main path starts here
+        for s in range(args.steps):
+            before, cache0 = _counts(), _cache_counts()
+            module, opt_state, hist = trainer.run(1, module, opt_state,
+                                                  start_step=s)
+            after = _counts()
+            steps.append({**hist[0], "launches": {k: after[k] - before[k]
+                                                  for k in after},
+                          **_cache_delta(cache0),
+                          "overlap": _overlap_summary(trainer)})
+        totals = _counts()                    # main path ends here
+        agg = trainer.extras["aggregator"]
+        sched = agg.last_schedule
+        ex = plan_cache.GLOBAL_EXECUTOR_CACHE.executor_for(
+            sched, agg.groups, args.device)
+        rec = {"label": label, "transport": transport, "overlap": overlap,
+               "steps": steps, "totals": totals,
+               "scalar": _scalar_counts(),
+               "checksum": _checksum(module.tree()),
+               "buckets": [(b.index, b.strategy, b.leaf_indices)
+                           for b in sched.buckets],
+               "render": sched.render(),
+               "bucket_renders": [b.render() for b in sched.buckets],
+               "hops": [_hops_per_axis(b) for b in sched.buckets],
+               "plan_launches": _plan_hop_launches(sched),
+               "fingerprint": sched.fingerprint(),
+               "channels": [(ch.group.name, ch.slot_bytes)
+                            for ch in ex.channels]}
+        del opt_state
+        rec["breakdown"] = _step_breakdown(trainer, module, args.device,
+                                           args.steps, rank, world)
+        del module
+        if label == "cuda_ipc":
+            check = _gradient_check(args, trainer, g)
+        runs.append(rec)
+        del trainer
+        plan_cache.GLOBAL_EXECUTOR_CACHE.clear()     # closes the channels
+        if args.device == "cuda":
+            torch.cuda.empty_cache()
+    return {"rank": rank, "runs": runs, "check": check}
+
+
+def _host_two_axis_plan(args, table):
+    """``auto``'s schedule of the full-width tree under ``table`` on the
+    2 x 2 mesh, planned on the host (meta tensors, no rank)."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.core import GradientAggregator, Group
+    from repro_torch.launch.mesh import DP_AXES
+    from repro_torch.models import param_groups
+    from repro_torch.models.transformer import init_params
+    spec = get_spec(args.arch)
+    with torch.device("meta"):
+        params = init_params(torch.Generator(),
+                             spec if args.full else spec.reduced(), "meta")
+    agg = GradientAggregator(_two_axis_config(args, "auto", True, table),
+                             DP_AXES, {ax: Group(name=ax) for ax in DP_AXES})
+    return agg.resolve(params, (PODS, POD_DATA), groups=param_groups(params))
+
+
+def run_two_axis_phase(phase7):
+    """Full-width smollm-360m on 4 ranks of the card laid out 2 pods x 2
+    (dp axes pod, data), ``ring_rsa×rhd_rsa`` + ``bf16×int8`` fused hops
+    and K5, 3 steps per run, in one spawn: on gloo, on cuda_ipc (one
+    channel per axis), on cuda_ipc overlapped, each rank's parameters bit
+    for bit across the three; ``auto`` under a forced two-axis table,
+    its buckets as a host plan chose them and its parameters as its
+    post-backward run's.  Then the gradient check and each run's times
+    beside phase 7's flat rhd_rsa + int8.  Returns each run's records."""
+    from repro_torch.core.dist import run_ranks
+    args = train_args(full=True, batch=2 * PODS * POD_DATA, seq=512,
+                      device="cuda", strategy=COMPOSED, codec=LEVEL_CODECS,
+                      mesh=TWO_AXIS_MESH)
+    log(f"  smollm-360m, seq 512, mesh {TWO_AXIS_MESH} (dp axes pod, data; "
+        f"{PODS * POD_DATA} ranks on one card), {COMPOSED} + "
+        f"{LEVEL_CODECS}, batch {args.batch // (PODS * POD_DATA)} per rank, "
+        f"{args.steps} steps per run: "
+        f"{[label for label, *_ in TWO_AXIS_RUNS]}; auto reads a table that "
+        f"picks the flat rhd_rsa fold below {MIXED_SWITCH_BYTES} B and "
+        f"{COMPOSED} from there on")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        table = os.path.join(rdv, "axes_table.json")
+        with open(table, "w") as f:
+            json.dump(_axes_table(), f)
+        host = _host_two_axis_plan(args, table)
+        results = run_ranks(two_axis_rank, PODS * POD_DATA, (args, table),
+                            backend="cuda_ipc", rendezvous_dir=rdv,
+                            threads=max(1, (os.cpu_count() or 1)
+                                        // (PODS * POD_DATA)),
+                            timeout_s=600)
+    log(f"  {PODS * POD_DATA} ranks done in {time.perf_counter() - t0:.1f} s")
+    by = {label: [r["runs"][i] for r in results]
+          for i, (label, *_) in enumerate(TWO_AXIS_RUNS)}
+    for label, recs in by.items():
+        name = f"smollm-360m {TWO_AXIS_MESH} {label}"
+        for rank, rec in enumerate(recs):
+            require(rec["label"] == label,
+                    "ranks ran the configurations in different orders")
+            _require_cached(rank, name, rec["steps"])
+            if rec["overlap"]:
+                _require_overlapped(f"rank {rank} {name}", rec["steps"],
+                                    "cuda_ipc", early=False)
+            if rec["transport"] == "cuda_ipc":
+                _require_on_card(rec["breakdown"], f"rank {rank} {name}")
+                require(sorted(ax for ax, _ in rec["channels"])
+                        == ["data", "pod"],
+                        f"rank {rank} {name}: channels {rec['channels']}, "
+                        f"not one per axis")
+            require(all(rec["totals"][k] > 0 for k in LM_KERNELS),
+                    f"rank {rank} {name}: a kernel never launched "
+                    f"{rec['totals']}")
+            require(all(math.isfinite(s_["loss"]) for s_ in rec["steps"]),
+                    f"rank {rank} {name}: non-finite loss")
+            want = rec["plan_launches"]
+            for s_, step in enumerate(rec["steps"], 1):
+                got = {k: step["launches"][k] for k in want}
+                require(got == want, f"rank {rank} {name} step {s_}: K1-K3 "
+                                     f"launched {got}, the plan's hops "
+                                     f"imply {want}")
+        sums = {rec["checksum"] for rec in recs}
+        require(len(sums) == 1, f"{name}: parameters differ across ranks "
+                                f"{sums}")
+        rec = recs[0]
+        for s_, step in enumerate(rec["steps"], 1):
+            log(f"  {name} step {s_}: loss {step['loss']:.5f} step_s "
+                f"{step['step_s']:.3f} buckets {step['n_buckets']} "
+                f"launches/rank {step['launches']}")
+        log(f"  {name}: plan {rec['render']}; K1-K3 per step "
+            f"{rec['plan_launches']} as its hops imply; parameters "
+            f"bit-identical on all {PODS * POD_DATA} ranks (checksum "
+            f"{sums.pop()}), executors built once"
+            + (f"; slots per axis {rec['channels']} B"
+               if rec["channels"] else ""))
+        hops = collections.Counter(
+            (r_, tuple(sorted(h.items())))
+            for r_, h in zip(rec["bucket_renders"], rec["hops"]))
+        log("    hops per bucket per axis: " + "; ".join(
+            f"{r_}: {dict(h)} x{n} buckets" for (r_, h), n in hops.items()))
+    _same_as(f"smollm-360m {TWO_AXIS_MESH}", by["gloo"], by["cuda_ipc"])
+    _same_as(f"smollm-360m {TWO_AXIS_MESH} overlap", by["cuda_ipc"],
+             by["cuda_ipc overlap"], "cuda_ipc", "cuda_ipc overlap")
+    want = [(b.index, b.strategy, b.leaf_indices) for b in host.buckets]
+    require({st for _, st, _ in want} == {"rhd_rsa", COMPOSED},
+            f"the axes table's host plan does not mix the flat fold and "
+            f"{COMPOSED}: {want}")
+    for label in ("auto overlap", "auto post-backward"):
+        for rank, rec in enumerate(by[label]):
+            require([tuple(b) for b in rec["buckets"]] == want
+                    and (rec["fingerprint"] == host.fingerprint())
+                    == rec["overlap"],
+                    f"rank {rank} {label}: buckets {rec['buckets']} are "
+                    f"not the host plan's {want}")
+    log(f"  auto: each bucket's schedule, as a host plan() of the same "
+        f"tree and table chose it: {host.render()}")
+    _same_as(f"smollm-360m {TWO_AXIS_MESH} auto overlap",
+             by["auto post-backward"], by["auto overlap"],
+             "auto post-backward", "auto overlap")
+    checks = [r["check"] for r in results]
+    log(f"  step 1's gradient, {COMPOSED} + {LEVEL_CODECS} against flat "
+        f"rhd_rsa + int8 over the 4 ranks: largest difference "
+        f"{max(c['worst_ratio'] for c in checks):.3f} of the bound (both "
+        f"schedules' codec.tolerance per level, grown with the partial "
+        f"sums: {checks[0]['bound_rel']:.4f} of each bucket's input absmax, "
+        f"over 4)")
+    log(f"  aggregate of the full gradient tree timed alone on {gpu_line()}:")
+    log(f"    step 1's gradient, one spawn, {checks[0]['n_buckets']} buckets "
+        f"of 4 hops each way, s per rank: " + "; ".join(
+            f"{name} {[round(c['secs'][name], 4) for c in checks]}"
+            for name in checks[0]["secs"]))
+    log(f"    phase 7 (flat rhd_rsa + int8, cuda_ipc): "
+        f"{[round(r['breakdown']['aggregate_s'], 4) for r in phase7['lm']]}")
+    for label, recs in by.items():
+        log(f"    {label}: aggregate_s "
+            f"{[round(r['breakdown']['aggregate_s'], 4) for r in recs]}, "
+            f"step_s {[round(s_['step_s'], 4) for s_ in recs[0]['steps']]}; "
+            f"{_traffic_line(recs[0]['breakdown'])}")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2171,6 +2584,10 @@ def main():
         "reductions) on cuda_ipc")
     phase8 = run_overlap_phase(phase7)
 
+    log(f"phase 9: two dp axes, mesh {TWO_AXIS_MESH}: {COMPOSED} + "
+        f"{LEVEL_CODECS} on gloo and cuda_ipc, overlapped, and auto")
+    phase9 = run_two_axis_phase(phase7)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -2182,7 +2599,9 @@ def main():
                 + sum(run[field][k] for r in phase7["cnn"]
                       for run in r["runs"]),
                 "phase8": sum(run[field][k] for r in phase8["lm"]
-                              + phase8["cnn"] for run in r["runs"])}
+                              + phase8["cnn"] for run in r["runs"]),
+                "phase9": sum(run[field][k] for r in phase9
+                              for run in r["runs"])}
 
     def scalar(k):
         if k not in SCALAR:

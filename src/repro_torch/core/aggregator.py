@@ -1,7 +1,8 @@
 """GradientAggregator — the paper's technique as a composable module.
 
 Counterpart of ``repro/core/aggregator.py``: fusion ∘ reduction
-algorithm over the data process group, returning the MEAN gradient over
+algorithm over the dp process groups (one per dp axis, outermost first:
+``("data",)`` or ``("pod", "data")``), returning the MEAN gradient over
 all ranks.  Resolution goes through :func:`repro_torch.core.schedule.
 plan`, interned in a :class:`~repro_torch.core.plan_cache.PlanCache`
 (the process-global one by default); ``strategy="auto"`` hands each
@@ -15,8 +16,7 @@ Two placements, as in the reference: ``__call__`` reduces a gradient
 tree after backward (error feedback included), and
 :meth:`GradientAggregator.overlap_params` (``overlap=True``) reduces
 each bucket inside the backward, on a communication channel of its own
-(:class:`OverlapRun`).  One data axis; more raise
-``NotImplementedError``.
+(:class:`OverlapRun`), whose one channel drives every axis's hops.
 """
 from __future__ import annotations
 
@@ -67,14 +67,12 @@ class AggregatorConfig:
         return "in_backward" if self.overlap else "post_backward"
 
     def validate(self):
-        if self.strategy != "auto":
-            if not schedule_mod.is_strategy(self.strategy):
-                raise ValueError(
-                    f"strategy {self.strategy!r} not in "
-                    f"{schedule_mod.reducers.STRATEGIES + ('auto',)} and "
-                    f"not a composed '<inner>{schedule_mod.SEP}<outer>' "
-                    f"schedule name")
-            schedule_mod.normalize_strategy(self.strategy, 1)
+        if self.strategy != "auto" \
+                and not schedule_mod.is_strategy(self.strategy):
+            raise ValueError(
+                f"strategy {self.strategy!r} not in "
+                f"{schedule_mod.reducers.STRATEGIES + ('auto',)} and not a "
+                f"composed '<inner>{schedule_mod.SEP}<outer>' schedule name")
         if self.selector_mode not in selector_mod.MODES:
             raise ValueError(f"selector_mode {self.selector_mode!r} not in "
                              f"{selector_mod.MODES}")
@@ -113,11 +111,12 @@ class AggregatorConfig:
 
 
 class GradientAggregator:
-    """Mean-allreduces gradient trees over the data process group(s).
+    """Mean-allreduces gradient trees over the dp process groups.
 
-    ``groups`` maps each name of ``dp_axes`` to its
-    :class:`~repro_torch.core.dist.Group`.  ``cache`` interns resolved
-    schedules (default: the process-global one); their stage executors
+    ``dp_axes`` are the dp axis names, outermost first; ``groups`` maps
+    each to its :class:`~repro_torch.core.dist.Group`
+    (``launch.mesh.make_groups`` builds them for a pod × data mesh).
+    ``cache`` interns resolved schedules (default: the process-global one); their stage executors
     live in the process-global executor cache.  ``last_schedule`` is the
     schedule of the last call, ``last_overlap`` the
     :class:`OverlapRecord` of the last overlapped step."""
@@ -128,10 +127,6 @@ class GradientAggregator:
         config.validate()
         self.config = config
         self.dp_axes = tuple(dp_axes)
-        if len(self.dp_axes) != 1:
-            raise NotImplementedError(
-                f"dp axes {self.dp_axes}: multi-axis aggregation is not "
-                f"ported yet")
         missing = [a for a in self.dp_axes if a not in groups]
         if missing:
             raise ValueError(f"no process group for dp axes {missing}")
@@ -162,7 +157,8 @@ class GradientAggregator:
             selector=self.selector, threshold_bytes=cfg.threshold_bytes,
             fuse=cfg.fuse, groups=groups, wire_dtype=self._wire_dtype(),
             align_buckets=cfg.align_buckets, placement=cfg.placement,
-            intra=cfg.selector_link, codec=cfg.codec or "none",
+            intra=cfg.selector_link, inter="dcn",
+            codec=cfg.codec or "none",
             error_feedback=cfg.error_feedback, fused_hops=cfg.fused_hops,
             cache=self.cache)
         self.last_schedule = sched
@@ -177,11 +173,12 @@ class GradientAggregator:
         return sched, 1.0 / dp_size
 
     def _idle(self, what: str):
-        """Collectives of this group wait for the overlap channel."""
+        """Collectives on any dp group wait for the overlap channel."""
         if self._run is not None and self._run.active:
             raise RuntimeError(f"{what} while an overlapped backward's "
-                               f"channel owns the data group; call "
-                               f"OverlapRun.backward first")
+                               f"channel owns the dp groups "
+                               f"{self.dp_axes}; call OverlapRun.backward "
+                               f"first")
 
     def init_residuals(self, grads, groups=None):
         """Zero error-feedback state: one float32 buffer per bucket."""
@@ -260,7 +257,8 @@ class GradientAggregator:
         return self._run
 
     def mean_scalar(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean of a scalar metric over the data ranks."""
+        """Mean of a scalar metric over the dp ranks (a psum per
+        axis)."""
         self._idle("mean_scalar")
         total = x
         dp_size = 1

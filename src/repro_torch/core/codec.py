@@ -77,18 +77,46 @@ def get(name: str) -> Codec:
         raise ValueError(f"unknown wire codec {name!r}; one of {CODECS}")
 
 
+# ---------------------------------------------------------------------------
+# Codec specs: "<codec>" for every level, "<inner>×<outer>" per level
+# ---------------------------------------------------------------------------
+
+SPEC_SEP = "×"
+
+
+def split_spec(spec: str, n_levels: int) -> tuple[str, ...]:
+    """Per-level codec names from a spec string.  A bare codec name
+    applies to every level; ``"<inner>×<outer>"`` (ASCII ``x``
+    accepted) gives the two levels of a two-axis schedule, inner (the
+    data axis) first, as the ``"<inner>×<outer>"`` strategy names do."""
+    spec = spec or "none"
+    if spec in _REGISTRY:
+        return (spec,) * n_levels
+    parts = tuple(spec.replace("x", SPEC_SEP).split(SPEC_SEP))
+    for p in parts:
+        if p not in _REGISTRY:
+            raise ValueError(f"unknown wire codec {p!r} in spec "
+                             f"{spec!r}; names from {CODECS}")
+    if len(parts) != n_levels:
+        raise ValueError(f"codec spec {spec!r} has {len(parts)} level(s) "
+                         f"but the schedule has {n_levels}")
+    return parts
+
+
 def validate_spec(spec: str) -> None:
-    """Raise unless ``spec`` is a single codec name.  Per-level
-    ``"<inner>×<outer>"`` specs belong to composed schedules, which this
-    port does not plan yet."""
+    """Raise ValueError unless ``spec`` is a bare codec name or a
+    two-level ``"<inner>×<outer>"`` composition of codec names."""
     spec = spec or "none"
     if spec in _REGISTRY:
         return
-    if "×" in spec or "x" in spec:
-        raise NotImplementedError(
-            f"per-level codec spec {spec!r}: composed schedules are not "
-            f"ported yet")
-    raise ValueError(f"unknown wire codec {spec!r}; one of {CODECS}")
+    parts = tuple(spec.replace("x", SPEC_SEP).split(SPEC_SEP))
+    if len(parts) != 2:
+        raise ValueError(f"codec spec {spec!r} must be a codec name "
+                         f"{CODECS} or '<inner>{SPEC_SEP}<outer>'")
+    for p in parts:
+        if p not in _REGISTRY:
+            raise ValueError(f"unknown wire codec {p!r} in spec "
+                             f"{spec!r}; names from {CODECS}")
 
 
 def stage_codec(name: str, algorithm: str) -> str:

@@ -91,4 +91,39 @@ def allreduce_latency(strategy: str, n_bytes: float, p: int,
         s = max(1, ps_shards)
         ingress = p * n_bytes / s
         return 2 * a + 2 * ingress * b + p * n_bytes / s * gamma
+    if strategy == "hierarchical":
+        raise ValueError("use hierarchical_latency(n_bytes, d, pods)")
     raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
+
+
+def composed_latency(outer_alg: str, n_bytes: float, d: int, pods: int,
+                     intra: LinkParams = ICI,
+                     inter: LinkParams = DCN,
+                     gamma: float = GAMMA_S_PER_BYTE) -> float:
+    """Two-level composed schedule: ring reduce-scatter over d (intra)
+    + ``outer_alg`` allreduce of N/d over pods (inter) + ring allgather
+    over d.  ``hierarchical`` is its ``outer_alg="rhd_rsa"`` point."""
+    frac_d = (d - 1) / d
+    rs = (d - 1) * intra.alpha_s + n_bytes * frac_d * intra.beta \
+        + n_bytes * frac_d * gamma
+    mid = allreduce_latency(outer_alg, n_bytes / d, pods, link=inter,
+                            gamma=gamma)
+    ag = (d - 1) * intra.alpha_s + n_bytes * frac_d * intra.beta
+    return rs + mid + ag
+
+
+def hierarchical_latency(n_bytes: float, d: int, pods: int,
+                         intra: LinkParams = ICI,
+                         inter: LinkParams = DCN,
+                         gamma: float = GAMMA_S_PER_BYTE) -> float:
+    """The fixed-RHD point of :func:`composed_latency`."""
+    return composed_latency("rhd_rsa", n_bytes, d, pods, intra=intra,
+                            inter=inter, gamma=gamma)
+
+
+def flat_multiaxis_latency(strategy: str, n_bytes: float, d: int, pods: int,
+                           intra: LinkParams = ICI,
+                           inter: LinkParams = DCN) -> float:
+    """The flat fold over two axes: a full allreduce per axis."""
+    return (allreduce_latency(strategy, n_bytes, d, link=intra)
+            + allreduce_latency(strategy, n_bytes, pods, link=inter))

@@ -15,8 +15,9 @@ construction and a step does no layout work after the first.
 itself.  Built once per key, it owns what a step would otherwise
 allocate or look up again: one fused buffer per bucket that needs one,
 in the wire/accumulation dtype (the aggregator flattens into it), and,
-on a ``cuda_ipc`` group, the :class:`~repro_torch.core.dist.IpcChannel`
-whose receive slots the peers have mapped once.  ``traces`` counts
+on each ``cuda_ipc`` axis, the :class:`~repro_torch.core.dist.IpcChannel`
+whose receive slots the peers have mapped once, sized to that axis's
+largest hop.  ``traces`` counts
 builds (buffer allocation plus the handle exchange): a cached
 executor's second call leaves it at 1.
 """
@@ -162,37 +163,45 @@ def _buffer_specs(sched) -> tuple:
     return tuple(specs)
 
 
-def _slot_bytes(sched, specs) -> int:
-    """The largest hop payload of ``sched`` (coded: the codec's payload
-    and scale; uncoded: the accumulation dtype), the size of the
-    transport's receive slots."""
+def _slot_bytes(sched, specs) -> dict:
+    """Per axis, the largest hop payload of ``sched``'s stages on that
+    axis (coded: the codec's payload and scale; uncoded: the buffer's
+    dtype, float32 wherever a bucket carries a codec), the size of that
+    axis's receive slots.  Each stage sees the buffer its predecessors
+    leave: a reduce-scatter's chunk, the rows restored by its
+    all-gather."""
     accum = DTYPES[sched.wire_dtype]
     plan = sched.plan
-    need = 0
+    need = {ax: 0 for ax in sched.axis_names}
     for bucket, (shape, _) in zip(sched.buckets, specs):
         axis = fusion.chunk_axis(plan.buckets[bucket.index].group, len(shape))
         shape = (shape[axis],) + shape[:axis] + shape[axis + 1:]
+        coded = any(st.codec != "none" for st in bucket.stages)
+        itemsize = 4 if coded else accum.itemsize
+        pending = []
         for st in bucket.stages:
-            if st.op != "allreduce":
-                raise NotImplementedError(
-                    f"{st.op} stages: the port plans one flat allreduce "
-                    f"per bucket")
             hop, row = reducers.hop_elements(st.algorithm, shape,
-                                             st.axis_size)
+                                             st.axis_size, op=st.op)
             c = codec_mod.get(st.codec or "none")
             if c.name == "none":
-                parts = [hop * accum.itemsize]
+                parts = [hop * itemsize]
             else:
                 parts = [hop * c.itemsize] + ([codec_mod.SCALE_BYTES]
                                               if c.scaled else [])
-            need = max(need, dist_mod.slot_bytes(parts) if hop else 0,
-                       row * accum.itemsize)
+            need[st.axis] = max(need[st.axis],
+                                dist_mod.slot_bytes(parts) if hop else 0,
+                                row * itemsize)
+            if st.op in ("reduce_scatter", "shard"):
+                pending.append(shape)
+                shape = (-(-shape[0] // st.axis_size),) + shape[1:]
+            elif st.op == "all_gather":
+                shape = pending.pop()
     return need
 
 
 class StageExecutor:
     """One resolved plain-dp schedule, built once: its fused buffers and,
-    on ``cuda_ipc``, its channel.  ``executor(tree, scale, residuals)``
+    on ``cuda_ipc``, a channel per axis.  ``executor(tree, scale, residuals)``
     mean-reduces a gradient tree bucket by bucket.
 
     Each bucket that must be packed or cast is flattened into the
@@ -228,10 +237,12 @@ class StageExecutor:
             if len(b.leaf_indices) > 1 or b.dtype != dtype
             else None
             for b, (shape, dtype) in zip(plan.buckets, specs)]
-        slot = _slot_bytes(sched, specs)
+        slots = _slot_bytes(sched, specs)
+        # One channel per axis, opened in the schedule's axis order on
+        # every rank: opening is collective over the axis's group.
         for ax, g in self.groups.items():
-            if g.transport == "cuda_ipc" and g.size > 1 and slot:
-                ch = dist_mod.IpcChannel(g, slot, self.device)
+            if g.transport == "cuda_ipc" and g.size > 1 and slots[ax]:
+                ch = dist_mod.IpcChannel(g, slots[ax], self.device)
                 self.channels.append(ch)
                 self.groups[ax] = ch.group
 

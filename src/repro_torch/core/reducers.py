@@ -12,6 +12,9 @@ chunk along the leading dim (padding as needed), as the reference does.
                with MVAPICH2's pre/post fold for non-power-of-two p
 ``ps_gather``  all-gather + local reduce (the parameter-server pattern);
                fused, the reduce is kernel K4
+``hierarchical``  two levels (pod × data): ring reduce-scatter inside the
+               pod, ``rhd_rsa`` of the 1/d chunk across pods, ring
+               all-gather inside the pod
 
 A reducer's ``axis`` is a :class:`~repro_torch.core.dist.Group`.
 """
@@ -23,7 +26,7 @@ from ..kernels.fused_reduce import fused_reduce
 from . import dist as dist_mod
 from .dist import all_gather, axis_index, axis_size, ppermute
 
-STRATEGIES = ("psum", "ring_rsa", "rhd_rsa", "ps_gather")
+STRATEGIES = ("psum", "ring_rsa", "rhd_rsa", "ps_gather", "hierarchical")
 
 # Algorithms whose accumulate can route through the fused hop kernels.
 FUSED_HOP_ALGORITHMS = ("ring_rsa", "rhd_rsa", "ps_gather")
@@ -180,6 +183,17 @@ def ps_gather(x: torch.Tensor, axis, *, fused: bool = False) -> torch.Tensor:
     return torch.sum(gathered, dim=0)
 
 
+def hierarchical(x: torch.Tensor, data_axis, pod_axis) -> torch.Tensor:
+    """Two-level allreduce (beyond the paper, multi-pod): ring
+    reduce-scatter inside the pod, RHD allreduce of the 1/d chunk across
+    pods (the slow links carry N/d bytes instead of N), ring all-gather
+    inside the pod.  Any pod count: a non-pow2 one takes ``rhd_rsa``'s
+    pre/post fold."""
+    chunk, n = ring_reduce_scatter(x, data_axis)
+    chunk = rhd_rsa(chunk, pod_axis)
+    return ring_all_gather(chunk, data_axis, n)
+
+
 # ---------------------------------------------------------------------------
 # stage executor
 # ---------------------------------------------------------------------------
@@ -267,23 +281,59 @@ def execute_stages(x: torch.Tensor, stages, groups) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# public dispatch
+# ---------------------------------------------------------------------------
+
+def allreduce(x: torch.Tensor, axes, strategy: str) -> torch.Tensor:
+    """Sum-allreduce ``x`` over the groups ``axes`` (outermost first)
+    with ``strategy``.  Flat strategies fold a full allreduce over each
+    axis, innermost first; ``hierarchical`` composes the two levels
+    (``ring_rsa`` on a single axis)."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
+    axes = tuple(axes)
+    if strategy == "hierarchical":
+        if len(axes) == 1:
+            return ring_rsa(x, axes[0])
+        if len(axes) != 2:
+            raise ValueError("hierarchical expects (pod_axis, data_axis)")
+        pod_axis, data_axis = axes
+        return hierarchical(x, data_axis=data_axis, pod_axis=pod_axis)
+    fn = _FLAT_FNS[strategy]
+    for ax in reversed(axes):
+        x = fn(x, ax)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # closed forms
 # ---------------------------------------------------------------------------
 
-def hop_elements(algorithm: str, shape, p: int) -> tuple[int, int]:
+def hop_elements(algorithm: str, shape, p: int,
+                 op: str = "allreduce") -> tuple[int, int]:
     """``(largest ppermute payload, all_gather row)`` in elements, for
-    one allreduce of a buffer of ``shape`` over ``p`` ranks: what a
-    transport's receive slots must hold.  Ring hops carry one chunk of
-    the padded rows; RHD's first halving hop half the rows, its pre- and
-    post-fold (non-power-of-two p) all of them; ``ps_gather`` gathers
-    the whole buffer; ``psum`` has no hop."""
+    one stage ``op`` running ``algorithm`` on a buffer of ``shape`` over
+    ``p`` ranks: what a transport's receive slots must hold.  Ring hops
+    carry one chunk of the padded rows (a ``reduce_scatter``'s input is
+    the whole buffer, an ``all_gather``'s the chunk itself); RHD's first
+    halving hop half the rows, its pre- and post-fold (non-power-of-two
+    p) all of them; ``ps_gather`` gathers the whole buffer; ``psum`` and
+    the local ``shard`` have no hop."""
     p = int(p)
     rows = int(shape[0]) if len(shape) else 1
     inner = 1
     for d in tuple(shape)[1:]:
         inner *= int(d)
-    if p == 1 or algorithm == "psum":
+    if op == "all_gather":
+        if algorithm != "ring_rsa":
+            raise ValueError(f"unknown all-gather algorithm {algorithm!r}")
+        return (rows * inner if p > 1 else 0), 0
+    if op == "reduce_scatter" and algorithm != "ring_rsa":
+        raise ValueError(f"unknown reduce-scatter algorithm {algorithm!r}")
+    if op == "shard" or p == 1 or algorithm == "psum":
         return 0, 0
+    if op not in ("allreduce", "reduce_scatter"):
+        raise ValueError(f"unknown stage op {op!r}")
     if algorithm == "ring_rsa":
         return -(-rows // p) * inner, 0
     if algorithm == "rhd_rsa":
@@ -295,11 +345,48 @@ def hop_elements(algorithm: str, shape, p: int) -> tuple[int, int]:
     raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
 
 
-def wire_bytes(strategy: str, n_bytes: int, p: int) -> int:
+def hierarchical_wire_bytes(n_bytes: int, d: int, pods: int) -> dict:
+    """Per-level wire bytes of the two-level schedule on the busiest
+    rank: ``intra`` (ring reduce-scatter + all-gather over d) and
+    ``inter`` (RHD of the 1/d chunk over the pods), kept apart because
+    the two levels ride different links."""
+    if d == 1:
+        return {"intra": 0, "inter": wire_bytes("rhd_rsa", n_bytes, pods)}
+    intra = 2 * int(n_bytes * (d - 1) / d)
+    inter = wire_bytes("rhd_rsa", n_bytes // d, pods)
+    return {"intra": intra, "inter": inter}
+
+
+def _axis_sizes(p) -> tuple[int, ...]:
+    """A rank count (int) or per-axis sizes (outermost first) as a
+    tuple."""
+    if isinstance(p, int):
+        return (p,)
+    sizes = tuple(int(s) for s in p)
+    if not sizes or any(s < 1 for s in sizes):
+        raise ValueError(f"axis sizes must be positive ints, got {p!r}")
+    return sizes
+
+
+def wire_bytes(strategy: str, n_bytes: int, p) -> int:
     """Algorithmic wire bytes per device (critical path) of one
-    allreduce over ``p`` ranks (non-pow2 ``rhd_rsa`` adds the 2N
-    pre/post fold on the busiest core rank)."""
-    p = int(p)
+    allreduce over ``p`` ranks, or over per-axis sizes ``(pods, d)``
+    (outermost first): a flat strategy folds a full allreduce per axis
+    and sums them, ``hierarchical`` charges its two levels (ring on a
+    single axis).  Non-pow2 ``rhd_rsa`` adds the 2N pre/post fold on the
+    busiest core rank."""
+    sizes = _axis_sizes(p)
+    if strategy == "hierarchical":
+        if len(sizes) == 1:
+            return wire_bytes("ring_rsa", n_bytes, sizes[0])
+        if len(sizes) != 2:
+            raise ValueError("hierarchical expects (pods, d) axis sizes")
+        pods, d = sizes
+        levels = hierarchical_wire_bytes(n_bytes, d=d, pods=pods)
+        return levels["intra"] + levels["inter"]
+    if len(sizes) > 1:
+        return sum(wire_bytes(strategy, n_bytes, s) for s in sizes)
+    (p,) = sizes
     if p == 1:
         return 0
     if strategy == "rhd_rsa":
@@ -313,9 +400,21 @@ def wire_bytes(strategy: str, n_bytes: int, p: int) -> int:
     raise ValueError(strategy)
 
 
-def allreduce_steps(strategy: str, p: int) -> int:
-    """Sequential communication steps on the critical path."""
-    p = int(p)
+def allreduce_steps(strategy: str, p) -> int:
+    """Sequential communication steps on the critical path, over ``p``
+    ranks or per-axis sizes (flat strategies sum their per-axis
+    allreduces; ``hierarchical`` charges ring RS + RHD + ring AG)."""
+    sizes = _axis_sizes(p)
+    if strategy == "hierarchical":
+        if len(sizes) == 1:
+            return allreduce_steps("ring_rsa", sizes[0])
+        if len(sizes) != 2:
+            raise ValueError("hierarchical expects (pods, d) axis sizes")
+        pods, d = sizes
+        return 2 * (d - 1) + allreduce_steps("rhd_rsa", pods)
+    if len(sizes) > 1:
+        return sum(allreduce_steps(strategy, s) for s in sizes)
+    (p,) = sizes
     if p == 1:
         return 0
     if strategy == "rhd_rsa":

@@ -7,15 +7,21 @@ JSON-serialisable :class:`ReduceSchedule` whose ``to_json()`` (schema
 reference's for the same leaves and config — one bucket per fusion
 bucket, each with its decomposition tree of :class:`Stage` s.
 
-This slice plans a single data axis: the fixed strategies ``psum``,
-``ring_rsa``, ``rhd_rsa`` and ``ps_gather`` (``hierarchical`` degenerates
-to ``ring_rsa`` there, as in the reference), with every codec and the
-fused-hop default, and the per-bucket choice of a
+It plans one data axis or two (``("pod", "data")``, outermost first):
+the flat strategies ``psum``, ``ring_rsa``, ``rhd_rsa`` and
+``ps_gather``, which on two axes fold a full allreduce per axis,
+innermost first; the composed two-level names ``"<inner>×<outer>"``
+(``ring_rsa×{rhd_rsa,ring_rsa,psum}``: ring reduce-scatter over the data
+axis, an allreduce of the 1/d chunk across pods, ring all-gather), of
+which ``hierarchical`` is ``ring_rsa×rhd_rsa`` on two axes and
+``ring_rsa`` on one; every codec, bare or per level (``"bf16×int8"``);
+the fused-hop default; and the per-bucket choice of a
 :class:`~repro_torch.core.selector.Selector` (``plan(selector=...)``,
 ``strategy="auto"``), whose switch points align the fusion buckets.
-Composed two-level names, multi-axis schedules and the model bracket
-raise ``NotImplementedError``.  ``plan(..., cache=)`` interns resolved
-schedules in a :class:`~repro_torch.core.plan_cache.PlanCache` keyed by
+The model bracket (a model axis of size > 1) and meshes of three dp
+axes raise ``NotImplementedError``: they belong to the model-axis slice.
+``plan(..., cache=)`` interns resolved schedules in a
+:class:`~repro_torch.core.plan_cache.PlanCache` keyed by
 :class:`ScheduleRequest`.
 """
 from __future__ import annotations
@@ -34,13 +40,15 @@ from . import cost_model, fusion, overlap as overlap_mod, reducers
 SCHEMA = "repro/schedule/v1"
 SEP = "×"
 PLACEMENTS = ("post_backward", "in_backward")
-# Composed two-level names (``"<inner>×<outer>"``): the reference's
-# per-level choices.  The port parses them (tuning tables may hold
-# their measurements) but does not plan them yet.
+# Composed two-level names (``"<inner>×<outer>"``): the ring is the only
+# reduce-scatter/all-gather; the choice per level is the outer
+# (cross-pod) allreduce.
 INNER_ALGORITHMS = ("ring_rsa",)
 OUTER_ALGORITHMS = ("rhd_rsa", "ring_rsa", "psum")
 SHORT_ALG = {"ring_rsa": "ring", "rhd_rsa": "rhd", "psum": "psum",
              "ps_gather": "ps"}
+# What the model-axis slice brings: the reference's tensor parallelism.
+NEXT_SLICE = "the model-axis slice (tensor parallelism, core/manual.py)"
 
 # wire / accumulation dtype names
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -59,7 +67,7 @@ def split_strategy(name: str) -> tuple[str, ...]:
         if (SEP in name or ("x" in name and name not in
                             reducers.STRATEGIES)) else (name,)
     if len(parts) == 1:
-        if name not in reducers.STRATEGIES + ("hierarchical",):
+        if name not in reducers.STRATEGIES:
             raise ValueError(f"unknown strategy {name!r}; a flat name "
                              f"from {reducers.STRATEGIES} or a composed "
                              f"'<inner>{SEP}<outer>' name")
@@ -86,17 +94,17 @@ def is_strategy(name: str) -> bool:
 
 
 def normalize_strategy(name: str, n_axes: int) -> str:
-    """A flat strategy name (``hierarchical`` is ``ring_rsa`` on one
-    axis).  Names that are no strategy (``auto`` among them: the
-    selector resolves it before this) raise ValueError; composed and
-    multi-axis ``hierarchical`` schedules are not ported yet."""
-    if name == "hierarchical" and n_axes == 1:
-        return "ring_rsa"
-    if len(split_strategy(name)) == 1 and name != "hierarchical":
-        return name
-    raise NotImplementedError(
-        f"strategy {name!r}: composed and hierarchical schedules are not "
-        f"ported yet")
+    """Resolve aliases against the mesh rank: ``hierarchical`` is
+    ``ring_rsa`` on one axis and ``ring_rsa×rhd_rsa`` on two; a composed
+    name needs two axes (ValueError, as in the reference)."""
+    if name == "hierarchical":
+        return "ring_rsa" if n_axes == 1 else \
+            composed_name("ring_rsa", "rhd_rsa")
+    parts = split_strategy(name)
+    if len(parts) == 2 and n_axes != 2:
+        raise ValueError(f"composed strategy {name!r} needs a 2-axis "
+                         f"mesh, got {n_axes} axis(es)")
+    return name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +149,26 @@ class BucketSchedule:
         return sum(st.wire_bytes for st in self.stages)
 
     def render(self) -> str:
+        """``ring@data×rhd@pod`` for a composed bucket, ``rhd@data`` for
+        a flat one (a reduce-scatter/all-gather pair collapses onto its
+        level); coded stages carry ``:codec``
+        (``ring@data:bf16×rhd@pod:int8``)."""
         parts = []
-        for st in self.stages:
-            if st.op != "allreduce":
-                raise NotImplementedError(f"render of {st.op} stages")
+        skip_ag = set()
+        for i, st in enumerate(self.stages):
+            if i in skip_ag:
+                continue
+            if st.op == "reduce_scatter":
+                for j in range(len(self.stages) - 1, i, -1):
+                    other = self.stages[j]
+                    if other.op == "all_gather" and other.axis == st.axis:
+                        skip_ag.add(j)
+                        break
+            elif st.op == "all_gather":
+                parts.append(f"ag@{st.axis}")
+                continue
+            elif st.op != "allreduce":
+                continue
             part = f"{SHORT_ALG.get(st.algorithm, st.algorithm)}@{st.axis}"
             if st.codec != "none":
                 part += f":{codec_mod.get(st.codec).short}"
@@ -265,8 +289,8 @@ def from_json(rec: dict) -> ReduceSchedule:
         raise ValueError(f"schedule schema must be {SCHEMA!r}, "
                          f"got {rec.get('schema')!r}")
     if rec.get("grouped") or rec.get("model_axis"):
-        raise NotImplementedError("grouped and model-bracket records are "
-                                  "not ported yet")
+        raise NotImplementedError(f"grouped and model-bracket records "
+                                  f"wait for {NEXT_SLICE}")
     buckets = []
     for i, entry in enumerate(rec["buckets"]):
         stages = tuple(Stage(op=s["op"], algorithm=s["algorithm"],
@@ -297,6 +321,12 @@ def from_json(rec: dict) -> ReduceSchedule:
 # ---------------------------------------------------------------------------
 # Decomposition
 # ---------------------------------------------------------------------------
+
+def _stage_link(i: int, n_axes: int, intra, inter):
+    """Axis 0 of a two-axis mesh is the outer (cross-pod) level and rides
+    the inter link; every other axis the intra link."""
+    return inter if (n_axes > 1 and i == 0) else intra
+
 
 def _stage_fused(alg: str, fused: bool) -> bool:
     return bool(fused) and alg in reducers.FUSED_HOP_ALGORITHMS
@@ -334,38 +364,110 @@ def _flat_allreduce_stage(alg: str, cname: str, axis: str, p: int,
 
 def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
               axis_sizes: Sequence[int], intra=cost_model.ICI,
+              inter=cost_model.DCN,
               gamma: float = cost_model.GAMMA_S_PER_BYTE,
               codec: str = "none", wire_itemsize: int = 4,
               fused: bool = False) -> tuple[Stage, ...]:
-    """The decomposition tree of one bucket on a single data axis: one
-    flat allreduce stage."""
+    """The decomposition tree of one bucket, on one or two axes
+    (outermost first), with the reference's wire bytes and latencies.
+
+    A flat strategy folds a full allreduce per axis, innermost first;
+    a composed one runs ``reduce_scatter@inner -> allreduce@outer ->
+    all_gather@inner`` (the outer level on the 1/d chunk, over the inter
+    link).  ``codec`` is a bare name for every level or
+    ``"<inner>×<outer>"`` (levels innermost first); stages with no hop
+    (psum, ps_gather) carry none.  ``fused`` marks the accumulating
+    stages that can fuse; the all-gather leg only forwards and keeps the
+    unfused toll."""
     names = tuple(axis_names)
     sizes = tuple(int(s) for s in axis_sizes)
-    if len(names) != 1 or len(sizes) != 1:
+    if len(names) != len(sizes) or not names:
+        raise ValueError(f"axis names {names} / sizes {sizes} mismatch")
+    if len(names) > 2:
         raise NotImplementedError(
-            f"multi-axis schedules (axes {names}) are not ported yet")
-    alg = normalize_strategy(strategy, 1)
-    codec_mod.validate_spec(codec)
-    return (_flat_allreduce_stage(
-        alg, codec or "none", names[0], sizes[0], int(n_bytes),
-        cost_model.resolve_link(intra), gamma, int(wire_itemsize),
-        fused=fused),)
+            f"dp axes {names}: meshes of three axes wait for {NEXT_SLICE}")
+    intra = cost_model.resolve_link(intra)
+    inter = cost_model.resolve_link(inter)
+    strategy = normalize_strategy(strategy, len(names))
+    parts = split_strategy(strategy)
+    n_bytes = int(n_bytes)
+    wire_itemsize = int(wire_itemsize)
+
+    if len(parts) == 1:
+        (alg,) = parts
+        cparts = codec_mod.split_spec(codec, len(names))
+        return tuple(
+            _flat_allreduce_stage(
+                alg, cparts[len(names) - 1 - i], names[i], sizes[i],
+                n_bytes, _stage_link(i, len(names), intra, inter), gamma,
+                wire_itemsize, fused=fused)
+            for i in range(len(names) - 1, -1, -1))
+
+    inner_alg, outer_alg = parts
+    inner_codec, outer_codec = codec_mod.split_spec(codec, 2)
+    inner_eff = codec_mod.stage_codec(inner_codec, inner_alg)
+    outer_axis, inner_axis = names
+    pods, d = sizes
+    stages = []
+    frac_d = (d - 1) / d
+    rs_fused = _stage_fused(inner_alg, fused)
+    if inner_eff != "none":
+        enc = codec_mod.encoded_bytes(inner_eff, n_bytes, wire_itemsize)
+        level_wire = int(enc * frac_d) + codec_mod.hop_bytes(inner_eff,
+                                                             d - 1)
+        level_beta_bytes = enc * frac_d
+        quant_toll = cost_model.quant_gamma(rs_fused) * n_bytes * frac_d
+        ag_quant_toll = cost_model.QUANT_GAMMA_S_PER_BYTE \
+            * n_bytes * frac_d
+    else:
+        level_wire = int(n_bytes * frac_d)
+        level_beta_bytes = n_bytes * frac_d
+        quant_toll = ag_quant_toll = 0.0
+    if d > 1:
+        stages.append(Stage(
+            op="reduce_scatter", algorithm=inner_alg, axis=inner_axis,
+            axis_size=d, n_bytes=n_bytes, wire_bytes=level_wire,
+            predicted_s=(d - 1) * intra.alpha_s
+            + level_beta_bytes * intra.beta
+            + n_bytes * frac_d * gamma + quant_toll,
+            codec=inner_eff, fused_hop=rs_fused))
+    chunk = n_bytes // d
+    if codec_mod.stage_codec(outer_codec, outer_alg) == "none":
+        # The reference's uncoded arithmetic: the latency of the FLOAT
+        # n_bytes / d beside the int chunk of the wire bytes.
+        stages.append(Stage(
+            op="allreduce", algorithm=outer_alg, axis=outer_axis,
+            axis_size=pods, n_bytes=chunk,
+            wire_bytes=reducers.wire_bytes(outer_alg, chunk, pods),
+            predicted_s=cost_model.allreduce_latency(
+                outer_alg, n_bytes / d, pods, link=inter, gamma=gamma),
+            fused_hop=_stage_fused(outer_alg, fused)))
+    else:
+        stages.append(_flat_allreduce_stage(
+            outer_alg, outer_codec, outer_axis, pods, chunk, inter, gamma,
+            wire_itemsize, fused=fused))
+    if d > 1:
+        stages.append(Stage(
+            op="all_gather", algorithm=inner_alg, axis=inner_axis,
+            axis_size=d, n_bytes=chunk, wire_bytes=level_wire,
+            predicted_s=(d - 1) * intra.alpha_s
+            + level_beta_bytes * intra.beta + ag_quant_toll,
+            codec=inner_eff))
+    return tuple(stages)
 
 
 def strategy_latency(strategy: str, n_bytes: float,
                      axis_sizes: Sequence[int], intra=cost_model.ICI,
-                     codec: str = "none", wire_itemsize: int = 4,
-                     fused: bool = False) -> float:
+                     inter=cost_model.DCN, codec: str = "none",
+                     wire_itemsize: int = 4, fused: bool = False) -> float:
     """Cost-model latency of one allreduce of ``n_bytes`` with
-    ``strategy`` over ``axis_sizes``: the stage sum of its decomposition
-    tree, the selector's argmin objective.  One axis only: the
-    reference's ``inter`` (cross-pod) link prices the outer axis of two,
-    which is not ported yet."""
+    ``strategy`` over ``axis_sizes`` (outermost first): the stage sum of
+    its decomposition tree, the selector's argmin objective."""
     sizes = tuple(int(s) for s in axis_sizes)
     names = tuple(f"ax{i}" for i in range(len(sizes)))
     return sum(st.predicted_s
                for st in decompose(strategy, int(n_bytes), names, sizes,
-                                   intra=intra, codec=codec,
+                                   intra=intra, inter=inter, codec=codec,
                                    wire_itemsize=wire_itemsize,
                                    fused=fused))
 
@@ -379,7 +481,7 @@ class ScheduleRequest:
     """Everything that determines a resolved schedule: the plan cache's
     key (``fingerprint()``), derived from the gradient tree itself, so a
     stale schedule is impossible by construction (the reference's
-    ``ScheduleRequest``; the port has one link and no model bracket)."""
+    ``ScheduleRequest``; the port has no model bracket yet)."""
     treedef: Hashable
     shapes: tuple
     dtypes: tuple
@@ -393,7 +495,7 @@ class ScheduleRequest:
                                    # fingerprint)
     switch_points: tuple[int, ...]
     placement: str
-    link_key: tuple                # (alpha, bandwidth) of the link
+    link_key: tuple                # (intra α, intra bw, inter α, inter bw)
     codec: str = "none"
     error_feedback: bool = False
     model_key: Hashable = None
@@ -422,7 +524,7 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
          threshold_bytes: int = 4 << 20, fuse: bool = True,
          groups=None, wire_dtype: str = "float32",
          align_buckets: bool = True, placement: str = "post_backward",
-         intra=cost_model.ICI, codec: str = "none",
+         intra=cost_model.ICI, inter=cost_model.DCN, codec: str = "none",
          error_feedback: bool = False,
          model_axis: "str | None" = None, model_axis_size: int = 1,
          fused_hops: "bool | None" = None, cache=None) -> ReduceSchedule:
@@ -437,13 +539,19 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
     PlanCache`) interns the result by :class:`ScheduleRequest`: a hit
     returns the identical schedule."""
     if model_axis is not None and int(model_axis_size) > 1:
-        raise NotImplementedError("the model bracket is not ported yet")
+        raise NotImplementedError(f"the model bracket waits for "
+                                  f"{NEXT_SLICE}")
     names = tuple(axis_names)
     sizes = tuple(int(s) for s in axis_sizes)
     if len(names) != len(sizes):
         raise ValueError(f"axis names {names} / sizes {sizes} mismatch")
+    if len(names) > 2:
+        raise NotImplementedError(
+            f"dp axes {names}: meshes of three axes wait for {NEXT_SLICE}")
     if placement not in PLACEMENTS:
         raise ValueError(f"placement {placement!r} not in {PLACEMENTS}")
+    intra = cost_model.resolve_link(intra)
+    inter = cost_model.resolve_link(inter)
     if wire_dtype not in DTYPES:
         raise ValueError(f"wire dtype {wire_dtype!r} not in {list(DTYPES)}")
     wire_itemsize = DTYPES[wire_dtype].itemsize
@@ -478,8 +586,8 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
             else:
                 strat = normalize_strategy(strategy, len(names))
             stages = decompose(strat, n_bytes, names, sizes, intra=intra,
-                               codec=codec, wire_itemsize=wire_itemsize,
-                               fused=fused)
+                               inter=inter, codec=codec,
+                               wire_itemsize=wire_itemsize, fused=fused)
             if predicted is None:
                 predicted = sum(st.predicted_s for st in stages)
             buckets.append(BucketSchedule(
@@ -495,14 +603,15 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
 
     if cache is None:
         return _resolve()
-    link = cost_model.resolve_link(intra)
     treedef, shapes, dtypes, gkey = _tree_meta(tree, groups)
     request = ScheduleRequest(
         treedef=treedef, shapes=shapes, dtypes=dtypes, groups_key=gkey,
         threshold_bytes=int(threshold_bytes), fuse=bool(fuse),
         wire_dtype=wire_dtype, axis_names=names, axis_sizes=sizes,
         strategy_context=strategy_context, switch_points=switch,
-        placement=placement, link_key=(link.alpha_s, link.bandwidth),
+        placement=placement,
+        link_key=(intra.alpha_s, intra.bandwidth,
+                  inter.alpha_s, inter.bandwidth),
         codec=codec, error_feedback=bool(error_feedback), fused=fused)
     return cache.resolve(request, _resolve)
 

@@ -29,8 +29,9 @@ analytic argmin (its software alpha), but an empirical table may pick
 it; on ``cuda_ipc`` such a bucket runs gloo's host-staged allreduce, as
 ``psum`` does everywhere in the port.
 
-One data axis only: two-axis selection (the composed candidates) raises
-``NotImplementedError``, as the port's other multi-axis paths do.
+On a two-axis mesh (``("pod", "data")``) the pool widens to the composed
+two-level schedules (:data:`COMPOSED_CANDIDATES`): the choice is per
+bucket and per level, the outer level priced on ``inter_link``.
 """
 from __future__ import annotations
 
@@ -49,9 +50,8 @@ TABLE_SCHEMA = "repro/allreduce-tuning/v1"
 # wins equal-latency ties).
 DEFAULT_CANDIDATES = ("rhd_rsa", "ring_rsa", "psum")
 
-# The reference's two-axis candidates (one composed schedule per outer
-# algorithm).  Named here so tables holding them validate; selecting
-# among them is not ported.
+# Extra candidates on a two-axis mesh: one composed schedule per outer
+# (cross-pod) algorithm.
 COMPOSED_CANDIDATES = tuple(
     schedule_mod.composed_name("ring_rsa", outer)
     for outer in schedule_mod.OUTER_ALGORITHMS)
@@ -68,31 +68,25 @@ class Choice:
     predicted_s: float         # the selector's own latency estimate
 
 
-def _one_axis(axis_sizes: Sequence[int]) -> tuple[int, ...]:
+def predict_latency(strategy: str, n_bytes: float,
+                    axis_sizes: Sequence[int],
+                    link: cost_model.LinkParams = cost_model.ICI,
+                    inter_link: cost_model.LinkParams = cost_model.DCN,
+                    codec: str = "none", wire_itemsize: int = 4,
+                    fused: bool = False) -> float:
+    """Cost-model latency of ``strategy`` (flat, composed, or the
+    ``hierarchical`` alias) for one allreduce of ``n_bytes`` over
+    ``axis_sizes`` (outermost first): the stage sum of its decomposition
+    tree, the outer level of two on ``inter_link``.  ``codec`` prices the
+    encoded β term and the quantize toll on the algorithms that carry
+    it; ``fused`` prices that toll at the fused-hop γ."""
     sizes = tuple(int(s) for s in axis_sizes)
     if len(sizes) > 2:
         raise ValueError(f"selector supports 1- or 2-axis meshes, "
                          f"got {sizes}")
-    if len(sizes) != 1:
-        raise NotImplementedError(
-            f"selection over axes {sizes}: two-axis (composed) schedules "
-            f"are not ported yet")
-    return sizes
-
-
-def predict_latency(strategy: str, n_bytes: float,
-                    axis_sizes: Sequence[int],
-                    link: cost_model.LinkParams = cost_model.ICI,
-                    codec: str = "none", wire_itemsize: int = 4,
-                    fused: bool = False) -> float:
-    """Cost-model latency of ``strategy`` for one allreduce of
-    ``n_bytes`` over ``axis_sizes``: the stage sum of its decomposition
-    tree.  ``codec`` prices the encoded β term and the quantize toll on
-    the algorithms that carry it; ``fused`` prices that toll at the
-    fused-hop γ."""
-    sizes = _one_axis(axis_sizes)
     return schedule_mod.strategy_latency(strategy, n_bytes, sizes,
-                                         intra=link, codec=codec,
+                                         intra=link, inter=inter_link,
+                                         codec=codec,
                                          wire_itemsize=wire_itemsize,
                                          fused=fused)
 
@@ -125,11 +119,12 @@ class AnalyticSelector(Selector):
 
     mode = "analytic"
 
-    def __init__(self, link=cost_model.ICI,
+    def __init__(self, link=cost_model.ICI, inter_link=cost_model.DCN,
                  candidates: Sequence[str] = DEFAULT_CANDIDATES,
                  codec: str = "none", wire_itemsize: int = 4,
                  fused: bool = False):
         self.link = resolve_link(link)
+        self.inter_link = resolve_link(inter_link)
         for s in candidates:
             if not schedule_mod.is_strategy(s):
                 raise ValueError(f"unknown candidate strategy {s!r}")
@@ -144,9 +139,10 @@ class AnalyticSelector(Selector):
         self._switch_cache: dict = {}
 
     def candidates_for(self, axis_sizes: Sequence[int]) -> tuple[str, ...]:
-        """The candidates on one axis (two axes would widen the pool to
-        :data:`COMPOSED_CANDIDATES`, which is not ported)."""
-        _one_axis(axis_sizes)
+        """On two axes the pool widens to :data:`COMPOSED_CANDIDATES`:
+        the argmin is then per bucket and per level."""
+        if len(tuple(axis_sizes)) == 2:
+            return self.candidates + COMPOSED_CANDIDATES
         return self.candidates
 
     def choose(self, n_bytes: int, axis_sizes: Sequence[int]) -> Choice:
@@ -154,7 +150,7 @@ class AnalyticSelector(Selector):
         best, best_t = None, math.inf
         for s in self.candidates_for(sizes):
             t = predict_latency(s, n_bytes, sizes, self.link,
-                                codec=self.codec,
+                                self.inter_link, codec=self.codec,
                                 wire_itemsize=self.wire_itemsize,
                                 fused=self.fused)
             if t < best_t:            # strict: the first listed wins ties
@@ -204,11 +200,8 @@ class AnalyticSelector(Selector):
         return segments
 
     def fingerprint(self) -> Hashable:
-        # The reference's fingerprint also names its cross-pod link; the
-        # port prices one axis, so that link is always the reference's
-        # default (DCN) and stands here as a constant.
         fp = ("analytic", self.link.alpha_s, self.link.bandwidth,
-              cost_model.DCN.alpha_s, cost_model.DCN.bandwidth,
+              self.inter_link.alpha_s, self.inter_link.bandwidth,
               self.candidates)
         if self.codec != "none":
             fp = fp + (self.codec, self.wire_itemsize)
@@ -253,8 +246,10 @@ class EmpiricalSelector(Selector):
 
     def _rows_for(self, axis_sizes: Sequence[int]
                   ) -> list[tuple[int, dict]]:
-        sizes = _one_axis(axis_sizes)
-        p = sizes[0]
+        sizes = tuple(int(s) for s in axis_sizes)
+        if len(sizes) > 1 and sizes in self._axes_rows:
+            return self._axes_rows[sizes]
+        p = math.prod(sizes)
         if p in self._rows:
             return self._rows[p]
         if not self._rows:
@@ -281,7 +276,11 @@ class EmpiricalSelector(Selector):
         best, best_t = None, math.inf
         # A table may hold ps_gather's measurements; the baseline is
         # never selected.
-        for s in DEFAULT_CANDIDATES:
+        candidates = DEFAULT_CANDIDATES
+        if len(sizes) == 2:
+            candidates = candidates + COMPOSED_CANDIDATES \
+                + ("hierarchical",)
+        for s in candidates:
             t = entry.get(s)
             if t is not None and t < best_t:
                 best, best_t = s, t
@@ -289,12 +288,12 @@ class EmpiricalSelector(Selector):
             raise ValueError(
                 f"tuning table has no selectable strategy for "
                 f"axes={sizes}, bytes<={n_bytes} "
-                f"(candidates {DEFAULT_CANDIDATES})")
+                f"(candidates {candidates})")
         return Choice(best, best_t * 1e-6)
 
     def switch_points(self, axis_sizes: Sequence[int],
                       lo: int = 256, hi: int = 1 << 30) -> tuple[int, ...]:
-        rows = self._rows_for(axis_sizes)
+        rows = self._rows_for(tuple(int(s) for s in axis_sizes))
         pts = []
         prev = None
         for b, _ in rows:
@@ -313,24 +312,6 @@ class EmpiricalSelector(Selector):
 # ---------------------------------------------------------------------------
 # Tuning tables
 # ---------------------------------------------------------------------------
-
-def _validate_codec(codec) -> None:
-    """The reference's codec-spec check: a codec name, or two of them
-    as ``"<inner>×<outer>"``."""
-    if not isinstance(codec, str):
-        raise ValueError(f"entry 'codec' must be a string: {codec!r}")
-    if codec in codec_mod.CODECS:
-        return
-    parts = codec.replace("x", schedule_mod.SEP).split(schedule_mod.SEP)
-    if len(parts) != 2:
-        raise ValueError(f"codec spec {codec!r} must be a codec name "
-                         f"{codec_mod.CODECS} or "
-                         f"'<inner>{schedule_mod.SEP}<outer>'")
-    for p in parts:
-        if p not in codec_mod.CODECS:
-            raise ValueError(f"unknown wire codec {p!r} in spec "
-                             f"{codec!r}; names from {codec_mod.CODECS}")
-
 
 def validate_table(table: Mapping) -> None:
     """Raise ValueError unless ``table`` conforms to TABLE_SCHEMA."""
@@ -361,8 +342,10 @@ def validate_table(table: Mapping) -> None:
             if math.prod(axes) != p:
                 raise ValueError(f"entry 'axes' {axes} product != p={p}")
         codec = e.get("codec", "none")
+        if not isinstance(codec, str):
+            raise ValueError(f"entry 'codec' must be a string: {e!r}")
         try:
-            _validate_codec(codec)
+            codec_mod.validate_spec(codec)
         except ValueError as err:
             raise ValueError(f"entry (p={p}, bytes={b}): {err}")
         key = (p, tuple(axes) if axes else None, b, codec)
@@ -443,6 +426,7 @@ def crossover_bytes(p: int, link=cost_model.ICI,
 
 
 def make_selector(mode: str = "analytic", table=None, link=cost_model.ICI,
+                  inter_link=cost_model.DCN,
                   candidates: Sequence[str] = DEFAULT_CANDIDATES,
                   codec: str = "none", wire_itemsize: int = 4,
                   fused: bool = False) -> Selector:
@@ -452,7 +436,8 @@ def make_selector(mode: str = "analytic", table=None, link=cost_model.ICI,
     prices the fused-hop γ (analytic only: a table's rows already hold
     the path they were measured on)."""
     if mode == "analytic":
-        return AnalyticSelector(link=link, candidates=candidates,
+        return AnalyticSelector(link=link, inter_link=inter_link,
+                                candidates=candidates,
                                 codec=codec, wire_itemsize=wire_itemsize,
                                 fused=fused)
     if mode == "empirical":

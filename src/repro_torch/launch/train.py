@@ -4,15 +4,23 @@
         --world 4 --backend gloo --steps 20 --batch 8 --seq 128 \\
         --strategy rhd_rsa --codec int8
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --mesh 2x2x1 --strategy ring_rsa×rhd_rsa --codec bf16×int8 ...
+
 Spawns ``--world`` ranks with file rendezvous (``--world 1`` runs in
-this process without ``torch.distributed``).  ``--backend gloo`` may put
-several ranks on one card (payloads staged through host memory);
-``--backend cuda_ipc`` too, with the hop payloads kept in device memory
-(a gloo group carries control messages only; ranks of one host);
-``--backend nccl`` needs one card per rank.  Runs on CUDA unless
-``--device cpu``.  Keeps ``repro.launch.train``'s flags, except the
-JAX-only ``--mesh``/``--host-devices`` (the data axis is ``--world``)
-and the checkpoint flags (checkpoints are not ported yet).
+this process without ``torch.distributed``).  ``--mesh`` lays the ranks
+out as the reference's mesh flag does: ``DxM`` (one data axis) or
+``PxDxM`` (dp axes ``("pod", "data")``, pod major, groups from
+``launch/mesh.py``); the model axis ``M`` must be 1 until the model-axis
+slice, and ``--world`` is the product of the sizes (derived when
+omitted).  ``--backend gloo`` may put several ranks on one card
+(payloads staged through host memory); ``--backend cuda_ipc`` too, with
+the hop payloads kept in device memory (a gloo group carries control
+messages only; ranks of one host); ``--backend nccl`` needs one card
+per rank.  Runs on CUDA unless ``--device cpu``.  Keeps
+``repro.launch.train``'s flags, except the checkpoint flags
+(checkpoints are not ported yet) and ``--host-devices`` (ranks are
+processes).
 """
 from __future__ import annotations
 
@@ -30,7 +38,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch (split evenly over the ranks)")
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--world", type=int, default=1)
+    ap.add_argument("--world", type=int, default=None,
+                    help="ranks (default: the mesh's product, else 1)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM, e.g. 4x1 or 2x2x1 (M must be 1)")
     ap.add_argument("--backend", choices=("gloo", "nccl", "cuda_ipc"),
                     default="gloo")
     ap.add_argument("--device", default=None,
@@ -51,6 +62,31 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def mesh_shape(args) -> tuple[int, int]:
+    """``(pods, data)`` of ``args.mesh`` (``pods = 0`` for ``DxM``; no
+    mesh: one data axis of ``--world`` ranks).  Raises
+    ``NotImplementedError`` for a model axis above 1 and ValueError when
+    ``--world`` disagrees with the mesh."""
+    from repro_torch.core.schedule import NEXT_SLICE
+    if args.mesh is None:
+        return 0, args.world or 1
+    try:
+        dims = [int(x) for x in args.mesh.split("x")]
+    except ValueError:
+        dims = []
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh {args.mesh!r}: DxM or PxDxM, sizes >= 1")
+    pods, data, model = ([0] + dims) if len(dims) == 2 else dims
+    if model != 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: a model axis of "
+                                  f"{model} waits for {NEXT_SLICE}")
+    world = max(pods, 1) * data
+    if args.world is not None and args.world != world:
+        raise ValueError(f"--world {args.world} but --mesh {args.mesh} "
+                         f"has {world} ranks")
+    return pods, data
+
+
 def aggregator_config(args):
     """The :class:`~repro_torch.core.AggregatorConfig` that ``args``
     describe."""
@@ -61,10 +97,12 @@ def aggregator_config(args):
 
 
 def build_trainer(args, group=None, verbose: bool = True, spec=None,
-                  aggregator=None):
+                  aggregator=None, groups=None):
     """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
-    for this rank (``group``: the data axis).  ``spec``, when given, is
-    the model's :class:`~repro_torch.models.common.ModelSpec` as it is
+    for this rank (``group``: the data axis of a one-axis mesh;
+    ``groups``: the dp axes' groups of a ``PxDx1`` mesh, built here
+    through ``launch.mesh.make_groups`` when not given).  ``spec``, when
+    given, is the model's :class:`~repro_torch.models.common.ModelSpec` as it is
     (a depth-cut or otherwise altered spec), in place of ``args.arch``,
     ``args.full`` and ``args.dtype``; ``aggregator``, an
     :class:`~repro_torch.core.AggregatorConfig` in place of
@@ -72,6 +110,7 @@ def build_trainer(args, group=None, verbose: bool = True, spec=None,
     has a command-line flag."""
     from repro_torch.configs import get_spec
     from repro_torch.data.synthetic import SyntheticText
+    from repro_torch.launch.mesh import DP_AXES, make_groups
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup, sgd
     from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
@@ -86,17 +125,23 @@ def build_trainer(args, group=None, verbose: bool = True, spec=None,
                          seq_len=args.seq, seed=args.seed)
     lr = cosine_warmup(args.lr, max(args.steps // 20, 1), args.steps)
     opt = adamw(lr) if args.optimizer == "adamw" else sgd(lr)
+    pods, data_size = mesh_shape(args)
+    if pods:
+        dp_axes = DP_AXES
+        if groups is None:
+            groups = make_groups(pods, data_size)
+    else:
+        dp_axes = ("data",)
     cfg = TrainerConfig(
         steps=args.steps, log_every=args.log_every,
         step=TrainStepConfig(aggregator=aggregator
-                             or aggregator_config(args)))
+                             or aggregator_config(args), dp_axes=dp_axes))
     return Trainer(build_model(spec), opt, data.batch_at, cfg, group=group,
-                   device=args.device, verbose=verbose)
+                   device=args.device, verbose=verbose, groups=groups)
 
 
 def _rank_main(rank: int, world: int, args):
-    from repro_torch.core import Group
-    trainer = build_trainer(args, group=Group(), verbose=rank == 0)
+    trainer = build_trainer(args, verbose=rank == 0)
     module, opt_state = trainer.init_state(args.seed)
     _, _, history = trainer.run(module=module, opt_state=opt_state)
     return history
@@ -104,17 +149,20 @@ def _rank_main(rank: int, world: int, args):
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    print(f"arch={args.arch} world={args.world} backend={args.backend} "
-          f"strategy={args.strategy} codec={args.codec}", flush=True)
-    if args.world == 1:
+    pods, data = mesh_shape(args)
+    world = max(pods, 1) * data
+    print(f"arch={args.arch} world={world} mesh={args.mesh} "
+          f"backend={args.backend} strategy={args.strategy} "
+          f"codec={args.codec}", flush=True)
+    if world == 1:
         history = _rank_main(0, 1, args)
     else:
         from repro_torch.core.dist import run_ranks
         with tempfile.TemporaryDirectory() as rdv:
-            history = run_ranks(_rank_main, args.world, (args,),
+            history = run_ranks(_rank_main, world, (args,),
                                 backend=args.backend, rendezvous_dir=rdv,
                                 threads=max(1, (os.cpu_count() or 1)
-                                            // args.world),
+                                            // world),
                                 timeout_s=24 * 3600)[0]
     final = history[-1]["loss"] if history else float("nan")
     print(f"final loss: {final:.4f}")

@@ -10,13 +10,16 @@ Counterpart of ``repro/train/step.py`` (its data-parallel path):
     clip_by_global_norm              # on AGGREGATED grads (global norm)
     optimizer.update                 # K5 AdamW, parameters in place
 
-Each rank holds a full replica.  The data axis is a process group
-(``core/dist.py``); the gradient sum over ranks happens only through the
-aggregator's explicit algorithm.  Metrics are means over the ranks.
+Each rank holds a full replica.  Each dp axis (``("data",)``, or
+``("pod", "data")`` outermost first) is a process group
+(``core/dist.py``, ``launch/mesh.py``); the gradient sum over ranks
+happens only through the aggregator's explicit algorithm.  Metrics are
+means over the ranks.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping, Sequence
 
 import torch
 
@@ -35,44 +38,57 @@ class TrainStepConfig:
     dp_axes: tuple = ("data",)
 
 
-def shard_batch(batch: dict, group: "dist_mod.Group") -> dict:
-    """This rank's rows of a GLOBAL batch (leading dim split evenly in
-    rank order, as the reference's batch sharding over the data axis)."""
+def shard_batch(batch: dict, groups: "Sequence[dist_mod.Group]") -> dict:
+    """This rank's rows of a GLOBAL batch: the leading dim split evenly
+    over the flattened dp ranks.  ``groups``: the dp axes' groups,
+    outermost first, whose ranks flatten major to minor (pod · d +
+    data), as the reference's batch spec ``P(("pod", "data"))`` splits
+    it."""
+    index, size = 0, 1
+    for g in groups:
+        index, size = index * g.size + g.rank, size * g.size
     out = {}
     for k, v in batch.items():
         n = v.shape[0]
-        if n % group.size:
-            raise ValueError(f"batch[{k!r}] has {n} rows for "
-                             f"{group.size} ranks")
-        per = n // group.size
-        out[k] = v[group.rank * per:(group.rank + 1) * per]
+        if n % size:
+            raise ValueError(f"batch[{k!r}] has {n} rows for {size} ranks")
+        per = n // size
+        out[k] = v[index * per:(index + 1) * per]
     return out
 
 
 def make_train_step(model: ModelApi, optimizer: Optimizer,
                     cfg: TrainStepConfig, group: "dist_mod.Group | None" = None,
-                    device=None):
+                    device=None,
+                    groups: "Mapping[str, dist_mod.Group] | None" = None):
     """Build the train step for this rank.
 
-    ``group``: the data axis's process group (default: the world group,
-    or a single rank without ``torch.distributed``).  ``device``: where
-    the parameters live; ``None`` is CUDA (raises without a card).
-    Returns ``(step_fn, extras)`` with ``step_fn(params, opt_state,
-    batch) -> (params, opt_state, metrics)``: ``params`` is the model's
-    parameter tree (updated in place), ``batch`` the GLOBAL batch, and
+    ``groups`` maps each of ``cfg.dp_axes`` to its process group
+    (``launch.mesh.make_groups``); with one dp axis, ``group`` may stand
+    for it (default: the world group, or a single rank without
+    ``torch.distributed``).  ``device``: where the parameters live;
+    ``None`` is CUDA (raises without a card).  Returns ``(step_fn,
+    extras)`` with ``step_fn(params, opt_state, batch) -> (params,
+    opt_state, metrics)``: ``params`` is the model's parameter tree
+    (updated in place), ``batch`` the GLOBAL batch, and
     ``extras["aggregator"]`` the aggregator (its ``last_schedule`` is
     the executed plan)."""
     device = resolve_device(device)
-    if len(cfg.dp_axes) != 1:
-        raise NotImplementedError("multi-axis data parallelism is not "
-                                  "ported yet")
-    axis = cfg.dp_axes[0]
-    group = group if group is not None else dist_mod.Group(name=axis)
-    agg = GradientAggregator(cfg.aggregator, cfg.dp_axes, {axis: group})
+    dp_axes = tuple(cfg.dp_axes)
+    if groups is None:
+        if len(dp_axes) != 1:
+            raise ValueError(f"dp axes {dp_axes} need their groups "
+                             f"(launch.mesh.make_groups)")
+        groups = {dp_axes[0]: group if group is not None
+                  else dist_mod.Group(name=dp_axes[0])}
+    elif group is not None:
+        raise ValueError("pass group or groups, not both")
+    agg = GradientAggregator(cfg.aggregator, dp_axes, groups)
+    shard_groups = [agg.groups[ax] for ax in dp_axes]
 
     def step_fn(params, opt_state, batch):
         local = {k: v.to(device) for k, v in
-                 shard_batch(batch, group).items()}
+                 shard_batch(batch, shard_groups).items()}
         leaves = tree_mod.leaves(params)
         for p in leaves:
             p.grad = None

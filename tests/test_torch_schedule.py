@@ -125,27 +125,35 @@ def test_wire_bytes_and_steps_tables_match_reference(strategy):
 
 
 def test_unported_plans_raise(shapes):
-    """Composed and multi-axis schedules raise ``NotImplementedError``;
-    ``auto`` as a fixed name (no selector) is no strategy, a ValueError
-    as in the reference.  ``AggregatorConfig(strategy="auto")`` and
-    ``overlap=True`` validate since the selector and the overlap channel
-    were ported."""
+    """What still raises: the model bracket and meshes of three dp axes
+    (``NotImplementedError``, naming the model-axis slice), and a
+    composed name on one axis or ``auto`` as a fixed name (the
+    reference's ``ValueError``).  Composed and two-axis schedules,
+    ``AggregatorConfig`` with a composed name, ``auto`` and ``overlap``
+    validate."""
     from repro_torch.core import selector
     _, tstruct = shapes
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="model-axis slice"):
+        schedule.plan(tstruct, axis_names=("pod", "data"),
+                      axis_sizes=(2, 2), model_axis="model",
+                      model_axis_size=2)
+    with pytest.raises(NotImplementedError, match="model-axis slice"):
+        schedule.plan(tstruct, axis_names=("pod", "data", "x"),
+                      axis_sizes=(2, 2, 2))
+    with pytest.raises(NotImplementedError, match="model-axis slice"):
+        schedule.decompose("rhd_rsa", 1024, ("pod", "data", "x"),
+                           (2, 2, 2))
+    with pytest.raises(ValueError, match="needs a 2-axis mesh"):
         schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
                       strategy="ring_rsa×rhd_rsa")
     with pytest.raises(ValueError, match="unknown strategy"):
         schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
                       strategy="auto")
-    with pytest.raises(NotImplementedError):
-        schedule.plan(tstruct, axis_names=("pod", "data"),
-                      axis_sizes=(2, 2))
-    with pytest.raises(NotImplementedError):
-        schedule.plan(tstruct, axis_names=("pod", "data"),
-                      axis_sizes=(2, 2),
-                      selector=selector.AnalyticSelector())
-    with pytest.raises(NotImplementedError):
-        AggregatorConfig(strategy="ring_rsa×rhd_rsa").validate()
+    for sel in (None, selector.AnalyticSelector()):
+        sched = schedule.plan(tstruct, axis_names=("pod", "data"),
+                              axis_sizes=(2, 2), selector=sel,
+                              strategy="ring_rsa×rhd_rsa")
+        assert sched.n_buckets >= 1
+    AggregatorConfig(strategy="ring_rsa×rhd_rsa").validate()
     AggregatorConfig(strategy="auto").validate()
     AggregatorConfig(overlap=True).validate()

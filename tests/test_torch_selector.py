@@ -16,8 +16,10 @@
 * ``plan(selector=...)``'s JSON equals the reference's on the reduced
   smollm-360m tree; plans under different selectors miss each other in
   the plan cache; ``strategy="auto"`` resolves through the aggregator.
-* Two-axis selection and composed candidates raise
-  ``NotImplementedError``.  Host arithmetic only: no ranks.
+* A composed candidate on one axis and three axes raise the
+  reference's ``ValueError`` (two-axis selection is held to the
+  reference in ``tests/test_torch_two_axis_plan.py``).  Host arithmetic
+  only: no ranks.
 """
 import json
 import math
@@ -259,19 +261,24 @@ def test_make_selector_and_config_validation():
 
 
 def test_two_axis_and_composed_selection_raise():
+    """What still raises in selection, as in the reference: a composed
+    candidate on one axis (``ValueError``: it needs two) and three axes
+    (``ValueError``).  Two-axis selection itself answers."""
     sel = S.AnalyticSelector()
-    for call in (lambda: sel.choose(1024, (2, 4)),
-                 lambda: sel.switch_points((2, 4)),
-                 lambda: S.predict_latency("rhd_rsa", 1024, (2, 4)),
-                 lambda: S.AnalyticSelector(
-                     candidates=S.COMPOSED_CANDIDATES).choose(1024, (4,))):
-        with pytest.raises(NotImplementedError):
-            call()
-    emp = S.EmpiricalSelector(S.build_analytic_table(ps=(4,), sizes=(0,)))
-    with pytest.raises(NotImplementedError):
-        emp.choose(1024, (2, 2))
+    with pytest.raises(ValueError, match="needs a 2-axis mesh"):
+        S.AnalyticSelector(candidates=S.COMPOSED_CANDIDATES).choose(1024,
+                                                                    (4,))
+    with pytest.raises(ValueError, match="needs a 2-axis mesh"):
+        S.predict_latency("ring_rsa×rhd_rsa", 1024, (4,))
     with pytest.raises(ValueError, match="1- or 2-axis"):
         sel.choose(1024, (2, 2, 2))
+    with pytest.raises(ValueError, match="1- or 2-axis"):
+        S.predict_latency("rhd_rsa", 1024, (2, 2, 2))
+    assert sel.choose(1024, (2, 4)).strategy in \
+        S.DEFAULT_CANDIDATES + S.COMPOSED_CANDIDATES
+    assert isinstance(sel.switch_points((2, 4)), tuple)
+    emp = S.EmpiricalSelector(S.build_analytic_table(ps=(4,), sizes=(0,)))
+    assert emp.choose(1024, (2, 2)).strategy == "rhd_rsa"
 
 
 # ---------------------------------------------------------------------------
