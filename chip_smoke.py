@@ -1307,7 +1307,8 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
     if args.device == "cuda":
         torch.cuda.set_device(0)
     group = Group()
-    trainer = build_trainer(args, group=group, verbose=False, spec=spec)
+    trainer = build_trainer(args, verbose=False, spec=spec,
+                            groups={"data": group})
     module, opt_state = trainer.init_state(args.seed)
     n_params = sum(p.numel() for p in module.parameters())
     steps = []
@@ -1345,7 +1346,8 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
     for device in ("cpu", args.device):
         small = build_trainer(argparse.Namespace(**{**vars(small_args),
                                                     "device": device}),
-                              group=group, verbose=False, spec=small_spec)
+                              groups={"data": group}, verbose=False,
+                              spec=small_spec)
         if init is None:
             init = small.init_state(small_args.seed)[0].tree()
         mod = TransformerLM(small.model.spec, tree.tree_map(
@@ -1484,8 +1486,8 @@ def cnn_trainer(name, strategy, image, batch, dtype, device, group,
         aggregator=agg, clip_norm=1e30))
     data = SyntheticImages(batch, image_size=image, device=data_device)
     return Trainer(build_cnn(CnnSpec(name, image_size=image, dtype=dtype)),
-                   sgd(0.05, momentum=0.0), data.batch_at, cfg, group=group,
-                   device=device, verbose=False)
+                   sgd(0.05, momentum=0.0), data.batch_at, cfg,
+                   device=device, verbose=False, groups={"data": group})
 
 
 def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile,
@@ -1939,7 +1941,7 @@ def overlap_rank(rank, world, args, runs_spec, table):
     runs = []
     for label, strategy, overlap in runs_spec:
         a = argparse.Namespace(**{**vars(args), "strategy": strategy})
-        trainer = build_trainer(a, group=group, verbose=False,
+        trainer = build_trainer(a, verbose=False, groups={"data": group},
                                 aggregator=_overlap_config(a, overlap,
                                                            table))
         module, opt_state = trainer.init_state(args.seed)

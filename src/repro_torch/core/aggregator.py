@@ -157,7 +157,7 @@ class GradientAggregator:
             selector=self.selector, threshold_bytes=cfg.threshold_bytes,
             fuse=cfg.fuse, groups=groups, wire_dtype=self._wire_dtype(),
             align_buckets=cfg.align_buckets, placement=cfg.placement,
-            intra=cfg.selector_link, inter="dcn",
+            intra=cfg.selector_link,
             codec=cfg.codec or "none",
             error_feedback=cfg.error_feedback, fused_hops=cfg.fused_hops,
             cache=self.cache)

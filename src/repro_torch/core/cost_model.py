@@ -98,15 +98,15 @@ def allreduce_latency(strategy: str, n_bytes: float, p: int,
 
 def composed_latency(outer_alg: str, n_bytes: float, d: int, pods: int,
                      intra: LinkParams = ICI,
-                     inter: LinkParams = DCN,
                      gamma: float = GAMMA_S_PER_BYTE) -> float:
     """Two-level composed schedule: ring reduce-scatter over d (intra)
-    + ``outer_alg`` allreduce of N/d over pods (inter) + ring allgather
+    + ``outer_alg`` allreduce of N/d over pods (on :data:`DCN`, the
+    reference's default cross-pod link) + ring allgather
     over d.  ``hierarchical`` is its ``outer_alg="rhd_rsa"`` point."""
     frac_d = (d - 1) / d
     rs = (d - 1) * intra.alpha_s + n_bytes * frac_d * intra.beta \
         + n_bytes * frac_d * gamma
-    mid = allreduce_latency(outer_alg, n_bytes / d, pods, link=inter,
+    mid = allreduce_latency(outer_alg, n_bytes / d, pods, link=DCN,
                             gamma=gamma)
     ag = (d - 1) * intra.alpha_s + n_bytes * frac_d * intra.beta
     return rs + mid + ag
@@ -114,16 +114,14 @@ def composed_latency(outer_alg: str, n_bytes: float, d: int, pods: int,
 
 def hierarchical_latency(n_bytes: float, d: int, pods: int,
                          intra: LinkParams = ICI,
-                         inter: LinkParams = DCN,
                          gamma: float = GAMMA_S_PER_BYTE) -> float:
     """The fixed-RHD point of :func:`composed_latency`."""
     return composed_latency("rhd_rsa", n_bytes, d, pods, intra=intra,
-                            inter=inter, gamma=gamma)
+                            gamma=gamma)
 
 
 def flat_multiaxis_latency(strategy: str, n_bytes: float, d: int, pods: int,
-                           intra: LinkParams = ICI,
-                           inter: LinkParams = DCN) -> float:
+                           intra: LinkParams = ICI) -> float:
     """The flat fold over two axes: a full allreduce per axis."""
     return (allreduce_latency(strategy, n_bytes, d, link=intra)
-            + allreduce_latency(strategy, n_bytes, pods, link=inter))
+            + allreduce_latency(strategy, n_bytes, pods, link=DCN))

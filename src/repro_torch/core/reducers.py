@@ -12,9 +12,10 @@ chunk along the leading dim (padding as needed), as the reference does.
                with MVAPICH2's pre/post fold for non-power-of-two p
 ``ps_gather``  all-gather + local reduce (the parameter-server pattern);
                fused, the reduce is kernel K4
-``hierarchical``  two levels (pod × data): ring reduce-scatter inside the
-               pod, ``rhd_rsa`` of the 1/d chunk across pods, ring
-               all-gather inside the pod
+``hierarchical``  two levels (pod × data), the stages of ``ring_rsa×rhd_rsa``
+               (:func:`allreduce`): ring reduce-scatter inside the pod,
+               ``rhd_rsa`` of the 1/d chunk across pods, ring all-gather
+               inside the pod
 
 A reducer's ``axis`` is a :class:`~repro_torch.core.dist.Group`.
 """
@@ -183,17 +184,6 @@ def ps_gather(x: torch.Tensor, axis, *, fused: bool = False) -> torch.Tensor:
     return torch.sum(gathered, dim=0)
 
 
-def hierarchical(x: torch.Tensor, data_axis, pod_axis) -> torch.Tensor:
-    """Two-level allreduce (beyond the paper, multi-pod): ring
-    reduce-scatter inside the pod, RHD allreduce of the 1/d chunk across
-    pods (the slow links carry N/d bytes instead of N), ring all-gather
-    inside the pod.  Any pod count: a non-pow2 one takes ``rhd_rsa``'s
-    pre/post fold."""
-    chunk, n = ring_reduce_scatter(x, data_axis)
-    chunk = rhd_rsa(chunk, pod_axis)
-    return ring_all_gather(chunk, data_axis, n)
-
-
 # ---------------------------------------------------------------------------
 # stage executor
 # ---------------------------------------------------------------------------
@@ -286,23 +276,17 @@ def execute_stages(x: torch.Tensor, stages, groups) -> torch.Tensor:
 
 def allreduce(x: torch.Tensor, axes, strategy: str) -> torch.Tensor:
     """Sum-allreduce ``x`` over the groups ``axes`` (outermost first)
-    with ``strategy``.  Flat strategies fold a full allreduce over each
-    axis, innermost first; ``hierarchical`` composes the two levels
-    (``ring_rsa`` on a single axis)."""
+    with ``strategy``: the stages of its decomposition tree (a flat name
+    folds a full allreduce per axis, innermost first; ``hierarchical``
+    is ``ring_rsa×rhd_rsa`` on two axes and ``ring_rsa`` on one)."""
+    from . import schedule
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
-    axes = tuple(axes)
-    if strategy == "hierarchical":
-        if len(axes) == 1:
-            return ring_rsa(x, axes[0])
-        if len(axes) != 2:
-            raise ValueError("hierarchical expects (pod_axis, data_axis)")
-        pod_axis, data_axis = axes
-        return hierarchical(x, data_axis=data_axis, pod_axis=pod_axis)
-    fn = _FLAT_FNS[strategy]
-    for ax in reversed(axes):
-        x = fn(x, ax)
-    return x
+    names = tuple(f"ax{i}" for i in range(len(tuple(axes))))
+    groups = dict(zip(names, axes))
+    stages = schedule.decompose(strategy, x.numel() * x.element_size(),
+                                names, [axis_size(g) for g in groups.values()])
+    return execute_stages(x, stages, groups)
 
 
 # ---------------------------------------------------------------------------

@@ -322,10 +322,11 @@ def from_json(rec: dict) -> ReduceSchedule:
 # Decomposition
 # ---------------------------------------------------------------------------
 
-def _stage_link(i: int, n_axes: int, intra, inter):
+def _stage_link(i: int, n_axes: int, intra):
     """Axis 0 of a two-axis mesh is the outer (cross-pod) level and rides
-    the inter link; every other axis the intra link."""
-    return inter if (n_axes > 1 and i == 0) else intra
+    the cross-pod link (:data:`cost_model.DCN`, the reference's default);
+    every other axis the intra link."""
+    return cost_model.DCN if (n_axes > 1 and i == 0) else intra
 
 
 def _stage_fused(alg: str, fused: bool) -> bool:
@@ -364,7 +365,6 @@ def _flat_allreduce_stage(alg: str, cname: str, axis: str, p: int,
 
 def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
               axis_sizes: Sequence[int], intra=cost_model.ICI,
-              inter=cost_model.DCN,
               gamma: float = cost_model.GAMMA_S_PER_BYTE,
               codec: str = "none", wire_itemsize: int = 4,
               fused: bool = False) -> tuple[Stage, ...]:
@@ -373,8 +373,8 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
 
     A flat strategy folds a full allreduce per axis, innermost first;
     a composed one runs ``reduce_scatter@inner -> allreduce@outer ->
-    all_gather@inner`` (the outer level on the 1/d chunk, over the inter
-    link).  ``codec`` is a bare name for every level or
+    all_gather@inner`` (the outer level on the 1/d chunk, over the
+    cross-pod link).  ``codec`` is a bare name for every level or
     ``"<inner>×<outer>"`` (levels innermost first); stages with no hop
     (psum, ps_gather) carry none.  ``fused`` marks the accumulating
     stages that can fuse; the all-gather leg only forwards and keeps the
@@ -387,7 +387,6 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
         raise NotImplementedError(
             f"dp axes {names}: meshes of three axes wait for {NEXT_SLICE}")
     intra = cost_model.resolve_link(intra)
-    inter = cost_model.resolve_link(inter)
     strategy = normalize_strategy(strategy, len(names))
     parts = split_strategy(strategy)
     n_bytes = int(n_bytes)
@@ -399,7 +398,7 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
         return tuple(
             _flat_allreduce_stage(
                 alg, cparts[len(names) - 1 - i], names[i], sizes[i],
-                n_bytes, _stage_link(i, len(names), intra, inter), gamma,
+                n_bytes, _stage_link(i, len(names), intra), gamma,
                 wire_itemsize, fused=fused)
             for i in range(len(names) - 1, -1, -1))
 
@@ -440,11 +439,13 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
             axis_size=pods, n_bytes=chunk,
             wire_bytes=reducers.wire_bytes(outer_alg, chunk, pods),
             predicted_s=cost_model.allreduce_latency(
-                outer_alg, n_bytes / d, pods, link=inter, gamma=gamma),
+                outer_alg, n_bytes / d, pods, link=cost_model.DCN,
+                gamma=gamma),
             fused_hop=_stage_fused(outer_alg, fused)))
     else:
         stages.append(_flat_allreduce_stage(
-            outer_alg, outer_codec, outer_axis, pods, chunk, inter, gamma,
+            outer_alg, outer_codec, outer_axis, pods, chunk, cost_model.DCN,
+            gamma,
             wire_itemsize, fused=fused))
     if d > 1:
         stages.append(Stage(
@@ -458,7 +459,7 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
 
 def strategy_latency(strategy: str, n_bytes: float,
                      axis_sizes: Sequence[int], intra=cost_model.ICI,
-                     inter=cost_model.DCN, codec: str = "none",
+                     codec: str = "none",
                      wire_itemsize: int = 4, fused: bool = False) -> float:
     """Cost-model latency of one allreduce of ``n_bytes`` with
     ``strategy`` over ``axis_sizes`` (outermost first): the stage sum of
@@ -467,7 +468,7 @@ def strategy_latency(strategy: str, n_bytes: float,
     names = tuple(f"ax{i}" for i in range(len(sizes)))
     return sum(st.predicted_s
                for st in decompose(strategy, int(n_bytes), names, sizes,
-                                   intra=intra, inter=inter, codec=codec,
+                                   intra=intra, codec=codec,
                                    wire_itemsize=wire_itemsize,
                                    fused=fused))
 
@@ -495,7 +496,7 @@ class ScheduleRequest:
                                    # fingerprint)
     switch_points: tuple[int, ...]
     placement: str
-    link_key: tuple                # (intra α, intra bw, inter α, inter bw)
+    link_key: tuple                # (alpha, bandwidth) of the intra link
     codec: str = "none"
     error_feedback: bool = False
     model_key: Hashable = None
@@ -524,7 +525,7 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
          threshold_bytes: int = 4 << 20, fuse: bool = True,
          groups=None, wire_dtype: str = "float32",
          align_buckets: bool = True, placement: str = "post_backward",
-         intra=cost_model.ICI, inter=cost_model.DCN, codec: str = "none",
+         intra=cost_model.ICI, codec: str = "none",
          error_feedback: bool = False,
          model_axis: "str | None" = None, model_axis_size: int = 1,
          fused_hops: "bool | None" = None, cache=None) -> ReduceSchedule:
@@ -551,7 +552,6 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
     if placement not in PLACEMENTS:
         raise ValueError(f"placement {placement!r} not in {PLACEMENTS}")
     intra = cost_model.resolve_link(intra)
-    inter = cost_model.resolve_link(inter)
     if wire_dtype not in DTYPES:
         raise ValueError(f"wire dtype {wire_dtype!r} not in {list(DTYPES)}")
     wire_itemsize = DTYPES[wire_dtype].itemsize
@@ -586,7 +586,7 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
             else:
                 strat = normalize_strategy(strategy, len(names))
             stages = decompose(strat, n_bytes, names, sizes, intra=intra,
-                               inter=inter, codec=codec,
+                               codec=codec,
                                wire_itemsize=wire_itemsize, fused=fused)
             if predicted is None:
                 predicted = sum(st.predicted_s for st in stages)
@@ -610,8 +610,7 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
         wire_dtype=wire_dtype, axis_names=names, axis_sizes=sizes,
         strategy_context=strategy_context, switch_points=switch,
         placement=placement,
-        link_key=(intra.alpha_s, intra.bandwidth,
-                  inter.alpha_s, inter.bandwidth),
+        link_key=(intra.alpha_s, intra.bandwidth),
         codec=codec, error_feedback=bool(error_feedback), fused=fused)
     return cache.resolve(request, _resolve)
 

@@ -31,7 +31,8 @@ it; on ``cuda_ipc`` such a bucket runs gloo's host-staged allreduce, as
 
 On a two-axis mesh (``("pod", "data")``) the pool widens to the composed
 two-level schedules (:data:`COMPOSED_CANDIDATES`): the choice is per
-bucket and per level, the outer level priced on ``inter_link``.
+bucket and per level, the outer level priced on the reference's
+cross-pod link (:data:`cost_model.DCN`).
 """
 from __future__ import annotations
 
@@ -71,22 +72,20 @@ class Choice:
 def predict_latency(strategy: str, n_bytes: float,
                     axis_sizes: Sequence[int],
                     link: cost_model.LinkParams = cost_model.ICI,
-                    inter_link: cost_model.LinkParams = cost_model.DCN,
                     codec: str = "none", wire_itemsize: int = 4,
                     fused: bool = False) -> float:
     """Cost-model latency of ``strategy`` (flat, composed, or the
     ``hierarchical`` alias) for one allreduce of ``n_bytes`` over
     ``axis_sizes`` (outermost first): the stage sum of its decomposition
-    tree, the outer level of two on ``inter_link``.  ``codec`` prices the
-    encoded β term and the quantize toll on the algorithms that carry
-    it; ``fused`` prices that toll at the fused-hop γ."""
+    tree, the outer level of two on :data:`cost_model.DCN`.  ``codec``
+    prices the encoded β term and the quantize toll on the algorithms
+    that carry it; ``fused`` prices that toll at the fused-hop γ."""
     sizes = tuple(int(s) for s in axis_sizes)
     if len(sizes) > 2:
         raise ValueError(f"selector supports 1- or 2-axis meshes, "
                          f"got {sizes}")
     return schedule_mod.strategy_latency(strategy, n_bytes, sizes,
-                                         intra=link, inter=inter_link,
-                                         codec=codec,
+                                         intra=link, codec=codec,
                                          wire_itemsize=wire_itemsize,
                                          fused=fused)
 
@@ -119,12 +118,11 @@ class AnalyticSelector(Selector):
 
     mode = "analytic"
 
-    def __init__(self, link=cost_model.ICI, inter_link=cost_model.DCN,
+    def __init__(self, link=cost_model.ICI,
                  candidates: Sequence[str] = DEFAULT_CANDIDATES,
                  codec: str = "none", wire_itemsize: int = 4,
                  fused: bool = False):
         self.link = resolve_link(link)
-        self.inter_link = resolve_link(inter_link)
         for s in candidates:
             if not schedule_mod.is_strategy(s):
                 raise ValueError(f"unknown candidate strategy {s!r}")
@@ -150,7 +148,7 @@ class AnalyticSelector(Selector):
         best, best_t = None, math.inf
         for s in self.candidates_for(sizes):
             t = predict_latency(s, n_bytes, sizes, self.link,
-                                self.inter_link, codec=self.codec,
+                                codec=self.codec,
                                 wire_itemsize=self.wire_itemsize,
                                 fused=self.fused)
             if t < best_t:            # strict: the first listed wins ties
@@ -200,8 +198,11 @@ class AnalyticSelector(Selector):
         return segments
 
     def fingerprint(self) -> Hashable:
+        # The reference's fingerprint also names its cross-pod link; the
+        # port always prices that level on the reference's default (DCN),
+        # so it stands here as a constant.
         fp = ("analytic", self.link.alpha_s, self.link.bandwidth,
-              self.inter_link.alpha_s, self.inter_link.bandwidth,
+              cost_model.DCN.alpha_s, cost_model.DCN.bandwidth,
               self.candidates)
         if self.codec != "none":
             fp = fp + (self.codec, self.wire_itemsize)
@@ -426,7 +427,6 @@ def crossover_bytes(p: int, link=cost_model.ICI,
 
 
 def make_selector(mode: str = "analytic", table=None, link=cost_model.ICI,
-                  inter_link=cost_model.DCN,
                   candidates: Sequence[str] = DEFAULT_CANDIDATES,
                   codec: str = "none", wire_itemsize: int = 4,
                   fused: bool = False) -> Selector:
@@ -436,8 +436,7 @@ def make_selector(mode: str = "analytic", table=None, link=cost_model.ICI,
     prices the fused-hop γ (analytic only: a table's rows already hold
     the path they were measured on)."""
     if mode == "analytic":
-        return AnalyticSelector(link=link, inter_link=inter_link,
-                                candidates=candidates,
+        return AnalyticSelector(link=link, candidates=candidates,
                                 codec=codec, wire_itemsize=wire_itemsize,
                                 fused=fused)
     if mode == "empirical":

@@ -22,40 +22,30 @@ from ..core.dist import Group
 DP_AXES = ("pod", "data")
 
 
-def make_groups(pods: int, data: int, transport: str | None = None,
-                ranks=None) -> dict:
+def make_groups(pods: int, data: int, transport: str | None = None) -> dict:
     """``{"pod": Group, "data": Group}`` of this rank on a ``pods × data``
-    mesh (``pods = 0``: ``{"data": Group}`` over the whole world).
-
-    ``ranks``: the global ranks that make up the mesh, pod major
-    (default: the whole world, which must then have ``pods · data``
-    ranks); a rank outside it gets ``{}``.  Collective over the world:
-    every rank calls ``dist.new_group`` for every subgroup, data groups
-    first, then pod groups, in the same order, and keeps the two it
-    belongs to.  ``transport`` as in :class:`~repro_torch.core.dist.
+    mesh of the whole world (``pods · data`` ranks).  Collective over the
+    world: every rank calls ``dist.new_group`` for every subgroup, data
+    groups first, then pod groups, in the same order, and keeps the two
+    it belongs to.  ``transport`` as in :class:`~repro_torch.core.dist.
     Group` (default: the world's)."""
     pods, data = int(pods), int(data)
-    if not pods:
-        return {"data": Group(name="data", transport=transport)}
     world = dist.get_world_size() if dist.is_initialized() else 1
-    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
-    if len(ranks) != pods * data:
+    if world != pods * data:
         raise ValueError(f"a {pods} x {data} mesh needs {pods * data} "
-                         f"ranks, got {len(ranks)}")
+                         f"ranks, the world has {world}")
     if world == 1:
         return {ax: Group(name=ax, transport=transport) for ax in DP_AXES}
     rank = dist.get_rank()
     mine = {}
-    layouts = (("data", [ranks[k * data:(k + 1) * data]
+    layouts = (("data", [list(range(k * data, (k + 1) * data))
                          for k in range(pods)]),
-               ("pod", [ranks[j::data] for j in range(data)]))
+               ("pod", [list(range(j, world, data)) for j in range(data)]))
     for ax, member_lists in layouts:
         for members in member_lists:
             pg = dist.new_group(members)
             if rank in members:
                 mine[ax] = pg
-    if rank not in ranks:
-        return {}
     # Group() of a cuda_ipc world checks its ranks share a host, a
     # collective over the group: every rank builds its data group first.
     out = {ax: Group(mine[ax], name=ax, transport=transport)

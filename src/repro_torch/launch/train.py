@@ -96,12 +96,12 @@ def aggregator_config(args):
                             fuse=not args.no_fuse)
 
 
-def build_trainer(args, group=None, verbose: bool = True, spec=None,
-                  aggregator=None, groups=None):
+def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
+                  groups=None):
     """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
-    for this rank (``group``: the data axis of a one-axis mesh;
-    ``groups``: the dp axes' groups of a ``PxDx1`` mesh, built here
-    through ``launch.mesh.make_groups`` when not given).  ``spec``, when
+    for this rank (``groups``: the dp axes' groups; a ``PxDx1`` mesh
+    builds them through ``launch.mesh.make_groups`` when not given, a
+    one-axis mesh defaults to the world group).  ``spec``, when
     given, is the model's :class:`~repro_torch.models.common.ModelSpec` as it is
     (a depth-cut or otherwise altered spec), in place of ``args.arch``,
     ``args.full`` and ``args.dtype``; ``aggregator``, an
@@ -136,7 +136,7 @@ def build_trainer(args, group=None, verbose: bool = True, spec=None,
         steps=args.steps, log_every=args.log_every,
         step=TrainStepConfig(aggregator=aggregator
                              or aggregator_config(args), dp_axes=dp_axes))
-    return Trainer(build_model(spec), opt, data.batch_at, cfg, group=group,
+    return Trainer(build_model(spec), opt, data.batch_at, cfg,
                    device=args.device, verbose=verbose, groups=groups)
 
 

@@ -58,14 +58,13 @@ def shard_batch(batch: dict, groups: "Sequence[dist_mod.Group]") -> dict:
 
 
 def make_train_step(model: ModelApi, optimizer: Optimizer,
-                    cfg: TrainStepConfig, group: "dist_mod.Group | None" = None,
-                    device=None,
+                    cfg: TrainStepConfig, device=None,
                     groups: "Mapping[str, dist_mod.Group] | None" = None):
     """Build the train step for this rank.
 
     ``groups`` maps each of ``cfg.dp_axes`` to its process group
-    (``launch.mesh.make_groups``); with one dp axis, ``group`` may stand
-    for it (default: the world group, or a single rank without
+    (``launch.mesh.make_groups`` for ``("pod", "data")``); one dp axis
+    defaults to the world group (a single rank without
     ``torch.distributed``).  ``device``: where the parameters live;
     ``None`` is CUDA (raises without a card).  Returns ``(step_fn,
     extras)`` with ``step_fn(params, opt_state, batch) -> (params,
@@ -79,10 +78,7 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
         if len(dp_axes) != 1:
             raise ValueError(f"dp axes {dp_axes} need their groups "
                              f"(launch.mesh.make_groups)")
-        groups = {dp_axes[0]: group if group is not None
-                  else dist_mod.Group(name=dp_axes[0])}
-    elif group is not None:
-        raise ValueError("pass group or groups, not both")
+        groups = {dp_axes[0]: dist_mod.Group(name=dp_axes[0])}
     agg = GradientAggregator(cfg.aggregator, dp_axes, groups)
     shard_groups = [agg.groups[ax] for ax in dp_axes]
 

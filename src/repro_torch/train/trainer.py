@@ -23,13 +23,12 @@ class TrainerConfig:
 
 class Trainer:
     """``data_iter_fn(step)`` returns the GLOBAL batch of a step; each
-    rank trains on its shard.  ``group``/``groups``/``device`` as in
+    rank trains on its shard.  ``groups``/``device`` as in
     :func:`~repro_torch.train.step.make_train_step`."""
 
     def __init__(self, model: ModelApi, optimizer: Optimizer,
                  data_iter_fn: Callable[[int], dict], cfg: TrainerConfig,
-                 group=None, device=None, verbose: bool = True,
-                 groups=None):
+                 device=None, verbose: bool = True, groups=None):
         self.model = model
         self.optimizer = optimizer
         self.data_iter_fn = data_iter_fn
@@ -37,8 +36,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.verbose = verbose
         self.step_fn, self.extras = make_train_step(
-            model, optimizer, cfg.step, group=group, device=self.device,
-            groups=groups)
+            model, optimizer, cfg.step, device=self.device, groups=groups)
 
     def init_state(self, seed: int = 0):
         """``(module, opt_state)`` with parameters from a seeded

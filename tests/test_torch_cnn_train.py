@@ -143,7 +143,8 @@ def _rank_train(rank, world, inits):
                 strategy=strategy,
                 fused_hops=True if strategy == "ps_gather" else None),
                 clip_norm=1e30)
-            step, extras = make_train_step(api, opt, cfg, group=Group(),
+            step, extras = make_train_step(api, opt, cfg,
+                                           groups={"data": Group()},
                                            device="cpu")
             state, losses = opt.init(params), []
             for s in range(STEPS):

@@ -275,8 +275,8 @@ def _lm_runs(rank, init_flat, batches):
         opt = adamw(LR)
         step, extras = make_train_step(
             build_model(spec), opt,
-            TrainStepConfig(aggregator=_lm_cfg(overlap_on)), group=Group(),
-            device="cpu")
+            TrainStepConfig(aggregator=_lm_cfg(overlap_on)),
+            groups={"data": Group()}, device="cpu")
         params = module.tree()
         state = opt.init(params)
         losses = []

@@ -158,7 +158,7 @@ def _rank_train(rank, world, init_flat):
         opt = adamw(LR)
         step, extras = make_train_step(
             build_model(spec), opt, TrainStepConfig(aggregator=_agg(codec)),
-            group=Group(), device="cpu")
+            groups={"data": Group()}, device="cpu")
         params = module.tree()
         state = opt.init(params)
         losses = []

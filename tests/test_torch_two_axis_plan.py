@@ -95,10 +95,9 @@ def test_two_level_cost_terms_match_reference():
             for outer in schedule.OUTER_ALGORITHMS:
                 assert cm.composed_latency(outer, n, d, pods) == \
                     jcm.composed_latency(outer, n, d, pods)
-            assert cm.hierarchical_latency(n, d, pods, intra=cm.PAPER_LINK,
-                                           inter=cm.ICI) == \
-                jcm.hierarchical_latency(n, d, pods, intra=jcm.PAPER_LINK,
-                                         inter=jcm.ICI)
+            assert cm.hierarchical_latency(n, d, pods,
+                                           intra=cm.PAPER_LINK) == \
+                jcm.hierarchical_latency(n, d, pods, intra=jcm.PAPER_LINK)
             for s in FLAT:
                 assert cm.flat_multiaxis_latency(s, n, d, pods) == \
                     jcm.flat_multiaxis_latency(s, n, d, pods)
@@ -135,7 +134,7 @@ def test_decompose_and_latency_match_reference(strategy, spec, fused):
             want = _outcome(lambda: _stage_json(jschedule.decompose(
                 strategy, n, ("pod", "data"), sizes, **kw)))
             assert got == want, (sizes, n)
-            links = dict(intra="paper", inter="ici")
+            links = dict(intra="paper")
             assert _outcome(lambda: schedule.strategy_latency(
                 strategy, n, sizes, codec=spec, fused=fused, **links)) == \
                 _outcome(lambda: jschedule.strategy_latency(
@@ -186,8 +185,9 @@ def test_composed_render_strings():
 ANALYTIC = {
     "ici": (lambda m: m.AnalyticSelector(), "none"),
     "paper_dcn": (lambda m: m.AnalyticSelector(link="paper"), "none"),
-    "ici_inter_ici": (lambda m: m.AnalyticSelector(inter_link="ici"),
-                      "none"),
+    "paper_bf16xint8": (lambda m: m.AnalyticSelector(link="paper",
+                                                     codec="bf16×int8"),
+                        "bf16×int8"),
     "int8_fused": (lambda m: m.AnalyticSelector(codec="int8", fused=True),
                    "int8"),
     "bf16xint8_fused": (lambda m: m.AnalyticSelector(codec="bf16×int8",
@@ -210,11 +210,10 @@ def test_analytic_two_axis_selection_matches_reference(case):
             assert (a.strategy, a.predicted_s) == (b.strategy, b.predicted_s)
             for s in got.candidates_for(sizes) + ("hierarchical",):
                 assert S.predict_latency(s, n, sizes, got.link,
-                                         got.inter_link, codec=got.codec,
+                                         codec=got.codec,
                                          fused=got.fused) == \
                     JS.predict_latency(s, n, sizes, want.link,
-                                       want.inter_link, codec=want.codec,
-                                       fused=want.fused)
+                                       codec=want.codec, fused=want.fused)
 
 
 def _axes_table(m):
@@ -355,7 +354,6 @@ def test_groups_without_a_process_group():
     groups = mesh_mod.make_groups(1, 1)
     assert list(groups) == ["pod", "data"]
     assert all(g.size == 1 for g in groups.values())
-    assert list(mesh_mod.make_groups(0, 1)) == ["data"]
     with pytest.raises(ValueError):
         mesh_mod.make_groups(2, 2)
     assert mesh_mod.dp_axes_of(("pod", "data", "model")) == ("pod", "data")

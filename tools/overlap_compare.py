@@ -39,7 +39,7 @@ def _trainer(model, overlap, group):
                               data_device="cuda", overlap=overlap)
     args = cs.train_args(full=True, batch=2 * cs.TRAIN_WORLD, seq=512,
                          device="cuda")
-    return build_trainer(args, group=group, verbose=False,
+    return build_trainer(args, verbose=False, groups={"data": group},
                          aggregator=dataclasses.replace(
                              aggregator_config(args), overlap=overlap))
 
