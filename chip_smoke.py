@@ -141,9 +141,37 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    per bucket per axis, and its aggregate timed alone beside phase 7's
    and beside flat ``rhd_rsa`` + int8 on the same gradient.
 
-In phases 3-9 the executors must be built once each by the end of step
+10. The model axis: full-width smollm-360m on the 4 ranks laid out as
+   data 2 x model 2 (``--mesh 2x2`` through ``build_trainer``; model
+   ranks consecutive, ``launch/mesh.py``), each rank holding its shards
+   of the model-sharded leaves and gathering them at the loss
+   (``core/manual.py``), global batch 8, 3 K5 AdamW steps per run, in
+   one spawn: uncoded ``rhd_rsa`` on gloo and on ``cuda_ipc``
+   (replicated buckets bracketed, ``rhd@data×ag@model``; a channel for
+   the model axis), bit for bit to each other, each step's global norm
+   too; the gathered parameters bit-identical on all 4 ranks; then
+   ``rhd_rsa`` + ``int8`` fused hops on ``cuda_ipc`` (the codec skips
+   the bracket).  K1-K3 must launch each step as the plan's hops imply,
+   K5 once per leaf and K6 as in phase 3; no cuda_ipc aggregate or
+   gather stage a byte through the host.  Then two data-only runs of
+   the same batch on 2 ranks.  The witness is clipped by the uncoded
+   cuda_ipc run's norms: step 1's aggregated gradient and the
+   parameters after 3 steps must equal that run's shards bit for bit
+   (both read through the step's ``inspect``), and the witness's own
+   norm of each step must be within 4 ulps of the sharded one.  The
+   data-only run as it is differs from the witness only by its norm's
+   last bit: what its 3 steps changed is printed against the
+   witness's, read with the reference wall's rtol 1e-3 / atol 5e-5.
+   Then a small float32 model at the same mesh on the card and on the
+   host must agree.  Prints the steps,
+   the plan, the model group's all-gather bytes, peak memory per rank
+   beside phase 3's and the layers timed alone.
+
+In phases 3-10 the executors must be built once each by the end of step
 1, and neither rebuilt nor added to later; the plan cache must only hit
-from step 2.  One aggregate per transport and model is profiled (every
+from step 2.  In phases 3, 4, 6, 7, 9 and 10 K1-K3 must launch each step
+as the plan's hops imply (``_plan_hop_launches``; a scaled codec encodes
+each chunk an RHD forwarding hop joins at its own scale).  One aggregate per transport and model is profiled (every
 rank of phases 3, 6 and 7's LMs, ResNet-50 rhd_rsa in phase 7) and
 split into copies host<->device and device<->device, K1-K3/K4, gloo
 waits and control waits; the profiled cuda_ipc aggregates must copy
@@ -1188,9 +1216,16 @@ def _step_breakdown(trainer, module, device, step, rank, world,
     batch = {k: v.to(device) for k, v in shard_batch(
         trainer.data_iter_fn(step),
         [agg.groups[ax] for ax in agg.dp_axes]).items()}
+    # On a model axis the gather boundary is a collective: every rank
+    # gathers first, then runs its forward+backward alone.
+    gather = trainer.extras.get("gather")
+    before = dict(core_dist.traffic)
+    t_gather, full = timed(lambda: params if gather is None
+                           else gather(params))
+    gathered = {k: core_dist.traffic[k] - before[k] for k in before}
 
     def fwd_bwd():
-        loss, _ = trainer.model.loss(params, batch)
+        loss, _ = trainer.model.loss(full, batch)
         loss.backward()
         return tree.tree_map(lambda p: p.grad, params)
 
@@ -1212,7 +1247,8 @@ def _step_breakdown(trainer, module, device, step, rank, world,
     for p in tree.leaves(params):
         p.grad = None
     return {"fwd_bwd_s": t_fb, "aggregate_s": t_agg, "optimizer_s": t_opt,
-            "traffic": traffic, "split": split}
+            "traffic": traffic, "split": split, "gather_s": t_gather,
+            "gather_traffic": gathered}
 
 
 # The aggregate's parts: device time of copies by direction and of the
@@ -1327,6 +1363,7 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
                       if args.device == "cuda" else 0.0})
     totals = _counts()                        # main path ends here
     scalar = _scalar_counts()
+    plan = _plan_hop_launches(trainer.extras["aggregator"].last_schedule)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if args.device == "cuda" else 0.0
     reserved_gib = torch.cuda.max_memory_reserved() / 2 ** 30 \
@@ -1361,7 +1398,7 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
     return {"rank": rank, "n_params": n_params, "steps": steps,
             "breakdown": breakdown,
             "totals": totals, "scalar": scalar, "checksum": checksum,
-            "peak_gib": peak_gib, "reserved_gib": reserved_gib,
+            "plan_launches": plan, "peak_gib": peak_gib, "reserved_gib": reserved_gib,
             "card_gib": card_gib, "released_gib": released_gib,
             "small_losses": losses, "small_param_diff": param_diff}
 
@@ -1451,6 +1488,14 @@ def run_phase(world, args, small, required, spec=None, small_spec=None,
                 f"rank {r['rank']}: a kernel never launched {r['totals']}")
         require(all(math.isfinite(rec["loss"]) for rec in r["steps"]),
                 f"rank {r['rank']}: non-finite loss")
+        want = r["plan_launches"]
+        for s_, rec in enumerate(r["steps"], 1):
+            got = {k: rec["launches"][k] for k in want}
+            require(got == want, f"rank {r['rank']} step {s_}: K1-K3 "
+                                 f"launched {got}, the plan's hops imply "
+                                 f"{want}")
+    log(f"  K1-K3 per rank per step {results[0]['plan_launches']}, as the "
+        f"plan's hops imply (a joined RHD block encoded at its own scale)")
     sums = {r["checksum"] for r in results}
     require(len(sums) == 1, f"parameters differ across ranks: {sums}")
     log(f"  parameters bit-identical on all {world} ranks "
@@ -2146,24 +2191,27 @@ def _axes_table():
 
 
 def _stage_hops(st):
-    """``(accumulating hops, forwarding hops)`` a stage makes on every
-    rank: a ring reduce-scatter d-1 and d-1, an all-gather d-1
-    forwarding; an allreduce its reduce-scatter and all-gather halves
-    (RHD over log2 of its pow2 core, plus the pre-fold and post-broadcast
-    of a non-pow2 size); psum and ps_gather none."""
+    """``(accumulating hops, forwarding hops, forwarded blocks)`` a stage
+    makes on every rank: a ring reduce-scatter d-1 accumulating, an
+    all-gather d-1 forwarding (one block each); an allreduce its
+    reduce-scatter and all-gather halves (RHD over log2 of its pow2
+    core, plus the pre-fold and post-broadcast of a non-pow2 size, whose
+    forwarding hops carry 1, 2, .. core/2 chunks, then core, each at its
+    own scale on a scaled codec); psum, ps_gather and the model
+    bracket's local shard none."""
     p = st.axis_size
-    if p == 1 or st.algorithm in ("psum", "ps_gather"):
-        return 0, 0
+    if p == 1 or st.algorithm in ("psum", "ps_gather") or st.op == "shard":
+        return 0, 0, 0
     if st.op == "reduce_scatter":
-        return p - 1, 0
+        return p - 1, 0, 0
     if st.op == "all_gather":
-        return 0, p - 1
+        return 0, p - 1, p - 1
     if st.algorithm == "ring_rsa":
-        return p - 1, p - 1
+        return p - 1, p - 1, p - 1
     core = 1 << (p.bit_length() - 1)
     levels = core.bit_length() - 1
     fold = int(core != p)
-    return levels + fold, levels + fold
+    return levels + fold, levels + fold, core - 1 + fold * core
 
 
 def _plan_hop_launches(sched):
@@ -2171,26 +2219,30 @@ def _plan_hop_launches(sched):
     fused stage's accumulating hop encodes (K1 when the codec has a
     scale, K2 when it has a codec) and decodes onto its partial sum
     (K3); a forwarding hop encodes and decodes both what it received and
-    what it sent (K3 twice), or, uncoded, launches nothing.  An unfused
-    stage (the all-gather leg) runs the plain torch versions."""
+    what it sent (K3 twice), once per block it carries when the codec is
+    scaled (RHD's joined chunks), or, uncoded, launches nothing.  An
+    unfused stage (the all-gather leg) runs the plain torch versions."""
     from repro_torch.core import codec
     n = {"hop_absmax": 0, "hop_encode": 0, "hop_decode_add": 0}
     for b in sched.buckets:
         for st in b.stages:
             if not st.fused_hop:
                 continue
-            acc, fwd = _stage_hops(st)
+            acc, fwd, blocks = _stage_hops(st)
             coded = st.codec != "none"
-            n["hop_absmax"] += (acc + fwd) * codec.get(st.codec).scaled
-            n["hop_encode"] += (acc + fwd) * coded
-            n["hop_decode_add"] += acc + 2 * fwd * coded
+            scaled = codec.get(st.codec).scaled
+            units = blocks if scaled else fwd
+            n["hop_absmax"] += (acc + units) * scaled
+            n["hop_encode"] += (acc + units) * coded
+            n["hop_decode_add"] += acc + 2 * units * coded
     return n
 
 
 def _hops_per_axis(bucket):
     hops = {}
     for st in bucket.stages:
-        hops[st.axis] = hops.get(st.axis, 0) + sum(_stage_hops(st))
+        acc, fwd, _ = _stage_hops(st)
+        hops[st.axis] = hops.get(st.axis, 0) + acc + fwd
     return hops
 
 
@@ -2506,6 +2558,406 @@ def run_two_axis_phase(phase7):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model axis, data x model
+# ---------------------------------------------------------------------------
+
+MA_DATA, MA_MODEL = 2, 2              # the mesh: data 2 x model 2
+MODEL_MESH = f"{MA_DATA}x{MA_MODEL}"
+# (label, transport, codec), all rhd_rsa over the data axis and K5
+# AdamW: the uncoded runs bracket replicated buckets (rhd@data×ag@model);
+# int8 skips the bracket, as the reference's planner does.
+MODEL_RUNS = (("gloo", "gloo", "none"),
+              ("cuda_ipc", "cuda_ipc", "none"),
+              ("cuda_ipc int8", "cuda_ipc", "int8"))
+# The reference wall's tolerance on parameters held across lowerings,
+# read here on what the data-only run's 3 steps changed (p3 - p0)
+# against the witness's: the two differ only in the last bit of the
+# clip's norm, and under AdamW in bf16 compute that alone moves values
+# by up to lr (printed, not required; the model runs are held to the
+# witness bit for bit).
+MA_RTOL, MA_ATOL = 1e-3, 5e-5
+GNORM_ULPS = 4            # a norm of the same gradients, summed in another order
+
+
+def _model_args(codec, mesh=MODEL_MESH):
+    return train_args(full=True, batch=2 * MA_DATA * MA_MODEL, seq=512,
+                      device="cuda", strategy="rhd_rsa", codec=codec,
+                      mesh=mesh)
+
+
+def _model_small_args():
+    return train_args(full=False, batch=2 * MA_DATA * MA_MODEL, seq=32,
+                      steps=2, dtype="float32", strategy="rhd_rsa",
+                      codec="none", mesh=MODEL_MESH)
+
+
+def _block(full, spec, rank, m):
+    """Model rank ``rank``'s block of a full leaf (the leaf if
+    replicated)."""
+    from repro_torch.core import manual
+    d = manual.sharded_dim(spec)
+    if d is None:
+        return full
+    n = full.shape[d] // m
+    return full.narrow(d, rank * n, n)
+
+
+def _bits_equal(a, b):
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _model_checksum(tensors):
+    import torch
+    return sum(int(t.detach().view(torch.int32).to(torch.int64).sum())
+               for t in tensors)
+
+
+def _ulps(a, b):
+    """How many float32 steps apart two float32 values are."""
+    import numpy as np
+    return abs(a - b) / float(np.spacing(np.float32(max(abs(a), abs(b)))))
+
+
+def _data_only_run(groups, on_grads, norms=None):
+    """3 AdamW steps of the data-only run (``rhd_rsa`` on the data group
+    alone, 2 ranks, the same global batch) from the seed.  Each step
+    calls ``on_grads(reduced, gnorm)`` (the step's ``inspect``).  With
+    ``norms`` (one float per step) the witness run: its clip scales by
+    those norms in place of its own, whose values it returns.  Returns
+    ``(trainer, final leaves, its own norms)``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim import clip as clip_mod
+    args = _model_args("none", mesh=None)
+    dp = build_trainer(args, verbose=False, groups={"data": groups["data"]})
+    dp.extras["inspect"] = on_grads
+    module, opt_state = dp.init_state(args.seed)
+    plain_norm, own = clip_mod.global_norm, []
+
+    def fed_norm(grads, sharded=None, model_group=None):
+        x = plain_norm(grads)
+        own.append(float(x))
+        return torch.tensor(norms[len(own) - 1], dtype=x.dtype,
+                            device=x.device)
+
+    if norms is not None:
+        clip_mod.global_norm = fed_norm
+    try:
+        module, opt_state, _ = dp.run(args.steps, module, opt_state)
+    finally:
+        clip_mod.global_norm = plain_norm
+    return dp, [t.detach() for t in tree.leaves(module.tree())], own
+
+
+def model_axis_rank(rank, world, small_args):
+    """On the 2 x 2 data x model mesh (``launch.mesh.make_groups``, gloo
+    groups first, then cuda_ipc), every run K5 AdamW from one seed: each
+    run of :data:`MODEL_RUNS` through ``build_trainer``, with per-step
+    launches, the gather boundary's and the bracket's bytes, peak memory
+    and the full parameters' checksum, each step's global norm and, on
+    uncoded cuda_ipc, step 1's aggregated gradient (the step's
+    ``inspect``) and the final shards kept; then the data-only witness
+    run (2 ranks per data group, clipped by the model run's norms), held
+    to them bit for bit, its own norms beside the model run's; then the
+    data-only run as it is, what 3 steps changed against the witness's;
+    then a small float32 model on the card and on the host at the same
+    mesh."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import plan_cache
+    from repro_torch.launch.mesh import make_groups
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models.common import ParamTree
+
+    device = _model_args("none").device
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    groups = {"gloo": make_groups(1, MA_DATA, MA_MODEL, transport="gloo"),
+              "cuda_ipc": make_groups(1, MA_DATA, MA_MODEL)}
+    for g in groups.values():
+        del g["pod"]
+    require(groups["cuda_ipc"]["model"].transport == "cuda_ipc",
+            "the mesh's groups are not on cuda_ipc")
+
+    def release():
+        plan_cache.GLOBAL_EXECUTOR_CACHE.clear()     # closes the channels
+        if cuda:
+            torch.cuda.empty_cache()
+
+    runs, kept, held = [], {}, 0
+    for label, transport, codec in MODEL_RUNS:
+        args = _model_args(codec)
+        trainer = build_trainer(args, verbose=False, groups=groups[transport])
+        keep = label == "cuda_ipc"
+        gnorms = []
+
+        def inspect(reduced, gnorm, gnorms=gnorms, keep=keep):
+            gnorms.append(float(gnorm))
+            if keep and "grad1" not in kept:
+                kept["grad1"] = [g.detach().clone()
+                                 for g in tree.leaves(reduced)]
+
+        trainer.extras["inspect"] = inspect
+        module, opt_state = trainer.init_state(args.seed)
+        n_leaves = len(tree.leaves(module.tree()))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps = []
+        _reset_counts()                       # main path starts here
+        for s in range(args.steps):
+            before, cache0 = _counts(), _cache_counts()
+            module, opt_state, hist = trainer.run(1, module, opt_state,
+                                                  start_step=s)
+            after = _counts()
+            steps.append({**hist[0], "launches": {k: after[k] - before[k]
+                                                  for k in after},
+                          **_cache_delta(cache0)})
+        totals = _counts()                    # main path ends here
+        if keep:       # step 1's gradient, kept from step 1 on
+            held += sum(g.numel() * g.element_size() for g in kept["grad1"])
+        peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30 \
+            if cuda else 0.0
+        agg = trainer.extras["aggregator"]
+        sched = agg.last_schedule
+        ex = plan_cache.GLOBAL_EXECUTOR_CACHE.executor_for(
+            sched, agg.groups, args.device)
+        full = tree.leaves(trainer.full_params(module.tree()))
+        rec = {"label": label, "transport": transport, "codec": codec,
+               "steps": steps, "totals": totals, "k5": n_leaves,
+               "scalar": _scalar_counts(), "peak_gib": peak_gib,
+               "checksum": _checksum(module.tree()),
+               "full_checksum": _model_checksum(full), "gnorms": gnorms,
+               "render": sched.render(), "bracketed": sched.bracketed,
+               "plan_launches": _plan_hop_launches(sched),
+               "bracket_bytes": sum(st.wire_bytes for b in sched.buckets
+                                    for st in b.stages
+                                    if st.axis == "model"),
+               "channels": [(ch.group.name, ch.slot_bytes)
+                            for ch in ex.channels]}
+        if keep:
+            kept.update(final=[p.detach().clone()
+                               for p in tree.leaves(module.tree())],
+                        gnorms=gnorms,
+                        specs=tree.leaves(trainer.extras["mspecs"]),
+                        m_rank=trainer.extras["model_group"].rank)
+            held += sum(p.numel() * p.element_size() for p in kept["final"])
+        del opt_state, full
+        rec["breakdown"] = _step_breakdown(trainer, module, args.device,
+                                           args.steps, rank, world)
+        runs.append(rec)
+        del trainer, module
+        release()
+
+    # The witness: the data-only run clipped by the model run's norms,
+    # its gradients and parameters held to the model run's shards.
+    specs, m_rank = kept["specs"], kept["m_rank"]
+
+    def blocks_equal(fulls, shards):
+        return all(_bits_equal(_block(f, s, m_rank, MA_MODEL), x)
+                   for f, x, s in zip(fulls, shards, specs))
+
+    witness = {}
+
+    def on_witness(reduced, gnorm):
+        if "grad1_equal" not in witness:
+            witness["grad1_equal"] = blocks_equal(tree.leaves(reduced),
+                                                  kept.pop("grad1"))
+
+    dp, w_final, w_own = _data_only_run(groups["cuda_ipc"], on_witness,
+                                        norms=kept["gnorms"])
+    witness.update(
+        own_gnorms=w_own, final_equal=blocks_equal(w_final, kept["final"]),
+        final_diff=max(float((_block(f, s, m_rank, MA_MODEL) - x).abs().max())
+                       for f, x, s in zip(w_final, kept.pop("final"), specs)))
+    w_final = [t.clone() for t in w_final]
+    del dp
+    release()
+
+    # The data-only run as it is: what 3 steps changed against the
+    # witness's (the two differ only in the clip norm's last bit).
+    d_gnorms = []
+    dp, d_final, _ = _data_only_run(
+        groups["cuda_ipc"], lambda reduced, gnorm: d_gnorms.append(
+            float(gnorm)))
+    p0 = tree.leaves(dp.init_state(_model_args("none").seed)[0].tree())
+    worst = {"excess": float("-inf"), "diff": 0.0, "outside": 0}
+    upd, n_all = 0.0, 0
+    with torch.no_grad():
+        for w, d, p in zip(w_final, d_final, p0):
+            dw, dd = (w - p).float(), (d - p).float()
+            diff = (dw - dd).abs()
+            excess = diff - (MA_ATOL + MA_RTOL * dd.abs())
+            worst["excess"] = max(worst["excess"], float(excess.max()))
+            worst["diff"] = max(worst["diff"], float(diff.max()))
+            worst["outside"] += int((excess > 0).sum())
+            upd += float(dd.abs().sum())
+            n_all += dd.numel()
+    data_only = {**witness, "plain_gnorms": d_gnorms, **worst,
+                 "mean_update": upd / n_all, "n_elements": n_all}
+    del dp, d_final, p0, w_final
+    release()
+
+    # The small float32 model at the same mesh, on the host's plain
+    # versions and on the card, from one initialisation.
+    losses = {}
+    init = None
+    for label, dev in (("cpu", "cpu"), ("card", device)):
+        small = build_trainer(argparse.Namespace(**{**vars(small_args),
+                                                    "device": dev}),
+                              groups=groups["gloo"], verbose=False)
+        if init is None:
+            init = small.init_state(small_args.seed)[0].tree()
+        mod = ParamTree(tree.tree_map(
+            lambda t: t.detach().clone().to(dev), init))
+        mod, _, hist = small.run(small_args.steps, mod,
+                                 small.optimizer.init(mod.tree()))
+        losses[label] = [h["loss"] for h in hist]
+    return {"rank": rank, "data_only": data_only, "runs": runs,
+            "small_losses": losses}
+
+
+def run_model_axis_phase(phase3):
+    """Full-width smollm-360m on the 4 ranks of the card laid out as
+    data 2 x model 2, through ``build_trainer`` (``--mesh 2x2``), global
+    batch 8, 3 K5 AdamW steps per run, in one spawn.  Uncoded ``rhd_rsa``
+    on gloo and on cuda_ipc (bracketed replicated buckets, ``ag@model``),
+    bit for bit to each other, gathered parameters equal on all ranks;
+    ``rhd_rsa`` + ``int8`` fused hops on cuda_ipc (no bracket): K1-K3 per
+    step as the plan's hops imply, K5 once per leaf, K6 as in phase 3.
+    Then the data-only witness (2 ranks, clipped by the model run's
+    norms): step 1's aggregated gradient and the final parameters bit for
+    bit the model run's shards, its own norm of each step within a few
+    ulps of the model run's sharded one; and the data-only run as it is,
+    what its 3 steps changed read against the witness's (printed).  Then
+    the small float32 model, card against host.  Returns each rank's record."""
+    from repro_torch.core.dist import run_ranks
+    small = _model_small_args()
+    world = MA_DATA * MA_MODEL
+    log(f"  smollm-360m, seq 512, mesh {MODEL_MESH} (data {MA_DATA} x model "
+        f"{MA_MODEL}; {world} ranks on one card), rhd_rsa, K5 AdamW, global "
+        f"batch {2 * world} ({2 * world // MA_DATA} rows per data rank, the "
+        f"same on each model rank), {TRAIN_STEPS} steps per run: "
+        f"{[label for label, *_ in MODEL_RUNS]}, then two data-only runs on "
+        f"{MA_DATA} ranks of each data group (the witness, clipped by the "
+        f"cuda_ipc run's norms, then as it is)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        results = run_ranks(model_axis_rank, world, (small,),
+                            backend="cuda_ipc", rendezvous_dir=rdv,
+                            threads=max(1, (os.cpu_count() or 1) // world),
+                            timeout_s=600)
+    log(f"  {world} ranks done in {time.perf_counter() - t0:.1f} s")
+    by = {label: [r["runs"][i] for r in results]
+          for i, (label, *_) in enumerate(MODEL_RUNS)}
+    phase3_lm = {k: phase3[0]["steps"][0]["launches"][k]
+                 for k in ("fused_rmsnorm",)}
+    for label, recs in by.items():
+        name = f"smollm-360m {MODEL_MESH} {label}"
+        for rank, rec in enumerate(recs):
+            require(rec["label"] == label,
+                    "ranks ran the configurations in different orders")
+            _require_cached(rank, name, rec["steps"])
+            require(rec["bracketed"] == (rec["codec"] == "none"),
+                    f"rank {rank} {name}: bracketed {rec['bracketed']} "
+                    f"with codec {rec['codec']}")
+            require(("ag@model" in rec["render"]) == rec["bracketed"],
+                    f"rank {rank} {name}: plan {rec['render']}")
+            if rec["transport"] == "cuda_ipc":
+                _require_on_card(rec["breakdown"], f"rank {rank} {name}")
+                gt = rec["breakdown"]["gather_traffic"]
+                require(gt["staged_bytes"] == 0 and gt["mapped_bytes"] > 0,
+                        f"rank {rank} {name}: the gather boundary staged "
+                        f"through the host: {gt}")
+                axes = sorted(ax for ax, _ in rec["channels"])
+                require(axes == (["data", "model"] if rec["bracketed"]
+                                 else ["data"]),
+                        f"rank {rank} {name}: channels {rec['channels']}")
+            require(all(math.isfinite(s_["loss"]) for s_ in rec["steps"]),
+                    f"rank {rank} {name}: non-finite loss")
+            want = {**rec["plan_launches"], "adamw_update": rec["k5"],
+                    **phase3_lm}
+            for s_, step in enumerate(rec["steps"], 1):
+                got = {k: step["launches"][k] for k in want}
+                require(got == want, f"rank {rank} {name} step {s_}: "
+                                     f"launched {got}, expected {want}")
+        sums = {rec["full_checksum"] for rec in recs}
+        require(len(sums) == 1, f"{name}: gathered parameters differ "
+                                f"across ranks {sums}")
+        for rank in range(MA_MODEL, len(recs)):
+            require(recs[rank]["checksum"]
+                    == recs[rank % MA_MODEL]["checksum"],
+                    f"{name}: rank {rank}'s shards differ from its model "
+                    f"rank's on the other data rank")
+        rec = recs[0]
+        for s_, step in enumerate(rec["steps"], 1):
+            log(f"  {name} step {s_}: loss {step['loss']:.5f} grad_norm "
+                f"{step['grad_norm']:.5f} step_s {step['step_s']:.3f} "
+                f"buckets {step['n_buckets']} launches/rank "
+                f"{step['launches']}")
+        bd = rec["breakdown"]
+        log(f"  {name}: plan {rec['render']}; gathered parameters "
+            f"bit-identical on all {len(recs)} ranks (checksum "
+            f"{sums.pop()}); K1-K3 per step {rec['plan_launches']}, K5 "
+            f"{rec['k5']}, K6 {phase3_lm['fused_rmsnorm']}"
+            + (f"; slots per axis {rec['channels']} B"
+               if rec["channels"] else ""))
+        log(f"    model group's all-gather per step and rank: gather "
+            f"boundary {bd['gather_traffic']['staged_bytes'] or bd['gather_traffic']['mapped_bytes']} B "
+            f"({'staged' if rec['transport'] == 'gloo' else 'written through mappings'}, "
+            f"{bd['gather_s']:.4f} s), the plan's ag@model "
+            f"{rec['bracket_bytes']} B; peak GiB per rank "
+            f"{[round(r['peak_gib'], 2) for r in recs]} (phase 3, full "
+            f"replicas, 4 ranks: "
+            f"{[round(r['peak_gib'], 2) for r in phase3]})")
+        log(f"    layers timed alone: fwd_bwd_s "
+            f"{[round(r['breakdown']['fwd_bwd_s'], 4) for r in recs]}, "
+            f"aggregate_s "
+            f"{[round(r['breakdown']['aggregate_s'], 4) for r in recs]}, "
+            f"optimizer_s "
+            f"{[round(r['breakdown']['optimizer_s'], 4) for r in recs]}; "
+            f"{_traffic_line(bd)}")
+    _same_as(f"smollm-360m {MODEL_MESH}", by["gloo"], by["cuda_ipc"])
+
+    # The data-only runs against the uncoded cuda_ipc run.
+    for rank, res in enumerate(results):
+        do, model = res["data_only"], by["cuda_ipc"][rank]
+        require(by["gloo"][rank]["gnorms"] == model["gnorms"],
+                f"rank {rank}: grad_norm per step on gloo "
+                f"{by['gloo'][rank]['gnorms']}, on cuda_ipc "
+                f"{model['gnorms']}")
+        require(do["grad1_equal"], f"rank {rank}: step 1's aggregated "
+                f"gradient differs from the data-only run's")
+        require(do["final_equal"], f"rank {rank}: parameters after "
+                f"{TRAIN_STEPS} steps differ from the witness's (max "
+                f"|difference| {do['final_diff']:.3e})")
+        ulps = [_ulps(a, b) for a, b in zip(do["own_gnorms"],
+                                           model["gnorms"])]
+        log(f"  rank {rank}: step 1's aggregated gradient and the "
+            f"parameters after {TRAIN_STEPS} steps bit for bit the "
+            f"witness's; grad_norm per step, sharded {model['gnorms']}, "
+            f"the witness's own {do['own_gnorms']} ({ulps} ulps apart), the "
+            f"data-only run's {do['plain_gnorms']}")
+        require(max(ulps) <= GNORM_ULPS,
+                f"rank {rank}: the sharded norm {max(ulps):.0f} ulps from "
+                f"the norm of the same gradients")
+        log(f"    the data-only run as it is, p3 - p0 against the "
+            f"witness's: mean |p3 - p0| {do['mean_update']:.3e} over "
+            f"{do['n_elements']} values; {do['outside']} values outside "
+            f"rtol {MA_RTOL} / atol {MA_ATOL}, worst excess "
+            f"{do['excess']:.3e}, largest |difference| {do['diff']:.3e}")
+    sl = results[0]["small_losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(sl["cpu"], sl["card"]))
+    log(f"  small float32 model at mesh {MODEL_MESH}, card vs host plain "
+        f"versions: losses {sl['card']} vs {sl['cpu']} (max rel {rel:.2e})")
+    require(rel <= 1e-3, "card and host training disagree")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2590,6 +3042,10 @@ def main():
         f"{LEVEL_CODECS} on gloo and cuda_ipc, overlapped, and auto")
     phase9 = run_two_axis_phase(phase7)
 
+    log(f"phase 10: the model axis, mesh {MODEL_MESH} (data x model): "
+        f"rhd_rsa on gloo and cuda_ipc, rhd_rsa + int8 on cuda_ipc")
+    phase10 = run_model_axis_phase(phase3)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -2603,7 +3059,9 @@ def main():
                 "phase8": sum(run[field][k] for r in phase8["lm"]
                               + phase8["cnn"] for run in r["runs"]),
                 "phase9": sum(run[field][k] for r in phase9
-                              for run in r["runs"])}
+                              for run in r["runs"]),
+                "phase10": sum(run[field][k] for r in phase10
+                               for run in r["runs"])}
 
     def scalar(k):
         if k not in SCALAR:

@@ -5,6 +5,10 @@ arrays (nested dicts, the same names and shapes) and returns the port's
 tensors; ``params_to_numpy`` goes back.  ``tensor_from_numpy`` and
 ``tensor_to_numpy`` also carry bfloat16 and float8_e4m3fn arrays (the
 ``ml_dtypes`` types numpy-side) through their raw bits.
+
+On a model axis (``core/manual.py``) ``shard_from_numpy`` takes the
+reference's full tree to one model rank's shards, and ``join_shards``
+takes every model rank's shards (as numpy) back to the full tree.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from . import tree as tree_mod
+from .core.manual import sharded_dim
 
 # numpy dtype name -> (same-width integer view on both sides, torch dtype)
 _BITS = {"bfloat16": (np.int16, torch.int16, torch.bfloat16),
@@ -45,3 +50,31 @@ def params_from_numpy(tree, device=None) -> dict:
 
 def params_to_numpy(params) -> dict:
     return tree_mod.tree_map(tensor_to_numpy, params)
+
+
+def shard_from_numpy(tree, mspecs, index: int, m: int, device=None) -> dict:
+    """Model rank ``index``'s shards (of ``m``) of the full numpy tree:
+    block ``index`` along each sharded dim, replicated leaves whole."""
+
+    def leaf(a, spec):
+        a = np.asarray(a)
+        dim = sharded_dim(spec)
+        if dim is not None and m > 1:
+            n = a.shape[dim] // m
+            a = np.take(a, range(index * n, (index + 1) * n), axis=dim)
+        return tensor_from_numpy(a, device)
+
+    return tree_mod.tree_map(leaf, tree, mspecs)
+
+
+def join_shards(shards, mspecs) -> dict:
+    """The full numpy tree from every model rank's shards (numpy trees,
+    in model-rank order): the blocks of each sharded leaf concatenated
+    along its sharded dim; a replicated leaf is model rank 0's."""
+
+    def leaf(spec, *blocks):
+        dim = sharded_dim(spec)
+        return np.asarray(blocks[0]) if dim is None \
+            else np.concatenate([np.asarray(b) for b in blocks], axis=dim)
+
+    return tree_mod.tree_map(leaf, mspecs, *shards)

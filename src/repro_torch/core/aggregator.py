@@ -12,6 +12,12 @@ StageExecutor`, which owns the fused buffers and, on ``cuda_ipc``, the
 mapped receive slots, and runs each bucket stage by stage
 (:func:`repro_torch.core.reducers.execute_stages`).
 
+With a model axis (``model_axis=``, the full-manual step of
+``core/manual.py``) gradients of model-sharded leaves arrive
+shard-shaped and are reduced over the dp axes only; replicated buckets
+of an uncoded plan take the model bracket (their dp stages on a 1/m
+chunk, then an all-gather over the model group).
+
 Two placements, as in the reference: ``__call__`` reduces a gradient
 tree after backward (error feedback included), and
 :meth:`GradientAggregator.overlap_params` (``overlap=True``) reduces
@@ -115,7 +121,8 @@ class GradientAggregator:
 
     ``dp_axes`` are the dp axis names, outermost first; ``groups`` maps
     each to its :class:`~repro_torch.core.dist.Group`
-    (``launch.mesh.make_groups`` builds them for a pod × data mesh).
+    (``launch.mesh.make_groups`` builds them for a pod × data × model
+    mesh), and ``model_axis``, when set, to its group too.
     ``cache`` interns resolved schedules (default: the process-global one); their stage executors
     live in the process-global executor cache.  ``last_schedule`` is the
     schedule of the last call, ``last_overlap`` the
@@ -123,11 +130,14 @@ class GradientAggregator:
 
     def __init__(self, config: AggregatorConfig, dp_axes: Sequence[str],
                  groups: Mapping[str, "dist_mod.Group"],
-                 cache: PlanCache | None = None):
+                 cache: PlanCache | None = None,
+                 model_axis: "str | None" = None):
         config.validate()
         self.config = config
         self.dp_axes = tuple(dp_axes)
-        missing = [a for a in self.dp_axes if a not in groups]
+        self.model_axis = model_axis
+        axes = self.dp_axes + ((model_axis,) if model_axis else ())
+        missing = [a for a in axes if a not in groups]
         if missing:
             raise ValueError(f"no process group for dp axes {missing}")
         self.groups = dict(groups)
@@ -143,13 +153,18 @@ class GradientAggregator:
         cfg = self.config
         return cfg.wire_dtype or cfg.accum_dtype
 
-    def resolve(self, grads, axis_sizes: Sequence[int],
-                groups=None) -> ReduceSchedule:
+    def resolve(self, grads, axis_sizes: Sequence[int], groups=None,
+                model_axis_size: "int | None" = None) -> ReduceSchedule:
         """Resolve ``grads`` into the :class:`ReduceSchedule` IR without
-        running a reduction."""
+        running a reduction.  With a ``model_axis``, ``model_axis_size``
+        must be given and ``grads`` be shard-shaped
+        (``core/manual.py::shard_param_structs``)."""
         cfg = self.config
         if not cfg.sharding_aware:
             groups = None
+        if self.model_axis is not None and model_axis_size is None:
+            raise ValueError(f"aggregator has model_axis="
+                             f"{self.model_axis!r}; resolve needs its size")
         sched = schedule_mod.plan(
             grads, axis_names=self.dp_axes,
             axis_sizes=tuple(int(s) for s in axis_sizes),
@@ -160,13 +175,17 @@ class GradientAggregator:
             intra=cfg.selector_link,
             codec=cfg.codec or "none",
             error_feedback=cfg.error_feedback, fused_hops=cfg.fused_hops,
-            cache=self.cache)
+            model_axis=self.model_axis,
+            model_axis_size=int(model_axis_size or 1), cache=self.cache)
         self.last_schedule = sched
         return sched
 
     def _context(self, grads, groups):
         sizes = tuple(self.groups[ax].size for ax in self.dp_axes)
-        sched = self.resolve(grads, sizes, groups=groups)
+        msize = self.groups[self.model_axis].size \
+            if self.model_axis is not None else None
+        sched = self.resolve(grads, sizes, groups=groups,
+                             model_axis_size=msize)
         dp_size = 1
         for s in sizes:
             dp_size *= s
@@ -245,7 +264,12 @@ class GradientAggregator:
         the same order) through the schedule's cached
         :class:`~repro_torch.core.plan_cache.StageExecutor`, exactly as
         the post-backward path does: the same bits, at other times.
-        Every ``.grad`` must be None when the backward starts."""
+        Every ``.grad`` must be None when the backward starts.  Overlap on
+        a model axis is not ported (ROADMAP, Queue 1)."""
+        if self.model_axis is not None:
+            raise NotImplementedError(
+                f"overlap=True with a model axis ({self.model_axis!r}) is "
+                f"not ported yet (ROADMAP.md, Queue 1)")
         self._idle("overlap_params")
         sched, scale = self._context(params, groups)
         leaves = tree_mod.leaves(params)

@@ -21,9 +21,12 @@ kernels themselves.
 
 Coded forwarding hops (no accumulate) also hand back the value their
 receivers decode — see :func:`permuter` — so the rank that sent a
-reduced chunk can keep exactly what its peers hold (fault F2 in
-ROADMAP.md: the reference keeps the owner's unquantized copy, and data-
-parallel replicas drift apart by a quantum).
+reduced chunk can keep exactly what its peers hold (the reference keeps
+the owner's unquantized copy, and data-parallel replicas drift apart by
+a quantum).  A forwarding hop whose payload joins blocks that were each
+decoded at their own scale (RHD's all-gather and post-fold hops) ships
+each block at its own scale (``blocks=``), so re-encoding what a rank
+kept gives back the same bits instead of a coarser joint quantization.
 """
 from __future__ import annotations
 
@@ -182,17 +185,18 @@ def roundtrip(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def _wire(payload, scale, group, perm, consume):
-    """Ship ``payload`` as raw bytes and ``scale`` beside it, and return
-    ``consume(received payload, received scale)``.  On gloo the two go
-    as two ppermutes; on cuda_ipc the scale rides in its payload's slot
-    (one handshake) and ``consume`` reads the slot in place."""
+    """Ship ``payload`` as raw bytes and ``scale`` (None, or a 1-d f32
+    tensor of one scale per block) beside it, and return
+    ``consume(received payload, received scales)``.  On gloo the two go
+    as two ppermutes; on cuda_ipc the scales ride in their payload's
+    slot (one handshake) and ``consume`` reads the slot in place."""
     parts = [payload.reshape(-1).view(torch.uint8)]
     if scale is not None:
-        parts.append(scale.reshape(1))
+        parts.append(scale.reshape(-1))
 
     def unpack(raw, rscale=None):
         recv = raw.view(payload.dtype).reshape(payload.shape)
-        return consume(recv, None if rscale is None else rscale[0])
+        return consume(recv, rscale)
 
     return dist_mod.ppermute_parts(parts, group, perm, consume=unpack)
 
@@ -202,10 +206,14 @@ def permuter(name: str, fused: bool = False):
     payload for the hop and decodes on receipt.
 
     Coded permuters take the hop protocol ``hop(x, group, perm,
-    add=None, keep_sent=False)`` (``supports_add``): with ``add`` the
-    decode accumulates onto it, and ``keep_sent=True`` returns
-    ``(received, sent)`` where ``sent`` is this rank's own payload
-    decoded — the value its receivers hold.
+    add=None, keep_sent=False, blocks=1)`` (``supports_add``): with
+    ``add`` the decode accumulates onto it, and ``keep_sent=True``
+    returns ``(received, sent)`` where ``sent`` is this rank's own
+    payload decoded — the value its receivers hold.  ``blocks > 1``
+    splits ``x`` along dim 0 into that many equal blocks and gives each
+    a scale of its own (the encode and decode run once per block on
+    views; unscaled codecs ignore it): a block that was decoded at
+    scale ``s`` is re-encoded at ``s`` again, bit for bit.
 
     ``fused=True`` runs the encode and the decode(+accumulate) as single
     kernel passes (``kernels/fused_hop.py``) instead of staged torch ops;
@@ -217,16 +225,36 @@ def permuter(name: str, fused: bool = False):
     dec = fused_hop.hop_decode_add if fused \
         else fused_hop.decode_add_plain
 
-    def coded_ppermute(x, group, perm, add=None, keep_sent=False):
+    def encode_blocks(x, blocks):
+        if blocks == 1:
+            payload, scale = enc(c.name, x)
+            return payload, None if scale is None else scale.reshape(1)
+        coded = [enc(c.name, b) for b in x.reshape(blocks, -1).unbind(0)]
+        return (torch.stack([q for q, _ in coded]).reshape(x.shape),
+                torch.stack([s for _, s in coded]))
+
+    def decode_blocks(payload, scales, add):
+        if scales is None or scales.numel() == 1:
+            return dec(c.name, payload, None if scales is None
+                       else scales[0], add)
+        n = scales.numel()
+        adds = [None] * n if add is None else add.reshape(n, -1).unbind(0)
+        return torch.stack([
+            dec(c.name, q, s, a) for q, s, a in
+            zip(payload.reshape(n, -1).unbind(0), scales.unbind(0), adds)
+        ]).reshape(payload.shape)
+
+    def coded_ppermute(x, group, perm, add=None, keep_sent=False,
+                       blocks=1):
         if c.name == "none":
             recv = dist_mod.ppermute(x, group, perm)
             out = recv if add is None else dec("none", recv, None, add)
             return (out, x) if keep_sent else out
-        payload, scale = enc(c.name, x)
-        out = _wire(payload, scale, group, perm,
-                    lambda recv, rscale: dec(c.name, recv, rscale, add))
+        payload, scales = encode_blocks(x, int(blocks) if c.scaled else 1)
+        out = _wire(payload, scales, group, perm,
+                    lambda recv, rscales: decode_blocks(recv, rscales, add))
         if keep_sent:
-            return out, dec(c.name, payload, scale)
+            return out, decode_blocks(payload, scales, None)
         return out
 
     coded_ppermute.supports_add = True

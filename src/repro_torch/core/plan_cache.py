@@ -15,7 +15,8 @@ construction and a step does no layout work after the first.
 itself.  Built once per key, it owns what a step would otherwise
 allocate or look up again: one fused buffer per bucket that needs one,
 in the wire/accumulation dtype (the aggregator flattens into it), and,
-on each ``cuda_ipc`` axis, the :class:`~repro_torch.core.dist.IpcChannel`
+on each ``cuda_ipc`` axis (the dp axes, and the model axis of a
+bracketed schedule), the :class:`~repro_torch.core.dist.IpcChannel`
 whose receive slots the peers have mapped once, sized to that axis's
 largest hop.  ``traces`` counts
 builds (buffer allocation plus the handle exchange): a cached
@@ -165,14 +166,14 @@ def _buffer_specs(sched) -> tuple:
 
 def _slot_bytes(sched, specs) -> dict:
     """Per axis, the largest hop payload of ``sched``'s stages on that
-    axis (coded: the codec's payload and scale; uncoded: the buffer's
-    dtype, float32 wherever a bucket carries a codec), the size of that
-    axis's receive slots.  Each stage sees the buffer its predecessors
-    leave: a reduce-scatter's chunk, the rows restored by its
-    all-gather."""
+    axis (coded: the codec's payload and the most scales a hop carries;
+    uncoded: the buffer's dtype, float32 wherever a bucket carries a
+    codec), the size of that axis's receive slots.  Each stage sees the
+    buffer its predecessors leave: a reduce-scatter's chunk, the rows
+    restored by its all-gather."""
     accum = DTYPES[sched.wire_dtype]
     plan = sched.plan
-    need = {ax: 0 for ax in sched.axis_names}
+    need = {ax: 0 for ax in _axes(sched)}
     for bucket, (shape, _) in zip(sched.buckets, specs):
         axis = fusion.chunk_axis(plan.buckets[bucket.index].group, len(shape))
         shape = (shape[axis],) + shape[:axis] + shape[axis + 1:]
@@ -186,8 +187,9 @@ def _slot_bytes(sched, specs) -> dict:
             if c.name == "none":
                 parts = [hop * itemsize]
             else:
-                parts = [hop * c.itemsize] + ([codec_mod.SCALE_BYTES]
-                                              if c.scaled else [])
+                scales = reducers.hop_scales(st.algorithm, st.axis_size)
+                parts = [hop * c.itemsize] + (
+                    [codec_mod.SCALE_BYTES * scales] if c.scaled else [])
             need[st.axis] = max(need[st.axis],
                                 dist_mod.slot_bytes(parts) if hop else 0,
                                 row * itemsize)
@@ -199,10 +201,18 @@ def _slot_bytes(sched, specs) -> dict:
     return need
 
 
+def _axes(sched) -> tuple:
+    """The axes ``sched``'s stages run on: its dp axes, then the model
+    axis of a bracketed schedule."""
+    return sched.axis_names + ((sched.model_axis,) if sched.bracketed
+                               else ())
+
+
 class StageExecutor:
-    """One resolved plain-dp schedule, built once: its fused buffers and,
-    on ``cuda_ipc``, a channel per axis.  ``executor(tree, scale, residuals)``
-    mean-reduces a gradient tree bucket by bucket.
+    """One resolved schedule, built once: its fused buffers and, on
+    ``cuda_ipc``, a channel per axis (the model bracket's axis too).
+    ``executor(tree, scale, residuals)`` mean-reduces a gradient tree
+    bucket by bucket.
 
     Each bucket that must be packed or cast is flattened into the
     executor's own buffer, reused every call (the reference's donated
@@ -211,11 +221,6 @@ class StageExecutor:
     trees reduced."""
 
     def __init__(self, sched, groups, device):
-        if getattr(sched, "model_axis", None) is not None:
-            raise ValueError(
-                "StageExecutor runs plain dp schedules; model-bracket "
-                f"schedules (model_axis={sched.model_axis!r}) execute "
-                "inside the train step")
         if sched.plan is None:
             raise ValueError("StageExecutor needs an attached schedule "
                              "(plan is None)")
@@ -225,7 +230,7 @@ class StageExecutor:
         self.calls = 0
         self.buffers: list = []
         self.channels: list = []
-        self.groups = {ax: groups[ax] for ax in sched.axis_names}
+        self.groups = {ax: groups[ax] for ax in _axes(sched)}
         self._build()
 
     def _build(self):
@@ -342,7 +347,7 @@ class StageExecutorCache:
         tags = tuple(b.group for b in plan.buckets)
         gkey = tuple((ax, g.size, tuple(map(g.global_rank, range(g.size))),
                       g.transport)
-                     for ax, g in ((a, groups[a]) for a in sched.axis_names))
+                     for ax, g in ((a, groups[a]) for a in _axes(sched)))
         return (sched.fingerprint(), leaves, specs, tags,
                 sched.codec or "none", gkey, str(torch.device(device)))
 

@@ -35,13 +35,15 @@ FUSED_HOP_ALGORITHMS = ("ring_rsa", "rhd_rsa", "ps_gather")
 
 def _as_hop(permute):
     """Adapt a hop primitive to ``hop(x, group, perm, add=None,
-    keep_sent=False)``: returns ``recv`` (or ``add + recv``), and with
-    ``keep_sent`` the pair ``(recv, sent)`` where ``sent`` is what the
-    receivers decode of ``x`` (``x`` itself on an uncoded wire)."""
+    keep_sent=False, blocks=1)``: returns ``recv`` (or ``add + recv``),
+    and with ``keep_sent`` the pair ``(recv, sent)`` where ``sent`` is
+    what the receivers decode of ``x`` (``x`` itself on an uncoded
+    wire).  ``blocks`` is the number of equal blocks along dim 0 that
+    a coded wire scales each on its own (see ``core/codec.py``)."""
     if getattr(permute, "supports_add", False):
         return permute
 
-    def hop(x, group, perm, add=None, keep_sent=False):
+    def hop(x, group, perm, add=None, keep_sent=False, blocks=1):
         r = permute(x, group, perm)
         r = r if add is None else add + r
         return (r, x) if keep_sent else r
@@ -130,7 +132,10 @@ def rhd_rsa(x: torch.Tensor, axis, permute=ppermute) -> torch.Tensor:
     The allgather and post-broadcast hops keep the value they sent (see
     ``core/codec.py``): each block's holders re-encode identical copies
     at every hop, so on a coded wire every rank ends with the same bits
-    (the reference leaves each chunk's owner with its unquantized sum)."""
+    (the reference leaves each chunk's owner with its unquantized sum).
+    Those hops send ``mask`` (then ``core``) chunks that were each
+    decoded at their own scale, and ship each at that scale, so only the
+    first encode of a chunk rounds it."""
     p = axis_size(axis)
     if p == 1:
         return x
@@ -159,13 +164,13 @@ def rhd_rsa(x: torch.Tensor, axis, permute=ppermute) -> torch.Tensor:
     mask = 1
     while mask < core:
         perm = [(i, i ^ mask) for i in range(core)]
-        recv, buf = hop(buf, axis, perm, keep_sent=True)
+        recv, buf = hop(buf, axis, perm, keep_sent=True, blocks=mask)
         buf = torch.cat([recv, buf] if idx & mask else [buf, recv], dim=0)
         mask *= 2
 
     if r:
         post = [(j, core + j) for j in range(r)]
-        recv, buf = hop(buf, axis, post, keep_sent=True)
+        recv, buf = hop(buf, axis, post, keep_sent=True, blocks=core)
         if idx >= core:
             buf = recv
     return buf[:n]
@@ -327,6 +332,17 @@ def hop_elements(algorithm: str, shape, p: int,
     if algorithm == "ps_gather":
         return 0, rows * inner
     raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
+
+
+def hop_scales(algorithm: str, p: int) -> int:
+    """The most scale scalars one hop of ``algorithm`` over ``p`` ranks
+    carries on a scaled codec: RHD's doubling hops ship one per chunk
+    they join (``core / 2`` on the last), its post-fold ``core``; every
+    other hop one."""
+    if algorithm != "rhd_rsa" or p < 2:
+        return 1
+    core = _pow2_core(int(p))
+    return core if core != p else max(core // 2, 1)
 
 
 def hierarchical_wire_bytes(n_bytes: int, d: int, pods: int) -> dict:

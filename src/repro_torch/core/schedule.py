@@ -7,9 +7,9 @@ JSON-serialisable :class:`ReduceSchedule` whose ``to_json()`` (schema
 reference's for the same leaves and config — one bucket per fusion
 bucket, each with its decomposition tree of :class:`Stage` s.
 
-It plans one data axis or two (``("pod", "data")``, outermost first):
+It plans one dp axis or more (``("pod", "data")``, outermost first):
 the flat strategies ``psum``, ``ring_rsa``, ``rhd_rsa`` and
-``ps_gather``, which on two axes fold a full allreduce per axis,
+``ps_gather``, which on several axes fold a full allreduce per axis,
 innermost first; the composed two-level names ``"<inner>×<outer>"``
 (``ring_rsa×{rhd_rsa,ring_rsa,psum}``: ring reduce-scatter over the data
 axis, an allreduce of the 1/d chunk across pods, ring all-gather), of
@@ -18,8 +18,10 @@ which ``hierarchical`` is ``ring_rsa×rhd_rsa`` on two axes and
 the fused-hop default; and the per-bucket choice of a
 :class:`~repro_torch.core.selector.Selector` (``plan(selector=...)``,
 ``strategy="auto"``), whose switch points align the fusion buckets.
-The model bracket (a model axis of size > 1) and meshes of three dp
-axes raise ``NotImplementedError``: they belong to the model-axis slice.
+With a model axis (``model_axis``, size > 1; ``core/manual.py``) an
+uncoded plan gives each replicated bucket the model bracket: a local
+``shard`` opener, the dp stages on the 1/m chunk, and a closing
+``all_gather`` over the model axis (``ring@data×rhd@pod×ag@model``).
 ``plan(..., cache=)`` interns resolved schedules in a
 :class:`~repro_torch.core.plan_cache.PlanCache` keyed by
 :class:`ScheduleRequest`.
@@ -47,8 +49,6 @@ INNER_ALGORITHMS = ("ring_rsa",)
 OUTER_ALGORITHMS = ("rhd_rsa", "ring_rsa", "psum")
 SHORT_ALG = {"ring_rsa": "ring", "rhd_rsa": "rhd", "psum": "psum",
              "ps_gather": "ps"}
-# What the model-axis slice brings: the reference's tensor parallelism.
-NEXT_SLICE = "the model-axis slice (tensor parallelism, core/manual.py)"
 
 # wire / accumulation dtype names
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -152,7 +152,10 @@ class BucketSchedule:
         """``ring@data×rhd@pod`` for a composed bucket, ``rhd@data`` for
         a flat one (a reduce-scatter/all-gather pair collapses onto its
         level); coded stages carry ``:codec``
-        (``ring@data:bf16×rhd@pod:int8``)."""
+        (``ring@data:bf16×rhd@pod:int8``).  The model bracket's closing
+        all-gather renders as a level of its own
+        (``ring@data×rhd@pod×ag@model``); its ``shard`` opener is
+        silent."""
         parts = []
         skip_ag = set()
         for i, st in enumerate(self.stages):
@@ -199,6 +202,10 @@ class ReduceSchedule:
     buckets: tuple[BucketSchedule, ...]
     codec: str = "none"
     error_feedback: bool = False
+    # The model bracket's axis (not a dp axis, so not in axis_names);
+    # emitted and fingerprinted only when set.
+    model_axis: "str | None" = None
+    model_axis_size: int = 1
     plan: "fusion.FusionPlan | None" = None   # None = detached
 
     @property
@@ -231,6 +238,10 @@ class ReduceSchedule:
         return " + ".join(f"{r}×{n}" if n > 1 else r
                           for r, n in sorted(counts.items()))
 
+    @property
+    def bracketed(self) -> bool:
+        return self.model_axis is not None and self.model_axis_size > 1
+
     def to_json(self) -> dict:
         """Schema ``repro/schedule/v1`` (the per-bucket form)."""
         rec = {
@@ -251,6 +262,9 @@ class ReduceSchedule:
             rec["codec"] = self.codec
         if self.error_feedback:
             rec["error_feedback"] = True
+        if self.bracketed:
+            rec["model_axis"] = self.model_axis
+            rec["model_axis_size"] = self.model_axis_size
         rec["buckets"] = [b.to_json() for b in self.buckets]
         return rec
 
@@ -279,20 +293,25 @@ class ReduceSchedule:
             struct["codec"] = self.codec
         if self.error_feedback:
             struct["error_feedback"] = True
+        if self.bracketed:
+            struct["model_axis"] = self.model_axis
+            struct["model_axis_size"] = self.model_axis_size
         blob = json.dumps(struct, sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
 
 
 def from_json(rec: dict) -> ReduceSchedule:
-    """Rebuild a DETACHED schedule (``plan=None``) from ``to_json``."""
+    """Rebuild a DETACHED schedule (``plan=None``) from ``to_json``
+    output, or from the reference's grouped form (``to_json(group=
+    True)``), whose entries expand into ``count`` buckets with their
+    indices and readiness ranks (reverse plan order unless the record
+    lists them)."""
     if rec.get("schema") != SCHEMA:
         raise ValueError(f"schedule schema must be {SCHEMA!r}, "
                          f"got {rec.get('schema')!r}")
-    if rec.get("grouped") or rec.get("model_axis"):
-        raise NotImplementedError(f"grouped and model-bracket records "
-                                  f"wait for {NEXT_SLICE}")
+    n_total = sum(int(e.get("count", 1)) for e in rec["buckets"])
     buckets = []
-    for i, entry in enumerate(rec["buckets"]):
+    for entry in rec["buckets"]:
         stages = tuple(Stage(op=s["op"], algorithm=s["algorithm"],
                              axis=s["axis"], axis_size=int(s["axis_size"]),
                              n_bytes=int(s["bytes"]),
@@ -301,13 +320,21 @@ def from_json(rec: dict) -> ReduceSchedule:
                              codec=s.get("codec", "none"),
                              fused_hop=bool(s.get("fused_hop", False)))
                        for s in entry["stages"])
-        buckets.append(BucketSchedule(
-            index=int(entry.get("index", i)),
-            leaf_indices=tuple(entry.get("leaf_indices", ())),
-            size=int(entry["size"]), n_bytes=int(entry["bytes"]),
-            readiness_rank=int(entry["readiness_rank"]),
-            strategy=entry["strategy"], stages=stages,
-            predicted_s=float(entry["predicted_s"])))
+        ranks = entry.get("readiness_ranks")
+        for j in range(int(entry.get("count", 1))):
+            i = len(buckets)
+            if ranks is not None:
+                rank = int(ranks[j])
+            elif "readiness_rank" in entry:
+                rank = int(entry["readiness_rank"])
+            else:
+                rank = n_total - 1 - i
+            buckets.append(BucketSchedule(
+                index=int(entry.get("index", i)),
+                leaf_indices=tuple(entry.get("leaf_indices", ())),
+                size=int(entry["size"]), n_bytes=int(entry["bytes"]),
+                readiness_rank=rank, strategy=entry["strategy"],
+                stages=stages, predicted_s=float(entry["predicted_s"])))
     return ReduceSchedule(
         axis_names=tuple(rec["axis_names"]),
         axis_sizes=tuple(int(s) for s in rec["axis_sizes"]),
@@ -315,7 +342,9 @@ def from_json(rec: dict) -> ReduceSchedule:
         threshold_bytes=int(rec["threshold_bytes"]),
         switch_points=tuple(int(s) for s in rec["switch_points"]),
         buckets=tuple(buckets), codec=rec.get("codec", "none"),
-        error_feedback=bool(rec.get("error_feedback", False)), plan=None)
+        error_feedback=bool(rec.get("error_feedback", False)),
+        model_axis=rec.get("model_axis"),
+        model_axis_size=int(rec.get("model_axis_size", 1)), plan=None)
 
 
 # ---------------------------------------------------------------------------
@@ -323,9 +352,9 @@ def from_json(rec: dict) -> ReduceSchedule:
 # ---------------------------------------------------------------------------
 
 def _stage_link(i: int, n_axes: int, intra):
-    """Axis 0 of a two-axis mesh is the outer (cross-pod) level and rides
-    the cross-pod link (:data:`cost_model.DCN`, the reference's default);
-    every other axis the intra link."""
+    """Axis 0 of a mesh of several dp axes is the outer (cross-pod)
+    level and rides the cross-pod link (:data:`cost_model.DCN`, the
+    reference's default); every other axis the intra link."""
     return cost_model.DCN if (n_axes > 1 and i == 0) else intra
 
 
@@ -363,34 +392,69 @@ def _flat_allreduce_stage(alg: str, cname: str, axis: str, p: int,
                  codec=eff, fused_hop=fuse)
 
 
+def bracket_chunk_bytes(n_bytes: int, m: int, wire_itemsize: int) -> int:
+    """One model rank's chunk of a bracketed bucket: the elements padded
+    up to a multiple of ``m`` (the ``shard`` stage pads the buffer), 1/m
+    of that payload."""
+    elems = max(int(n_bytes) // int(wire_itemsize), 1)
+    padded = elems + (-elems) % int(m)
+    return (padded // int(m)) * int(wire_itemsize)
+
+
 def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
               axis_sizes: Sequence[int], intra=cost_model.ICI,
               gamma: float = cost_model.GAMMA_S_PER_BYTE,
               codec: str = "none", wire_itemsize: int = 4,
+              model_axis: "str | None" = None, model_axis_size: int = 1,
               fused: bool = False) -> tuple[Stage, ...]:
-    """The decomposition tree of one bucket, on one or two axes
-    (outermost first), with the reference's wire bytes and latencies.
+    """The decomposition tree of one bucket over the dp axes (outermost
+    first), with the reference's wire bytes and latencies.
 
-    A flat strategy folds a full allreduce per axis, innermost first;
-    a composed one runs ``reduce_scatter@inner -> allreduce@outer ->
-    all_gather@inner`` (the outer level on the 1/d chunk, over the
-    cross-pod link).  ``codec`` is a bare name for every level or
-    ``"<inner>×<outer>"`` (levels innermost first); stages with no hop
-    (psum, ps_gather) carry none.  ``fused`` marks the accumulating
-    stages that can fuse; the all-gather leg only forwards and keeps the
-    unfused toll."""
+    A flat strategy folds a full allreduce per axis, innermost first,
+    on any number of axes; a composed one (two axes) runs
+    ``reduce_scatter@inner -> allreduce@outer -> all_gather@inner`` (the
+    outer level on the 1/d chunk, over the cross-pod link).  ``codec``
+    is a bare name for every level or ``"<inner>×<outer>"`` (levels
+    innermost first); stages with no hop (psum, ps_gather) carry none.
+    ``fused`` marks the accumulating stages that can fuse; the
+    all-gather leg only forwards and keeps the unfused toll.
+
+    ``model_axis`` of size > 1 wraps the dp stages in the model bracket:
+    a local ``shard`` (no wire), the dp stages on the chunk
+    (:func:`bracket_chunk_bytes`), and a ring ``all_gather`` over the
+    model axis ((m-1) hops of the chunk on the intra link).  A bracket
+    with a wire codec is the reference's ValueError."""
     names = tuple(axis_names)
     sizes = tuple(int(s) for s in axis_sizes)
     if len(names) != len(sizes) or not names:
         raise ValueError(f"axis names {names} / sizes {sizes} mismatch")
-    if len(names) > 2:
-        raise NotImplementedError(
-            f"dp axes {names}: meshes of three axes wait for {NEXT_SLICE}")
     intra = cost_model.resolve_link(intra)
     strategy = normalize_strategy(strategy, len(names))
     parts = split_strategy(strategy)
     n_bytes = int(n_bytes)
     wire_itemsize = int(wire_itemsize)
+
+    m = int(model_axis_size)
+    if model_axis is not None and m > 1:
+        if (codec or "none") != "none":
+            raise ValueError("the model bracket does not compose with "
+                             "wire codecs (codec={!r})".format(codec))
+        if model_axis in names:
+            raise ValueError(f"model axis {model_axis!r} collides with "
+                             f"dp axes {names}")
+        chunk = bracket_chunk_bytes(n_bytes, m, wire_itemsize)
+        inner = decompose(strategy, chunk, names, sizes, intra=intra,
+                          gamma=gamma, wire_itemsize=wire_itemsize,
+                          fused=fused)
+        shard = Stage(op="shard", algorithm="ring_rsa", axis=model_axis,
+                      axis_size=m, n_bytes=n_bytes, wire_bytes=0,
+                      predicted_s=0.0)
+        gather = Stage(op="all_gather", algorithm="ring_rsa",
+                       axis=model_axis, axis_size=m, n_bytes=chunk,
+                       wire_bytes=(m - 1) * chunk,
+                       predicted_s=(m - 1) * intra.alpha_s
+                       + (m - 1) * chunk * intra.beta)
+        return (shard,) + inner + (gather,)
 
     if len(parts) == 1:
         (alg,) = parts
@@ -402,6 +466,9 @@ def decompose(strategy: str, n_bytes: int, axis_names: Sequence[str],
                 wire_itemsize, fused=fused)
             for i in range(len(names) - 1, -1, -1))
 
+    if len(names) != 2:            # "hierarchical" on three axes
+        raise ValueError(f"composed strategy {strategy!r} needs a "
+                         f"2-axis mesh, got axes {names}")
     inner_alg, outer_alg = parts
     inner_codec, outer_codec = codec_mod.split_spec(codec, 2)
     inner_eff = codec_mod.stage_codec(inner_codec, inner_alg)
@@ -482,7 +549,8 @@ class ScheduleRequest:
     """Everything that determines a resolved schedule: the plan cache's
     key (``fingerprint()``), derived from the gradient tree itself, so a
     stale schedule is impossible by construction (the reference's
-    ``ScheduleRequest``; the port has no model bracket yet)."""
+    ``ScheduleRequest``; ``model_key`` is ``(model_axis, m)`` when the
+    plan may bracket, else None)."""
     treedef: Hashable
     shapes: tuple
     dtypes: tuple
@@ -538,17 +606,18 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
     ``fused_hops=None`` fuses exactly the coded schedules, as the
     reference does.  ``cache`` (a :class:`~repro_torch.core.plan_cache.
     PlanCache`) interns the result by :class:`ScheduleRequest`: a hit
-    returns the identical schedule."""
-    if model_axis is not None and int(model_axis_size) > 1:
-        raise NotImplementedError(f"the model bracket waits for "
-                                  f"{NEXT_SLICE}")
+    returns the identical schedule.
+
+    ``model_axis`` / ``model_axis_size`` (> 1): an uncoded plan brackets
+    every replicated-group bucket (its gradients are equal across model
+    ranks) over the model axis, priced and chosen on the chunk its dp
+    levels move; model-sharded leaves arrive shard-shaped and reduce as
+    they are.  A coded plan skips the bracket, as the reference's
+    does."""
     names = tuple(axis_names)
     sizes = tuple(int(s) for s in axis_sizes)
     if len(names) != len(sizes):
         raise ValueError(f"axis names {names} / sizes {sizes} mismatch")
-    if len(names) > 2:
-        raise NotImplementedError(
-            f"dp axes {names}: meshes of three axes wait for {NEXT_SLICE}")
     if placement not in PLACEMENTS:
         raise ValueError(f"placement {placement!r} not in {PLACEMENTS}")
     intra = cost_model.resolve_link(intra)
@@ -568,6 +637,12 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
     strategy_context: Hashable = \
         ("auto", selector.fingerprint()) if selector is not None \
         else normalize_strategy(strategy, len(names))
+    model_m = int(model_axis_size)
+    may_bracket = (model_axis is not None and model_m > 1
+                   and codec == "none")
+
+    def _replicated_group(g) -> bool:
+        return g is None or all(e is None for e in tuple(g))
 
     def _resolve() -> ReduceSchedule:
         fplan = fusion.build_plan(
@@ -578,16 +653,23 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
         buckets = []
         for i, bucket in enumerate(fplan.buckets):
             n_bytes = int(bucket.size) * wire_itemsize
+            bracket = may_bracket and _replicated_group(bucket.group)
+            dp_bytes = bracket_chunk_bytes(n_bytes, model_m,
+                                           wire_itemsize) \
+                if bracket else n_bytes
             predicted = None
             if selector is not None:
-                choice = selector.choose(n_bytes, sizes)
+                choice = selector.choose(dp_bytes, sizes)
                 strat = normalize_strategy(choice.strategy, len(names))
-                predicted = choice.predicted_s
+                if not bracket:
+                    predicted = choice.predicted_s
             else:
                 strat = normalize_strategy(strategy, len(names))
             stages = decompose(strat, n_bytes, names, sizes, intra=intra,
-                               codec=codec,
-                               wire_itemsize=wire_itemsize, fused=fused)
+                               codec=codec, wire_itemsize=wire_itemsize,
+                               model_axis=model_axis if bracket else None,
+                               model_axis_size=model_m if bracket else 1,
+                               fused=fused)
             if predicted is None:
                 predicted = sum(st.predicted_s for st in stages)
             buckets.append(BucketSchedule(
@@ -599,7 +681,9 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
             axis_names=names, axis_sizes=sizes, wire_dtype=wire_dtype,
             placement=placement, threshold_bytes=int(threshold_bytes),
             switch_points=switch, buckets=tuple(buckets), codec=codec,
-            error_feedback=error_feedback, plan=fplan)
+            error_feedback=error_feedback,
+            model_axis=model_axis if may_bracket else None,
+            model_axis_size=model_m if may_bracket else 1, plan=fplan)
 
     if cache is None:
         return _resolve()
@@ -611,7 +695,9 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
         strategy_context=strategy_context, switch_points=switch,
         placement=placement,
         link_key=(intra.alpha_s, intra.bandwidth),
-        codec=codec, error_feedback=bool(error_feedback), fused=fused)
+        codec=codec, error_feedback=bool(error_feedback),
+        model_key=(model_axis, model_m) if may_bracket else None,
+        fused=fused)
     return cache.resolve(request, _resolve)
 
 

@@ -7,14 +7,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --mesh 2x2x1 --strategy ring_rsa×rhd_rsa --codec bf16×int8 ...
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --mesh 2x2 --strategy rhd_rsa ...      # data 2 × model 2
+
 Spawns ``--world`` ranks with file rendezvous (``--world 1`` runs in
 this process without ``torch.distributed``).  ``--mesh`` lays the ranks
 out as the reference's mesh flag does: ``DxM`` (one data axis) or
-``PxDxM`` (dp axes ``("pod", "data")``, pod major, groups from
-``launch/mesh.py``); the model axis ``M`` must be 1 until the model-axis
-slice, and ``--world`` is the product of the sizes (derived when
-omitted).  ``--backend gloo`` may put several ranks on one card
-(payloads staged through host memory); ``--backend cuda_ipc`` too, with
+``PxDxM`` (dp axes ``("pod", "data")``), pod major and model minor,
+groups from ``launch/mesh.py``; a model axis ``M > 1`` holds the
+parameters in shards (``core/manual.py``).  ``--world`` is the product
+of the sizes (derived when omitted).  ``--backend gloo`` may put
+several ranks on one card (payloads staged through host memory);
+``--backend cuda_ipc`` too, with
 the hop payloads kept in device memory (a gloo group carries control
 messages only; ranks of one host); ``--backend nccl`` needs one card
 per rank.  Runs on CUDA unless ``--device cpu``.  Keeps
@@ -41,7 +45,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: the mesh's product, else 1)")
     ap.add_argument("--mesh", default=None,
-                    help="DxM or PxDxM, e.g. 4x1 or 2x2x1 (M must be 1)")
+                    help="DxM or PxDxM, e.g. 4x1, 2x2 or 2x2x2")
     ap.add_argument("--backend", choices=("gloo", "nccl", "cuda_ipc"),
                     default="gloo")
     ap.add_argument("--device", default=None,
@@ -62,14 +66,12 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def mesh_shape(args) -> tuple[int, int]:
-    """``(pods, data)`` of ``args.mesh`` (``pods = 0`` for ``DxM``; no
-    mesh: one data axis of ``--world`` ranks).  Raises
-    ``NotImplementedError`` for a model axis above 1 and ValueError when
-    ``--world`` disagrees with the mesh."""
-    from repro_torch.core.schedule import NEXT_SLICE
+def mesh_shape(args) -> tuple[int, int, int]:
+    """``(pods, data, model)`` of ``args.mesh`` (``pods = 0`` for
+    ``DxM``; no mesh: one data axis of ``--world`` ranks).  Raises
+    ValueError when ``--world`` disagrees with the mesh."""
     if args.mesh is None:
-        return 0, args.world or 1
+        return 0, args.world or 1, 1
     try:
         dims = [int(x) for x in args.mesh.split("x")]
     except ValueError:
@@ -77,14 +79,11 @@ def mesh_shape(args) -> tuple[int, int]:
     if len(dims) not in (2, 3) or min(dims) < 1:
         raise ValueError(f"--mesh {args.mesh!r}: DxM or PxDxM, sizes >= 1")
     pods, data, model = ([0] + dims) if len(dims) == 2 else dims
-    if model != 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: a model axis of "
-                                  f"{model} waits for {NEXT_SLICE}")
-    world = max(pods, 1) * data
+    world = max(pods, 1) * data * model
     if args.world is not None and args.world != world:
         raise ValueError(f"--world {args.world} but --mesh {args.mesh} "
                          f"has {world} ranks")
-    return pods, data
+    return pods, data, model
 
 
 def aggregator_config(args):
@@ -99,9 +98,10 @@ def aggregator_config(args):
 def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
                   groups=None):
     """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
-    for this rank (``groups``: the dp axes' groups; a ``PxDx1`` mesh
-    builds them through ``launch.mesh.make_groups`` when not given, a
-    one-axis mesh defaults to the world group).  ``spec``, when
+    for this rank (``groups``: the mesh's groups; a ``PxDxM`` mesh, or a
+    ``DxM`` mesh with ``M > 1``, builds them through
+    ``launch.mesh.make_groups`` when not given, a one-axis mesh defaults
+    to the world group).  ``spec``, when
     given, is the model's :class:`~repro_torch.models.common.ModelSpec` as it is
     (a depth-cut or otherwise altered spec), in place of ``args.arch``,
     ``args.full`` and ``args.dtype``; ``aggregator``, an
@@ -125,13 +125,12 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
                          seq_len=args.seq, seed=args.seed)
     lr = cosine_warmup(args.lr, max(args.steps // 20, 1), args.steps)
     opt = adamw(lr) if args.optimizer == "adamw" else sgd(lr)
-    pods, data_size = mesh_shape(args)
-    if pods:
-        dp_axes = DP_AXES
-        if groups is None:
-            groups = make_groups(pods, data_size)
-    else:
-        dp_axes = ("data",)
+    pods, data_size, model = mesh_shape(args)
+    dp_axes = DP_AXES if pods else ("data",)
+    if groups is None and (pods or model > 1):
+        groups = make_groups(max(pods, 1), data_size, model)
+        if not pods:
+            del groups["pod"]
     cfg = TrainerConfig(
         steps=args.steps, log_every=args.log_every,
         step=TrainStepConfig(aggregator=aggregator
@@ -149,8 +148,8 @@ def _rank_main(rank: int, world: int, args):
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    pods, data = mesh_shape(args)
-    world = max(pods, 1) * data
+    pods, data, model = mesh_shape(args)
+    world = max(pods, 1) * data * model
     print(f"arch={args.arch} world={world} mesh={args.mesh} "
           f"backend={args.backend} strategy={args.strategy} "
           f"codec={args.codec}", flush=True)

@@ -1,7 +1,8 @@
 """Models: the dense GQA transformer LM and the paper's CNNs."""
 from .cnn import CnnSpec
 from .common import ModelSpec
-from .registry import ModelApi, build_cnn, build_model, param_groups
+from .registry import (ModelApi, build_cnn, build_model, divisibility_check,
+                       param_groups, param_pspecs)
 
 __all__ = ["CnnSpec", "ModelApi", "ModelSpec", "build_cnn", "build_model",
-           "param_groups"]
+           "divisibility_check", "param_groups", "param_pspecs"]

@@ -2,10 +2,13 @@
 (counterpart of ``repro/models/registry.py``: the dense family, and the
 paper's CNNs through :func:`build_cnn`).
 
-``param_groups`` gives the reference's tuple-ized PartitionSpec per leaf
-(the model-axis rules), so the aggregator buckets gradients exactly as
-the reference does: leaves with a ``"model"`` entry stay single-leaf
-buckets, replicated leaves (tag ``()``) fuse.
+``param_pspecs`` gives the reference's PartitionSpec per leaf (the
+model-axis rules) as a tuple, one entry per dim; ``param_groups`` gives
+the same tuples as fusion-group tags, so the aggregator buckets
+gradients exactly as the reference does: leaves with a ``"model"``
+entry stay single-leaf buckets, replicated leaves (tag ``()``) fuse.
+``divisibility_check`` lists the leaves whose sharded dim the model
+axis does not divide.
 """
 from __future__ import annotations
 
@@ -73,8 +76,25 @@ def _spec_for(path: tuple, leaf) -> tuple:
     return ()
 
 
-def param_groups(params) -> dict:
-    """Fusion group tag per leaf: the tuple-ized PartitionSpec."""
+def param_pspecs(params) -> dict:
+    """The model-axis spec of every leaf: a tuple with one entry per dim
+    (``None`` or ``"model"``), ``()`` for a replicated leaf."""
     flat = tree_mod.leaves_with_path(params)
     return tree_mod.unflatten(params, [_spec_for(path, leaf)
                                        for path, leaf in flat])
+
+
+param_groups = param_pspecs     # the fusion-group tag of each leaf
+
+
+def divisibility_check(params, model_axis_size: int) -> list:
+    """``(path, shape)`` of every leaf with a model-sharded dim that
+    ``model_axis_size`` does not divide, paths joined by ``/``."""
+    bad = []
+    for path, leaf in tree_mod.leaves_with_path(params):
+        spec = _spec_for(path, leaf)
+        for dim, s in zip(leaf.shape, tuple(spec) + (None,) * 8):
+            if s == "model" and dim % model_axis_size != 0:
+                bad.append(("/".join(str(k) for k in path),
+                            tuple(leaf.shape)))
+    return bad

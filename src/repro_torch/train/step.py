@@ -10,11 +10,20 @@ Counterpart of ``repro/train/step.py`` (its data-parallel path):
     clip_by_global_norm              # on AGGREGATED grads (global norm)
     optimizer.update                 # K5 AdamW, parameters in place
 
-Each rank holds a full replica.  Each dp axis (``("data",)``, or
-``("pod", "data")`` outermost first) is a process group
-(``core/dist.py``, ``launch/mesh.py``); the gradient sum over ranks
-happens only through the aggregator's explicit algorithm.  Metrics are
-means over the ranks.
+Each dp axis (``("data",)``, or ``("pod", "data")`` outermost first) is
+a process group (``core/dist.py``, ``launch/mesh.py``); the gradient sum
+over ranks happens only through the aggregator's explicit algorithm.
+Metrics are means over the dp ranks.
+
+Without a model axis each rank holds a full replica.  With one
+(``groups["model"]``, the reference's full-manual path,
+``core/manual.py``) each rank holds its shards of the model-sharded
+leaves: the loss sees ``gather_params(params)``, whose backward hands
+shard-shaped gradients back; the batch is split over the dp groups
+only (the model ranks of one dp index take the same rows); the
+aggregator reduces over the dp axes with the model bracket on
+replicated buckets; the clip sums the sharded leaves' squares over the
+model group; and K5 AdamW updates the shards.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch
 from .. import tree as tree_mod
 from ..core import AggregatorConfig, GradientAggregator
 from ..core import dist as dist_mod
+from ..core import manual as manual_mod
 from ..kernels.backend import resolve_device
 from ..models import ModelApi, param_groups
 from ..optim import Optimizer, clip_by_global_norm
@@ -63,15 +73,23 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
     """Build the train step for this rank.
 
     ``groups`` maps each of ``cfg.dp_axes`` to its process group
-    (``launch.mesh.make_groups`` for ``("pod", "data")``); one dp axis
-    defaults to the world group (a single rank without
+    (``launch.mesh.make_groups`` for ``("pod", "data")``), and
+    ``"model"`` to the model axis's group for the full-manual path; one
+    dp axis defaults to the world group (a single rank without
     ``torch.distributed``).  ``device``: where the parameters live;
     ``None`` is CUDA (raises without a card).  Returns ``(step_fn,
     extras)`` with ``step_fn(params, opt_state, batch) -> (params,
-    opt_state, metrics)``: ``params`` is the model's parameter tree
-    (updated in place), ``batch`` the GLOBAL batch, and
-    ``extras["aggregator"]`` the aggregator (its ``last_schedule`` is
-    the executed plan)."""
+    opt_state, metrics)``: ``params`` is the model's parameter tree, or
+    this rank's shards of it on a model axis (updated in place),
+    ``batch`` the GLOBAL batch, ``extras["aggregator"]`` the aggregator
+    (its ``last_schedule`` is the executed plan) and, on a model axis,
+    ``extras["mspecs"]`` the leaves' model-axis specs,
+    ``extras["model_group"]`` the model group and ``extras["gather"]``
+    the gather boundary (shards -> full tree, collective over the model
+    group).  A caller may set ``extras["inspect"]``: each step then calls
+    ``inspect(reduced, gnorm)`` with the aggregated gradient tree (shards
+    on a model axis, before the clip) and the global norm the clip
+    used."""
     device = resolve_device(device)
     dp_axes = tuple(cfg.dp_axes)
     if groups is None:
@@ -79,8 +97,33 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
             raise ValueError(f"dp axes {dp_axes} need their groups "
                              f"(launch.mesh.make_groups)")
         groups = {dp_axes[0]: dist_mod.Group(name=dp_axes[0])}
-    agg = GradientAggregator(cfg.aggregator, dp_axes, groups)
+    model_group = groups.get(manual_mod.MODEL_AXIS)
+    manual = model_group is not None
+    agg = GradientAggregator(cfg.aggregator, dp_axes, groups,
+                             model_axis=manual_mod.MODEL_AXIS if manual
+                             else None)
     shard_groups = [agg.groups[ax] for ax in dp_axes]
+    extras = {"aggregator": agg}
+    if manual:
+        # The specs from the full tree's shapes, on meta tensors.
+        full = model.init(torch.Generator().manual_seed(0), "meta").tree()
+        mspecs = manual_mod.model_shard_specs(full, model_group.size)
+        mask = manual_mod.sharded_mask(mspecs, mspecs)
+        extras.update(mspecs=mspecs, model_group=model_group)
+    # The gather boundary's group: on cuda_ipc a channel of its own,
+    # opened at the first step (collective over the model group).
+    gather_group: list = []
+
+    def gather(params):
+        if not manual:
+            return params
+        if not gather_group:
+            gather_group.append(manual_mod.gather_group(
+                model_group, params, mspecs, device))
+        return manual_mod.gather_params(params, mspecs, gather_group[0])
+
+    if manual:
+        extras["gather"] = gather
 
     def step_fn(params, opt_state, batch):
         local = {k: v.to(device) for k, v in
@@ -97,14 +140,20 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
             loss, metrics = model.loss(params, local)
             grads = run.backward(loss)                  # ← the technique
         else:
-            loss, metrics = model.loss(params, local)
+            loss, metrics = model.loss(gather(params), local)
             loss.backward()
             # A leaf with no gradient reduces as zeros (JAX's cotangent).
             grads = tree_mod.unflatten(params, [
                 torch.zeros_like(p) if p.grad is None else p.grad
                 for p in leaves])
             grads = agg(grads, groups=groups)          # ← the technique
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        reduced = grads
+        grads, gnorm = clip_by_global_norm(
+            grads, cfg.clip_norm, sharded=mask if manual else None,
+            model_group=model_group)
+        if "inspect" in extras:
+            extras["inspect"](reduced, gnorm)
+        del reduced
         opt_state = optimizer.update(grads, opt_state, params)
         for p in leaves:
             p.grad = None
@@ -114,4 +163,4 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
             [metrics[k].detach().to(torch.float32) for k in names]))
         return params, opt_state, dict(zip(names, means.unbind(0)))
 
-    return step_fn, {"aggregator": agg}
+    return step_fn, extras

@@ -8,8 +8,10 @@ from typing import Callable
 
 import torch
 
+from ..core import manual as manual_mod
 from ..kernels.backend import resolve_device
 from ..models import ModelApi
+from ..models.common import ParamTree
 from ..optim import Optimizer
 from .step import TrainStepConfig, make_train_step
 
@@ -24,7 +26,9 @@ class TrainerConfig:
 class Trainer:
     """``data_iter_fn(step)`` returns the GLOBAL batch of a step; each
     rank trains on its shard.  ``groups``/``device`` as in
-    :func:`~repro_torch.train.step.make_train_step`."""
+    :func:`~repro_torch.train.step.make_train_step`; with a ``"model"``
+    group each rank keeps its shards of the parameters
+    (:meth:`init_state`), and :meth:`full_params` gathers them."""
 
     def __init__(self, model: ModelApi, optimizer: Optimizer,
                  data_iter_fn: Callable[[int], dict], cfg: TrainerConfig,
@@ -40,10 +44,24 @@ class Trainer:
 
     def init_state(self, seed: int = 0):
         """``(module, opt_state)`` with parameters from a seeded
-        generator on the device (every rank draws the same values)."""
+        generator on the device (every rank draws the same values).  On
+        a model axis the full tree is drawn, then only this rank's
+        shards are kept (``module`` is a ``ParamTree`` of them)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         module = self.model.init(gen, self.device)
+        if "mspecs" in self.extras:
+            module = ParamTree(manual_mod.shard_params(
+                module.tree(), self.extras["mspecs"],
+                self.extras["model_group"]))
         return module, self.optimizer.init(module.tree())
+
+    @torch.no_grad()
+    def full_params(self, params) -> dict:
+        """The full parameter tree from this rank's ``params`` (a
+        collective over the model group on a model axis; the tree
+        itself otherwise)."""
+        gather = self.extras.get("gather")
+        return params if gather is None else gather(params)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -125,30 +125,44 @@ def test_wire_bytes_and_steps_tables_match_reference(strategy):
 
 
 def test_unported_plans_raise(shapes):
-    """What still raises: the model bracket and meshes of three dp axes
-    (``NotImplementedError``, naming the model-axis slice), and a
-    composed name on one axis or ``auto`` as a fixed name (the
-    reference's ``ValueError``).  Composed and two-axis schedules,
-    ``AggregatorConfig`` with a composed name, ``auto`` and ``overlap``
-    validate."""
-    from repro_torch.core import selector
+    """What still raises: a wire codec inside the model bracket and a
+    composed name on three dp axes or on one (the reference's
+    ``ValueError``), ``auto`` as a fixed name, and overlap on a model
+    axis (``NotImplementedError``, not ported).  The model bracket,
+    three dp axes, composed and two-axis schedules, ``AggregatorConfig``
+    with a composed name, ``auto`` and ``overlap`` validate."""
+    from repro_torch.core import Group, GradientAggregator, selector
     _, tstruct = shapes
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
-        schedule.plan(tstruct, axis_names=("pod", "data"),
-                      axis_sizes=(2, 2), model_axis="model",
-                      model_axis_size=2)
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
+    with pytest.raises(ValueError, match="wire codecs"):
+        schedule.decompose("rhd_rsa", 1024, ("pod", "data"), (2, 2),
+                           codec="int8", model_axis="model",
+                           model_axis_size=2)
+    with pytest.raises(ValueError, match="needs a 2-axis mesh"):
         schedule.plan(tstruct, axis_names=("pod", "data", "x"),
-                      axis_sizes=(2, 2, 2))
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
-        schedule.decompose("rhd_rsa", 1024, ("pod", "data", "x"),
-                           (2, 2, 2))
+                      axis_sizes=(2, 2, 2), strategy="ring_rsa×rhd_rsa")
     with pytest.raises(ValueError, match="needs a 2-axis mesh"):
         schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
                       strategy="ring_rsa×rhd_rsa")
     with pytest.raises(ValueError, match="unknown strategy"):
         schedule.plan(tstruct, axis_names=("data",), axis_sizes=(2,),
                       strategy="auto")
+    groups = {"data": Group(name="data"), "model": Group(name="model")}
+    agg = GradientAggregator(AggregatorConfig(overlap=True), ("data",),
+                             groups, model_axis="model")
+    with pytest.raises(NotImplementedError, match="model axis"):
+        agg.overlap_params(tree.tree_map(lambda t: torch.zeros(t.shape),
+                                         tstruct))
+    sched = schedule.plan(tstruct, axis_names=("pod", "data"),
+                          axis_sizes=(2, 2), model_axis="model",
+                          model_axis_size=2)
+    assert sched.bracketed and "ag@model" in sched.render()
+    sched = schedule.plan(tstruct, axis_names=("pod", "data", "x"),
+                          axis_sizes=(2, 2, 2))
+    assert {len(b.stages) for b in sched.buckets} == {3}
+    assert schedule.plan(tstruct, axis_names=("pod", "data"),
+                         axis_sizes=(2, 2), codec="int8",
+                         model_axis="model",
+                         model_axis_size=2).model_axis is None
     for sel in (None, selector.AnalyticSelector()):
         sched = schedule.plan(tstruct, axis_names=("pod", "data"),
                               axis_sizes=(2, 2), selector=sel,

@@ -200,6 +200,7 @@ def test_launcher_trains_on_a_pod_mesh():
             "--strategy", "ring_rsa×rhd_rsa", "--codec", "bf16×int8",
             "--log-every", "1"]
     assert train.main(args) == 0
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
+    # a --world that disagrees with the mesh (its model axis included)
+    with pytest.raises(ValueError, match="has 8 ranks"):
         train.main(["--arch", "smollm-360m", "--mesh", "2x2x2",
-                    "--device", "cpu"])
+                    "--world", "4", "--device", "cpu"])
