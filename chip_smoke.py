@@ -167,7 +167,28 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    the plan, the model group's all-gather bytes, peak memory per rank
    beside phase 3's and the layers timed alone.
 
-In phases 3-10 the executors must be built once each by the end of step
+11. Telemetry: one 4-rank ``cuda_ipc`` spawn with ``REPRO_TRACE=1`` in the
+   ranks.  (a) Phase 7's smollm-360m (seq 512, ``rhd_rsa`` + ``int8``
+   fused hops, K5 AdamW, 3 steps): each rank's parameters and
+   K1/K2/K3/K5/K6 launches per step must equal phase 7's (telemetry off);
+   every stage and bucket path of the executed schedule must have one
+   ``trace`` span per step with the IR's wire bytes and algorithm, each
+   stage as many hop spans as the plan's hops, and the hop spans'
+   ``payload_bytes`` must account for the bytes written through the
+   mappings (``_hop_wire_bytes``); ``train_step_s`` must hold 3 samples.
+   Prints per step the host ms in hop spans, in stage spans outside
+   hops and in bucket spans outside stages.  (c) The closure on that
+   schedule: every stage replayed alone on the group (``measure_schedule``,
+   3 reps), k finite and positive; prints k per axis size, max_ratio,
+   the band verdict (declared for host-CPU replays, not required), the
+   measured and predicted overlap fractions, and the fused replay (K1-K3)
+   against the unfused route.  (b) Phase 8's overlapped ResNet-50: each
+   rank's parameters equal phase 8's, every bucket's spans on the
+   channel's thread; prints each bucket's channel time split into hops,
+   stages and the rest beside its ready/start/end times.  (d) Rank 0's
+   trace file must reload through ``trace.from_json``.
+
+In phases 3-11 the executors must be built once each by the end of step
 1, and neither rebuilt nor added to later; the plan cache must only hit
 from step 2.  In phases 3, 4, 6, 7, 9 and 10 K1-K3 must launch each step
 as the plan's hops imply (``_plan_hop_launches``; a scaled codec encodes
@@ -2958,6 +2979,402 @@ def run_model_axis_phase(phase3):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 11: telemetry on the training path
+# ---------------------------------------------------------------------------
+
+LM_LAUNCHES = ("hop_absmax", "hop_encode", "hop_decode_add", "adamw_update",
+               "fused_rmsnorm")
+CLOSURE_REPS = 3
+
+
+def _bucket_split(span):
+    """Host seconds of a bucket span in its hop spans, in its stage
+    spans outside their hops, and in the rest of the bucket (flatten,
+    cast, scale)."""
+    stages = [c for c in span.children if c.name.startswith("stage[")]
+    hops = sum(h.duration_s for st in stages for h in st.children
+               if h.name.startswith("hop["))
+    in_stages = sum(st.duration_s for st in stages)
+    return hops, in_stages - hops, span.duration_s - in_stages
+
+
+def _hop_wire_bytes(st, hops):
+    """What this rank's hops of stage ``st`` write into the peers' slots
+    (``dist.traffic["mapped_bytes"]``), from their spans' ``payload_bytes``
+    (the tensor handed to the hop): the payload itself on an uncoded
+    stage; on a coded one the codec's bytes of its float32 elements, plus
+    one 4-byte scale per encoded block on a scaled codec: one per
+    accumulating hop, and per forwarding hop one per chunk it joins
+    (F6's per-block scales, ``_stage_hops``' ``blocks``).  Exact when
+    every rank sends on every hop (ring, and RHD on a power of two)."""
+    from repro_torch.core import codec
+    payload = sum(h.attrs["payload_bytes"] for h in hops)
+    c = codec.get(st.codec)
+    if c.name == "none":
+        return payload
+    acc, _, blocks = _stage_hops(st)
+    return payload // 4 * c.itemsize + codec.SCALE_BYTES * (acc + blocks) \
+        * c.scaled
+
+
+def _lm_step_spans(roots, sched):
+    """Check one step's spans against the executed schedule: one
+    ``trace`` span per stage with the IR's wire bytes and algorithm, one
+    per bucket, as many hop spans per stage as ``_stage_hops`` counts.
+    Returns the problems found, the bytes the hops' spans say were
+    written through the mappings, and the step's host seconds in hop
+    spans, in stage spans outside hops and in bucket spans outside
+    stages."""
+    from repro_torch.telemetry.trace import walk
+    by_path = collections.defaultdict(list)
+    for s in walk(roots):
+        if s.cat == "trace" and s.attrs.get("ir_path"):
+            by_path[s.attrs["ir_path"]].append(s)
+    problems, wire = [], 0
+    for path, _bucket, st in sched.iter_stages():
+        got = by_path.get(path, [])
+        if len(got) != 1:
+            problems.append(f"{path}: {len(got)} spans")
+            continue
+        sp = got[0]
+        if (sp.attrs["wire_bytes"], sp.attrs["algorithm"]) \
+                != (st.wire_bytes, st.algorithm):
+            problems.append(f"{path}: span {sp.attrs}, stage {st}")
+        hops = [c for c in sp.children if c.name.startswith("hop[")]
+        acc, fwd, _ = _stage_hops(st)
+        if len(hops) != acc + fwd:
+            problems.append(f"{path}: {len(hops)} hop spans, the plan's "
+                            f"hops {acc + fwd}")
+        wire += _hop_wire_bytes(st, hops)
+    buckets = [s for b in sched.buckets for s in by_path.get(b.path, [])]
+    if len(buckets) != len(sched.buckets):
+        problems.append(f"{len(buckets)} bucket spans for "
+                        f"{len(sched.buckets)} buckets")
+    split = [sum(x) for x in zip(*map(_bucket_split, buckets))] \
+        if buckets else [0.0, 0.0, 0.0]
+    def total(name):
+        return sum(s.duration_s for s in walk(roots) if s.name == name)
+
+    return {"problems": problems, "span_mapped_bytes": wire,
+            "hop_s": split[0], "stage_s": split[1], "bucket_s": split[2],
+            "aggregate_s": total("aggregate"),
+            "train_step_s": total("train.step")}
+
+
+def telemetry_rank(rank, world, args, trace_path):
+    """Phase 11 on one rank, ``REPRO_TRACE`` set: (a) phase 7's
+    smollm-360m on cuda_ipc, its spans checked per step; (c) the closure
+    on its executed schedule; (b) phase 8's overlapped ResNet-50, its
+    channel's spans split per bucket; (d) rank 0 writes the trace to
+    ``trace_path`` and reloads it."""
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.core import Group, overlap, plan_cache
+    from repro_torch.core import dist as core_dist
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.telemetry import closure, trace
+
+    tracer = telemetry.get_tracer()
+    require(tracer.enabled, "REPRO_TRACE did not turn telemetry on in the "
+                            "ranks")
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    group = Group()
+
+    # (a) smollm-360m, seq 512, rhd_rsa + int8, K5 AdamW: phase 7's run.
+    trainer = build_trainer(args, verbose=False, groups={"data": group})
+    agg = trainer.extras["aggregator"]
+    module, opt_state = trainer.init_state(args.seed)
+    telemetry.METRICS.reset()
+    steps = []
+    _reset_counts()                           # main path starts here
+    for s in range(args.steps):
+        n0 = len(tracer.roots)
+        before, cache0 = _counts(), _cache_counts()
+        traffic0 = dict(core_dist.traffic)
+        module, opt_state, hist = trainer.run(1, module, opt_state,
+                                              start_step=s)
+        after = _counts()
+        traffic = {k: core_dist.traffic[k] - traffic0[k] for k in traffic0}
+        steps.append({**hist[0], "traffic": traffic,
+                      "launches": {k: after[k] - before[k] for k in after},
+                      **_cache_delta(cache0),
+                      **_lm_step_spans(tracer.roots[n0:],
+                                       agg.last_schedule)})
+    totals = _counts()                        # main path ends here
+    sched = agg.last_schedule
+    hist = telemetry.METRICS.snapshot()["metrics"]["train_step_s"]
+    lm = {"steps": steps, "totals": totals, "scalar": _scalar_counts(),
+          "checksum": _checksum(module.tree()),
+          "train_step_samples": hist["values"][""]["count"],
+          "render": sched.render(), "n_buckets": sched.n_buckets}
+    del trainer, module, opt_state
+
+    # (c) the closure on (a)'s executed schedule: each distinct stage
+    # replayed alone, then the fused route against the unfused one.
+    t0 = time.perf_counter()
+    measured = closure.measure_schedule(sched, agg.groups,
+                                        reps=CLOSURE_REPS,
+                                        device=args.device)
+    report = closure.closure_report(sched, measured)
+    k = report["calibration"]["k"]
+    last = steps[-1]
+    compute_host = last["train_step_s"] - last["aggregate_s"]
+    timelines = None
+    if k > 0 and math.isfinite(k):
+        compute = compute_host / k               # in the model's units
+        timelines = {
+            "measured": closure.measured_timeline(
+                sched, measured, k, compute).to_dict(),
+            "predicted": overlap.simulate_schedule(sched, compute).to_dict()}
+    fused = closure.measure_fused_replay(sched, agg.groups,
+                                         reps=CLOSURE_REPS,
+                                         device=args.device)
+    fused.pop("executor_stats")
+    closure_rec = {"paths": [p for p, _b, _s in sched.iter_stages()],
+                   "measured": measured,
+                   "calibration": report["calibration"],
+                   "max_ratio": report["max_ratio"],
+                   "all_within_band": report["all_within_band"],
+                   "n_gated": report["n_gated"], "band": report["band"],
+                   "compute_host_s": compute_host, "timelines": timelines,
+                   "fused": fused, "seconds": time.perf_counter() - t0}
+    plan_cache.GLOBAL_EXECUTOR_CACHE.clear()     # closes the channels
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) ResNet-50 rhd_rsa, overlap=True, deterministic cuDNN: phase 8's
+    # run, its buckets reduced on the channel's thread.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    trainer = cnn_trainer("resnet50", "rhd_rsa", CNN_IMAGE, CNN_BATCH,
+                          "bfloat16", args.device,
+                          Group(transport="cuda_ipc"),
+                          data_device=args.device, overlap=True)
+    cnn_agg = trainer.extras["aggregator"]
+    module, opt_state = trainer.init_state(0)
+    cnn_steps = []
+    _reset_counts()                           # main path starts here
+    for s in range(CNN_WARMUP + CNN_TIMED):
+        n0 = len(tracer.roots)
+        before, cache0 = _counts(), _cache_counts()
+        module, opt_state, hist = trainer.run(1, module, opt_state,
+                                              start_step=s)
+        after = _counts()
+        roots = tracer.roots[n0:]
+        rec = cnn_agg.last_overlap
+        spans = {b.attrs["ir_path"]: b for b in roots
+                 if b.name.startswith("bucket[")}
+        bsched = cnn_agg.last_schedule
+        off_track = [s_.name for b in spans.values() for s_ in trace.walk([b])
+                     if s_.attrs.get("thread") != "overlap-channel"]
+        cnn_steps.append({
+            **hist[0], "launches": {k_: after[k_] - before[k_]
+                                    for k_ in after},
+            **_cache_delta(cache0),
+            "bucket_paths": sorted(spans),
+            "want_paths": sorted(b.path for b in bsched.buckets),
+            "off_track": off_track,
+            "backward_s": rec.backward_s,
+            "buckets": [(t.index, t.ready_s, t.start_s, t.end_s,
+                         *_bucket_split(spans[f"bucket[{t.index}]"]))
+                        for t in rec.buckets
+                        if f"bucket[{t.index}]" in spans]})
+    cnn = {"steps": cnn_steps, "totals": _counts(),
+           "scalar": _scalar_counts(),
+           "checksum": _checksum(module.tree())}
+    del trainer, module, opt_state
+    plan_cache.GLOBAL_EXECUTOR_CACHE.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the trace file: rank 0's, reloaded.
+    trace_rec = None
+    if rank == 0:
+        tracer.write(trace_path)
+        with open(trace_path) as f:
+            doc = json.load(f)
+        forest = trace.from_json(doc["repro"])
+        trace_rec = {"events": len(doc["traceEvents"]),
+                     "bytes": os.path.getsize(trace_path),
+                     "roots": len(forest),
+                     "spans": sum(1 for _ in trace.walk(forest)),
+                     "tids": sorted({e["tid"] for e in doc["traceEvents"]})}
+    return {"rank": rank, "lm": lm, "closure": closure_rec, "cnn": cnn,
+            "trace": trace_rec}
+
+
+def _ms(seconds):
+    return round(seconds * 1e3, 3)
+
+
+def run_telemetry_phase(phase7, phase8):
+    """Phase 11: one 4-rank cuda_ipc spawn with ``REPRO_TRACE`` set in
+    the ranks.  (a) phase 7's smollm-360m (seq 512, rhd_rsa + int8 fused
+    hops, K5 AdamW, 3 steps): parameters and K1/K2/K3/K5/K6 launches per
+    step equal phase 7's telemetry-off run; every stage and bucket path
+    of the executed schedule has one span per step with the IR's wire
+    bytes and algorithm, as many hop spans as the plan's hops, and the
+    hops' payloads account for the bytes written through the mappings;
+    ``train_step_s`` has 3 samples.  (b) phase 8's overlapped ResNet-50:
+    parameters equal phase 8's, every bucket's spans on the channel's
+    track.  (c) the closure on (a)'s schedule: every path measured, k
+    finite and positive.  (d) rank 0's trace file reloads.  Returns each
+    rank's record."""
+    from repro_torch.core.dist import run_ranks
+    from repro_torch.telemetry import trace
+    args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
+                      device="cuda")
+    log(f"  {TRAIN_WORLD} ranks on cuda_ipc, {trace.ENV_VAR}=1 in the "
+        f"ranks: (a) smollm-360m seq 512 {args.strategy} + {args.codec}, "
+        f"{args.steps} steps (phase 7's run); (c) the closure on its "
+        f"schedule, {CLOSURE_REPS} reps; (b) ResNet-50 rhd_rsa overlap=True, "
+        f"{CNN_WARMUP} + {CNN_TIMED} steps (phase 8's run); (d) rank 0's "
+        f"trace file")
+    t0 = time.perf_counter()
+    os.environ[trace.ENV_VAR] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as rdv:
+            results = run_ranks(
+                telemetry_rank, TRAIN_WORLD,
+                (args, os.path.join(rdv, "trace.json")), backend="cuda_ipc",
+                rendezvous_dir=rdv,
+                threads=max(1, (os.cpu_count() or 1) // TRAIN_WORLD),
+                timeout_s=600)
+    finally:
+        del os.environ[trace.ENV_VAR]
+    seconds = time.perf_counter() - t0
+    log(f"  {TRAIN_WORLD} ranks done in {seconds:.1f} s")
+
+    # (a)
+    for r, base in zip(results, phase7["lm"]):
+        lm, rank = r["lm"], r["rank"]
+        _require_cached(rank, "phase 11 smollm-360m", lm["steps"])
+        _require_cached(rank, "phase 11 ResNet-50", r["cnn"]["steps"])
+        require(lm["checksum"] == base["checksum"],
+                f"rank {rank}: traced smollm parameters {lm['checksum']} "
+                f"differ from phase 7's {base['checksum']}")
+        for s_, (step, ref) in enumerate(zip(lm["steps"], base["steps"]),
+                                         1):
+            got = {k: step["launches"][k] for k in LM_LAUNCHES}
+            want = {k: ref["launches"][k] for k in LM_LAUNCHES}
+            require(got == want, f"rank {rank} step {s_}: traced launches "
+                                 f"{got}, phase 7's {want}")
+            require(not step["problems"], f"rank {rank} step {s_}: spans "
+                                          f"{step['problems'][:5]}")
+            # The step's staged bytes are the metrics' psum (gloo), not
+            # the aggregate's.
+            mapped = step["traffic"]["mapped_bytes"]
+            require(step["span_mapped_bytes"] == mapped,
+                    f"rank {rank} step {s_}: hop spans account for "
+                    f"{step['span_mapped_bytes']} B, the transport wrote "
+                    f"{mapped} B ({step['traffic']})")
+            require(math.isfinite(step["loss"]), "non-finite loss")
+        require(lm["train_step_samples"] == TRAIN_STEPS,
+                f"rank {rank}: train_step_s has {lm['train_step_samples']} "
+                f"samples")
+    lm0 = results[0]["lm"]
+    log(f"  (a) plan {lm0['render']}; parameters bit for bit phase 7's on "
+        f"every rank (checksum {lm0['checksum']}); K1/K2/K3/K5/K6 per step "
+        f"{[lm0['steps'][0]['launches'][k] for k in LM_LAUNCHES]}, as in "
+        f"phase 7; every stage and bucket path one span per step; hop spans "
+        f"per stage as the plan's hops; hop payloads = bytes written "
+        f"through the mappings ({lm0['steps'][0]['span_mapped_bytes']} B a "
+        f"step on rank 0); train_step_s {TRAIN_STEPS} samples")
+    for r in results:
+        log(f"    rank {r['rank']} host ms per step: "
+            + "; ".join(
+                f"step {i} train.step {_ms(st['train_step_s'])} "
+                f"(phase 7 step_s {_ms(base['step_s'])}), aggregate "
+                f"{_ms(st['aggregate_s'])} = hops {_ms(st['hop_s'])} + "
+                f"stages outside hops {_ms(st['stage_s'])} + buckets "
+                f"outside stages {_ms(st['bucket_s'])} + the rest"
+                for i, (st, base) in enumerate(
+                    zip(r["lm"]["steps"],
+                        phase7["lm"][r["rank"]]["steps"]), 1)))
+
+    # (c)
+    for r in results:
+        c = r["closure"]
+        require(list(c["measured"]) == c["paths"]
+                and all(math.isfinite(v) and v > 0
+                        for p, v in c["measured"].items()),
+                f"rank {r['rank']}: the closure measured {c['measured']} "
+                f"for paths {c['paths']}")
+        k = c["calibration"]["k"]
+        require(math.isfinite(k) and k > 0, f"rank {r['rank']}: k = {k}")
+    c = results[0]["closure"]
+    per = {p: round(v["k"], 4) for p, v in
+           c["calibration"]["per_axis_size"].items()}
+    tl = c["timelines"]
+    log(f"  (c) closure on (a)'s schedule ({len(c['paths'])} stages, "
+        f"{c['seconds']:.1f} s): measured ms per path "
+        f"{ {p: _ms(v) for p, v in c['measured'].items()} }; k "
+        f"{c['calibration']['k']:.4f} (per axis size {per}), max_ratio "
+        f"{c['max_ratio']:.4f} over {c['n_gated']} gated stages, "
+        f"all_within_band {c['all_within_band']} (band x"
+        f"{c['band']['factor']} declared for host-CPU replays: read, not "
+        f"required); compute {c['compute_host_s']:.4f} s host: overlap "
+        f"fraction measured {tl['measured']['overlap_fraction']:.4f}, "
+        f"predicted {tl['predicted']['overlap_fraction']:.4f}")
+    f = c["fused"]
+    log(f"    fused replay (GDR-Opt's fused hop, K1-K3) against the unfused "
+        f"route: fused {f['fused_s'] * 1e3:.3f} ms, unfused "
+        f"{f['unfused_s'] * 1e3:.3f} ms, speedup {f['speedup']:.3f}, "
+        f"residual {f['residual_rel']:.3e}, executor traces "
+        f"{f['executor_traces']}")
+
+    # (b)
+    base8 = {r["rank"]: r["runs"][0] for r in phase8["cnn"]}
+    for r in results:
+        cnn, rank = r["cnn"], r["rank"]
+        require(cnn["checksum"] == base8[rank]["checksum"],
+                f"rank {rank}: traced ResNet-50 parameters "
+                f"{cnn['checksum']} differ from phase 8's "
+                f"{base8[rank]['checksum']}")
+        for s_, step in enumerate(cnn["steps"], 1):
+            require(step["bucket_paths"] == step["want_paths"]
+                    and len(step["buckets"]) == len(step["want_paths"]),
+                    f"rank {rank} step {s_}: bucket spans "
+                    f"{step['bucket_paths']}")
+            require(not step["off_track"],
+                    f"rank {rank} step {s_}: spans off the channel's "
+                    f"track {step['off_track'][:5]}")
+    log(f"  (b) ResNet-50 overlapped: parameters bit for bit phase 8's on "
+        f"every rank; every bucket's spans on the overlap-channel track")
+    last = results[0]["cnn"]["steps"][-1]
+    log(f"    rank 0, last step, channel order, ms from the start of "
+        f"backward (backward {_ms(last['backward_s'])}): bucket ready "
+        f"start end | channel span split: hops, stages outside hops, "
+        f"rest (flatten, cast, scale)")
+    for index, ready, start, end, hop, stage, rest in last["buckets"]:
+        log(f"      bucket {index:3d} {_ms(ready):9.3f} {_ms(start):9.3f} "
+            f"{_ms(end):9.3f} | {_ms(hop):8.3f} {_ms(stage):8.3f} "
+            f"{_ms(rest):8.3f}")
+    for r in results:
+        step = r["cnn"]["steps"][-1]
+        tot = [sum(b[i] for b in step["buckets"]) for i in range(4, 7)]
+        busy = sum(b[3] - b[2] for b in step["buckets"])
+        log(f"    rank {r['rank']} last step: channel start-to-end "
+            f"{_ms(busy)} ms, in bucket spans {_ms(sum(tot))}: hops "
+            f"{_ms(tot[0])}, stages outside hops {_ms(tot[1])}, rest "
+            f"{_ms(tot[2])}; backward {_ms(step['backward_s'])} ms; step "
+            f"{_ms(step['step_s'])} ms")
+
+    # (d)
+    t = results[0]["trace"]
+    require(t is not None and t["spans"] == t["events"] > 0,
+            f"rank 0's trace did not reload: {t}")
+    log(f"  (d) rank 0's trace: {t['events']} events, {t['bytes']} bytes, "
+        f"{t['roots']} roots, reloaded through from_json; tracks "
+        f"{t['tids']}")
+    log(f"  phase 11 {seconds:.1f} s on {gpu_line()}")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3046,6 +3463,11 @@ def main():
         f"rhd_rsa on gloo and cuda_ipc, rhd_rsa + int8 on cuda_ipc")
     phase10 = run_model_axis_phase(phase3)
 
+    log("phase 11: telemetry on the training path (REPRO_TRACE in the "
+        "ranks): smollm-360m as phase 7, the closure, ResNet-50 as phase "
+        "8, the trace file")
+    phase11 = run_telemetry_phase(phase7, phase8)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -3061,7 +3483,9 @@ def main():
                 "phase9": sum(run[field][k] for r in phase9
                               for run in r["runs"]),
                 "phase10": sum(run[field][k] for r in phase10
-                               for run in r["runs"])}
+                               for run in r["runs"]),
+                "phase11": sum(r[part][field][k] for r in phase11
+                               for part in ("lm", "cnn"))}
 
     def scalar(k):
         if k not in SCALAR:

@@ -36,6 +36,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from .. import telemetry
 from .. import tree as tree_mod
 from . import codec as codec_mod
 from . import dist as dist_mod
@@ -178,6 +179,17 @@ class GradientAggregator:
             model_axis=self.model_axis,
             model_axis_size=int(model_axis_size or 1), cache=self.cache)
         self.last_schedule = sched
+        if telemetry.enabled():
+            tracer = telemetry.get_tracer()
+            with tracer.span("aggregate.resolve", cat="trace",
+                             fingerprint=sched.fingerprint(),
+                             n_buckets=len(sched.buckets),
+                             strategy=cfg.strategy,
+                             placement=cfg.placement):
+                pass
+            telemetry.metrics.record_schedule(sched)
+            telemetry.record_plan_cache(self.cache)
+            telemetry.record_executor_cache(GLOBAL_EXECUTOR_CACHE)
         return sched
 
     def _context(self, grads, groups):
@@ -274,10 +286,16 @@ class GradientAggregator:
         sched, scale = self._context(params, groups)
         leaves = tree_mod.leaves(params)
         device = leaves[0].device
-        ex = GLOBAL_EXECUTOR_CACHE.executor_for(sched, self.groups, device)
-        self._arm_hooks(leaves)
-        self._run = OverlapRun(self, sched, ex, params, scale,
-                               self._stream(device))
+        # The bucket spans open later, on the channel's thread, as each
+        # bucket is reduced; this one records the arming and its order.
+        with telemetry.get_tracer().span(
+                "overlap_params", cat="trace", n_buckets=len(sched.buckets),
+                readiness_order=list(sched.readiness_order())):
+            ex = GLOBAL_EXECUTOR_CACHE.executor_for(sched, self.groups,
+                                                    device)
+            self._arm_hooks(leaves)
+            self._run = OverlapRun(self, sched, ex, params, scale,
+                                   self._stream(device))
         return self._run
 
     def mean_scalar(self, x: torch.Tensor) -> torch.Tensor:

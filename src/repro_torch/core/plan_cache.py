@@ -31,6 +31,7 @@ from typing import Hashable
 import torch
 
 from .. import tree as tree_mod
+from ..telemetry import trace as telemetry_trace
 from . import codec as codec_mod
 from . import dist as dist_mod
 from . import fusion, reducers
@@ -164,6 +165,23 @@ def _buffer_specs(sched) -> tuple:
     return tuple(specs)
 
 
+def stage_slot_bytes(st, shape, itemsize: int) -> int:
+    """The receive slot one stage ``st`` needs on its axis for a buffer
+    of ``shape`` whose uncoded elements take ``itemsize`` bytes: its
+    largest hop (coded: the codec's payload and the most scales a hop
+    carries) or its all-gather row."""
+    hop, row = reducers.hop_elements(st.algorithm, shape, st.axis_size,
+                                     op=st.op)
+    c = codec_mod.get(st.codec or "none")
+    if c.name == "none":
+        parts = [hop * itemsize]
+    else:
+        scales = reducers.hop_scales(st.algorithm, st.axis_size)
+        parts = [hop * c.itemsize] + (
+            [codec_mod.SCALE_BYTES * scales] if c.scaled else [])
+    return max(dist_mod.slot_bytes(parts) if hop else 0, row * itemsize)
+
+
 def _slot_bytes(sched, specs) -> dict:
     """Per axis, the largest hop payload of ``sched``'s stages on that
     axis (coded: the codec's payload and the most scales a hop carries;
@@ -181,18 +199,8 @@ def _slot_bytes(sched, specs) -> dict:
         itemsize = 4 if coded else accum.itemsize
         pending = []
         for st in bucket.stages:
-            hop, row = reducers.hop_elements(st.algorithm, shape,
-                                             st.axis_size, op=st.op)
-            c = codec_mod.get(st.codec or "none")
-            if c.name == "none":
-                parts = [hop * itemsize]
-            else:
-                scales = reducers.hop_scales(st.algorithm, st.axis_size)
-                parts = [hop * c.itemsize] + (
-                    [codec_mod.SCALE_BYTES * scales] if c.scaled else [])
             need[st.axis] = max(need[st.axis],
-                                dist_mod.slot_bytes(parts) if hop else 0,
-                                row * itemsize)
+                                stage_slot_bytes(st, shape, itemsize))
             if st.op in ("reduce_scatter", "shard"):
                 pending.append(shape)
                 shape = (-(-shape[0] // st.axis_size),) + shape[1:]
@@ -291,8 +299,17 @@ class StageExecutor:
         self._check_open()
         plan, bucket = self.schedule.plan, self.schedule.buckets[i]
         pb = plan.buckets[bucket.index]
-        buf = plan.flatten_bucket(pb, leaves, self.buffers[bucket.index])
-        return self._reduce_bucket(bucket, pb.group, buf, scale, residual)
+        with telemetry_trace.get_tracer().span(
+                bucket.path, cat="trace", ir_path=bucket.path,
+                strategy=bucket.strategy, size=bucket.size,
+                n_bytes=bucket.n_bytes, wire_bytes=bucket.wire_bytes,
+                readiness_rank=bucket.readiness_rank,
+                placement=self.schedule.placement,
+                error_feedback=residual is not None):
+            buf = plan.flatten_bucket(pb, leaves,
+                                      self.buffers[bucket.index])
+            return self._reduce_bucket(bucket, pb.group, buf, scale,
+                                       residual)
 
     def __call__(self, tree, scale: float = 1.0, residuals=None):
         """Reduce ``tree`` (laid out as the schedule's plan) and scale it
@@ -308,12 +325,16 @@ class StageExecutor:
         flat = tree_mod.leaves(tree)
         self.calls += 1
         reduced, new_residuals = [], []
-        for i, bucket in enumerate(self.schedule.buckets):
-            out, r = self.reduce_bucket(
-                i, [flat[j] for j in plan.buckets[bucket.index].leaf_indices],
-                scale, None if residuals is None else residuals[i])
-            reduced.append(out)
-            new_residuals.append(r)
+        with telemetry_trace.get_tracer().span(
+                "aggregate", cat="trace", n_buckets=len(plan.buckets),
+                placement=self.schedule.placement):
+            for i, bucket in enumerate(self.schedule.buckets):
+                out, r = self.reduce_bucket(
+                    i, [flat[j] for j in
+                        plan.buckets[bucket.index].leaf_indices],
+                    scale, None if residuals is None else residuals[i])
+                reduced.append(out)
+                new_residuals.append(r)
         if residuals is not None:
             return plan.unflatten(reduced), tuple(new_residuals)
         return plan.unflatten(reduced)

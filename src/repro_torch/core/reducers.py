@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.fused_reduce import fused_reduce
+from ..telemetry import trace as telemetry_trace
 from . import dist as dist_mod
 from .dist import all_gather, axis_index, axis_size, ppermute
 
@@ -219,6 +220,32 @@ _FLAT_FNS = {"psum": psum, "ring_rsa": ring_rsa, "rhd_rsa": rhd_rsa,
              "ps_gather": ps_gather}
 
 
+def _traced_permute(tracer, inner, st, stage_path):
+    """Wrap a stage's hop primitive so every hop records a telemetry
+    span (``<stage_path>.hop[k]``) with its payload bytes (the tensor
+    handed to the hop, before any encode), its edges and its codec.  On
+    a coded stage ``inner`` encodes, ships and decodes, so the span
+    covers all three.  The wrapper keeps the hop protocol:
+    ``add``, ``keep_sent`` and ``blocks`` (each joined chunk at its own
+    scale) reach ``inner`` unchanged."""
+    cname = getattr(st, "codec", "none") or "none"
+    counter = [0]
+    inner_hop = _as_hop(inner)
+
+    def permute(x, group, perm, add=None, keep_sent=False, blocks=1):
+        k = counter[0]
+        counter[0] += 1
+        with tracer.span(f"hop[{k}]", cat="trace",
+                         ir_path=f"{stage_path}.hop[{k}]",
+                         payload_bytes=x.numel() * x.element_size(),
+                         n_edges=len(perm), codec=cname):
+            return inner_hop(x, group, perm, add=add, keep_sent=keep_sent,
+                             blocks=blocks)
+
+    permute.supports_add = True
+    return permute
+
+
 def execute_stages(x: torch.Tensor, stages, groups) -> torch.Tensor:
     """Run a bucket's decomposition tree.  ``groups`` maps each stage's
     axis name to its :class:`~repro_torch.core.dist.Group`.
@@ -232,42 +259,63 @@ def execute_stages(x: torch.Tensor, stages, groups) -> torch.Tensor:
     orig_dtype = x.dtype
     if coded and x.dtype != torch.float32:
         x = x.to(torch.float32)
+    tracer = telemetry_trace.get_tracer()
     pending: list = []
-    for st in stages:
+    for j, st in enumerate(stages):
         group = groups[st.axis]
         permute = _stage_permute(st)
-        if st.op == "reduce_scatter":
-            if st.algorithm != "ring_rsa":
-                raise ValueError(f"unknown reduce-scatter algorithm "
-                                 f"{st.algorithm!r}")
-            x, n = ring_reduce_scatter(x, group, permute=permute)
-            pending.append((st.axis, n))
-        elif st.op == "shard":
-            p = axis_size(group)
-            x, n = _pad_leading(x, p)
-            cl = x.shape[0] // p
-            start = ((axis_index(group) + 1) % p) * cl
-            x = x[start:start + cl]
-            pending.append((st.axis, n))
-        elif st.op == "all_gather":
-            if not pending or pending[-1][0] != st.axis:
-                raise ValueError(f"all_gather@{st.axis} without a matching "
-                                 f"reduce_scatter (pending {pending})")
-            _, n = pending.pop()
-            x = ring_all_gather(x, group, n, permute=permute)
-        elif st.op == "allreduce":
-            fn = _FLAT_FNS.get(st.algorithm)
-            if fn is None:
-                raise ValueError(f"unknown allreduce algorithm "
-                                 f"{st.algorithm!r}")
-            if st.algorithm == "ps_gather":
-                x = fn(x, group, fused=bool(getattr(st, "fused_hop", False)))
-            elif st.algorithm == "psum":
-                x = fn(x, group)
-            else:
-                x = fn(x, group, permute=permute)
+        if tracer.enabled:
+            # The enclosing bucket span (opened by the executor) gives
+            # the path's base; a bare stage list gets "stage[j]" alone.
+            base = tracer.current_path()
+            path = f"{base}.stage[{j}]" if base else f"stage[{j}]"
+            ctx = tracer.span(
+                f"stage[{j}]", cat="trace", ir_path=path, op=st.op,
+                algorithm=st.algorithm, axis=st.axis,
+                axis_size=int(st.axis_size), n_bytes=int(st.n_bytes),
+                wire_bytes=int(st.wire_bytes),
+                codec=getattr(st, "codec", "none") or "none")
+            # Only the ppermute-hop algorithms take a hop primitive.
+            if st.op != "allreduce" or st.algorithm in ("ring_rsa",
+                                                        "rhd_rsa"):
+                permute = _traced_permute(tracer, permute, st, path)
         else:
-            raise ValueError(f"unknown stage op {st.op!r}")
+            ctx = tracer.span("")           # the shared no-op
+        with ctx:
+            if st.op == "reduce_scatter":
+                if st.algorithm != "ring_rsa":
+                    raise ValueError(f"unknown reduce-scatter algorithm "
+                                     f"{st.algorithm!r}")
+                x, n = ring_reduce_scatter(x, group, permute=permute)
+                pending.append((st.axis, n))
+            elif st.op == "shard":
+                p = axis_size(group)
+                x, n = _pad_leading(x, p)
+                cl = x.shape[0] // p
+                start = ((axis_index(group) + 1) % p) * cl
+                x = x[start:start + cl]
+                pending.append((st.axis, n))
+            elif st.op == "all_gather":
+                if not pending or pending[-1][0] != st.axis:
+                    raise ValueError(f"all_gather@{st.axis} without a "
+                                     f"matching reduce_scatter (pending "
+                                     f"{pending})")
+                _, n = pending.pop()
+                x = ring_all_gather(x, group, n, permute=permute)
+            elif st.op == "allreduce":
+                fn = _FLAT_FNS.get(st.algorithm)
+                if fn is None:
+                    raise ValueError(f"unknown allreduce algorithm "
+                                     f"{st.algorithm!r}")
+                if st.algorithm == "ps_gather":
+                    x = fn(x, group,
+                           fused=bool(getattr(st, "fused_hop", False)))
+                elif st.algorithm == "psum":
+                    x = fn(x, group)
+                else:
+                    x = fn(x, group, permute=permute)
+            else:
+                raise ValueError(f"unknown stage op {st.op!r}")
     if pending:
         raise ValueError(f"unterminated reduce_scatter stages: {pending}")
     if coded and x.dtype != orig_dtype:

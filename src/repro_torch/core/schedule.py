@@ -148,6 +148,16 @@ class BucketSchedule:
     def wire_bytes(self) -> int:
         return sum(st.wire_bytes for st in self.stages)
 
+    @property
+    def path(self) -> str:
+        """This bucket's IR path, ``bucket[i]``: the key of its telemetry
+        span and of the closure's rows."""
+        return f"bucket[{self.index}]"
+
+    def stage_path(self, j: int) -> str:
+        """The IR path of stage ``j``, ``bucket[i].stage[j]``."""
+        return f"{self.path}.stage[{j}]"
+
     def render(self) -> str:
         """``ring@data×rhd@pod`` for a composed bucket, ``rhd@data`` for
         a flat one (a reduce-scatter/all-gather pair collapses onto its
@@ -229,6 +239,12 @@ class ReduceSchedule:
         order the in-backward channel reduces them in."""
         return tuple(sorted(range(len(self.buckets)),
                             key=lambda i: self.buckets[i].readiness_rank))
+
+    def iter_stages(self):
+        """``(path, bucket, stage)`` over every stage of every bucket."""
+        for b in self.buckets:
+            for j, st in enumerate(b.stages):
+                yield b.stage_path(j), b, st
 
     def render(self) -> str:
         counts: dict = {}
@@ -699,6 +715,50 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
         model_key=(model_axis, model_m) if may_bracket else None,
         fused=fused)
     return cache.resolve(request, _resolve)
+
+
+def synthetic(bucket_bytes: Sequence[float], strategy: str,
+              axis_sizes: Sequence[int],
+              axis_names: Sequence[str] | None = None,
+              wire_dtype: str = "float32", codec: str = "none",
+              model_axis: "str | None" = None,
+              model_axis_size: int = 1) -> ReduceSchedule:
+    """A DETACHED schedule (``plan=None``) for a list of bucket sizes in
+    bytes, as the reference's ``synthetic`` builds one with its defaults
+    (links, placement, no fused hops): bucket ``i`` is the ``i``-th from
+    the start of the network, so readiness is reverse plan order; a
+    ``model_axis`` of size > 1 brackets every bucket."""
+    sizes = tuple(int(s) for s in axis_sizes)
+    names = tuple(axis_names) if axis_names is not None else \
+        (("pod", "data") if len(sizes) == 2
+         else tuple(f"ax{i}" for i in range(len(sizes))))
+    strat = normalize_strategy(strategy, len(names))
+    if wire_dtype not in DTYPES:
+        raise ValueError(f"wire dtype {wire_dtype!r} not in {list(DTYPES)}")
+    itemsize = DTYPES[wire_dtype].itemsize
+    codec = codec or "none"
+    codec_mod.validate_spec(codec)
+    n = len(tuple(bucket_bytes))
+    model_m = int(model_axis_size)
+    bracket = model_axis is not None and model_m > 1
+    buckets = []
+    for i, b in enumerate(bucket_bytes):
+        n_bytes = int(b)
+        stages = decompose(strat, n_bytes, names, sizes, codec=codec,
+                           wire_itemsize=itemsize,
+                           model_axis=model_axis if bracket else None,
+                           model_axis_size=model_m if bracket else 1)
+        buckets.append(BucketSchedule(
+            index=i, leaf_indices=(), size=max(n_bytes // itemsize, 1),
+            n_bytes=n_bytes, readiness_rank=n - 1 - i, strategy=strat,
+            stages=stages,
+            predicted_s=sum(st.predicted_s for st in stages)))
+    return ReduceSchedule(
+        axis_names=names, axis_sizes=sizes, wire_dtype=wire_dtype,
+        placement="post_backward", threshold_bytes=0, switch_points=(),
+        buckets=tuple(buckets), codec=codec,
+        model_axis=model_axis if bracket else None,
+        model_axis_size=model_m if bracket else 1, plan=None)
 
 
 def with_fused_hops(sched: ReduceSchedule,

@@ -32,6 +32,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from .. import telemetry
 from .. import tree as tree_mod
 from ..core import AggregatorConfig, GradientAggregator
 from ..core import dist as dist_mod
@@ -89,7 +90,9 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
     group).  A caller may set ``extras["inspect"]``: each step then calls
     ``inspect(reduced, gnorm)`` with the aggregated gradient tree (shards
     on a model axis, before the clip) and the global norm the clip
-    used."""
+    used.  With telemetry enabled when the step is built
+    (``repro_torch.telemetry``), ``step_fn`` is a ``TimedFn``: a
+    ``train.step`` wall span and a ``train_step_s`` sample per step."""
     device = resolve_device(device)
     dp_axes = tuple(cfg.dp_axes)
     if groups is None:
@@ -163,4 +166,10 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
             [metrics[k].detach().to(torch.float32) for k in names]))
         return params, opt_state, dict(zip(names, means.unbind(0)))
 
+    if telemetry.enabled():
+        # A wall span and the train_step_s histogram around each step,
+        # closed after a device sync; built only when telemetry is on,
+        # so the disabled path returns the raw function.
+        return telemetry.trace.timed_call(step_fn, "train.step",
+                                          histogram="train_step_s"), extras
     return step_fn, extras
