@@ -198,8 +198,38 @@ split into copies host<->device and device<->device, K1-K3/K4, gloo
 waits and control waits; the profiled cuda_ipc aggregates must copy
 nothing between host and card.
 
+12. Serving (the reference's ``serve/`` and KV-cache decode).  (a)
+   Full-width, full-depth gemma-7b (28 layers, 8,537,680,896 f32
+   parameters from a seeded generator on the card, bf16 compute) in
+   this process through ``launch/serve.py::build_engine`` and
+   ``ServeEngine``: batch 2, prompt 4096, 32 greedy tokens.  K7 must
+   launch 28 times in prefill and never in decode, K6 57 times per
+   forward; the tokens in range, the decode logits finite; decode must
+   equal forward (prefill 4096 of a 4104-token batch, 8 teacher-forced
+   steps, the last logits within a relative 0.05 of ``forward`` over all
+   4104, the reference's criterion); the card at most 90% full.  Prints
+   prefill seconds, decode ms per token, tokens/s, peak memory, the
+   decode step's cast-bound under the reference's design (f32 weights
+   read, their bf16 cast written and read, the KV cache read) and its
+   own floor (f32 weights read once, the cache read) beside it, and the
+   casts alone; the prompt's tokens must be in range on the card before
+   the embedding lookup (counted there into host memory, readable after
+   a device-side assert).
+   (b) The float32 gemma (``reduced()``, head_dim 256) at prompt 128 on
+   the card and on the host's plain versions: prefill logits within K7's
+   f32 tolerance, 16 greedy tokens equal.  (c) Full-width smollm-360m on
+   4 ``cuda_ipc`` ranks as data 2 × model 2 (``--mesh 2x2``), global
+   batch 4, prompt 512, 32 greedy tokens: the gather boundary at every
+   prefill and decode step; each data rank's tokens and last logits bit
+   for bit a one-rank engine's on its 2 rows with the full parameters
+   drawn again from the seed, which the gather boundary's output must
+   equal bit for bit, and the model ranks bit for bit each other; prints
+   the gather boundary's time per step beside decode ms per token.
+
 The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+limit, and ``{"ok": true, "device": ...}``.  ``python3 chip_smoke.py
+--serve-only`` builds the kernels and runs phase 12 alone (its last line
+is then the card's name and power limit).
 """
 import argparse
 import collections
@@ -3375,7 +3405,499 @@ def run_telemetry_phase(phase7, phase8):
     return results
 
 
-def main():
+# ---------------------------------------------------------------------------
+# phase 12: serving (prefill and decode through K6 and K7)
+# ---------------------------------------------------------------------------
+
+SERVE_DEVICE = "cuda"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32   # (a) gemma-7b
+PARITY_DECODE = 8                # (a) teacher-forced steps after 4096
+GEMMA_PARAMS = 8_537_680_896     # 28 layers, the tied embedding
+SMALL_PROMPT, SMALL_NEW = 128, 16                    # (b)
+RANK_MESH, RANK_BATCH, RANK_PROMPT, RANK_NEW = "2x2", 4, 512, 32   # (c)
+GATHER_REPS = 5
+# (a)'s decode cast-bound, the reference's design: every step reads the
+# f32 weights, writes their bf16 cast and reads it back; the function's
+# own floor reads the f32 weights once.  Both add the KV cache's bytes.
+DECODE_BYTES_PER_PARAM = 4 + 2 + 2
+FLOOR_BYTES_PER_PARAM = 4
+SERVE_KERNELS = ("fused_rmsnorm", "flash_attention_fwd")
+
+
+def serve_args(**over):
+    from repro_torch.launch.serve import parser
+    args = parser().parse_args(["--arch", "gemma-7b", "--mesh", "1x1"])
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def _serve_gemma_spec():
+    """(a)'s model: gemma-7b as published, all 28 layers, bf16."""
+    from repro_torch.configs import get_spec
+    return get_spec("gemma-7b")
+
+
+def _rank_args():
+    """(c)'s launcher arguments: full-width smollm-360m on 2 x 2."""
+    return serve_args(arch="smollm-360m", full=True, batch=RANK_BATCH,
+                      prompt_len=RANK_PROMPT, new_tokens=RANK_NEW,
+                      mesh=RANK_MESH, backend="cuda_ipc",
+                      device=SERVE_DEVICE)
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _count_calls(model, calls, finite):
+    """``model`` with its prefill and decode step wrapped to record each
+    call's K6/K7 launches, and to fold the finiteness of decode's logits
+    into ``finite`` on the device (no sync)."""
+    import dataclasses
+    import torch
+
+    def wrap(fn, kind):
+        def call(*a):
+            before = _counts()
+            logits, cache = fn(*a)
+            after = _counts()
+            calls.append((kind, {k: after[k] - before[k]
+                                 for k in SERVE_KERNELS}))
+            if kind == "decode":
+                ok = torch.isfinite(logits).all()
+                finite[0] = ok if finite[0] is None else finite[0] & ok
+            return logits, cache
+        return call
+
+    return dataclasses.replace(model, prefill=wrap(model.prefill, "prefill"),
+                               decode_step=wrap(model.decode_step, "decode"))
+
+
+def _token_check(model, seen):
+    """``model`` with its prefill wrapped to count, on the device before
+    the embedding lookup, the prompt's tokens outside ``[0, vocab)``.
+    The count goes to pinned host memory in stream order (appended to
+    ``seen``), so it can be read even after a device-side assert."""
+    import dataclasses
+    import torch
+    vocab = model.spec.vocab_size
+
+    def prefill(params, batch, max_seq=None):
+        t = batch["tokens"]
+        host = torch.empty((), dtype=torch.int64, pin_memory=t.is_cuda)
+        host.copy_(((t < 0) | (t >= vocab)).sum(), non_blocking=True)
+        seen.append(host)
+        return model.prefill(params, batch, max_seq)
+
+    return dataclasses.replace(model, prefill=prefill)
+
+
+def _profiled(fn, cuda):
+    """``fn()`` under ``torch.profiler`` (on CUDA): its output, the host
+    wall ms around it (synchronised), the summed device ms of its
+    kernels and their count."""
+    import torch
+    if not cuda:
+        return {"out": fn()}
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(getattr(e, "device_time_total", 0) for e in kernels)
+    return {"out": out, "wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
+            "kernels": sum(e.count for e in kernels)}
+
+
+def serve_gemma():
+    """(a): full-width, full-depth gemma-7b served in this process through
+    ``launch/serve.py::build_engine`` and ``ServeEngine``: batch 2, prompt
+    4096, 32 greedy tokens.  K7 28 times in prefill and never in decode,
+    K6 57 times per forward, tokens in range, decode logits finite; then
+    decode against forward (prefill 4096 of a 4104-token batch, 8
+    teacher-forced steps, the last logits against ``forward`` over all
+    4104); the card at most 90% full.  Returns the record."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.data.synthetic import SyntheticText
+    from repro_torch.launch.serve import build_engine, decode_ms
+    from repro_torch.models import transformer
+
+    spec = _serve_gemma_spec()
+    cuda = torch.device(SERVE_DEVICE).type == "cuda"
+    args = serve_args(full=True, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      new_tokens=SERVE_NEW, device=SERVE_DEVICE)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, batch = build_engine(args, spec=spec)
+    _sync(SERVE_DEVICE)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(engine.params))
+    log(f"  (a) {spec.name}: {spec.num_layers} layers, d_model "
+        f"{spec.d_model}, {spec.num_heads}/{spec.num_kv_heads} heads of "
+        f"{spec.resolved_head_dim}, vocab {spec.vocab_size}, {spec.dtype} "
+        f"compute; {n_params} f32 parameters drawn on the card in "
+        f"{init_s:.1f} s; batch {SERVE_BATCH}, prompt {SERVE_PROMPT} "
+        f"(attn_full_seq_max {spec.attn_full_seq_max}), {SERVE_NEW} greedy "
+        f"tokens, max_seq {engine.cfg.max_seq}")
+    if spec.name == "gemma-7b":
+        require(n_params == GEMMA_PARAMS,
+                f"gemma-7b has {n_params} parameters, not {GEMMA_PARAMS}")
+    calls, finite, checked = [], [None], []
+    engine.model = _count_calls(_token_check(engine.model, checked), calls,
+                                finite)
+    host_toks = batch["tokens"]
+    _reset_counts()                           # main path starts here
+    try:
+        out = engine.generate(batch)
+    except Exception:
+        # F7: were the prompt's tokens in range on the card before the
+        # lookup?  The count sits in host memory, readable after a
+        # device-side assert.
+        log(f"  (a) the prompt's tokens out of [0, {spec.vocab_size}) on "
+            f"the card before the lookup: {[int(h) for h in checked]}; on "
+            f"the host {int(host_toks.min())}..{int(host_toks.max())}")
+        raise
+    totals = _counts()                        # main path ends here
+    log(f"  (a) the prompt's tokens out of [0, {spec.vocab_size}) on the "
+        f"card before the lookup: {[int(h) for h in checked]}")
+    require(checked and not any(int(h) for h in checked),
+            f"(a) out-of-range prompt tokens on the card: "
+            f"{[int(h) for h in checked]}")
+    scalar = _scalar_counts()
+    k6 = 2 * spec.num_layers + 1
+    k7 = spec.num_layers if SERVE_PROMPT > spec.attn_full_seq_max else 0
+    kinds = [kind for kind, _ in calls]
+    require(kinds == ["prefill"] + ["decode"] * SERVE_NEW,
+            f"(a) ran {kinds}")
+    if cuda:
+        for i, (kind, got) in enumerate(calls):
+            want = {"fused_rmsnorm": k6,
+                    "flash_attention_fwd": k7 if kind == "prefill" else 0}
+            require(got == want, f"(a) call {i} ({kind}) launched {got}, "
+                                 f"not {want}")
+    require(out.shape == (SERVE_BATCH, SERVE_NEW)
+            and out.min() >= 0 and out.max() < spec.vocab_size,
+            f"(a) tokens out of range: {out}")
+    require(bool(finite[0]), "(a) non-finite decode logits")
+    timing = engine.timing
+    dec_ms = decode_ms(timing)
+    total_s = timing["prefill_s"] + sum(timing["decode_s"])
+    cd = spec.compute_dtype
+    cache_bytes = (2 * spec.num_layers * SERVE_BATCH
+                   * transformer.cache_len(spec, engine.cfg.max_seq)
+                   * spec.num_kv_heads * spec.resolved_head_dim
+                   * torch.empty((), dtype=cd).element_size())
+    bw = H100_SXM.hbm_bandwidth
+    bound = (n_params * DECODE_BYTES_PER_PARAM + cache_bytes) / bw * 1e3
+    floor = (n_params * FLOOR_BYTES_PER_PARAM + cache_bytes) / bw * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    log(f"  (a) launches per forward: prefill {calls[0][1]}, decode "
+        f"{calls[1][1]} (x{SERVE_NEW}); tokens row 0 {out[0][:12].tolist()}")
+    log(f"  (a) prefill {timing['prefill_s']:.4f} s; decode "
+        f"{dec_ms:.3f} ms/token (median of steps 2-{SERVE_NEW}; steps "
+        f"{[round(x * 1e3, 2) for x in timing['decode_s']]} ms); "
+        f"{SERVE_BATCH * SERVE_NEW / total_s:.1f} tokens/s over the "
+        f"generation, {SERVE_BATCH / dec_ms * 1e3:.1f} in decode; peak "
+        f"{peak:.2f} GiB allocated")
+    log(f"  (a) decode cast-bound, the reference's design (f32 weights "
+        f"read, bf16 cast written and read: {n_params} x "
+        f"{DECODE_BYTES_PER_PARAM} B, plus the KV cache read, {cache_bytes} "
+        f"B, over {bw / 1e12:.2f} TB/s) {bound:.2f} ms, measured/cast-bound "
+        f"{dec_ms / bound:.2f}; the step's own floor (f32 weights read "
+        f"once, {FLOOR_BYTES_PER_PARAM} B each, plus the cache) "
+        f"{floor:.2f} ms, measured/floor {dec_ms / floor:.2f}")
+    if cuda:
+        # A decode step's casts alone, on the device's clock: each body
+        # weight once, the embedding twice (the lookup and the head).
+        leaves = [w for ws in tree.leaves(engine.params["body"])
+                  for w in ws.unbind(0)] + [engine.params["embed"]] * 2
+        def casts():
+            for w in leaves:
+                w.to(spec.compute_dtype)     # freed at once, as in decode
+
+        cast_ms = time_ms(casts, reps=3)
+        log(f"  (a) a decode step's weight casts alone {cast_ms:.2f} ms "
+            f"(device time, {len(leaves)} casts): {cast_ms / dec_ms:.1%} "
+            f"of the measured step")
+
+    # Decode against forward, as the reference's test_decode_parity.py.
+    t1 = time.perf_counter()
+    model = engine.model
+    toks = SyntheticText(spec.vocab_size, batch=SERVE_BATCH,
+                         seq_len=SERVE_PROMPT + PARITY_DECODE,
+                         seed=1).batch_at(0)["tokens"].to(SERVE_DEVICE)
+    last = SERVE_PROMPT + PARITY_DECODE - 1
+    with torch.inference_mode():
+        _, cache = model.prefill(engine.params,
+                                 {"tokens": toks[:, :SERVE_PROMPT]},
+                                 SERVE_PROMPT + PARITY_DECODE)
+        for t in range(SERVE_PROMPT, last):
+            got, cache = model.decode_step(engine.params, cache,
+                                           toks[:, t:t + 1])
+        # The last teacher-forced step under the profiler: the card's
+        # busy time in a decode step against the host's.
+        busy = _profiled(lambda: model.decode_step(
+            engine.params, cache, toks[:, last:last + 1]), cuda)
+        got, cache = busy.pop("out")
+        del cache
+        want = transformer.forward(engine.params, toks, spec)[:, -1] \
+            .float()
+    got = got.float()
+    rel = float((want - got).abs().max() / (want.abs().max() + 1e-9))
+    log(f"  (a) decode = forward: prefill {SERVE_PROMPT}, {PARITY_DECODE} "
+        f"teacher-forced steps, last logits against forward over "
+        f"{SERVE_PROMPT + PARITY_DECODE} tokens: rel err {rel:.4e} "
+        f"(required < 0.05) in {time.perf_counter() - t1:.1f} s")
+    require(rel < 0.05, f"(a) decode differs from forward: rel {rel}")
+    if cuda:
+        log(f"  (a) one decode step profiled: {busy['kernels']} kernels, "
+            f"card busy {busy['device_ms']:.2f} ms of {busy['wall_ms']:.2f} "
+            f"ms host wall ({busy['device_ms'] / busy['wall_ms']:.1%}); "
+            f"the profiler slows the host")
+    held, total = 0.0, 1.0
+    if cuda:
+        card, released = _card_in_use_gib(1)
+        held = card + released
+        total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        log(f"  (a) the card in use at its peak {held:.2f} of {total:.2f} "
+            f"GiB ({held / total:.1%}); peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        require(held <= 0.9 * total,
+                f"(a) holds {held:.2f} GiB of the card, more than 90%")
+    return {"totals": totals, "scalar": scalar,
+            "prefill_s": timing["prefill_s"],
+            "decode_ms": dec_ms, "bound_ms": bound, "floor_ms": floor,
+            "rel": rel,
+            "peak_gib": peak, "held_gib": held, "n_params": n_params}
+
+
+def serve_card_vs_host():
+    """(b): the float32 gemma (``reduced()``, head_dim 256) at prompt 128,
+    above its attn_full_seq_max of 64, on the card (K6/K7) and on the
+    host's plain versions from the same parameters: prefill logits
+    within K7's f32 tolerance, 16 greedy tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import ServeEngine
+
+    spec = dataclasses.replace(_serve_gemma_spec().reduced(), head_dim=256,
+                               dtype="float32")
+    args = serve_args(full=False, batch=SERVE_BATCH, prompt_len=SMALL_PROMPT,
+                      new_tokens=SMALL_NEW, device="cpu")
+    host, batch = build_engine(args, spec=spec)
+    card = ServeEngine(host.model, tree.tree_map(
+        lambda t: t.detach().to(SERVE_DEVICE), host.params), None, host.cfg,
+        SERVE_DEVICE)
+    model, tokens = host.model, batch["tokens"]
+    with torch.inference_mode():
+        want, _ = model.prefill(host.params, {"tokens": tokens},
+                                host.cfg.max_seq)
+        before = _counts()
+        got, _ = model.prefill(card.params,
+                               {"tokens": tokens.to(SERVE_DEVICE)},
+                               host.cfg.max_seq)
+        after = _counts()
+    launched = {k: after[k] - before[k] for k in SERVE_KERNELS}
+    ex = _excess(got.cpu(), want, 2e-5, 1e-4)
+    err = float((got.cpu() - want).abs().max())
+    out_host, out_card = host.generate(batch), card.generate(batch)
+    log(f"  (b) float32 gemma ({spec.num_layers} layers, d_model "
+        f"{spec.d_model}, head_dim {spec.resolved_head_dim}), prompt "
+        f"{SMALL_PROMPT} (attn_full_seq_max {spec.attn_full_seq_max}): "
+        f"prefill launched {launched} on the card; prefill logits card vs "
+        f"host max abs {err:.3e}, max err/tol {ex:.3f} at K7's f32 "
+        f"tolerance atol 2e-5 / rtol 1e-4 (K6's in phase 2: rtol 1e-5); "
+        f"{SMALL_NEW} greedy tokens equal: "
+        f"{bool((out_host == out_card).all())}")
+    if torch.device(SERVE_DEVICE).type == "cuda":
+        require(launched == {"fused_rmsnorm": 2 * spec.num_layers + 1,
+                             "flash_attention_fwd": spec.num_layers},
+                f"(b) the card's prefill launched {launched}")
+    require(ex <= 1.0, f"(b) card and host prefill logits disagree: {ex}")
+    require((out_host == out_card).all(),
+            f"(b) greedy tokens differ: {out_host} vs {out_card}")
+
+
+def _bits(t):
+    import torch
+    view = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    return t.contiguous().view(view).cpu().numpy()
+
+
+def serve_rank(rank, world, args):
+    """(c) on one rank: ``launch/serve.py::build_engine`` on ``--mesh 2x2`` (this
+    rank's shards, groups on the world's cuda_ipc), the engine's
+    generation with its launches and gather-boundary calls counted, the
+    gather boundary timed alone and its output held bit for bit to the
+    full parameters drawn again from ``args.seed`` as ``build_engine``
+    draws them, then a one-rank engine in this process on this data
+    rank's rows with the drawn parameters."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import manual
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import ServeEngine
+
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    engine, batch = build_engine(args)
+    transports = {ax: g.transport for ax, g in engine.groups.items()}
+    last = {}
+
+    def recording(eng, key):
+        orig = eng._sample
+
+        def sample(logits, gen):
+            last[key] = logits
+            return orig(logits, gen)
+        return sample
+
+    engine._sample = recording(engine, "mesh")
+    gathers = [0]
+    orig_gather = manual.gather_params
+
+    def counted_gather(*a):
+        gathers[0] += 1
+        return orig_gather(*a)
+
+    manual.gather_params = counted_gather
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                           # main path starts here
+    out = engine.generate(batch)
+    totals = _counts()                        # main path ends here
+    scalar = _scalar_counts()
+    manual.gather_params = orig_gather
+    step = engine._decode
+    _sync(args.device)
+    t0 = time.perf_counter()
+    for _ in range(GATHER_REPS):
+        full = step.full(engine.params)
+    _sync(args.device)
+    gather_s = (time.perf_counter() - t0) / GATHER_REPS
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    drawn = engine.model.init(gen, args.device).tree()
+    got, want = tree.leaves_with_path(full), tree.leaves_with_path(drawn)
+    differ = ["/".join(map(str, p)) for (p, a), (q, b) in zip(got, want)
+              if p != q or not _bits_equal(a, b)]
+    if len(got) != len(want):
+        differ.append(f"{len(got)} leaves, not {len(want)}")
+    del full
+    rows = step.rows
+    one = ServeEngine(engine.model, drawn, None, engine.cfg, engine.device)
+    one._sample = recording(one, "one")
+    one_out = one.generate({"tokens": batch["tokens"][rows]})
+    return {"rank": rank, "tokens": out, "one_tokens": one_out,
+            "rows": (rows.start, rows.stop), "last": _bits(last["mesh"]),
+            "one_last": _bits(last["one"]), "timing": engine.timing,
+            "gather_s": gather_s, "gathers": gathers[0], "totals": totals,
+            "gathered_differ": differ,
+            "scalar": scalar,
+            "transports": transports,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if cuda else 0.0}
+
+
+def serve_on_ranks():
+    """(c): full-width smollm-360m served on 4 cuda_ipc ranks sharing the
+    card, ``--mesh 2x2``: the weights rebuilt through the gather boundary
+    at every prefill and decode step; each data rank's tokens and last
+    logits bit for bit a one-rank run on its 2 rows; the two model ranks
+    of a data index bit for bit each other.  Returns each rank's record."""
+    from repro_torch.configs import get_spec
+    from repro_torch.core.dist import run_ranks
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.serve import decode_ms
+
+    args = _rank_args()
+    _, data, model = parse_mesh(args.mesh)
+    world = data * model
+    spec = get_spec(args.arch) if args.full else get_spec(args.arch).reduced()
+    log(f"  (c) {args.arch} at full width on --mesh {args.mesh} (data "
+        f"{data} x model {model}, {world} ranks on one card, "
+        f"{args.backend}): global batch {args.batch}, prompt "
+        f"{args.prompt_len}, {args.new_tokens} greedy tokens")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        results = run_ranks(serve_rank, world, (args,), backend=args.backend,
+                            rendezvous_dir=rdv,
+                            threads=max(1, (os.cpu_count() or 1) // world),
+                            timeout_s=600)
+    log(f"  (c) {world} ranks done in {time.perf_counter() - t0:.1f} s; "
+        f"groups {results[0]['transports']}")
+    k6 = (2 * spec.num_layers + 1) * (1 + args.new_tokens)
+    for r in results:
+        rank = r["rank"]
+        lo, hi = r["rows"]
+        require(r["gathers"] == 1 + args.new_tokens,
+                f"rank {rank}: the gather boundary ran {r['gathers']} "
+                f"times, not once per prefill and decode step")
+        require(not r["gathered_differ"],
+                f"rank {rank}: the gather boundary's parameters differ from "
+                f"the drawn ones at {r['gathered_differ'][:5]}")
+        require(r["transports"]["model"] == args.backend,
+                f"rank {rank}: groups {r['transports']}")
+        if args.device == "cuda":
+            require(r["totals"]["fused_rmsnorm"] == k6
+                    and r["totals"]["flash_attention_fwd"] == 0,
+                    f"rank {rank}: launched {r['totals']}")
+        require((r["tokens"][lo:hi] == r["one_tokens"]).all(),
+                f"rank {rank}: tokens of rows {lo}:{hi} differ from the "
+                f"one-rank run's")
+        require((r["last"][lo:hi] == r["one_last"]).all(),
+                f"rank {rank}: last logits of rows {lo}:{hi} differ from "
+                f"the one-rank run's")
+        require((r["tokens"] == results[0]["tokens"]).all()
+                and (r["last"] == results[0]["last"]).all(),
+                f"rank {rank}: tokens or logits differ from rank 0's")
+    log(f"  (c) every rank's gathered parameters bit for bit the ones "
+        f"drawn from the seed; its tokens and last logits bit for bit the "
+        f"one-rank runs on its rows (from the drawn parameters) and each "
+        f"other's; gather boundary "
+        f"{results[0]['gathers']} calls per generation")
+    for r in results:
+        log(f"  (c) rank {r['rank']} rows {r['rows']}: prefill "
+            f"{r['timing']['prefill_s']:.4f} s, decode "
+            f"{decode_ms(r['timing']):.3f} ms/token; the gather boundary "
+            f"alone {r['gather_s'] * 1e3:.3f} ms per step; peak "
+            f"{r['peak_gib']:.2f} GiB")
+    return results
+
+
+def run_serve_phase():
+    """Phase 12: (a) gemma-7b at full width and depth, (b) card against
+    host, (c) smollm-360m on a data x model mesh of ranks."""
+    import torch
+    t0 = time.perf_counter()
+    gemma = serve_gemma()
+    if torch.device(SERVE_DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    serve_card_vs_host()
+    if torch.device(SERVE_DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    ranks = serve_on_ranks()
+    log(f"  phase 12 {time.perf_counter() - t0:.1f} s on {gpu_line()}")
+    return {"gemma": gemma, "ranks": ranks}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build the kernels and run phase 12 alone")
+    opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3385,6 +3907,12 @@ def main():
     # Plain versions on the card are references: full f32 products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if opts.serve_only:
+        backend.build_all()
+        log("phase 12 alone")
+        run_serve_phase()
+        print(gpu_line(), flush=True)
+        return 0
     t_start = time.perf_counter()
     gpu = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
@@ -3468,6 +3996,11 @@ def main():
         "8, the trace file")
     phase11 = run_telemetry_phase(phase7, phase8)
 
+    log(f"phase 12: serving: gemma-7b at full width and depth (prompt "
+        f"{SERVE_PROMPT}, K7 in prefill), card against host, smollm-360m "
+        f"on --mesh {RANK_MESH} ranks")
+    phase12 = run_serve_phase()
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -3485,7 +4018,9 @@ def main():
                 "phase10": sum(run[field][k] for r in phase10
                                for run in r["runs"]),
                 "phase11": sum(r[part][field][k] for r in phase11
-                               for part in ("lm", "cnn"))}
+                               for part in ("lm", "cnn")),
+                "phase12": phase12["gemma"][field][k]
+                + sum(r[field][k] for r in phase12["ranks"])}
 
     def scalar(k):
         if k not in SCALAR:

@@ -1,4 +1,4 @@
 """Synthetic data (counterpart of ``repro/data``)."""
-from .synthetic import SyntheticImages, SyntheticText
+from .synthetic import SyntheticImages, SyntheticText, extra_inputs
 
-__all__ = ["SyntheticImages", "SyntheticText"]
+__all__ = ["SyntheticImages", "SyntheticText", "extra_inputs"]

@@ -7,6 +7,9 @@ NHWC images and uniform labels for the CNNs.  Deviation: the draws come
 from a seeded ``torch.Generator`` and cannot reproduce ``jax.random``'s
 bits, so the same seed gives other values than the reference; parity
 tests feed both packages batches made with numpy.
+
+``extra_inputs`` gives the modality front end's stub inputs: none for
+the ported (dense) family, as in the reference.
 """
 from __future__ import annotations
 
@@ -56,3 +59,13 @@ class SyntheticImages:
         labels = torch.randint(0, self.num_classes, (self.batch,),
                                generator=gen, device=dev)
         return {"images": images, "labels": labels}
+
+
+def extra_inputs(spec, batch: int) -> dict:
+    """Stub modality-frontend inputs of ``batch`` rows: ``{}`` for the
+    dense family; the audio and vision families are not ported."""
+    if getattr(spec, "family", None) == "dense":
+        return {}
+    raise NotImplementedError(
+        f"extra_inputs for family {getattr(spec, 'family', None)!r} is "
+        f"not ported yet (dense only)")

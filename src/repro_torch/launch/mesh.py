@@ -72,6 +72,18 @@ def make_groups(pods: int, data: int, model: int = 1,
     return {ax: out[ax] for ax in axes}
 
 
+def parse_mesh(mesh: str) -> tuple[int, int, int]:
+    """``(pods, data, model)`` of a ``DxM`` (``pods = 0``) or ``PxDxM``
+    mesh flag.  Raises ValueError on anything else."""
+    try:
+        dims = [int(x) for x in mesh.split("x")]
+    except ValueError:
+        dims = []
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh {mesh!r}: DxM or PxDxM, sizes >= 1")
+    return tuple(([0] + dims) if len(dims) == 2 else dims)
+
+
 def dp_axes_of(axis_names) -> tuple:
     """The dp axes among a mesh's axis names, outermost first."""
     return tuple(n for n in axis_names if n in DP_AXES)

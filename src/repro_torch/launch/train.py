@@ -22,9 +22,9 @@ several ranks on one card (payloads staged through host memory);
 the hop payloads kept in device memory (a gloo group carries control
 messages only; ranks of one host); ``--backend nccl`` needs one card
 per rank.  Runs on CUDA unless ``--device cpu``.  Keeps
-``repro.launch.train``'s flags, except the checkpoint flags
-(checkpoints are not ported yet) and ``--host-devices`` (ranks are
-processes).
+``repro.launch.train``'s flags, except ``--host-devices`` (ranks are
+processes); ``--ckpt-every N`` writes the full state (gathered on a
+model axis) to ``--ckpt-dir`` every N steps from global rank 0.
 """
 from __future__ import annotations
 
@@ -62,6 +62,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default=None,
                     help="compute dtype (default: the spec's, bfloat16)")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="checkpoints")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -72,13 +74,8 @@ def mesh_shape(args) -> tuple[int, int, int]:
     ValueError when ``--world`` disagrees with the mesh."""
     if args.mesh is None:
         return 0, args.world or 1, 1
-    try:
-        dims = [int(x) for x in args.mesh.split("x")]
-    except ValueError:
-        dims = []
-    if len(dims) not in (2, 3) or min(dims) < 1:
-        raise ValueError(f"--mesh {args.mesh!r}: DxM or PxDxM, sizes >= 1")
-    pods, data, model = ([0] + dims) if len(dims) == 2 else dims
+    from repro_torch.launch.mesh import parse_mesh
+    pods, data, model = parse_mesh(args.mesh)
     world = max(pods, 1) * data * model
     if args.world is not None and args.world != world:
         raise ValueError(f"--world {args.world} but --mesh {args.mesh} "
@@ -133,6 +130,7 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
             del groups["pod"]
     cfg = TrainerConfig(
         steps=args.steps, log_every=args.log_every,
+        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         step=TrainStepConfig(aggregator=aggregator
                              or aggregator_config(args), dp_axes=dp_axes))
     return Trainer(build_model(spec), opt, data.batch_at, cfg,

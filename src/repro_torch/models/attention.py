@@ -9,8 +9,13 @@ to the query heads, then :class:`~repro_torch.kernels.FlashAttnFn` — K7
 forward and K8 backward on CUDA, the chunked plain versions (chunk
 ``spec.attn_chunk``) on the CPU.  The full-sequence positions are
 ``0..S-1`` (``transformer.forward`` builds them so), which is what the
-kernels assume.  MLA, sliding-window decode and KV caches come with
-serving.
+kernels assume.
+
+:func:`gqa_decode` is the reference's one-token decode against a KV
+cache (plain torch, as the reference computes it outside any kernel):
+it writes the new key and value into the preallocated cache in place,
+the port's form of the reference's donated cache.  MLA comes with the
+other model families.
 """
 from __future__ import annotations
 
@@ -91,3 +96,43 @@ def gqa_forward(params, x, positions, spec: ModelSpec, rope: bool = True):
                window=spec.sliding_window)
     out = out.reshape(b, s, h * hd) @ params["wo"].to(cd)
     return out, (k, v)
+
+
+def gqa_decode(params, x, cache_k, cache_v, pos: int, spec: ModelSpec,
+               rope: bool = True):
+    """One-token decode.  x (B,1,d); cache_k/v (B,Smax,KV,dh), a ring
+    buffer under a sliding window, else linear; ``pos`` the current
+    position.  Writes the token's key and value into the caches in place
+    and returns the attention output (B,1,d)."""
+    b = x.shape[0]
+    h, kvh, hd = spec.num_heads, spec.num_kv_heads, spec.resolved_head_dim
+    cd = spec.compute_dtype
+    smax = cache_k.shape[1]
+    q = (x @ params["wq"].to(cd)).reshape(b, 1, h, hd)
+    k = (x @ params["wk"].to(cd)).reshape(b, 1, kvh, hd)
+    v = (x @ params["wv"].to(cd)).reshape(b, 1, kvh, hd)
+    if rope:
+        pos_arr = torch.full((b, 1), pos, dtype=torch.int32,
+                             device=x.device)
+        q = apply_rope(q, pos_arr, spec.rope_theta)
+        k = apply_rope(k, pos_arr, spec.rope_theta)
+    window = spec.sliding_window
+    # The slot the reference's dynamic_update_slice writes: it clamps the
+    # index into the buffer.
+    slot = pos % smax if window else min(pos, smax - 1)
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    # Grouped-query attention without the head repeat: q as
+    # (B, 1, KV, rep, dh) against the cache's KV heads.
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache_k) \
+        .to(torch.float32) / math.sqrt(hd)
+    idx = torch.arange(smax, device=x.device)
+    if window:
+        valid = (idx <= slot) | (pos >= smax)       # ring buffer full
+    else:
+        valid = idx <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(cache_v.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v)
+    return out.reshape(b, 1, h * hd) @ params["wo"].to(cd)

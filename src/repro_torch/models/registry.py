@@ -13,7 +13,7 @@ axis does not divide.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from .. import tree as tree_mod
 from . import cnn, transformer
@@ -33,10 +33,17 @@ _RULES: dict[str, tuple] = {
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     """``init(generator, device) -> module`` (its ``.tree()`` is the
-    parameter tree); ``loss(params_tree, batch) -> (loss, metrics)``."""
+    parameter tree); ``loss(params_tree, batch) -> (loss, metrics)``;
+    for serving ``prefill(params, batch, max_seq) -> (last logits,
+    cache)``, ``decode_step(params, cache, tokens) -> (logits, cache)``
+    and ``init_cache(batch, seq, device=None)``."""
     spec: "ModelSpec | cnn.CnnSpec"
     init: Callable
     loss: Callable
+    prefill: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
+    has_decode: bool = True
 
 
 def build_model(spec: ModelSpec) -> ModelApi:
@@ -47,7 +54,12 @@ def build_model(spec: ModelSpec) -> ModelApi:
         spec=spec,
         init=lambda gen, device=None: transformer.TransformerLM(
             spec, transformer.init_params(gen, spec, device)),
-        loss=lambda p, b: transformer.loss_fn(p, b, spec))
+        loss=lambda p, b: transformer.loss_fn(p, b, spec),
+        prefill=lambda p, b, max_seq=None: transformer.prefill(
+            p, b["tokens"], spec, max_seq=max_seq),
+        decode_step=lambda p, c, t: transformer.decode_step(p, c, t, spec),
+        init_cache=lambda batch, seq, device=None: transformer.init_cache(
+            spec, batch, seq, device))
 
 
 def build_cnn(spec: cnn.CnnSpec) -> ModelApi:
@@ -60,7 +72,8 @@ def build_cnn(spec: cnn.CnnSpec) -> ModelApi:
     return ModelApi(
         spec=spec,
         init=lambda gen, device=None: ParamTree(init_fn(gen, device)),
-        loss=lambda p, b: cnn.cnn_loss(forward, p, b, spec))
+        loss=lambda p, b: cnn.cnn_loss(forward, p, b, spec),
+        has_decode=False)
 
 
 def _spec_for(path: tuple, leaf) -> tuple:

@@ -1,5 +1,5 @@
-"""Training loop (counterpart of ``repro/train/trainer.py``; checkpoints
-are not ported yet)."""
+"""Training loop and checkpoints (counterpart of
+``repro/train/trainer.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +7,10 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from .. import checkpoint
+from .. import tree as tree_mod
 from ..core import manual as manual_mod
 from ..kernels.backend import resolve_device
 from ..models import ModelApi
@@ -20,6 +23,8 @@ from .step import TrainStepConfig, make_train_step
 class TrainerConfig:
     steps: int = 100
     log_every: int = 10
+    ckpt_every: int = 0            # 0 = no checkpointing
+    ckpt_dir: str = "checkpoints"
     step: TrainStepConfig = dataclasses.field(default_factory=TrainStepConfig)
 
 
@@ -63,6 +68,26 @@ class Trainer:
         gather = self.extras.get("gather")
         return params if gather is None else gather(params)
 
+    @torch.no_grad()
+    def full_state(self, params, opt_state) -> dict:
+        """``{"params", "opt"}`` in full: on a model axis the parameters
+        and the optimizer's per-parameter state are gathered (a
+        collective over the model group)."""
+        gather = self.extras.get("gather")
+        if gather is None:
+            return {"params": params, "opt": opt_state}
+        shape = tree_mod.structure(params)
+        opt = {k: gather(v) if tree_mod.structure(v) == shape else v
+               for k, v in opt_state.items()}
+        return {"params": self.full_params(params), "opt": opt}
+
+    def save_checkpoint(self, step: int, params, opt_state) -> None:
+        """``checkpoint.save`` of the full state at ``step``, written by
+        global rank 0 only (every rank must call it on a model axis)."""
+        state = self.full_state(params, opt_state)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            checkpoint.save(self.cfg.ckpt_dir, step, state)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -98,4 +123,6 @@ class Trainer:
                 print(f"step {step + 1:5d} "
                       + " ".join(f"{k}={v:.4g}" for k, v in m.items()
                                  if k != "step"), flush=True)
+            if self.cfg.ckpt_every and (step + 1) % self.cfg.ckpt_every == 0:
+                self.save_checkpoint(step + 1, params, opt_state)
         return module, opt_state, history
