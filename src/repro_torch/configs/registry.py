@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The dense family is ported whole: smollm-360m, granite-3-2b,
-deepseek-7b and gemma-7b (head_dim 256, GeGLU, scaled tied embeddings).
-The other families' specs join with their families (ROADMAP.md,
-Queue 1).
+The transformer families are ported whole: dense (smollm-360m,
+granite-3-2b, deepseek-7b, gemma-7b with head_dim 256, GeGLU and scaled
+tied embeddings), MoE (granite-moe-1b-a400m; deepseek-v2-lite-16b with
+MLA and a dense prefix layer) and the VLM backbone (phi-3-vision-4.2b,
+head_dim 96).  The other families' specs join with their families
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ ARCHS = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "gemma-7b": "repro_torch.configs.gemma_7b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
 }
 
 

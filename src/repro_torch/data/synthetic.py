@@ -8,8 +8,9 @@ from a seeded ``torch.Generator`` and cannot reproduce ``jax.random``'s
 bits, so the same seed gives other values than the reference; parity
 tests feed both packages batches made with numpy.
 
-``extra_inputs`` gives the modality front end's stub inputs: none for
-the ported (dense) family, as in the reference.
+``extra_inputs`` gives the modality front end's stub inputs, as in the
+reference: none for the dense and MoE families, image-patch embeddings
+for the VLM.
 """
 from __future__ import annotations
 
@@ -61,11 +62,19 @@ class SyntheticImages:
         return {"images": images, "labels": labels}
 
 
-def extra_inputs(spec, batch: int) -> dict:
+def extra_inputs(spec, batch: int, seed: int = 0) -> dict:
     """Stub modality-frontend inputs of ``batch`` rows: ``{}`` for the
-    dense family; the audio and vision families are not ported."""
-    if getattr(spec, "family", None) == "dense":
+    dense and MoE families; for the VLM ``patches``, bf16 ``(batch,
+    num_image_tokens, d_model)`` standard-normal image-patch embeddings
+    on the CPU from a generator seeded with ``seed``.  The audio family
+    is not ported."""
+    family = getattr(spec, "family", None)
+    if family in ("dense", "moe"):
         return {}
+    if family == "vlm":
+        gen = torch.Generator().manual_seed(seed)
+        patches = torch.randn((batch, spec.num_image_tokens, spec.d_model),
+                              generator=gen)
+        return {"patches": patches.to(torch.bfloat16)}
     raise NotImplementedError(
-        f"extra_inputs for family {getattr(spec, 'family', None)!r} is "
-        f"not ported yet (dense only)")
+        f"extra_inputs for family {family!r} is not ported yet")

@@ -38,7 +38,8 @@
 // through the descriptor's transpose bit. m, l, the softmax (in base 2)
 // and the outputs stay f32. TMA writes each tile in the swizzle that the
 // wgmma descriptors name: 128-byte rows at D = 64 (two or four boxes of
-// 64 columns at D = 128 or 256), 64-byte at D = 32, 32-byte at D = 16.
+// 64 columns at D = 128 or 256), 64-byte at D = 32 (three boxes of 32
+// columns at D = 96), 32-byte at D = 16.
 // The tensor maps' outer extent is S per (batch, head), so rows past S
 // arrive as zeros. The wrapper checks that every pointer is 16-byte
 // aligned (TMA's rule; the row stride H*D*2 always is).
@@ -544,13 +545,16 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr long long kWaitLimit = 1ll << 34;
 constexpr uint32_t kSmemLimit = 232448;  // opt-in shared memory of a block
 
-// A row of D bf16 is cut into NB boxes of CW columns; each box is one
-// swizzle atom wide (ROWB bytes), and a tile of R rows keeps its boxes
-// one after another, each R x ROWB bytes.
+// A row of D bf16 is cut into NB boxes of CW columns, the widest of 64,
+// 32 and 16 that divides D (96 = 3 x 32: three 64-byte boxes); each box
+// is one swizzle atom wide (ROWB bytes), and a tile of R rows keeps its
+// boxes one after another, each R x ROWB bytes.
 template <int D>
 struct Geo {
-  static constexpr int CW = D < 64 ? D : 64;
+  static constexpr int CW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
   static constexpr int NB = D / CW;
+  static_assert(D % 16 == 0 && NB * CW == D,
+                "a bf16 row must split into whole swizzle boxes");
   static constexpr int ROWB = 2 * CW;
   // descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
   static constexpr uint32_t SWZ = ROWB == 128 ? 1u : (ROWB == 64 ? 2u : 3u);
@@ -1795,6 +1799,7 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
     case 16: return dtype == 0 ? F32(16) : BF16(16);      \
     case 32: return dtype == 0 ? F32(32) : BF16(32);      \
     case 64: return dtype == 0 ? F32(64) : BF16(64);      \
+    case 96: return dtype == 0 ? F32(96) : BF16(96);      \
     case 128: return dtype == 0 ? F32(128) : BF16(128);   \
     case 256: return dtype == 0 ? F32(256) : BF16(256);   \
     default: return static_cast<int>(cudaErrorInvalidValue); \
@@ -1809,7 +1814,8 @@ int tc_smem(int kernel) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim one of 16, 32, 64, 128, 256.
+// dtype: 0 = float32, 1 = bfloat16; head_dim one of 16, 32, 64, 96, 128,
+// 256.
 // Each returns a cudaError_t, or kMapError (+ the CUresult) when a
 // tensor map cannot be made.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
@@ -1838,6 +1844,7 @@ extern "C" int flash_attention_tc_smem(int kernel, int head_dim) {
     case 16: return tc_smem<16>(kernel);
     case 32: return tc_smem<32>(kernel);
     case 64: return tc_smem<64>(kernel);
+    case 96: return tc_smem<96>(kernel);
     case 128: return tc_smem<128>(kernel);
     case 256: return tc_smem<256>(kernel);
     default: return 0;

@@ -15,7 +15,10 @@ bfloat16 runs on the tensor cores: ``wgmma`` with bf16 operands and f32
 accumulators, P and dS fed from registers rounded to bf16, K/V (Q/dO in
 the dk/dv pass) streamed by TMA through a two-stage ring by one thread
 of a producer warpgroup, two consumer warpgroups of 64 rows per block.
-TMA needs every pointer 16-byte aligned, which the wrapper checks.  At
+TMA needs every pointer 16-byte aligned, which the wrapper checks.  The
+head widths are ``HEAD_DIMS``; TMA and ``wgmma`` read a bf16 row in
+swizzle boxes of 64, 32 or 16 columns, the widest that divides it (three
+of 32 at ``dh`` 96, phi-3-vision's).  At
 ``dh`` 256 (gemma-7b) the backward has kernels of its own, to fit the
 block's shared memory and registers: a block owns 64 rows, the two
 consumer warpgroups split each streamed tile's score products by
@@ -57,7 +60,7 @@ import torch.nn.functional as F
 from . import backend
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

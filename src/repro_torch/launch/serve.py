@@ -41,7 +41,9 @@ def build_engine(args, spec=None):
     """``(engine, batch)`` that ``args`` describe, for this rank:
     parameters from a seeded generator on ``args.device`` (this rank's
     shards on a model axis), the synthetic prompts of ``--batch`` rows
-    and ``ServeConfig(max_seq=prompt_len + new_tokens + 1)``; the mesh's
+    (with the VLM's image patches) and ``ServeConfig(max_seq=n_img +
+    prompt_len + new_tokens + 1)``, ``n_img`` the patches' count (0
+    without; the reference leaves them out, F8 in ROADMAP.md); the mesh's
     groups through ``make_groups`` when ``--mesh`` has more than one
     rank.  ``spec``, when given, is the model's spec as it is (no CLI
     flag), in place of ``args.arch`` and ``args.full``."""
@@ -76,9 +78,10 @@ def build_engine(args, spec=None):
     data_src = SyntheticText(spec.vocab_size, batch=args.batch,
                              seq_len=args.prompt_len, seed=args.seed)
     batch = {"tokens": data_src.batch_at(0)["tokens"],
-             **extra_inputs(spec, args.batch)}
+             **extra_inputs(spec, args.batch, seed=args.seed)}
+    n_img = batch["patches"].shape[1] if "patches" in batch else 0
     cfg = ServeConfig(max_new_tokens=args.new_tokens,
-                      max_seq=args.prompt_len + args.new_tokens + 1)
+                      max_seq=n_img + args.prompt_len + args.new_tokens + 1)
     return ServeEngine(model, params, groups, cfg, device), batch
 
 

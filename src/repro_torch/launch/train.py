@@ -106,7 +106,7 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
     :func:`aggregator_config`'s (``overlap=True``, for one).  Neither
     has a command-line flag."""
     from repro_torch.configs import get_spec
-    from repro_torch.data.synthetic import SyntheticText
+    from repro_torch.data.synthetic import SyntheticText, extra_inputs
     from repro_torch.launch.mesh import DP_AXES, make_groups
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup, sgd
@@ -120,6 +120,11 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
             spec = dataclasses.replace(spec, dtype=args.dtype)
     data = SyntheticText(spec.vocab_size, batch=args.batch,
                          seq_len=args.seq, seed=args.seed)
+    extras = extra_inputs(spec, args.batch, seed=args.seed)
+
+    def batch_at(step):
+        return {**data.batch_at(step), **extras}
+
     lr = cosine_warmup(args.lr, max(args.steps // 20, 1), args.steps)
     opt = adamw(lr) if args.optimizer == "adamw" else sgd(lr)
     pods, data_size, model = mesh_shape(args)
@@ -133,7 +138,7 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         step=TrainStepConfig(aggregator=aggregator
                              or aggregator_config(args), dp_axes=dp_axes))
-    return Trainer(build_model(spec), opt, data.batch_at, cfg,
+    return Trainer(build_model(spec), opt, batch_at, cfg,
                    device=args.device, verbose=verbose, groups=groups)
 
 

@@ -1,4 +1,5 @@
-"""Models: the dense GQA transformer LM and the paper's CNNs."""
+"""Models: the transformer LM (dense, MoE and VLM families) and the
+paper's CNNs."""
 from .cnn import CnnSpec
 from .common import ModelSpec
 from .registry import (ModelApi, build_cnn, build_model, divisibility_check,

@@ -1,5 +1,4 @@
-"""GQA attention, full-sequence (counterpart of the full-sequence paths
-of ``repro/models/attention.py``).
+"""GQA and MLA attention (counterpart of ``repro/models/attention.py``).
 
 Short sequences (both sides at most ``spec.attn_full_seq_max``) take the
 reference's ``sdpa_full``: plain masked attention in torch with an f32
@@ -14,8 +13,14 @@ kernels assume.
 :func:`gqa_decode` is the reference's one-token decode against a KV
 cache (plain torch, as the reference computes it outside any kernel):
 it writes the new key and value into the preallocated cache in place,
-the port's form of the reference's donated cache.  MLA comes with the
-other model families.
+the port's form of the reference's donated cache.
+
+MLA (multi-head latent attention, DeepSeek-V2): :func:`mla_forward` is
+the reference's non-absorbed expansion, a full ``(B, H, S, S)`` f32
+softmax under the causal mask at every length (the reference runs it
+outside any kernel, so no flash kernel here); :func:`mla_decode` is its
+absorbed decode in latent space, against a cache of ``(c_kv, k_rope)``,
+``r + rd`` values a token.
 """
 from __future__ import annotations
 
@@ -37,6 +42,20 @@ def gqa_params(gen, spec: ModelSpec, device=None) -> dict:
         "wk": dense_init(gen, (d, kv * hd), device=device),
         "wv": dense_init(gen, (d, kv * hd), device=device),
         "wo": dense_init(gen, (h * hd, d), device=device),
+    }
+
+
+def mla_params(gen, spec: ModelSpec, device=None) -> dict:
+    d, h = spec.d_model, spec.num_heads
+    r, rd, nd, vd = spec.kv_lora_rank, spec.qk_rope_dim, spec.qk_nope_dim, \
+        spec.v_head_dim
+    return {
+        "wq": dense_init(gen, (d, h * (nd + rd)), device=device),
+        # the latent and the shared rope key
+        "wdkv": dense_init(gen, (d, r + rd), device=device),
+        "wuk": dense_init(gen, (r, h * nd), device=device),
+        "wuv": dense_init(gen, (r, h * vd), device=device),
+        "wo": dense_init(gen, (h * vd, d), device=device),
     }
 
 
@@ -136,3 +155,81 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, spec: ModelSpec,
     probs = torch.softmax(scores, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache_v)
     return out.reshape(b, 1, h * hd) @ params["wo"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# MLA -- multi-head latent attention (DeepSeek-V2); latent KV cache
+# ---------------------------------------------------------------------------
+
+def _shared_rope(k_rope, positions, theta: float):
+    """RoPE on the rope key that every head shares: (B, S, rd)."""
+    return apply_rope(k_rope[:, :, None, :], positions, theta)[:, :, 0, :]
+
+
+def mla_forward(params, x, positions, spec: ModelSpec):
+    """Full-sequence MLA (non-absorbed expansion).  Returns ``(out,
+    (c_kv, k_rope))``, the latents for cache seeding."""
+    b, s, _ = x.shape
+    h = spec.num_heads
+    r, nd, vd = spec.kv_lora_rank, spec.qk_nope_dim, spec.v_head_dim
+    rd = spec.qk_rope_dim
+    cd = spec.compute_dtype
+    q = (x @ params["wq"].to(cd)).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, spec.rope_theta)
+
+    dkv = x @ params["wdkv"].to(cd)                          # (B, S, r+rd)
+    c_kv, k_rope = dkv[..., :r], dkv[..., r:]
+    k_rope = _shared_rope(k_rope, positions, spec.rope_theta)
+    k_nope = (c_kv @ params["wuk"].to(cd)).reshape(b, s, h, nd)
+    v = (c_kv @ params["wuv"].to(cd)).reshape(b, s, h, vd)
+
+    # (B, H, S, S) scores: summed, scaled and masked in place (no
+    # backward needs them before the softmax), the reference's arithmetic.
+    sc = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope).add_(
+        torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)).to(torch.float32)
+    sc.mul_(1.0 / math.sqrt(nd + rd)).add_(
+        _mask_bias(positions[0], positions[0], 0))
+    probs = torch.softmax(sc, dim=-1).to(v.dtype)
+    del sc
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out = out.reshape(b, s, h * vd) @ params["wo"].to(cd)
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(params, x, cache_c, cache_kr, pos: int, spec: ModelSpec):
+    """Absorbed-weight MLA decode: attention in the latent space against
+    ``cache_c`` (B, Smax, r) and ``cache_kr`` (B, Smax, rd), which take
+    the token's latents in place at slot ``min(pos, Smax - 1)``.  Returns
+    the attention output (B, 1, d)."""
+    b = x.shape[0]
+    h = spec.num_heads
+    r, nd, vd = spec.kv_lora_rank, spec.qk_nope_dim, spec.v_head_dim
+    rd = spec.qk_rope_dim
+    cd = spec.compute_dtype
+    smax = cache_c.shape[1]
+    q = (x @ params["wq"].to(cd)).reshape(b, 1, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_rope = apply_rope(q_rope, pos_arr, spec.rope_theta)
+
+    dkv = x @ params["wdkv"].to(cd)
+    c_new, kr_new = dkv[..., :r], dkv[..., r:]
+    kr_new = _shared_rope(kr_new, pos_arr, spec.rope_theta)
+    slot = min(pos, smax - 1)
+    cache_c[:, slot] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[:, slot] = kr_new[:, 0].to(cache_kr.dtype)
+
+    # The k up-projection absorbed into the query, per head.
+    wuk = params["wuk"].to(cd).reshape(r, h, nd)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wuk)      # (B, 1, H, r)
+    sc = (torch.einsum("bqhr,bkr->bhqk", q_lat, cache_c)
+          + torch.einsum("bqhd,bkd->bhqk", q_rope, cache_kr)) \
+        .to(torch.float32) / math.sqrt(nd + rd)
+    valid = torch.arange(smax, device=x.device) <= pos
+    sc = torch.where(valid, sc, NEG_INF)
+    probs = torch.softmax(sc, dim=-1).to(cache_c.dtype)
+    out_lat = torch.einsum("bhqk,bkr->bqhr", probs, cache_c)  # (B, 1, H, r)
+    wuv = params["wuv"].to(cd).reshape(r, h, vd)
+    out = torch.einsum("bqhr,rhv->bqhv", out_lat, wuv)
+    return out.reshape(b, 1, h * vd) @ params["wo"].to(cd)

@@ -1,14 +1,16 @@
 """Model registry and the fusion-group tags of each parameter
-(counterpart of ``repro/models/registry.py``: the dense family, and the
-paper's CNNs through :func:`build_cnn`).
+(counterpart of ``repro/models/registry.py``: the transformer families
+``dense``, ``moe`` and ``vlm``, and the paper's CNNs through
+:func:`build_cnn`).
 
 ``param_pspecs`` gives the reference's PartitionSpec per leaf (the
-model-axis rules) as a tuple, one entry per dim; ``param_groups`` gives
-the same tuples as fusion-group tags, so the aggregator buckets
-gradients exactly as the reference does: leaves with a ``"model"``
-entry stay single-leaf buckets, replicated leaves (tag ``()``) fuse.
-``divisibility_check`` lists the leaves whose sharded dim the model
-axis does not divide.
+model-axis rules, path-sensitive for the experts: a leaf under ``moe``
+but not under ``shared`` shards its expert dim) as a tuple, one entry
+per dim; ``param_groups`` gives the same tuples as fusion-group tags, so
+the aggregator buckets gradients exactly as the reference does: leaves
+with a ``"model"`` entry stay single-leaf buckets, replicated leaves
+(tag ``()``) fuse.  ``divisibility_check`` lists the leaves whose
+sharded dim the model axis does not divide.
 """
 from __future__ import annotations
 
@@ -22,11 +24,21 @@ from .common import ModelSpec, ParamTree
 _COL = (None, "model")
 _ROW = ("model", None)
 
+# The reference's table, for the leaves of the ported families.
 _RULES: dict[str, tuple] = {
     "embed": ("model", None),
     "lm_head": (None, "model"),
     "wq": _COL, "wk": _COL, "wv": _COL, "wo": _ROW,
+    "wdkv": _COL, "wuk": _COL, "wuv": _COL,
     "w1": _COL, "w_gate": _COL, "w2": _ROW,
+    "router": (None, None),
+}
+
+# Routed experts (under "moe", not under "shared"): the expert dim.
+_MOE_RULES: dict[str, tuple] = {
+    "w1": ("model", None, None),
+    "w_gate": ("model", None, None),
+    "w2": ("model", None, None),
 }
 
 
@@ -47,16 +59,18 @@ class ModelApi:
 
 
 def build_model(spec: ModelSpec) -> ModelApi:
-    if spec.family != "dense":
+    if spec.family not in transformer.FAMILIES:
         raise NotImplementedError(
-            f"family {spec.family!r} is not ported yet (dense only)")
+            f"family {spec.family!r} is not ported yet (ported: "
+            f"{transformer.FAMILIES})")
     return ModelApi(
         spec=spec,
         init=lambda gen, device=None: transformer.TransformerLM(
             spec, transformer.init_params(gen, spec, device)),
         loss=lambda p, b: transformer.loss_fn(p, b, spec),
         prefill=lambda p, b, max_seq=None: transformer.prefill(
-            p, b["tokens"], spec, max_seq=max_seq),
+            p, b["tokens"], spec, patches=b.get("patches"),
+            max_seq=max_seq),
         decode_step=lambda p, c, t: transformer.decode_step(p, c, t, spec),
         init_cache=lambda batch, seq, device=None: transformer.init_cache(
             spec, batch, seq, device))
@@ -77,8 +91,12 @@ def build_cnn(spec: cnn.CnnSpec) -> ModelApi:
 
 
 def _spec_for(path: tuple, leaf) -> tuple:
-    name = path[-1] if path else ""
-    base = _RULES.get(name)
+    names = [str(k) for k in path]
+    name = names[-1] if names else ""
+    in_moe = "moe" in names and "shared" not in names
+    base = _MOE_RULES.get(name) if in_moe else None
+    if base is None:
+        base = _RULES.get(name)
     if base is None:
         return ()
     nd = leaf.ndim if hasattr(leaf, "ndim") else len(leaf.shape)

@@ -1,19 +1,30 @@
-"""Decoder-only transformer LM, dense GQA (counterpart of the dense path
-of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM (counterpart of
+``repro/models/transformer.py``): the dense (smollm, granite, deepseek-7b,
+gemma), MoE (granite-moe, deepseek-v2-lite with MLA) and VLM (the
+phi-3-vision backbone) families.
 
 Parameters keep the reference's nested-dict names, float32 dtype and
 stacked-layer leading dim (``body/*`` has shape ``(L, ...)``), so the
 reference's parameter tree loads unchanged (``convert.py``) and gradient
-leaves flatten into the same fusion buckets.  The reference scans the
-layer stack; here a Python loop walks ``unbind`` views of it, whose
-backward writes each stacked gradient once.
+leaves flatten into the same fusion buckets.  DeepSeek-V2's leading
+dense layers are a stack of their own, ``prefix`` (``first_dense_layers``
+layers at ``dense_d_ff``), before the uniform MoE ``body``.  The
+reference scans the layer stack; here a Python loop walks ``unbind``
+views of it, whose backward writes each stacked gradient once.  The VLM
+prepends its image-patch embeddings (a stub front end, as in the
+reference) to the token embeddings.
 
 Serving (the reference's KV-cache functions): :func:`init_cache` makes
-``{"body": {"k", "v"}, "pos"}`` with ``k``/``v`` of shape ``(L, B,
-cache_len, KV, dh)`` in the compute dtype and ``pos`` a host int32
-scalar; :func:`prefill` runs :func:`forward` over the prompt, seeds the
-cache and returns the last position's logits; :func:`decode_step` runs
-one token, writing each layer's cache slot in place.
+``{"body": {"k", "v"}, "pos"}`` (and ``"prefix"`` beside ``"body"``)
+with ``k``/``v`` of shape ``(L, B, cache_len, KV, dh)``, or MLA's
+latents ``(L, B, cache_len, r)`` and ``(L, B, cache_len, rd)``, in the
+compute dtype, and ``pos`` a host int32 scalar; :func:`prefill` runs
+the prompt (after its patches), seeds the cache and returns the last
+position's logits; :func:`decode_step` runs one token, writing each
+layer's cache slot in place.  Without a sliding window the cache must
+hold the whole prompt with its patches: :func:`prefill` raises where
+the reference would keep the trailing positions and lose the first
+(F8, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,71 +32,116 @@ import torch
 from torch import nn
 
 from .. import tree as tree_mod
-from .attention import gqa_decode, gqa_forward, gqa_params
+from . import moe as moe_lib
+from .attention import (gqa_decode, gqa_forward, gqa_params, mla_decode,
+                        mla_forward, mla_params)
 from .common import (ModelSpec, ParamTree, cross_entropy, embed_init, norm,
                      norm_params)
 from .mlp import mlp_forward, mlp_params
 
+FAMILIES = ("dense", "moe", "vlm")
+
 
 def _check_supported(spec: ModelSpec) -> None:
-    if spec.family != "dense" or spec.attention_type != "gqa" \
-            or spec.num_experts:
+    if spec.family not in FAMILIES \
+            or spec.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{spec.name}: only the dense GQA family is ported yet")
+            f"{spec.name}: family {spec.family!r} with "
+            f"{spec.attention_type!r} attention is not ported yet "
+            f"(transformer families: {FAMILIES})")
     if spec.seq_parallel or spec.remat:
         raise NotImplementedError("seq_parallel/remat are not ported yet")
 
 
-def _layer_params(gen, spec: ModelSpec, device) -> dict:
-    return {
+def _n_prefix(spec: ModelSpec) -> int:
+    return spec.first_dense_layers if spec.num_experts else 0
+
+
+def _layer_params(gen, spec: ModelSpec, device, is_moe: bool,
+                  dense_ff: int = 0) -> dict:
+    p = {
         "ln1": norm_params(spec.d_model, spec.norm_type, device),
         "ln2": norm_params(spec.d_model, spec.norm_type, device),
-        "attn": gqa_params(gen, spec, device),
-        "mlp": mlp_params(gen, spec.d_model, spec.d_ff, spec.mlp_type,
-                          device),
+        "attn": mla_params(gen, spec, device)
+        if spec.attention_type == "mla" else gqa_params(gen, spec, device),
     }
+    if is_moe:
+        p["moe"] = moe_lib.moe_params(gen, spec, device)
+    else:
+        p["mlp"] = mlp_params(gen, spec.d_model, dense_ff or spec.d_ff,
+                              spec.mlp_type, device)
+    return p
+
+
+def _stack(n: int, make) -> dict:
+    """``n`` layers of ``make()`` stacked along a leading dim.  Each layer
+    is drawn in turn and copied into the stacked leaves, so the stack
+    never sits beside a second copy of itself (a full-depth gemma-7b is
+    34 GB in f32; deepseek-v2-lite's body ``w1`` alone 19.2 GB)."""
+    stack = None
+    for i in range(n):
+        layer = make()
+        if stack is None:
+            stack = tree_mod.tree_map(lambda x: torch.empty(
+                (n,) + tuple(x.shape), dtype=x.dtype, device=x.device), layer)
+        for stacked, x in zip(tree_mod.leaves(stack), tree_mod.leaves(layer)):
+            stacked[i].copy_(x)
+        del layer
+    return stack
 
 
 def init_params(gen: torch.Generator, spec: ModelSpec, device=None) -> dict:
     """Random parameters from a seeded generator (on ``device``)."""
     _check_supported(spec)
-    # Each layer is drawn in turn and copied into the stacked leaves, so
-    # the stack never sits beside a second copy of itself (a full-depth
-    # gemma-7b is 34 GB in f32).
-    body = None
-    for i in range(spec.num_layers):
-        layer = _layer_params(gen, spec, device)
-        if body is None:
-            body = tree_mod.tree_map(lambda x: torch.empty(
-                (spec.num_layers,) + tuple(x.shape), dtype=x.dtype,
-                device=x.device), layer)
-        for stacked, x in zip(tree_mod.leaves(body), tree_mod.leaves(layer)):
-            stacked[i].copy_(x)
+    n_prefix = _n_prefix(spec)
+    body_is_moe = spec.num_experts > 0
     params = {
+        "body": _stack(spec.num_layers - n_prefix, lambda: _layer_params(
+            gen, spec, device, body_is_moe)),
         "embed": embed_init(gen, (spec.padded_vocab, spec.d_model), device),
-        "body": body,
         "ln_f": norm_params(spec.d_model, spec.norm_type, device),
     }
+    if n_prefix:
+        params["prefix"] = _stack(n_prefix, lambda: _layer_params(
+            gen, spec, device, False, dense_ff=spec.dense_d_ff or spec.d_ff))
     if not spec.tie_embeddings:
         params["lm_head"] = embed_init(gen, (spec.d_model,
                                              spec.padded_vocab), device)
     return params
 
 
-def _block_forward(lp, h, positions, spec: ModelSpec):
-    """One pre-norm block, full sequence.  Returns ``(h, (k, v))``."""
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def _block_forward(lp, h, positions, spec: ModelSpec, is_moe: bool):
+    """One pre-norm block, full sequence.  Returns ``(h, kv, aux,
+    drop)``: ``kv`` the layer's ``(k, v)`` (B, S, KV, dh), or MLA's
+    ``(c_kv, k_rope)``."""
     a_in = norm(h, lp["ln1"], spec.norm_type)
-    a_out, kv = gqa_forward(lp["attn"], a_in, positions, spec)
+    attn = mla_forward if spec.attention_type == "mla" else gqa_forward
+    a_out, kv = attn(lp["attn"], a_in, positions, spec)
     h = h + a_out
     m_in = norm(h, lp["ln2"], spec.norm_type)
-    return h + mlp_forward(lp["mlp"], m_in, spec.mlp_type), kv
+    if is_moe:
+        m_out, aux, drop = moe_lib.moe_forward(lp["moe"], m_in, spec)
+    else:
+        m_out = mlp_forward(lp["mlp"], m_in, spec.mlp_type)
+        aux = drop = _zero(h.device)
+    return h + m_out, kv, aux, drop
 
 
-def _block_decode(lp, h, cache_k, cache_v, pos: int, spec: ModelSpec):
+def _block_decode(lp, h, cache_k, cache_v, pos: int, spec: ModelSpec,
+                  is_moe: bool):
     a_in = norm(h, lp["ln1"], spec.norm_type)
-    h = h + gqa_decode(lp["attn"], a_in, cache_k, cache_v, pos, spec)
+    attn = mla_decode if spec.attention_type == "mla" else gqa_decode
+    h = h + attn(lp["attn"], a_in, cache_k, cache_v, pos, spec)
     m_in = norm(h, lp["ln2"], spec.norm_type)
-    return h + mlp_forward(lp["mlp"], m_in, spec.mlp_type)
+    if is_moe:
+        m_out = moe_lib.moe_forward(lp["moe"], m_in, spec)[0]
+    else:
+        m_out = mlp_forward(lp["mlp"], m_in, spec.mlp_type)
+    return h + m_out
 
 
 def _layers(tree, n: int) -> list:
@@ -94,11 +150,21 @@ def _layers(tree, n: int) -> list:
     return [tree_mod.tree_map(lambda ws: ws[i], views) for i in range(n)]
 
 
-def embed_tokens(params, tokens, spec: ModelSpec):
+def _stacks(spec: ModelSpec):
+    """``(name, n_layers, is_moe)`` of the prefix (if any), then the body."""
+    n_prefix = _n_prefix(spec)
+    out = [("prefix", n_prefix, False)] if n_prefix else []
+    return out + [("body", spec.num_layers - n_prefix, spec.num_experts > 0)]
+
+
+def embed_tokens(params, tokens, spec: ModelSpec, patches=None):
     cd = spec.compute_dtype
     h = params["embed"].to(cd)[tokens]
     if spec.scale_embed:
         h = h * torch.sqrt(torch.tensor(float(spec.d_model))).to(cd)
+    if patches is not None:
+        # VLM: the stub image-patch embeddings go first.
+        h = torch.cat([patches.to(cd), h], dim=1)
     return h
 
 
@@ -109,33 +175,51 @@ def lm_logits(params, h, spec: ModelSpec):
     return h @ params["lm_head"].to(cd)
 
 
-def forward(params, tokens, spec: ModelSpec, collect_cache: bool = False):
-    """Logits (B, S, V_padded) for tokens (B, S); with ``collect_cache``
-    ``(logits, kv)``, ``kv`` each layer's ``(k, v)`` (B, S, KV, dh)."""
+def _forward(params, tokens, spec: ModelSpec, patches=None,
+             collect_cache: bool = False):
+    """``(logits, kvs, {"aux", "drop"})``: ``kvs`` every layer's cache
+    entries, prefix first (with ``collect_cache``, else empty)."""
     _check_supported(spec)
-    b = tokens.shape[0]
-    h = embed_tokens(params, tokens, spec)
-    s = h.shape[1]
+    h = embed_tokens(params, tokens, spec, patches=patches)
+    b, s = h.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     kvs = []
-    for lp in _layers(params["body"], spec.num_layers):
-        h, kv = _block_forward(lp, h, positions, spec)
-        if collect_cache:
-            kvs.append(kv)
+    aux_total = drop_total = _zero(h.device)
+    for name, n, is_moe in _stacks(spec):
+        for lp in _layers(params[name], n):
+            h, kv, aux, drop = _block_forward(lp, h, positions, spec, is_moe)
+            if collect_cache:
+                kvs.append(kv)
+            aux_total = aux_total + aux
+            if name == "body":      # the reference sums the body's alone
+                drop_total = drop_total + drop
     h = norm(h, params["ln_f"], spec.norm_type)
-    logits = lm_logits(params, h, spec)
+    return lm_logits(params, h, spec), kvs, {"aux": aux_total,
+                                             "drop": drop_total}
+
+
+def forward(params, tokens, spec: ModelSpec, patches=None,
+            collect_cache: bool = False):
+    """Logits (B, n_img + S, V_padded) for tokens (B, S) after ``patches``
+    (B, n_img, d), if any; with ``collect_cache`` ``(logits, kv)``,
+    ``kv`` each layer's cache entries, prefix first."""
+    logits, kvs, _ = _forward(params, tokens, spec, patches, collect_cache)
     return (logits, kvs) if collect_cache else logits
 
 
 def loss_fn(params, batch, spec: ModelSpec):
-    """``(loss, metrics)`` as the reference's ``loss_fn`` (dense: no
-    router aux loss, so ``aux`` and ``drop`` are zero)."""
-    logits = forward(params, batch["tokens"], spec)
+    """``(loss, metrics)`` as the reference's ``loss_fn``: the CE over
+    the text positions plus ``router_aux_weight`` times the MoE layers'
+    summed aux loss; ``metrics`` ``{"ce", "aux", "drop"}`` (zeros for a
+    dense stack)."""
+    patches = batch.get("patches")
+    logits, _, aux = _forward(params, batch["tokens"], spec, patches)
+    if patches is not None:
+        logits = logits[:, patches.shape[1]:]       # only text positions
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    total = loss + spec.router_aux_weight * zero
-    return total, {"ce": loss, "aux": zero, "drop": zero}
+    total = loss + spec.router_aux_weight * aux["aux"]
+    return total, {"ce": loss, "aux": aux["aux"], "drop": aux["drop"]}
 
 
 # ---------------------------------------------------------------------------
@@ -149,25 +233,50 @@ def cache_len(spec: ModelSpec, seq: int) -> int:
 def init_cache(spec: ModelSpec, batch: int, seq: int, device=None) -> dict:
     """A zeros cache for ``batch`` rows and ``seq`` positions."""
     _check_supported(spec)
-    shape = (spec.num_layers, batch, cache_len(spec, seq),
-             spec.num_kv_heads, spec.resolved_head_dim)
+    s = cache_len(spec, seq)
+    if spec.attention_type == "mla":
+        k_shape = (batch, s, spec.kv_lora_rank)
+        v_shape = (batch, s, spec.qk_rope_dim)
+    else:
+        k_shape = v_shape = (batch, s, spec.num_kv_heads,
+                             spec.resolved_head_dim)
     cd = spec.compute_dtype
-    return {"body": {"k": torch.zeros(shape, dtype=cd, device=device),
-                     "v": torch.zeros(shape, dtype=cd, device=device)},
-            "pos": torch.zeros((), dtype=torch.int32)}
+
+    def stack(n):
+        return {"k": torch.zeros((n,) + k_shape, dtype=cd, device=device),
+                "v": torch.zeros((n,) + v_shape, dtype=cd, device=device)}
+
+    n_prefix = _n_prefix(spec)
+    cache = {"body": stack(spec.num_layers - n_prefix),
+             "pos": torch.zeros((), dtype=torch.int32)}
+    if n_prefix:
+        cache["prefix"] = stack(n_prefix)
+    return cache
 
 
-def prefill(params, tokens, spec: ModelSpec, max_seq=None):
-    """Run the prompt, build the cache for ``max_seq`` positions (the
-    prompt's length by default), return ``(logits[:, -1], cache)``."""
-    logits, kvs = forward(params, tokens, spec, collect_cache=True)
+def prefill(params, tokens, spec: ModelSpec, patches=None, max_seq=None):
+    """Run the prompt (after its ``patches``, if any), build the cache
+    for ``max_seq`` positions (the prompt's with its patches by default),
+    return ``(logits[:, -1], cache)``.  Under a sliding window the cache
+    keeps the trailing window; without one a prompt longer than the
+    cache raises ``ValueError``."""
     b, s = tokens.shape
+    if patches is not None:
+        s += patches.shape[1]
     max_seq = max_seq or s
-    cache = init_cache(spec, b, max_seq, device=tokens.device)
     cl = cache_len(spec, max_seq)
-    for i, kv in enumerate(kvs):
-        for buf, x in zip((cache["body"]["k"][i], cache["body"]["v"][i]),
-                          kv):
+    if not spec.sliding_window and s > cl:
+        raise ValueError(
+            f"{spec.name}: a prompt of {s} positions (image patches "
+            f"included) does not fit a cache of max_seq {max_seq}: size "
+            f"max_seq with the patches")
+    logits, kvs, _ = _forward(params, tokens, spec, patches=patches,
+                              collect_cache=True)
+    cache = init_cache(spec, b, max_seq, device=tokens.device)
+    bufs = [(cache[name]["k"][i], cache[name]["v"][i])
+            for name, n, _ in _stacks(spec) for i in range(n)]
+    for (buf_k, buf_v), kv in zip(bufs, kvs):
+        for buf, x in zip((buf_k, buf_v), kv):
             # keep the trailing window under a sliding window
             take = x[:, -cl:] if x.shape[1] > cl else x
             buf[:, :take.shape[1]] = take
@@ -184,10 +293,11 @@ def decode_step(params, cache, tokens, spec: ModelSpec):
     _check_supported(spec)
     pos = int(cache["pos"])
     h = embed_tokens(params, tokens, spec)
-    ks = cache["body"]["k"].unbind(0)
-    vs = cache["body"]["v"].unbind(0)
-    for i, lp in enumerate(_layers(params["body"], spec.num_layers)):
-        h = _block_decode(lp, h, ks[i], vs[i], pos, spec)
+    for name, n, is_moe in _stacks(spec):
+        ks = cache[name]["k"].unbind(0)
+        vs = cache[name]["v"].unbind(0)
+        for i, lp in enumerate(_layers(params[name], n)):
+            h = _block_decode(lp, h, ks[i], vs[i], pos, spec, is_moe)
     h = norm(h, params["ln_f"], spec.norm_type)
     logits = lm_logits(params, h, spec)[:, 0]
     return logits, {**cache, "pos": torch.tensor(pos + 1,

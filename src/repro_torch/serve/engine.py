@@ -4,8 +4,9 @@
 Fixed-batch decode with per-row stop handling.  ``generate`` keeps the
 reference's three rules: ``eos_id`` masks rows that have finished and
 the loop exits once every row has; the random state is split before its
-first use; a prompt plus its generation longer than ``max_seq`` is
-refused.  Random numbers come from a ``torch.Generator``: the root is
+first use; a prompt (with its image patches, which the reference
+leaves out: F8 in ROADMAP.md) plus its generation longer than
+``max_seq`` is refused.  Random numbers come from a ``torch.Generator``: the root is
 never sampled from; each sample gets a generator seeded from a fresh
 draw of the root, so no generator state is used twice.  Sampling is
 Gumbel-max (``jax.random.categorical``'s method), so its tokens follow
@@ -69,7 +70,8 @@ class ServeEngine:
 
     def generate(self, batch: dict, rng: Optional[torch.Generator] = None
                  ) -> np.ndarray:
-        """batch: ``{"tokens": (B, S_prompt)}``, the GLOBAL batch.
+        """batch: ``{"tokens": (B, S_prompt)}`` (and the VLM's
+        ``"patches"`` (B, n_img, d)), the GLOBAL batch.
         Returns ``(B, max_new_tokens)`` int32 generations, the same on
         every rank.  ``self.timing`` then holds ``prefill_s`` (prompt to
         first token) and ``decode_s`` (one per decode step), host
@@ -80,11 +82,14 @@ class ServeEngine:
         batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         tokens = batch["tokens"]
         b = tokens.shape[0]
-        prompt_len = int(tokens.shape[1])
+        # The image patches take cache positions before the text.
+        n_img = int(batch["patches"].shape[1]) if "patches" in batch else 0
+        prompt_len = int(tokens.shape[1]) + n_img
         if prompt_len + cfg.max_new_tokens > cfg.max_seq:
+            with_img = f", {n_img} image patches included" if n_img else ""
             raise ValueError(
-                f"prompt_len ({prompt_len}) + max_new_tokens "
-                f"({cfg.max_new_tokens}) = "
+                f"prompt_len ({prompt_len}{with_img}) + "
+                f"max_new_tokens ({cfg.max_new_tokens}) = "
                 f"{prompt_len + cfg.max_new_tokens} exceeds "
                 f"ServeConfig.max_seq ({cfg.max_seq}): the decode cache "
                 f"is allocated at max_seq positions and token "

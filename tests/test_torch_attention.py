@@ -11,8 +11,9 @@ They are held, on the same numpy inputs, to:
   the last key), at S = 128 and a ragged S = 100 that forces padding.
   The kv gradients come back summed over each group of repeated heads;
 * the Pallas ``flash_attention_fwd/bwd`` in interpret mode at
-  (1, 128, 2, 64) and at gemma-7b's head_dim, (1, 128, 2, 256), which
-  is also held to ``sdpa_chunked`` in all three modes;
+  (1, 128, 2, 64), at gemma-7b's head_dim, (1, 128, 2, 256), and at
+  phi-3-vision's, (1, 128, 2, 96), both also held to ``sdpa_chunked``
+  in all three modes;
 * the naive oracle ``repro.kernels.ref.flash_attention_ref`` and its
   ``jax.grad``.
 
@@ -129,6 +130,14 @@ def test_sdpa_chunked_at_head_dim_256_matches_reference(causal, window):
     _check_sdpa_vjp((1, 128, 2, 256), 2, causal, window, seed=512 + window)
 
 
+@pytest.mark.parametrize("causal,window", MODES)
+def test_sdpa_chunked_at_head_dim_96_matches_reference(causal, window):
+    """phi-3-vision's head width at a ragged S, (1, 100, 2, 96): forward
+    and ``jax.vjp``."""
+    _check_sdpa_forward((1, 100, 2, 96), 2, causal, window, seed=96 + window)
+    _check_sdpa_vjp((1, 100, 2, 96), 2, causal, window, seed=960 + window)
+
+
 def _check_plain_vs_interpreter(shape, causal, window):
     """``shape`` against the Pallas kernels run by the interpreter: out
     and lse forward, then (dq, dk, dv) from each side's own out/lse."""
@@ -164,6 +173,14 @@ def test_plain_versions_match_pallas_interpreter_at_head_dim_256(causal,
     """(1, 128, 2, 256), gemma-7b's head width, against the Pallas
     kernels (interpret mode), which take any head_dim."""
     _check_plain_vs_interpreter((1, 128, 2, 256), causal, window)
+
+
+@pytest.mark.parametrize("causal,window", MODES)
+def test_plain_versions_match_pallas_interpreter_at_head_dim_96(causal,
+                                                                window):
+    """(1, 128, 2, 96), phi-3-vision's head width, against the Pallas
+    kernels (interpret mode)."""
+    _check_plain_vs_interpreter((1, 128, 2, 96), causal, window)
 
 
 @pytest.mark.parametrize("causal,window", MODES)

@@ -273,15 +273,17 @@ def _attn_inputs(shape, dtype, cuda, seed):
     (257, 32, True, 50), (190, 32, False, 0), (77, 16, False, 0),
     (333, 128, True, 0), (256, 256, True, 0), (333, 256, True, 100),
     (333, 256, False, 0), (77, 256, True, 0), (64, 256, True, 0),
-    (4096, 256, True, 1024), (513, 256, False, 0)])
+    (4096, 256, True, 1024), (513, 256, False, 0), (333, 96, True, 0),
+    (300, 96, True, 100), (257, 96, False, 0), (4096, 96, True, 0)])
 def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
                                            dtype):
     """K7 (out, lse) and K8 (dq, dk, dv) against the chunked plain
     versions: f32 forward atol 2e-5 / rtol 1e-4, backward 2e-3; bf16
     3e-2 (the kernel forms its scores in f32, the plain version in bf16,
     as the reference's two routes do).  Every head width runs at a
-    ragged S, so bf16 covers each TMA swizzle (32-, 64-, 128-byte rows
-    and two or four 128-byte boxes at dh 128 and 256) and the zero fill
+    ragged S, so bf16 covers each TMA swizzle (32-, 64-, 128-byte rows,
+    three 64-byte boxes at dh 96, two or four 128-byte boxes at dh 128
+    and 256) and the zero fill
     past S; at dh 256 the backward's own kernels at one tile (S = 64), a
     long window, ragged S and non-causal."""
     q, k, v, do = _attn_inputs((2, s, 3, dh), dtype, cuda, seed=s + dh)
@@ -308,12 +310,12 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
     (4096, 64, True, 0), (300, 64, True, 100), (257, 32, False, 0),
     (130, 16, True, 0), (333, 128, True, 0), (4096, 256, True, 0),
     (333, 256, True, 100), (64, 256, True, 0), (4096, 256, True, 1024),
-    (513, 256, False, 0)])
+    (513, 256, False, 0), (4096, 96, True, 0), (300, 96, True, 100)])
 def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
                                                       window):
     """Two bf16 calls of K7 and of K8 give the same bits: every output
     tile has one owner and there are no atomics."""
-    b, h = ((1, 15) if dh == 64 else (1, 16)) if s == 4096 else (2, 3)
+    b, h = ((1, {64: 15, 96: 32}.get(dh, 16)) if s == 4096 else (2, 3))
     q, k, v, do = _attn_inputs((b, s, h, dh), torch.bfloat16, cuda,
                                seed=s + dh)
     kw = dict(causal=causal, window=window)

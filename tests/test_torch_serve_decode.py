@@ -17,7 +17,10 @@ transformer``:
   plain version K7 replaces on the card;
 * the reference's own property on the port in its default bfloat16:
   decode after prefill equals the full forward's last logits within a
-  relative 0.05, for each of the four specs.
+  relative 0.05, for each of the four specs and for the rest of the
+  family (granite-moe and deepseek-v2-lite at the no-drop
+  ``capacity_factor`` 8.0, phi-3-vision after its image patches), as
+  the reference's ``test_decode_parity.py`` holds them.
 """
 import dataclasses
 
@@ -31,9 +34,11 @@ from repro.models import build_model as jbuild_model
 
 from repro_torch.configs import get_spec
 from repro_torch.convert import params_from_numpy
+from repro_torch.data.synthetic import extra_inputs
 from repro_torch.models import build_model, transformer
 
 DENSE = ("smollm-360m", "granite-3-2b", "deepseek-7b", "gemma-7b")
+FAMILY = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b", "phi-3-vision-4.2b")
 RTOL, ATOL = 1e-4, 1e-5
 
 # label -> (arch, spec overrides, batch, prompt, decode steps, max_seq)
@@ -97,20 +102,26 @@ def test_prefill_and_decode_match_reference(case):
     assert int(cache["pos"]) == int(jcache["pos"]) == prompt + steps
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILY)
 def test_decode_matches_forward_bf16(arch):
     """The reference's ``test_decode_matches_forward`` on the port, in
-    the specs' own bfloat16: prefill 8, decode 4, against the full
-    forward's last position (relative error under 0.05)."""
-    _, tspec = _specs(arch, "bfloat16")
+    the specs' own bfloat16: prefill 8 (after the VLM's patches), decode
+    4, against the full forward's last position (relative error under
+    0.05); experts at the no-drop capacity factor 8.0."""
+    over = {"capacity_factor": 8.0} if get_spec(arch).num_experts else {}
+    _, tspec = _specs(arch, "bfloat16", **over)
     model = build_model(tspec)
     params = model.init(torch.Generator().manual_seed(0), "cpu").tree()
     toks = torch.from_numpy(_tokens(tspec, 2, 12).astype(np.int64))
+    extra = extra_inputs(tspec, 2)
+    n_img = extra["patches"].shape[1] if extra else 0
     with torch.inference_mode():
-        _, cache = model.prefill(params, {"tokens": toks[:, :8]}, 12)
+        _, cache = model.prefill(params, {"tokens": toks[:, :8], **extra},
+                                 12 + n_img)
         for t in range(8, 12):
             got, cache = model.decode_step(params, cache, toks[:, t:t + 1])
-        want = transformer.forward(params, toks, tspec)[:, -1]
+        want = transformer.forward(params, toks, tspec,
+                                   patches=extra.get("patches"))[:, -1]
     want, got = want.float().numpy(), got.float().numpy()
     err = np.max(np.abs(want - got)) / (np.max(np.abs(want)) + 1e-9)
     assert err < 0.05, f"{arch}: rel err {err}"
