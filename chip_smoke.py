@@ -253,10 +253,48 @@ nothing between host and card.
    three at prompt 96 on the card and on the host: prefill logits within
    K7's f32 tolerance, the routing equal, 16 greedy tokens equal.
 
+14. The recurrent and encoder-decoder families (bf16 compute,
+   parameters drawn on the card).  (a) Full-width, full-depth
+   zamba2-1.2b (38 Mamba2 layers and the shared attention block applied
+   6 times; 1,113,328,512 f32 parameters), (b) xlstm-350m (21 mLSTM + 3
+   sLSTM, the published sequential scan; 313,119,828) and (c)
+   whisper-tiny (4 + 4 layers, LayerNorm, frames (2, 1500, 384);
+   36,487,680) served through ``build_engine`` and ``ServeEngine``:
+   batch 2, prompts 4096, 1024 and 64, 32 greedy tokens.  Per forward K6
+   51 times in zamba2 (6 of them at width 4096) and 25 in xLSTM, never in
+   whisper; K7 6 times in zamba2's prefill, never in decode nor in xLSTM
+   or whisper's serving; tokens in range before the lookup, finite
+   logits, the card at most 90% full; decode against forward in bf16
+   within 0.05 (zamba2: prefill 3840, 256 teacher-forced steps against
+   the forward over 4096; whisper: 8 steps).  xLSTM at full depth with
+   random weights amplifies rounding (a matmul of another shape moves
+   its logits by O(1) in bf16): its bf16 decode against forward (prefill
+   256, 8 steps) is printed, decode = forward held in float32 on the
+   reference test's prompt (prefill 8, 4 steps), and ``mlstm_chunk = 64``
+   against the sequential scan on one mLSTM layer at full width
+   (outputs and the next decode step within 2e-4, states within 1e-4),
+   the whole model's chunked prefill printed.  Prints prefill s, decode
+   ms per token beside its floor (f32 weights read once plus the cache
+   and states at 3.35 TB/s) and one profiled decode step.  (d) The
+   three trained on 2 ``cuda_ipc`` ranks through ``run_phase``
+   (``rhd_rsa`` + ``int8``, K5, batch 1 per rank, seq 4096, 2 steps):
+   zamba2 depth cut to ``ZAMBA2_TRAIN_LAYERS`` (whole groups of 6), K7
+   and K8 once per application per step; xlstm-350m at full depth with
+   ``mlstm_chunk = 64`` (the sequential scan's autograd would keep a
+   ``C`` per token), cut to seq 2048 (its sLSTM time loop took 22-27 s a
+   step at 4096); whisper at full depth, K7 and K8 4 times per step;
+   the card at most 90% full, then each reduced float32 spec trained on
+   the card and on the host.  (e) The three reduced float32 specs at
+   prompt 96 on the card and on the host: prefill logits within K7's
+   f32 tolerance, 16 greedy tokens equal.  (f) Phase 4's run with
+   ``remat=True`` (K7 twice per layer per step, K8 once): the parameters
+   after 2 steps bit for bit phase 4's; both runs' peak memory printed.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.  ``python3 chip_smoke.py
 --serve-only`` builds the kernels and runs phase 12 alone, ``--family-only``
-phase 13 alone (the last line is then the card's name and power limit).
+phase 13 alone, ``--recurrent-only`` phase 14 alone (with phase 4's run
+for (f)); the last line is then the card's name and power limit.
 """
 import argparse
 import collections
@@ -808,13 +846,14 @@ def bf16_ulp(a, b):
 
 
 def check_rmsnorm(gen):
-    """K6 at phase 4's width (960) and phase 6's (3072): f32 within rtol
-    1e-5, bf16 within 1 ulp; the share of outputs equal bit for bit is
-    printed (the kernel sums a row in another order than torch)."""
+    """K6 at phase 4's width (960), phase 6's (3072) and phase 14's
+    (xLSTM's 1024, zamba2's 2048 and its shared block's 4096): f32 within
+    rtol 1e-5, bf16 within 1 ulp; the share of outputs equal bit for bit
+    is printed (the kernel sums a row in another order than torch)."""
     import torch
     from repro_torch.kernels import fused_rmsnorm as frn
     cuda = torch.device("cuda")
-    for d in (D_MODEL, GEMMA_D):
+    for d in (D_MODEL, GEMMA_D) + RECURRENT_WIDTHS:
         scale = torch.randn(d, generator=gen, device=cuda) * 0.1
         for rows in (LONG_SEQ, 37):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1422,7 +1461,7 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
     from repro_torch import tree
     from repro_torch.core import Group
     from repro_torch.launch.train import build_trainer
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.common import ParamTree
 
     if args.device == "cuda":
         torch.cuda.set_device(0)
@@ -1471,7 +1510,7 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
                               spec=small_spec)
         if init is None:
             init = small.init_state(small_args.seed)[0].tree()
-        mod = TransformerLM(small.model.spec, tree.tree_map(
+        mod = ParamTree(tree.tree_map(
             lambda t: t.detach().clone().to(device), init))
         mod, _, hist = small.run(small_args.steps, mod,
                                  small.optimizer.init(mod.tree()))
@@ -4425,12 +4464,545 @@ def run_family_phase():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent and encoder-decoder families, and remat
+# ---------------------------------------------------------------------------
+
+ZAMBA2, XLSTM, WHISPER = "zamba2-1.2b", "xlstm-350m", "whisper-tiny"
+RECURRENT_PARAMS = {ZAMBA2: 1_113_328_512, XLSTM: 313_119_828,
+                    WHISPER: 36_487_680}
+RECURRENT_NEW = 32
+# (a)-(c): prompt and decode-against-forward (prefill, teacher-forced
+# steps); zamba2's lengths are multiples of its ssm_chunk of 256
+RECURRENT_SERVE = {ZAMBA2: (4096, 3840, 256), XLSTM: (1024, 256, 8),
+                   WHISPER: (64, 64, 8)}
+XLSTM_CHUNK = 64                   # (b) the chunked check; (d) training
+XLSTM_PROFILED = 64                # (b) the prefill profiled
+XLSTM_SHORT = (8, 4)               # (b) float32 decode = forward: the
+                                   # reference test's prefill and steps
+RECURRENT_TRAIN_SEQ = 4096         # (d)
+XLSTM_TRAIN_SEQ = 2048             # (d) cut: its time loops at 4096 took
+                                   # 22-27 s a step, phase 14 over 180 s
+ZAMBA2_TRAIN_LAYERS = 12           # (d) cut: depth, whole groups of 6
+RECURRENT_SMALL_PROMPT = 96        # (e): a multiple of the reduced chunk
+RECURRENT_WIDTHS = (1024, 2048, 4096)   # K6 rows in phase 14 (phase 2)
+
+
+def _recurrent_forward(params, spec, toks, extra):
+    """The full forward's logits over ``toks`` (with whisper's frames)."""
+    from repro_torch.models import encdec, hybrid, ssm_lm
+    if spec.family == "hybrid":
+        return hybrid.forward(params, toks, spec)
+    if spec.family == "ssm":
+        return ssm_lm.forward(params, toks, spec)[0]
+    enc = encdec.encode(params, extra["frames"], spec)
+    return encdec.decoder_forward(params, toks, enc, spec)
+
+
+def _recurrent_kernels(spec, positions):
+    """K6 and K7 launches per forward of ``positions`` tokens: K6 on
+    every RMSNorm (zamba2: each Mamba2 layer, two in each application of
+    the shared block, the final norm; xLSTM: each block and the final;
+    whisper: LayerNorm, none), K7 in each shared-block application or
+    decoder self-attention above ``attn_full_seq_max``."""
+    flash = positions > spec.attn_full_seq_max
+    if spec.family == "hybrid":
+        apps = spec.num_layers // spec.attn_every
+        return {"fused_rmsnorm": spec.num_layers + 2 * apps + 1,
+                "flash_attention_fwd": apps if flash else 0}
+    if spec.family == "ssm":
+        return {"fused_rmsnorm": spec.num_layers + 1,
+                "flash_attention_fwd": 0}
+    return {"fused_rmsnorm": 0,
+            "flash_attention_fwd": spec.num_layers if flash else 0}
+
+
+def _recurrent_parity(params, spec, toks, extra, prompt, profile):
+    """``(got, want, profiled)``: prefill ``prompt`` of ``toks``,
+    teacher-force the rest (the last step profiled when ``profile``);
+    ``got`` its logits, ``want`` the forward's over all at the last
+    position (f32)."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(spec)
+    n_all = toks.shape[1]
+    last = n_all - 1
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": toks[:, :prompt],
+                                          **extra}, n_all)
+        for t in range(prompt, last):
+            got, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+        prof = _profiled(lambda: model.decode_step(
+            params, cache, toks[:, last:last + 1]), profile)
+        got, cache = prof.pop("out")
+        del cache
+        _release(toks.is_cuda)
+        want = _recurrent_forward(params, spec, toks, extra)[:, -1].float()
+    return got.float(), want, prof
+
+
+def _xlstm_checks(params, spec, toks, label):
+    """(b)'s checks beside the served bf16 decode, on the served
+    parameters.  At full depth with random weights the xLSTM amplifies
+    rounding, in the reference as in the port (at 256 wide and 24
+    layers the reference's own chunked and sequential forms are ~0.1
+    apart in float32, 1e-6 at 2 layers:
+    ``tests/test_torch_xlstm.py::test_depth_amplifies_rounding_alike``).
+    So the reference's criteria are held where rounding is not
+    amplified: at full depth decode = forward in float32 on the
+    reference test's short prompt (``XLSTM_SHORT``: prefill 8, 4
+    teacher-forced steps); at full width cut to its first mLSTM and
+    first sLSTM layer (``slstm_every`` 2), decode = forward in bf16
+    within 0.05 over ``toks`` and, in float32, the chunked prefill
+    (``mlstm_chunk`` 64) against the sequential one (logits within 1e-3,
+    the next decode step from each state within 2e-4); on one mLSTM
+    layer the chunked form against the sequential scan (the reference's
+    ``test_chunked_state_handoff``: outputs within 2e-4, states within
+    1e-4, the next decode step from each state within 2e-4).  The whole
+    model's chunked prefill against its sequential one is printed."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import build_model, xlstm
+    spec32 = dataclasses.replace(spec, dtype="float32")
+    chunked = dataclasses.replace(spec32, mlstm_chunk=XLSTM_CHUNK)
+    t0 = time.perf_counter()
+    prefill, steps = XLSTM_SHORT
+    got, want, _ = _recurrent_parity(params, spec32,
+                                     toks[:, :prefill + steps], {}, prefill,
+                                     False)
+    rel32 = _rel(got, want)
+    log(f"  {label} decode = forward (float32): prefill {prefill}, {steps} "
+        f"teacher-forced steps: rel err {rel32:.4e} (required < 0.05)")
+    require(rel32 < 0.05, f"{label} float32 decode differs from forward: "
+                          f"rel {rel32}")
+
+    # Full width, two layers: the served first mLSTM and first sLSTM.
+    two = dataclasses.replace(spec, num_layers=2, slstm_every=2)
+    p2 = {"embed": params["embed"], "ln_f": params["ln_f"],
+          **{k: tree.tree_map(lambda w: w[:1], params[k])
+             for k in ("mlstm", "slstm")}}
+    n_steps = RECURRENT_SERVE[XLSTM][2]
+    n_prompt = toks.shape[1] - 1 - n_steps
+    got, want, _ = _recurrent_parity(p2, two, toks[:, :-1], {}, n_prompt,
+                                     False)
+    rel2 = _rel(got, want)
+    two32 = dataclasses.replace(two, dtype="float32")
+    two_chk = dataclasses.replace(two32, mlstm_chunk=XLSTM_CHUNK)
+    with torch.inference_mode():
+        runs = []
+        for sp in (two32, two_chk):
+            m = build_model(sp)
+            lg, cache = m.prefill(p2, {"tokens": toks[:, :-1]},
+                                  toks.shape[1])
+            nxt, _ = m.decode_step(p2, cache, toks[:, -1:])
+            runs.append((lg.float(), nxt.float()))
+    pre2, nxt2 = (_rel(c, q) for c, q in zip(runs[1], runs[0]))
+    log(f"  {label} full width, {two.num_layers} layers (mLSTM, sLSTM): "
+        f"decode = forward ({spec.dtype}): prefill {n_prompt}, "
+        f"{n_steps} teacher-forced steps: rel err {rel2:.4e} "
+        f"(required < 0.05); float32 mlstm_chunk {XLSTM_CHUNK} against the "
+        f"sequential scan over {toks.shape[1] - 1} tokens: prefill logits "
+        f"rel {pre2:.4e} (required <= 1e-3), the next decode step rel "
+        f"{nxt2:.4e} (required <= 2e-4)")
+    require(rel2 < 0.05, f"{label} two-layer bf16 decode differs from "
+                         f"forward: rel {rel2}")
+    require(pre2 <= 1e-3 and nxt2 <= 2e-4,
+            f"{label} two-layer chunked prefill differs from the "
+            f"sequential one: {pre2}, {nxt2}")
+
+    gen = torch.Generator(device=toks.device).manual_seed(4)
+    x = torch.randn((SERVE_BATCH, toks.shape[1] - 1, spec.d_model),
+                    generator=gen, device=toks.device)
+    x2 = torch.randn((SERVE_BATCH, 1, spec.d_model), generator=gen,
+                     device=toks.device)
+    lp = {k: v[0] for k, v in params["mlstm"]["mixer"].items()}
+    with torch.inference_mode():
+        y_seq, st_seq = xlstm.mlstm_forward(lp, x, spec32)
+        y_chk, st_chk = xlstm.mlstm_forward(lp, x, chunked)
+        d_seq, _ = xlstm.mlstm_decode(lp, x2, st_seq, spec32)
+        d_chk, _ = xlstm.mlstm_decode(lp, x2, st_chk, spec32)
+        full_seq, _ = build_model(spec32).prefill(params,
+                                                  {"tokens": toks[:, :-1]})
+        full_chk, _ = build_model(chunked).prefill(params,
+                                                   {"tokens": toks[:, :-1]})
+    y_ex = _excess(y_chk, y_seq, 2e-4, 2e-4)
+    st_ex = max(_excess(st_chk[k], st_seq[k], 1e-4, 1e-4) for k in st_seq)
+    d_ex = _excess(d_chk, d_seq, 2e-4, 2e-4)
+    full_rel = _rel(full_chk.float(), full_seq.float())
+    log(f"  {label} one mLSTM layer at full width, {x.shape[1]} tokens, "
+        f"mlstm_chunk {XLSTM_CHUNK} against the sequential scan (float32): "
+        f"max err/tol outputs {y_ex:.3f} (2e-4), states {st_ex:.3f} (1e-4), "
+        f"the next decode step from each state {d_ex:.3f} (2e-4); the whole "
+        f"model's prefill logits rel {full_rel:.3e} (printed: rounding "
+        f"amplified over {spec.num_layers} layers); "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(max(y_ex, st_ex, d_ex) <= 1.0,
+            f"{label} chunked mLSTM differs from the sequential scan: "
+            f"{y_ex}, {st_ex}, {d_ex}")
+    return {"f32_rel": rel32, "two_layer": (rel2, pre2, nxt2),
+            "layer_excess": (y_ex, st_ex, d_ex),
+            "full_chunked_rel": full_rel}
+
+
+def serve_recurrent(arch, label):
+    """(a)-(c): ``arch`` as published, full width and depth, served in
+    this process through ``build_engine`` and ``ServeEngine``: batch 2,
+    the prompt of ``RECURRENT_SERVE``, 32 greedy tokens.  K6 and K7 per
+    forward as :func:`_recurrent_kernels` says (never K7 in decode),
+    tokens in range before the lookup, decode logits finite; decode
+    against forward in bf16 within 0.05 (xLSTM: its bf16 decode no
+    farther from the float32 forward than ``DECODE_FAITH`` times the bf16
+    forward, then :func:`_xlstm_checks`); the card at most 90% full.
+    Returns the record."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_spec
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.data.synthetic import SyntheticText
+    from repro_torch.launch.serve import build_engine, decode_ms
+
+    spec = get_spec(arch)
+    prompt, par_prompt, par_steps = RECURRENT_SERVE[arch]
+    cuda = torch.device(SERVE_DEVICE).type == "cuda"
+    args = serve_args(arch=arch, full=True, batch=SERVE_BATCH,
+                      prompt_len=prompt, new_tokens=RECURRENT_NEW,
+                      device=SERVE_DEVICE)
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, batch = build_engine(args, spec=spec)
+    _sync(SERVE_DEVICE)
+    init_s = time.perf_counter() - t0
+    _release(cuda)
+    n_params = sum(t.numel() for t in tree.leaves(engine.params))
+    extra = {k: v.to(SERVE_DEVICE) for k, v in batch.items()
+             if k != "tokens"}
+    frames = f", frames {tuple(extra['frames'].shape)}" if extra else ""
+    log(f"  {label} {spec.name} ({spec.family}): {spec.num_layers} layers, "
+        f"d_model {spec.d_model}, vocab {spec.vocab_size}, {spec.dtype} "
+        f"compute; {n_params} f32 parameters drawn on the card in "
+        f"{init_s:.1f} s; batch {SERVE_BATCH}, prompt {prompt}{frames}, "
+        f"{RECURRENT_NEW} greedy tokens, max_seq {engine.cfg.max_seq}")
+    require(n_params == RECURRENT_PARAMS[arch],
+            f"{label} {arch} has {n_params} parameters, not "
+            f"{RECURRENT_PARAMS[arch]}")
+    require(engine.cfg.max_seq == prompt + RECURRENT_NEW + 1,
+            f"{label} max_seq {engine.cfg.max_seq} is not the text's")
+    calls, finite, checked = [], [None], []
+    engine.model = _count_calls(_token_check(engine.model, checked), calls,
+                                finite)
+    _reset_counts()                           # main path starts here
+    out = engine.generate(batch)
+    totals = _counts()                        # main path ends here
+    scalar = _scalar_counts()
+    require(checked and not any(int(h) for h in checked),
+            f"{label} out-of-range prompt tokens on the card: "
+            f"{[int(h) for h in checked]}")
+    kinds = [kind for kind, _ in calls]
+    require(kinds == ["prefill"] + ["decode"] * RECURRENT_NEW,
+            f"{label} ran {kinds}")
+    if cuda:
+        for i, (kind, got) in enumerate(calls):
+            want = _recurrent_kernels(spec, prompt if kind == "prefill"
+                                      else 1)
+            require(got == want, f"{label} call {i} ({kind}) launched "
+                                 f"{got}, not {want}")
+    require(out.shape == (SERVE_BATCH, RECURRENT_NEW)
+            and out.min() >= 0 and out.max() < spec.padded_vocab,
+            f"{label} tokens out of [0, {spec.padded_vocab}): {out}")
+    require(bool(finite[0]), f"{label} non-finite decode logits")
+    timing = engine.timing
+    dec_ms = decode_ms(timing)
+    total_s = timing["prefill_s"] + sum(timing["decode_s"])
+    cache_bytes = _cache_bytes(engine.model, SERVE_BATCH, engine.cfg.max_seq)
+    bw = H100_SXM.hbm_bandwidth
+    floor = (n_params * FLOOR_BYTES_PER_PARAM + cache_bytes) / bw * 1e3
+    log(f"  {label} launches per forward: prefill {calls[0][1]}, decode "
+        f"{calls[1][1]} (x{RECURRENT_NEW}); tokens row 0 "
+        f"{out[0][:12].tolist()}")
+    log(f"  {label} prefill {timing['prefill_s']:.4f} s; decode "
+        f"{dec_ms:.3f} ms/token (median of steps 2-{RECURRENT_NEW}); "
+        f"{SERVE_BATCH * RECURRENT_NEW / total_s:.1f} tokens/s over the "
+        f"generation; decode floor (f32 weights read once, {n_params} x "
+        f"{FLOOR_BYTES_PER_PARAM} B, plus the cache and states, "
+        f"{cache_bytes} B, over {bw / 1e12:.2f} TB/s) {floor:.3f} ms, "
+        f"measured/floor {dec_ms / floor:.1f}")
+
+    # Decode against forward, the reference's criterion, in bf16.
+    toks = SyntheticText(spec.vocab_size, batch=SERVE_BATCH,
+                         seq_len=par_prompt + par_steps,
+                         seed=1).batch_at(0)["tokens"].to(SERVE_DEVICE)
+    _release(cuda)
+    t1 = time.perf_counter()
+    got, want, busy = _recurrent_parity(engine.params, spec, toks, extra,
+                                        par_prompt, cuda)
+    rel = _rel(got, want)
+    # xLSTM at full depth amplifies rounding (_xlstm_checks): its bf16
+    # decode is held, as phase 13 holds deepseek-v2-lite's, no farther
+    # from the float32 forward than DECODE_FAITH times the bf16 forward.
+    held = spec.family != "ssm"
+    log(f"  {label} decode = forward ({spec.dtype}): prefill {par_prompt}, "
+        f"{par_steps} teacher-forced steps, last logits against forward "
+        f"over {par_prompt + par_steps} tokens: rel err {rel:.4e} "
+        f"({'required < 0.05' if held else 'printed'}) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    rec = {"totals": totals, "scalar": scalar,
+           "prefill_s": timing["prefill_s"], "decode_ms": dec_ms,
+           "floor_ms": floor, "rel": rel, "n_params": n_params}
+    if held:
+        require(rel < 0.05, f"{label} decode differs from forward: rel "
+                            f"{rel}")
+    else:
+        _release(cuda)
+        with torch.inference_mode():
+            want32 = _recurrent_forward(
+                engine.params, dataclasses.replace(spec, dtype="float32"),
+                toks, extra)[:, -1].float()
+        dec_err, fwd_err = _rel(got, want32), _rel(want, want32)
+        log(f"  {label} against the float32 forward's last logits: bf16 "
+            f"decode rel {dec_err:.4e}, bf16 forward rel {fwd_err:.4e} "
+            f"(decode/forward {dec_err / fwd_err:.3f}, required <= "
+            f"{DECODE_FAITH})")
+        require(dec_err <= DECODE_FAITH * fwd_err,
+                f"{label} the bf16 decode is {dec_err} from the float32 "
+                f"forward, the bf16 forward {fwd_err}")
+        rec["decode_over_forward"] = dec_err / fwd_err
+    if spec.family == "ssm":
+        _release(cuda)
+        rec["xlstm"] = _xlstm_checks(engine.params, spec,
+                                     toks[:, :par_prompt + 1], label)
+        if cuda:
+            # The sequential prefill's cost: its launches, from a short
+            # prompt profiled (the 1024-token one would hold ~10^6 events).
+            with torch.inference_mode():
+                pre = _profiled(lambda: engine.model.prefill(
+                    engine.params, {"tokens": toks[:, :XLSTM_PROFILED]}),
+                    cuda)
+            per = pre["kernels"] / XLSTM_PROFILED
+            log(f"  {label} a {XLSTM_PROFILED}-token prefill profiled: "
+                f"{pre['kernels']} kernels ({per:.1f} a token, so ~"
+                f"{per * prompt:.0f} in the {prompt}-token prefill), card "
+                f"busy {pre['device_ms']:.2f} ms of {pre['wall_ms']:.2f} ms "
+                f"host wall ({pre['device_ms'] / pre['wall_ms']:.1%})")
+            rec["prefill_kernels_per_token"] = per
+    if cuda:
+        log(f"  {label} one decode step profiled: {busy['kernels']} "
+            f"kernels, card busy {busy['device_ms']:.2f} ms of "
+            f"{busy['wall_ms']:.2f} ms host wall "
+            f"({busy['device_ms'] / busy['wall_ms']:.1%}); the profiler "
+            f"slows the host")
+        card, released = _card_in_use_gib(1)
+        held = card + released
+        total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {label} the card in use at its peak {held:.2f} of "
+            f"{total:.2f} GiB ({held / total:.1%}); peak allocated "
+            f"{peak:.2f} GiB")
+        require(held <= 0.9 * total,
+                f"{label} holds {held:.2f} GiB of the card, more than 90%")
+        rec.update(held_gib=held, peak_gib=peak,
+                   kernels_per_step=busy["kernels"])
+    log(f"  {label} {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+def recurrent_train(arch, label, layers=None, overrides=None,
+                    seq=RECURRENT_TRAIN_SEQ):
+    """(d): ``arch`` at full width (depth cut to ``layers`` when given,
+    the spec changed by ``overrides``), trained on 2 ``cuda_ipc`` ranks
+    sharing the card through ``run_phase`` (``rhd_rsa`` + ``int8`` fused
+    hops, K5 AdamW, batch 1 per rank, ``seq`` tokens, 2 steps): K7 and K8 once per attention per step (zamba2's shared-block
+    applications, whisper's decoder layers; none in xLSTM), the card at
+    most 90% full; then the reduced float32 spec on the card and on the
+    host.  Returns each rank's record."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_spec
+    t0 = time.perf_counter()
+    full = get_spec(arch)
+    spec = dataclasses.replace(full, num_layers=layers or full.num_layers,
+                               **(overrides or {}))
+    small_spec = dataclasses.replace(full.reduced(), dtype="float32")
+    if spec.family == "ssm":
+        small_spec = dataclasses.replace(small_spec, mlstm_chunk=16)
+    cuts = []
+    if spec.num_layers != full.num_layers:
+        cuts.append(f"depth, {spec.num_layers} of {full.num_layers} layers")
+    if seq != RECURRENT_TRAIN_SEQ:
+        cuts.append(f"sequence, {seq} of {RECURRENT_TRAIN_SEQ}")
+    log(f"  {label} {arch} at full width (d_model {spec.d_model}); cut: "
+        f"{'; '.join(cuts) or 'none'}; deviations from the published spec: "
+        f"{overrides or 'none'}; seq {seq}")
+    attn = {"hybrid": spec.num_layers // max(spec.attn_every, 1),
+            "ssm": 0, "audio": spec.num_layers}[spec.family]
+    required = ["hop_absmax", "hop_encode", "hop_decode_add", "adamw_update"]
+    if spec.norm_type == "rmsnorm":
+        required.append("fused_rmsnorm")
+    if attn:
+        required += ["flash_attention_fwd", "flash_attention_bwd"]
+    args = train_args(arch=arch, full=True, batch=LONG_WORLD, seq=seq,
+                      steps=LONG_STEPS, device="cuda")
+    small = train_args(arch=arch, full=False, batch=2 * LONG_WORLD,
+                       seq=RECURRENT_SMALL_PROMPT, steps=2, dtype="float32")
+    results = run_phase(LONG_WORLD, args, small, tuple(required), spec=spec,
+                        small_spec=small_spec, backend="cuda_ipc")
+    for r in results:
+        for s_, rec in enumerate(r["steps"], 1):
+            for k in ("flash_attention_fwd", "flash_attention_bwd"):
+                require(rec["launches"][k] == attn,
+                        f"{label} rank {r['rank']} step {s_}: {k} launched "
+                        f"{rec['launches'][k]} times, not {attn}")
+    for s_, rec in enumerate(results[0]["steps"], 1):
+        log(f"  {label} step {s_}: ce {rec['ce']:.5f} step_s "
+            f"{rec['step_s']:.3f}; launches {rec['launches']}")
+    log(f"  {label} the aggregate timed alone per rank "
+        f"{[round(r['breakdown']['aggregate_s'], 4) for r in results]} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if args.device != "cuda":
+        return results
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    held = max(r["card_gib"] for r in results) + sum(
+        r["released_gib"] for r in results)
+    log(f"  {label} the card in use at its peak {held:.2f} of {total:.2f} "
+        f"GiB ({held / total:.1%}); GiB allocated at peak per rank "
+        f"{[round(r['peak_gib'], 2) for r in results]}")
+    require(held <= 0.9 * total,
+            f"{label} holds {held:.2f} GiB of the card, more than 90%: cut "
+            f"its layers")
+    return results
+
+
+def recurrent_card_vs_host():
+    """(e): the reduced float32 specs of the three at prompt 96 (a
+    multiple of the reduced ssm_chunk, above the reduced
+    attn_full_seq_max of 64) on the card and on the host's plain versions
+    from the same parameters: prefill logits within K7's f32 tolerance,
+    16 greedy tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    for arch in (ZAMBA2, XLSTM, WHISPER):
+        spec = dataclasses.replace(get_spec(arch).reduced(), dtype="float32")
+        args = serve_args(arch=arch, full=False, batch=SERVE_BATCH,
+                          prompt_len=RECURRENT_SMALL_PROMPT,
+                          new_tokens=SMALL_NEW, device="cpu")
+        host, batch = build_engine(args, spec=spec)
+        card = ServeEngine(host.model, tree.tree_map(
+            lambda t: t.detach().to(SERVE_DEVICE), host.params), None,
+            host.cfg, SERVE_DEVICE)
+        model = host.model
+        on_card = {k: v.to(SERVE_DEVICE) for k, v in batch.items()}
+        with torch.inference_mode():
+            want, _ = model.prefill(host.params, batch, host.cfg.max_seq)
+            before = _counts()
+            got, _ = model.prefill(card.params, on_card, host.cfg.max_seq)
+            after = _counts()
+        launched = {k: after[k] - before[k] for k in SERVE_KERNELS}
+        ex = _excess(got.cpu(), want, 2e-5, 1e-4)
+        out_host, out_card = host.generate(batch), card.generate(batch)
+        log(f"  (e) float32 {spec.name} ({spec.num_layers} layers, d_model "
+            f"{spec.d_model}), prompt {RECURRENT_SMALL_PROMPT}: prefill "
+            f"launched {launched} on the card; prefill logits max err/tol "
+            f"{ex:.3f} (K7's f32 tolerance atol 2e-5 / rtol 1e-4); "
+            f"{SMALL_NEW} greedy tokens equal: "
+            f"{bool((out_host == out_card).all())}")
+        if torch.device(SERVE_DEVICE).type == "cuda":
+            require(launched == _recurrent_kernels(
+                spec, RECURRENT_SMALL_PROMPT),
+                f"(e) {arch}: the card's prefill launched {launched}")
+        require(ex <= 1.0, f"(e) {arch}: card and host prefill logits "
+                           f"disagree: {ex}")
+        require((out_host == out_card).all(),
+                f"(e) {arch}: greedy tokens differ: {out_host} vs "
+                f"{out_card}")
+    log(f"  (e) {time.perf_counter() - t0:.1f} s")
+
+
+def remat_train(phase4=None):
+    """(f): phase 4's run (full-width smollm-360m, seq 4096, 2 gloo
+    ranks, 2 steps, the same seed) with ``remat=True``: each block's
+    activations recomputed in the backward, so K7 runs twice per layer
+    per step and K8 once.  The parameters after 2 steps must equal phase
+    4's bit for bit (``phase4``; run here first when not given), and the
+    two runs' peak memory is printed."""
+    import dataclasses
+    from repro_torch.configs import get_spec
+    t0 = time.perf_counter()
+    args = train_args(full=True, batch=LONG_WORLD, seq=LONG_SEQ,
+                      steps=LONG_STEPS, device="cuda")
+    small = train_args(full=False, batch=2 * LONG_WORLD, seq=128, steps=2,
+                       dtype="float32")
+    required = tuple(k for k in KERNELS if k != "fused_reduce")
+    if phase4 is None:
+        log("  (f) phase 4's run, remat off")
+        phase4 = run_phase(LONG_WORLD, args, small, required)
+    spec = dataclasses.replace(get_spec("smollm-360m"), remat=True)
+    small_spec = dataclasses.replace(get_spec("smollm-360m").reduced(),
+                                     dtype="float32", remat=True)
+    log("  (f) remat=True")
+    results = run_phase(LONG_WORLD, args, small, required, spec=spec,
+                        small_spec=small_spec)
+    for r in results:
+        for s_, rec in enumerate(r["steps"], 1):
+            got = (rec["launches"]["flash_attention_fwd"],
+                   rec["launches"]["flash_attention_bwd"])
+            require(got == (2 * LAYERS, LAYERS),
+                    f"(f) rank {r['rank']} step {s_}: K7/K8 launched {got}, "
+                    f"not {(2 * LAYERS, LAYERS)}")
+    same = {r["checksum"] for r in results} == {r["checksum"]
+                                                for r in phase4}
+    log(f"  (f) parameters after {LONG_STEPS} steps bit for bit phase 4's: "
+        f"{same} (checksums {results[0]['checksum']} / "
+        f"{phase4[0]['checksum']}); GiB allocated at peak per rank: remat "
+        f"{[round(r['peak_gib'], 2) for r in results]}, phase 4 "
+        f"{[round(r['peak_gib'], 2) for r in phase4]}; step_s remat "
+        f"{[round(rec['step_s'], 3) for rec in results[0]['steps']]}, "
+        f"phase 4 {[round(rec['step_s'], 3) for rec in phase4[0]['steps']]}"
+        f"; {time.perf_counter() - t0:.1f} s")
+    require(same, "(f) remat changed the parameters")
+    return results
+
+
+def run_recurrent_phase(phase4=None):
+    """Phase 14: (a) zamba2-1.2b, (b) xlstm-350m and (c) whisper-tiny
+    served at full width and depth; (d) the three trained on 2 cuda_ipc
+    ranks; (e) the reduced float32 specs card against host; (f) remat
+    against phase 4."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {}
+    for arch, label in ((ZAMBA2, "(a)"), (XLSTM, "(b)"), (WHISPER, "(c)")):
+        rec[label] = serve_recurrent(arch, label)
+        torch.cuda.empty_cache()
+    rec["d"] = (recurrent_train(ZAMBA2, "(d) zamba2", ZAMBA2_TRAIN_LAYERS)
+                + recurrent_train(XLSTM, "(d) xlstm",
+                                  overrides={"mlstm_chunk": XLSTM_CHUNK},
+                                  seq=XLSTM_TRAIN_SEQ)
+                + recurrent_train(WHISPER, "(d) whisper"))
+    recurrent_card_vs_host()
+    torch.cuda.empty_cache()
+    rec["f"] = remat_train(phase4)
+    log(f"  phase 14 {time.perf_counter() - t0:.1f} s on {gpu_line()}")
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve-only", action="store_true",
                     help="build the kernels and run phase 12 alone")
     ap.add_argument("--family-only", action="store_true",
                     help="build the kernels and run phase 13 alone")
+    ap.add_argument("--recurrent-only", action="store_true",
+                    help="build the kernels and run phase 14 alone (with "
+                         "phase 4's run for remat's comparison)")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4451,6 +5023,12 @@ def main(argv=None):
         backend.build_all()
         log("phase 13 alone")
         run_family_phase()
+        print(gpu_line(), flush=True)
+        return 0
+    if opts.recurrent_only:
+        backend.build_all()
+        log("phase 14 alone")
+        run_recurrent_phase()
         print(gpu_line(), flush=True)
         return 0
     t_start = time.perf_counter()
@@ -4547,6 +5125,12 @@ def main(argv=None):
         f"card against host")
     phase13 = run_family_phase()
 
+    log(f"phase 14: the recurrent and encoder-decoder families: {ZAMBA2}, "
+        f"{XLSTM} and {WHISPER} served at full width and depth and trained "
+        f"on {LONG_WORLD} cuda_ipc ranks, the reduced specs card against "
+        f"host, remat against phase 4")
+    phase14 = run_recurrent_phase(phase4)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -4568,7 +5152,10 @@ def main(argv=None):
                 "phase12": phase12["gemma"][field][k]
                 + sum(r[field][k] for r in phase12["ranks"]),
                 "phase13": phase13["a"][field][k] + phase13["b"][field][k]
-                + sum(r[field][k] for r in phase13["c"] + phase13["d"])}
+                + sum(r[field][k] for r in phase13["c"] + phase13["d"]),
+                "phase14": sum(phase14[p][field][k]
+                               for p in ("(a)", "(b)", "(c)"))
+                + sum(r[field][k] for r in phase14["d"] + phase14["f"])}
 
     def scalar(k):
         if k not in SCALAR:

@@ -3,9 +3,10 @@ model mesh of ranks and decode continuations with the KV-cache engine.
 
     PYTHONPATH=src python examples/torch_serve_decode.py [--device cpu]
 
-Counterpart of ``examples/serve_decode.py`` in ``repro_torch``, for its
-attention architecture (granite-3-2b); its SSM architecture (xlstm-350m)
-comes with the other model families.  4 ranks as data 2 × model 2: each
+Counterpart of ``examples/serve_decode.py`` in ``repro_torch``: its
+attention architecture (granite-3-2b) and its SSM architecture
+(xlstm-350m, O(1) recurrent state) side by side.  4 ranks as data 2 ×
+model 2: each
 data rank prefills and decodes its 2 rows, the model ranks hold the
 weights in shards.  Runs on CUDA (the ranks share the card) unless
 ``--device cpu``.
@@ -55,7 +56,7 @@ def main():
     from repro_torch.core.dist import run_ranks
     from repro_torch.kernels import resolve_device
     device = str(resolve_device(args.device))
-    for arch in ("granite-3-2b",):
+    for arch in ("granite-3-2b", "xlstm-350m"):
         with tempfile.TemporaryDirectory() as rdv:
             family, out, dt = run_ranks(
                 _rank, 4, (arch, device), backend=args.backend,

@@ -4,8 +4,9 @@ The transformer families are ported whole: dense (smollm-360m,
 granite-3-2b, deepseek-7b, gemma-7b with head_dim 256, GeGLU and scaled
 tied embeddings), MoE (granite-moe-1b-a400m; deepseek-v2-lite-16b with
 MLA and a dense prefix layer) and the VLM backbone (phi-3-vision-4.2b,
-head_dim 96).  The other families' specs join with their families
-(ROADMAP.md, Queue 1).
+head_dim 96); the Mamba2 hybrid (zamba2-1.2b), the xLSTM
+(xlstm-350m) and the encoder-decoder (whisper-tiny): every arch of the
+reference.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ ARCHS = {
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 
@@ -30,6 +34,6 @@ def list_archs() -> list[str]:
 
 def get_spec(name: str) -> ModelSpec:
     if name not in ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {name!r}; "
+        raise KeyError(f"unknown arch {name!r}; "
                        f"available: {list_archs()}")
     return importlib.import_module(ARCHS[name]).SPEC

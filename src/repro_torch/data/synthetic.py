@@ -9,8 +9,8 @@ bits, so the same seed gives other values than the reference; parity
 tests feed both packages batches made with numpy.
 
 ``extra_inputs`` gives the modality front end's stub inputs, as in the
-reference: none for the dense and MoE families, image-patch embeddings
-for the VLM.
+reference: image-patch embeddings for the VLM, audio frame embeddings
+for the encoder-decoder, none for the other families.
 """
 from __future__ import annotations
 
@@ -63,18 +63,17 @@ class SyntheticImages:
 
 
 def extra_inputs(spec, batch: int, seed: int = 0) -> dict:
-    """Stub modality-frontend inputs of ``batch`` rows: ``{}`` for the
-    dense and MoE families; for the VLM ``patches``, bf16 ``(batch,
-    num_image_tokens, d_model)`` standard-normal image-patch embeddings
-    on the CPU from a generator seeded with ``seed``.  The audio family
-    is not ported."""
+    """Stub modality-frontend inputs of ``batch`` rows, bf16
+    standard-normal on the CPU from a generator seeded with ``seed``: for
+    the VLM ``patches`` ``(batch, num_image_tokens, d_model)``, for the
+    audio family ``frames`` ``(batch, encoder_seq, d_model)``; ``{}`` for
+    the others."""
     family = getattr(spec, "family", None)
-    if family in ("dense", "moe"):
-        return {}
     if family == "vlm":
-        gen = torch.Generator().manual_seed(seed)
-        patches = torch.randn((batch, spec.num_image_tokens, spec.d_model),
-                              generator=gen)
-        return {"patches": patches.to(torch.bfloat16)}
-    raise NotImplementedError(
-        f"extra_inputs for family {family!r} is not ported yet")
+        shape, key = (batch, spec.num_image_tokens, spec.d_model), "patches"
+    elif family == "audio":
+        shape, key = (batch, spec.encoder_seq, spec.d_model), "frames"
+    else:
+        return {}
+    gen = torch.Generator().manual_seed(seed)
+    return {key: torch.randn(shape, generator=gen).to(torch.bfloat16)}

@@ -148,6 +148,50 @@ class ParamTree(nn.Module):
         return {k: self._child(k) for k in names}
 
 
+class ModelModule(nn.Module):
+    """A model as a module: its parameters (a :class:`ParamTree` under the
+    reference's names) and ``loss(params_tree, batch, spec)``;
+    ``forward(batch)`` returns ``(loss, metrics)``."""
+
+    def __init__(self, spec: ModelSpec, params: dict, loss):
+        super().__init__()
+        self.spec = spec
+        self.params = ParamTree(params)
+        self._loss = loss
+
+    def tree(self) -> dict:
+        return self.params.tree()
+
+    def forward(self, batch):
+        return self._loss(self.tree(), batch, self.spec)
+
+
+def stack_layers(n: int, make) -> dict:
+    """``n`` layers of ``make()`` stacked along a leading dim.  Each layer
+    is drawn in turn and copied into the stacked leaves, so the stack
+    never sits beside a second copy of itself (a full-depth gemma-7b is
+    34 GB in f32; deepseek-v2-lite's body ``w1`` alone 19.2 GB)."""
+    from .. import tree as tree_mod
+    stack = None
+    for i in range(n):
+        layer = make()
+        if stack is None:
+            stack = tree_mod.tree_map(lambda x: torch.empty(
+                (n,) + tuple(x.shape), dtype=x.dtype, device=x.device), layer)
+        for stacked, x in zip(tree_mod.leaves(stack), tree_mod.leaves(layer)):
+            stacked[i].copy_(x)
+        del layer
+    return stack
+
+
+def layer_views(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree as per-layer trees of ``unbind``
+    views (whose backward writes each stacked gradient once)."""
+    from .. import tree as tree_mod
+    views = tree_mod.tree_map(lambda w: w.unbind(0), tree)
+    return [tree_mod.tree_map(lambda ws: ws[i], views) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # initializers (seeded torch.Generator; not jax.random's bits)
 # ---------------------------------------------------------------------------
@@ -174,16 +218,37 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return RMSNormFn.apply(x, scale, eps)
 
 
+def layernorm(x, scale, bias=None, eps: float = 1e-5):
+    """The reference's LayerNorm term for term, f32 statistics: the mean,
+    then ``mean((x - mu)²)``, then ``rsqrt(var + eps)`` (not
+    ``F.layer_norm``, whose Welford statistics round otherwise); plain
+    torch, as the reference computes it outside any kernel."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    if bias is not None:
+        x = x + bias.to(torch.float32)
+    return x.to(dt)
+
+
 def norm(x, params, kind: str):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rmsnorm(x, params["scale"])
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    if kind == "layernorm":
+        return layernorm(x, params["scale"], params.get("bias"))
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def norm_params(d: int, kind: str, device=None) -> dict:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=torch.float32,
+                                     device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+                "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +269,16 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, start: int = 0) -> np.ndarray:
+    """``(seq - start, dim)`` f32 ``[sin | cos]`` of ``pos /
+    10000^(2i/dim)`` for positions ``start .. seq - 1``, computed in
+    numpy as the reference does (each row alike whatever ``start``)."""
+    pos = np.arange(start, seq, dtype=np.float32)[:, None]
+    i = np.arange(dim // 2, dtype=np.float32)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    return np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
 
 
 # ---------------------------------------------------------------------------

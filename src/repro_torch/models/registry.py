@@ -1,6 +1,7 @@
 """Model registry and the fusion-group tags of each parameter
 (counterpart of ``repro/models/registry.py``: the transformer families
-``dense``, ``moe`` and ``vlm``, and the paper's CNNs through
+``dense``, ``moe`` and ``vlm``, the Mamba2 hybrid ``hybrid``, the xLSTM
+``ssm``, the encoder-decoder ``audio``, and the paper's CNNs through
 :func:`build_cnn`).
 
 ``param_pspecs`` gives the reference's PartitionSpec per leaf (the
@@ -18,19 +19,26 @@ import dataclasses
 from typing import Callable, Optional
 
 from .. import tree as tree_mod
-from . import cnn, transformer
-from .common import ModelSpec, ParamTree
+from . import cnn, encdec, hybrid, ssm_lm, transformer
+from .common import ModelModule, ModelSpec, ParamTree
 
 _COL = (None, "model")
 _ROW = ("model", None)
 
-# The reference's table, for the leaves of the ported families.
+# The reference's table.
 _RULES: dict[str, tuple] = {
     "embed": ("model", None),
     "lm_head": (None, "model"),
     "wq": _COL, "wk": _COL, "wv": _COL, "wo": _ROW,
     "wdkv": _COL, "wuk": _COL, "wuv": _COL,
     "w1": _COL, "w_gate": _COL, "w2": _ROW,
+    # mamba2
+    "z_proj": _COL, "xbc_proj": _COL, "dt_proj": (None, None),
+    "conv_w": (None, "model"), "out_proj": _ROW,
+    # xlstm
+    "up_proj": _COL, "wi": (None, None), "wf": (None, None),
+    "wo_gate": _COL, "down_proj": _ROW, "w_in": _COL,
+    "r_rec": (None, None, None),
     "router": (None, None),
 }
 
@@ -59,20 +67,43 @@ class ModelApi:
 
 
 def build_model(spec: ModelSpec) -> ModelApi:
-    if spec.family not in transformer.FAMILIES:
-        raise NotImplementedError(
-            f"family {spec.family!r} is not ported yet (ported: "
-            f"{transformer.FAMILIES})")
+    if spec.family in transformer.FAMILIES:
+        return ModelApi(
+            spec=spec,
+            init=lambda gen, device=None: transformer.TransformerLM(
+                spec, transformer.init_params(gen, spec, device)),
+            loss=lambda p, b: transformer.loss_fn(p, b, spec),
+            prefill=lambda p, b, max_seq=None: transformer.prefill(
+                p, b["tokens"], spec, patches=b.get("patches"),
+                max_seq=max_seq),
+            decode_step=lambda p, c, t: transformer.decode_step(p, c, t,
+                                                                spec),
+            init_cache=lambda batch, seq, device=None:
+                transformer.init_cache(spec, batch, seq, device))
+    if spec.family == "audio":
+        return ModelApi(
+            spec=spec,
+            init=lambda gen, device=None: ModelModule(
+                spec, encdec.init_params(gen, spec, device), encdec.loss_fn),
+            loss=lambda p, b: encdec.loss_fn(p, b, spec),
+            prefill=lambda p, b, max_seq=None: encdec.prefill(
+                p, b["tokens"], b["frames"], spec, max_seq=max_seq),
+            decode_step=lambda p, c, t: encdec.decode_step(p, c, t, spec),
+            init_cache=lambda batch, seq, device=None: encdec.init_cache(
+                spec, batch, seq, device))
+    mods = {"hybrid": hybrid, "ssm": ssm_lm}
+    if spec.family not in mods:
+        raise ValueError(f"unknown family {spec.family!r}")
+    mod = mods[spec.family]
     return ModelApi(
         spec=spec,
-        init=lambda gen, device=None: transformer.TransformerLM(
-            spec, transformer.init_params(gen, spec, device)),
-        loss=lambda p, b: transformer.loss_fn(p, b, spec),
-        prefill=lambda p, b, max_seq=None: transformer.prefill(
-            p, b["tokens"], spec, patches=b.get("patches"),
-            max_seq=max_seq),
-        decode_step=lambda p, c, t: transformer.decode_step(p, c, t, spec),
-        init_cache=lambda batch, seq, device=None: transformer.init_cache(
+        init=lambda gen, device=None: ModelModule(
+            spec, mod.init_params(gen, spec, device), mod.loss_fn),
+        loss=lambda p, b: mod.loss_fn(p, b, spec),
+        prefill=lambda p, b, max_seq=None: mod.prefill(
+            p, b["tokens"], spec, max_seq=max_seq),
+        decode_step=lambda p, c, t: mod.decode_step(p, c, t, spec),
+        init_cache=lambda batch, seq, device=None: mod.init_cache(
             spec, batch, seq, device))
 
 

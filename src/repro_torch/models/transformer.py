@@ -10,7 +10,9 @@ leaves flatten into the same fusion buckets.  DeepSeek-V2's leading
 dense layers are a stack of their own, ``prefix`` (``first_dense_layers``
 layers at ``dense_d_ff``), before the uniform MoE ``body``.  The
 reference scans the layer stack; here a Python loop walks ``unbind``
-views of it, whose backward writes each stacked gradient once.  The VLM
+views of it, whose backward writes each stacked gradient once; with
+``spec.remat`` each body block runs under ``torch.utils.checkpoint``
+(the reference's ``jax.checkpoint``) when autograd records.  The VLM
 prepends its image-patch embeddings (a stub front end, as in the
 reference) to the token embeddings.
 
@@ -28,15 +30,16 @@ the reference would keep the trailing positions and lose the first
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
+import functools
 
-from .. import tree as tree_mod
+import torch
+from torch.utils.checkpoint import checkpoint
+
 from . import moe as moe_lib
 from .attention import (gqa_decode, gqa_forward, gqa_params, mla_decode,
                         mla_forward, mla_params)
-from .common import (ModelSpec, ParamTree, cross_entropy, embed_init, norm,
-                     norm_params)
+from .common import (ModelModule, ModelSpec, cross_entropy, embed_init,
+                     layer_views, norm, norm_params, stack_layers)
 from .mlp import mlp_forward, mlp_params
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -49,8 +52,10 @@ def _check_supported(spec: ModelSpec) -> None:
             f"{spec.name}: family {spec.family!r} with "
             f"{spec.attention_type!r} attention is not ported yet "
             f"(transformer families: {FAMILIES})")
-    if spec.seq_parallel or spec.remat:
-        raise NotImplementedError("seq_parallel/remat are not ported yet")
+    if spec.seq_parallel:
+        # The reference's is a GSPMD sharding constraint on the residual
+        # stream; the port has no GSPMD (ROADMAP.md, Queue 1).
+        raise NotImplementedError("seq_parallel is not ported yet")
 
 
 def _n_prefix(spec: ModelSpec) -> int:
@@ -73,36 +78,19 @@ def _layer_params(gen, spec: ModelSpec, device, is_moe: bool,
     return p
 
 
-def _stack(n: int, make) -> dict:
-    """``n`` layers of ``make()`` stacked along a leading dim.  Each layer
-    is drawn in turn and copied into the stacked leaves, so the stack
-    never sits beside a second copy of itself (a full-depth gemma-7b is
-    34 GB in f32; deepseek-v2-lite's body ``w1`` alone 19.2 GB)."""
-    stack = None
-    for i in range(n):
-        layer = make()
-        if stack is None:
-            stack = tree_mod.tree_map(lambda x: torch.empty(
-                (n,) + tuple(x.shape), dtype=x.dtype, device=x.device), layer)
-        for stacked, x in zip(tree_mod.leaves(stack), tree_mod.leaves(layer)):
-            stacked[i].copy_(x)
-        del layer
-    return stack
-
-
 def init_params(gen: torch.Generator, spec: ModelSpec, device=None) -> dict:
     """Random parameters from a seeded generator (on ``device``)."""
     _check_supported(spec)
     n_prefix = _n_prefix(spec)
     body_is_moe = spec.num_experts > 0
     params = {
-        "body": _stack(spec.num_layers - n_prefix, lambda: _layer_params(
+        "body": stack_layers(spec.num_layers - n_prefix, lambda: _layer_params(
             gen, spec, device, body_is_moe)),
         "embed": embed_init(gen, (spec.padded_vocab, spec.d_model), device),
         "ln_f": norm_params(spec.d_model, spec.norm_type, device),
     }
     if n_prefix:
-        params["prefix"] = _stack(n_prefix, lambda: _layer_params(
+        params["prefix"] = stack_layers(n_prefix, lambda: _layer_params(
             gen, spec, device, False, dense_ff=spec.dense_d_ff or spec.d_ff))
     if not spec.tie_embeddings:
         params["lm_head"] = embed_init(gen, (spec.d_model,
@@ -144,12 +132,6 @@ def _block_decode(lp, h, cache_k, cache_v, pos: int, spec: ModelSpec,
     return h + m_out
 
 
-def _layers(tree, n: int) -> list:
-    """``n`` per-layer trees of ``unbind`` views of a stacked tree."""
-    views = tree_mod.tree_map(lambda w: w.unbind(0), tree)
-    return [tree_mod.tree_map(lambda ws: ws[i], views) for i in range(n)]
-
-
 def _stacks(spec: ModelSpec):
     """``(name, n_layers, is_moe)`` of the prefix (if any), then the body."""
     n_prefix = _n_prefix(spec)
@@ -187,8 +169,14 @@ def _forward(params, tokens, spec: ModelSpec, patches=None,
     kvs = []
     aux_total = drop_total = _zero(h.device)
     for name, n, is_moe in _stacks(spec):
-        for lp in _layers(params[name], n):
-            h, kv, aux, drop = _block_forward(lp, h, positions, spec, is_moe)
+        block = _block_forward
+        if spec.remat and name == "body" and torch.is_grad_enabled():
+            # The reference's jax.checkpoint around the body's blocks:
+            # each block's activations are recomputed in the backward.
+            block = functools.partial(checkpoint, _block_forward,
+                                      use_reentrant=False)
+        for lp in layer_views(params[name], n):
+            h, kv, aux, drop = block(lp, h, positions, spec, is_moe)
             if collect_cache:
                 kvs.append(kv)
             aux_total = aux_total + aux
@@ -296,7 +284,7 @@ def decode_step(params, cache, tokens, spec: ModelSpec):
     for name, n, is_moe in _stacks(spec):
         ks = cache[name]["k"].unbind(0)
         vs = cache[name]["v"].unbind(0)
-        for i, lp in enumerate(_layers(params[name], n)):
+        for i, lp in enumerate(layer_views(params[name], n)):
             h = _block_decode(lp, h, ks[i], vs[i], pos, spec, is_moe)
     h = norm(h, params["ln_f"], spec.norm_type)
     logits = lm_logits(params, h, spec)[:, 0]
@@ -304,18 +292,10 @@ def decode_step(params, cache, tokens, spec: ModelSpec):
                                                  dtype=torch.int32)}
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(ModelModule):
     """The model as a module: its parameters under the reference's
     names; ``forward(batch)`` returns ``(loss, metrics)``."""
 
     def __init__(self, spec: ModelSpec, params: dict):
-        super().__init__()
         _check_supported(spec)
-        self.spec = spec
-        self.params = ParamTree(params)
-
-    def tree(self) -> dict:
-        return self.params.tree()
-
-    def forward(self, batch):
-        return loss_fn(self.tree(), batch, self.spec)
+        super().__init__(spec, params, loss_fn)

@@ -94,8 +94,11 @@ class _Region:
         self.dp_groups = [groups[ax] for ax in dp_axes] if groups else []
         tpl = model.init_cache(batch, max_seq, device="meta")
         self.cache_specs = cache_pspecs(tpl, groups, dp_axes)
-        # The cache's batch entry decides the rows this rank runs.
-        self.split = self.cache_specs["body"]["k"][1] is not None
+        # The cache's batch entry (dim 1 of every stacked leaf) decides
+        # the rows this rank runs.
+        stacked = [sp for sp in tree_mod.leaves(self.cache_specs)
+                   if len(sp) >= 2]
+        self.split = stacked[0][1] is not None
         dp_size, _ = axis_sizes(groups, dp_axes)
         index = 0
         for g in self.dp_groups:

@@ -231,6 +231,17 @@ def test_rmsnorm_kernel_at_gemma_width_on_card(cuda, rows, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [37, 8192])
+@pytest.mark.parametrize("d", [1024, 2048, 4096])
+def test_rmsnorm_kernel_at_recurrent_widths_on_card(cuda, d, rows, dtype):
+    """K6 at xlstm-350m's d_model (1024), zamba2-1.2b's (2048) and its
+    shared block's norm over concat(hidden, embedding) (4096), at a
+    ragged row count and at a served prompt's 2 x 4096 rows, to the same
+    bounds."""
+    _check_rmsnorm(cuda, rows, d, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [1, 37])
 @pytest.mark.parametrize("d,offset", [
     (960, 0), (2048, 0), (3072, 0), (4096, 0), (1000, 0), (1001, 0),

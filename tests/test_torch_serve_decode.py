@@ -19,8 +19,10 @@ transformer``:
   decode after prefill equals the full forward's last logits within a
   relative 0.05, for each of the four specs and for the rest of the
   family (granite-moe and deepseek-v2-lite at the no-drop
-  ``capacity_factor`` 8.0, phi-3-vision after its image patches), as
-  the reference's ``test_decode_parity.py`` holds them.
+  ``capacity_factor`` 8.0, phi-3-vision after its image patches) and
+  the recurrent and encoder-decoder families (zamba2-1.2b, xlstm-350m,
+  whisper-tiny after its audio frames), as the reference's
+  ``test_decode_parity.py`` holds them.
 """
 import dataclasses
 
@@ -35,10 +37,12 @@ from repro.models import build_model as jbuild_model
 from repro_torch.configs import get_spec
 from repro_torch.convert import params_from_numpy
 from repro_torch.data.synthetic import extra_inputs
-from repro_torch.models import build_model, transformer
+from repro_torch.models import (build_model, encdec, hybrid, ssm_lm,
+                                transformer)
 
 DENSE = ("smollm-360m", "granite-3-2b", "deepseek-7b", "gemma-7b")
 FAMILY = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b", "phi-3-vision-4.2b")
+RECURRENT = ("zamba2-1.2b", "xlstm-350m", "whisper-tiny")
 RTOL, ATOL = 1e-4, 1e-5
 
 # label -> (arch, spec overrides, batch, prompt, decode steps, max_seq)
@@ -102,26 +106,40 @@ def test_prefill_and_decode_match_reference(case):
     assert int(cache["pos"]) == int(jcache["pos"]) == prompt + steps
 
 
-@pytest.mark.parametrize("arch", DENSE + FAMILY)
+def _full_logits(spec, params, toks, extra):
+    """The full forward's logits over ``toks``, per family (the
+    reference test's dispatch)."""
+    if spec.family == "hybrid":
+        return hybrid.forward(params, toks, spec)
+    if spec.family == "ssm":
+        return ssm_lm.forward(params, toks, spec)[0]
+    if spec.family == "audio":
+        enc = encdec.encode(params, extra["frames"], spec)
+        return encdec.decoder_forward(params, toks, enc, spec)
+    return transformer.forward(params, toks, spec,
+                               patches=extra.get("patches"))
+
+
+@pytest.mark.parametrize("arch", DENSE + FAMILY + RECURRENT)
 def test_decode_matches_forward_bf16(arch):
     """The reference's ``test_decode_matches_forward`` on the port, in
-    the specs' own bfloat16: prefill 8 (after the VLM's patches), decode
-    4, against the full forward's last position (relative error under
-    0.05); experts at the no-drop capacity factor 8.0."""
+    the specs' own bfloat16: prefill 8 (after the VLM's patches, beside
+    the audio frames), decode 4, against the full forward's last
+    position (relative error under 0.05); experts at the no-drop
+    capacity factor 8.0."""
     over = {"capacity_factor": 8.0} if get_spec(arch).num_experts else {}
     _, tspec = _specs(arch, "bfloat16", **over)
     model = build_model(tspec)
     params = model.init(torch.Generator().manual_seed(0), "cpu").tree()
     toks = torch.from_numpy(_tokens(tspec, 2, 12).astype(np.int64))
     extra = extra_inputs(tspec, 2)
-    n_img = extra["patches"].shape[1] if extra else 0
+    n_img = extra["patches"].shape[1] if "patches" in extra else 0
     with torch.inference_mode():
         _, cache = model.prefill(params, {"tokens": toks[:, :8], **extra},
                                  12 + n_img)
         for t in range(8, 12):
             got, cache = model.decode_step(params, cache, toks[:, t:t + 1])
-        want = transformer.forward(params, toks, tspec,
-                                   patches=extra.get("patches"))[:, -1]
+        want = _full_logits(tspec, params, toks, extra)[:, -1]
     want, got = want.float().numpy(), got.float().numpy()
     err = np.max(np.abs(want - got)) / (np.max(np.abs(want)) + 1e-9)
     assert err < 0.05, f"{arch}: rel err {err}"
