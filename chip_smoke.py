@@ -46,7 +46,8 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    (tensor cores, the main path) and in f32 (CUDA cores, against the
    f32 peak), at dh 64, 256 and 96 (``variants``), and K8 bf16 at dh 256
    also split into its parts: rowsum(dO*O), the dq pass and the dk/dv
-   pass, each alone; K6 also at (4096, 3072).
+   pass, each alone; K6 also at (4096, 3072) and (4096, 4096) (zamba2's
+   shared block).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
    batch 2 per rank, seq 512, ``rhd_rsa`` + ``int8`` fused hops and the
@@ -173,9 +174,13 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    K1/K2/K3/K5/K6 launches per step must equal phase 7's (telemetry off);
    every stage and bucket path of the executed schedule must have one
    ``trace`` span per step with the IR's wire bytes and algorithm, each
-   stage as many hop spans as the plan's hops, and the hop spans'
-   ``payload_bytes`` must account for the bytes written through the
-   mappings (``_hop_wire_bytes``); ``train_step_s`` must hold 3 samples.
+   stage as many hop spans as the plan's hops; each step's hop log
+   (what the transport sent on each hop, ``analysis/hop_lint.py``) must
+   lint clean against the schedule, no error and no unbaselined warning,
+   each stage's hops must have sent exactly the IR's bytes with one
+   scale per encoded block (``hop_lint.exact_sent_bytes``), and its
+   bytes must account for the bytes written through the mappings;
+   ``train_step_s`` must hold 3 samples.
    Prints per step the host ms in hop spans, in stage spans outside
    hops and in bucket spans outside stages.  (c) The closure on that
    schedule: every stage replayed alone on the group (``measure_schedule``,
@@ -184,9 +189,14 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    measured and predicted overlap fractions, and the fused replay (K1-K3)
    against the unfused route.  (b) Phase 8's overlapped ResNet-50: each
    rank's parameters equal phase 8's, every bucket's spans on the
-   channel's thread; prints each bucket's channel time split into hops,
-   stages and the rest beside its ready/start/end times.  (d) Rank 0's
-   trace file must reload through ``trace.from_json``.
+   channel's thread, the hop lint clean with HL002 (a whole bucket's
+   hops issued before the backward ends); prints each bucket's channel
+   time split into hops, stages and the rest beside its ready/start/end
+   times.  (e) Phase 8's overlapped smollm-360m, 2 steps: the hop lint
+   clean, HL002's witness printed, not required (its stacked leaves
+   complete at the end of backward).  (d) Rank 0's trace file must
+   reload through ``trace.from_json``.  Prints, per stage, the IR's
+   bytes beside the bytes the hops sent.
 
 In phases 3-11 the executors must be built once each by the end of step
 1, and neither rebuilt nor added to later; the plan cache must only hit
@@ -290,11 +300,28 @@ nothing between host and card.
    ``remat=True`` (K7 twice per layer per step, K8 once): the parameters
    after 2 steps bit for bit phase 4's; both runs' peak memory printed.
 
+15. ``analysis/`` and the planning tools (no device: everything on meta
+   tensors or in the host's memory).  (a) ``python -m
+   repro_torch.analysis --source --schedules --check-baseline`` in this
+   process must return 0 over the 157 schedule cells and the import
+   lint.  (b) is phase 11's hop lint.  (c) ``launch/dryrun.py --all``
+   on 16x16 and 2x16x16 in this process: 80 records, each OK or SKIP
+   with the shape policy's reason, every train record statically
+   verified, priced on the H100, rendered by ``launch/report.py``.  (d)
+   The dry run's memory estimate and roofline at phases 3, 4 and 6's
+   own configurations: the exact part (parameters, gradients, AdamW
+   moments, inputs) at most each rank's measured peak; the estimate and
+   the roofline printed beside the measured peak, forward+backward,
+   aggregate and step.  Prints its seconds (budget 60) beside the card's
+   name and power limit.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.  ``python3 chip_smoke.py
 --serve-only`` builds the kernels and runs phase 12 alone, ``--family-only``
 phase 13 alone, ``--recurrent-only`` phase 14 alone (with phase 4's run
-for (f)); the last line is then the card's name and power limit.
+for (f)), ``--analysis-only`` phases 11 and 15 alone (not held to phases
+3-8; (d) then against phase 11's smollm-360m run); the last line is then
+the card's name and power limit.
 """
 import argparse
 import collections
@@ -340,6 +367,7 @@ GEMMA_STEPS = 2
 # at one layer and 78.71 GiB (99.4%) at two (PERF.md section 4).
 GEMMA_LAYERS = 1
 GEMMA_D = 3072
+ZAMBA2_NORM_D = 4096             # zamba2-1.2b's shared-block RMSNorm width
 GEMMA_LEAF = (256000, GEMMA_D)   # the tied embedding, one bucket of its own
 GEMMA_HOP = (math.prod(GEMMA_LEAF) // GEMMA_WORLD,)  # its first RHD hop
 GEMMA_ATTN = (1, LONG_SEQ, 16, 256)                  # one layer, phase 6
@@ -1131,9 +1159,11 @@ def measure(gen):
     rows["adamw_update"] = {**smol, "variants": {"smollm leaf": smol,
                                                  "gemma leaf": big}}
 
-    # K6 at phase 4's and phase 6's activations: (B*S, d) bf16.
+    # K6 at phase 4's and phase 6's activations, and at zamba2's shared
+    # block (phase 14; its norm over concat(hidden, embedding)): (B*S, d)
+    # bf16.
     norm_rows = {}
-    for d in (D_MODEL, GEMMA_D):
+    for d in (D_MODEL, GEMMA_D, ZAMBA2_NORM_D):
         xr = torch.randn((LONG_SEQ, d), generator=gen,
                          device=cuda).to(torch.bfloat16)
         sc = torch.randn(d, generator=gen, device=cuda) * 0.1
@@ -2313,30 +2343,6 @@ def _axes_table():
          "latency_us": {"rhd_rsa": 5.0, COMPOSED: 1.0}}]}
 
 
-def _stage_hops(st):
-    """``(accumulating hops, forwarding hops, forwarded blocks)`` a stage
-    makes on every rank: a ring reduce-scatter d-1 accumulating, an
-    all-gather d-1 forwarding (one block each); an allreduce its
-    reduce-scatter and all-gather halves (RHD over log2 of its pow2
-    core, plus the pre-fold and post-broadcast of a non-pow2 size, whose
-    forwarding hops carry 1, 2, .. core/2 chunks, then core, each at its
-    own scale on a scaled codec); psum, ps_gather and the model
-    bracket's local shard none."""
-    p = st.axis_size
-    if p == 1 or st.algorithm in ("psum", "ps_gather") or st.op == "shard":
-        return 0, 0, 0
-    if st.op == "reduce_scatter":
-        return p - 1, 0, 0
-    if st.op == "all_gather":
-        return 0, p - 1, p - 1
-    if st.algorithm == "ring_rsa":
-        return p - 1, p - 1, p - 1
-    core = 1 << (p.bit_length() - 1)
-    levels = core.bit_length() - 1
-    fold = int(core != p)
-    return levels + fold, levels + fold, core - 1 + fold * core
-
-
 def _plan_hop_launches(sched):
     """K1-K3 launches one aggregate of ``sched`` makes on every rank.  A
     fused stage's accumulating hop encodes (K1 when the codec has a
@@ -2345,13 +2351,14 @@ def _plan_hop_launches(sched):
     what it sent (K3 twice), once per block it carries when the codec is
     scaled (RHD's joined chunks), or, uncoded, launches nothing.  An
     unfused stage (the all-gather leg) runs the plain torch versions."""
+    from repro_torch.analysis.hop_lint import stage_hops
     from repro_torch.core import codec
     n = {"hop_absmax": 0, "hop_encode": 0, "hop_decode_add": 0}
     for b in sched.buckets:
         for st in b.stages:
             if not st.fused_hop:
                 continue
-            acc, fwd, blocks = _stage_hops(st)
+            acc, fwd, blocks = stage_hops(st)
             coded = st.codec != "none"
             scaled = codec.get(st.codec).scaled
             units = blocks if scaled else fwd
@@ -2362,9 +2369,10 @@ def _plan_hop_launches(sched):
 
 
 def _hops_per_axis(bucket):
+    from repro_torch.analysis.hop_lint import stage_hops
     hops = {}
     for st in bucket.stages:
-        acc, fwd, _ = _stage_hops(st)
+        acc, fwd, _ = stage_hops(st)
         hops[st.axis] = hops.get(st.axis, 0) + acc + fwd
     return hops
 
@@ -3088,6 +3096,7 @@ def run_model_axis_phase(phase3):
 LM_LAUNCHES = ("hop_absmax", "hop_encode", "hop_decode_add", "adamw_update",
                "fused_rmsnorm")
 CLOSURE_REPS = 3
+OVERLAP_LINT_STEPS = 2        # (e): phase 8's overlapped smollm, linted
 
 
 def _bucket_split(span):
@@ -3101,39 +3110,50 @@ def _bucket_split(span):
     return hops, in_stages - hops, span.duration_s - in_stages
 
 
-def _hop_wire_bytes(st, hops):
-    """What this rank's hops of stage ``st`` write into the peers' slots
-    (``dist.traffic["mapped_bytes"]``), from their spans' ``payload_bytes``
-    (the tensor handed to the hop): the payload itself on an uncoded
-    stage; on a coded one the codec's bytes of its float32 elements, plus
-    one 4-byte scale per encoded block on a scaled codec: one per
-    accumulating hop, and per forwarding hop one per chunk it joins
-    (F6's per-block scales, ``_stage_hops``' ``blocks``).  Exact when
-    every rank sends on every hop (ring, and RHD on a power of two)."""
-    from repro_torch.core import codec
-    payload = sum(h.attrs["payload_bytes"] for h in hops)
-    c = codec.get(st.codec)
-    if c.name == "none":
-        return payload
-    acc, _, blocks = _stage_hops(st)
-    return payload // 4 * c.itemsize + codec.SCALE_BYTES * (acc + blocks) \
-        * c.scaled
+def _stage_bytes(sched, log):
+    """``[(stage path, the IR's bytes, the bytes its hops send when
+    nothing is padded (``hop_lint.exact_sent_bytes``), the bytes its
+    hops sent)]``."""
+    from repro_torch.analysis import hop_lint
+    sent = hop_lint.stage_sent_bytes(log)
+    return [(path, st.hlo_bytes, hop_lint.exact_sent_bytes(st),
+             sent.get(path, 0))
+            for path, _b, st in sched.iter_stages() if st.hlo_kind]
 
 
-def _lm_step_spans(roots, sched):
+def _lint(sched, log, backward_end=None, hl002=True):
+    """The hop lint of one step: its errors, its warnings the baseline
+    does not accept, and (overlapped) the buckets whose hops all ended
+    before the backward did, of those with hops; HL002 (at least one)
+    is checked unless ``hl002`` is False."""
+    from repro_torch.analysis import hop_lint
+    diags = hop_lint.lint_hops(sched, log, backward_end=backward_end
+                               if hl002 else None)
+    return {"errors": [d.render() for d in diags if d.severity == "error"],
+            "warnings": [d.render() for d in hop_lint.unbaselined_warnings(
+                diags, hop_lint.load_baseline())],
+            "witness": None if backward_end is None
+            else hop_lint.overlap_witness(log, backward_end)}
+
+
+def _lm_step_spans(roots, sched, rank):
     """Check one step's spans against the executed schedule: one
     ``trace`` span per stage with the IR's wire bytes and algorithm, one
-    per bucket, as many hop spans per stage as ``_stage_hops`` counts.
-    Returns the problems found, the bytes the hops' spans say were
-    written through the mappings, and the step's host seconds in hop
+    per bucket, as many hop spans per stage as ``stage_hops`` counts;
+    then the hop lint of its hop log (``analysis/hop_lint.py``: the bytes
+    each stage's hops sent, as the transport recorded them, against the
+    IR).  Returns the problems found, the lint, each stage's bytes, the
+    bytes the hops sent through the mappings (every ppermute and
+    all-gather inside the aggregate), and the step's host seconds in hop
     spans, in stage spans outside hops and in bucket spans outside
     stages."""
+    from repro_torch.analysis import hop_lint
     from repro_torch.telemetry.trace import walk
     by_path = collections.defaultdict(list)
     for s in walk(roots):
         if s.cat == "trace" and s.attrs.get("ir_path"):
             by_path[s.attrs["ir_path"]].append(s)
-    problems, wire = [], 0
+    problems = []
     for path, _bucket, st in sched.iter_stages():
         got = by_path.get(path, [])
         if len(got) != 1:
@@ -3144,21 +3164,26 @@ def _lm_step_spans(roots, sched):
                 != (st.wire_bytes, st.algorithm):
             problems.append(f"{path}: span {sp.attrs}, stage {st}")
         hops = [c for c in sp.children if c.name.startswith("hop[")]
-        acc, fwd, _ = _stage_hops(st)
+        acc, fwd, _ = hop_lint.stage_hops(st)
         if len(hops) != acc + fwd:
             problems.append(f"{path}: {len(hops)} hop spans, the plan's "
                             f"hops {acc + fwd}")
-        wire += _hop_wire_bytes(st, hops)
     buckets = [s for b in sched.buckets for s in by_path.get(b.path, [])]
     if len(buckets) != len(sched.buckets):
         problems.append(f"{len(buckets)} bucket spans for "
                         f"{len(sched.buckets)} buckets")
     split = [sum(x) for x in zip(*map(_bucket_split, buckets))] \
         if buckets else [0.0, 0.0, 0.0]
+
     def total(name):
         return sum(s.duration_s for s in walk(roots) if s.name == name)
 
-    return {"problems": problems, "span_mapped_bytes": wire,
+    log = hop_lint.hop_log(roots, rank=rank)
+    mapped = sum(r["sent_bytes"] for r in log if r["aggregate"]
+                 and r["kind"] in ("collective-permute", "all-gather"))
+    return {"problems": problems, "lint": _lint(sched, log),
+            "stage_bytes": _stage_bytes(sched, log),
+            "span_mapped_bytes": mapped,
             "hop_s": split[0], "stage_s": split[1], "bucket_s": split[2],
             "aggregate_s": total("aggregate"),
             "train_step_s": total("train.step")}
@@ -3166,12 +3191,15 @@ def _lm_step_spans(roots, sched):
 
 def telemetry_rank(rank, world, args, trace_path):
     """Phase 11 on one rank, ``REPRO_TRACE`` set: (a) phase 7's
-    smollm-360m on cuda_ipc, its spans checked per step; (c) the closure
-    on its executed schedule; (b) phase 8's overlapped ResNet-50, its
-    channel's spans split per bucket; (d) rank 0 writes the trace to
-    ``trace_path`` and reloads it."""
+    smollm-360m on cuda_ipc, its spans checked and its hops linted per
+    step; (c) the closure on its executed schedule; (b) phase 8's
+    overlapped ResNet-50, its channel's spans split per bucket and its
+    hops linted with HL002; (e) phase 8's overlapped smollm-360m, linted
+    (HL002's witness printed, not required); (d) rank 0 writes the trace
+    to ``trace_path`` and reloads it."""
     import torch
     from repro_torch import telemetry
+    from repro_torch.analysis import hop_lint
     from repro_torch.core import Group, overlap, plan_cache
     from repro_torch.core import dist as core_dist
     from repro_torch.launch.train import build_trainer
@@ -3191,6 +3219,8 @@ def telemetry_rank(rank, world, args, trace_path):
     module, opt_state = trainer.init_state(args.seed)
     telemetry.METRICS.reset()
     steps = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     _reset_counts()                           # main path starts here
     for s in range(args.steps):
         n0 = len(tracer.roots)
@@ -3204,14 +3234,16 @@ def telemetry_rank(rank, world, args, trace_path):
                       "launches": {k: after[k] - before[k] for k in after},
                       **_cache_delta(cache0),
                       **_lm_step_spans(tracer.roots[n0:],
-                                       agg.last_schedule)})
+                                       agg.last_schedule, rank)})
     totals = _counts()                        # main path ends here
     sched = agg.last_schedule
     hist = telemetry.METRICS.snapshot()["metrics"]["train_step_s"]
     lm = {"steps": steps, "totals": totals, "scalar": _scalar_counts(),
           "checksum": _checksum(module.tree()),
           "train_step_samples": hist["values"][""]["count"],
-          "render": sched.render(), "n_buckets": sched.n_buckets}
+          "render": sched.render(), "n_buckets": sched.n_buckets,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+          if cuda else 0.0}
     del trainer, module, opt_state
 
     # (c) the closure on (a)'s executed schedule: each distinct stage
@@ -3273,7 +3305,10 @@ def telemetry_rank(rank, world, args, trace_path):
         bsched = cnn_agg.last_schedule
         off_track = [s_.name for b in spans.values() for s_ in trace.walk([b])
                      if s_.attrs.get("thread") != "overlap-channel"]
+        hops = hop_lint.hop_log(roots, rank=rank)
         cnn_steps.append({
+            "lint": _lint(bsched, hops, rec.backward_end),
+            "stage_bytes": _stage_bytes(bsched, hops),
             **hist[0], "launches": {k_: after[k_] - before[k_]
                                     for k_ in after},
             **_cache_delta(cache0),
@@ -3293,6 +3328,31 @@ def telemetry_rank(rank, world, args, trace_path):
     if cuda:
         torch.cuda.empty_cache()
 
+    # (e) smollm-360m overlapped (phase 8's run), linted: its stacked
+    # leaves and tied embedding complete only at the end of backward, so
+    # HL002's witness is printed, not required.
+    trainer = build_trainer(args, verbose=False, groups={"data": group},
+                            aggregator=_overlap_config(args, True, None))
+    ov_agg = trainer.extras["aggregator"]
+    module, opt_state = trainer.init_state(args.seed)
+    ov_steps = []
+    _reset_counts()                           # main path starts here
+    for s in range(OVERLAP_LINT_STEPS):
+        n0 = len(tracer.roots)
+        module, opt_state, hist = trainer.run(1, module, opt_state,
+                                              start_step=s)
+        hops = hop_lint.hop_log(tracer.roots[n0:], rank=rank)
+        ov_steps.append({**hist[0], "lint": _lint(
+            ov_agg.last_schedule, hops, ov_agg.last_overlap.backward_end,
+            hl002=False),
+            "stage_bytes": _stage_bytes(ov_agg.last_schedule, hops)})
+    lm_overlap = {"steps": ov_steps, "totals": _counts(),
+                  "scalar": _scalar_counts()}
+    del trainer, module, opt_state
+    plan_cache.GLOBAL_EXECUTOR_CACHE.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+
     # (d) the trace file: rank 0's, reloaded.
     trace_rec = None
     if rank == 0:
@@ -3306,11 +3366,28 @@ def telemetry_rank(rank, world, args, trace_path):
                      "spans": sum(1 for _ in trace.walk(forest)),
                      "tids": sorted({e["tid"] for e in doc["traceEvents"]})}
     return {"rank": rank, "lm": lm, "closure": closure_rec, "cnn": cnn,
-            "trace": trace_rec}
+            "lm_overlap": lm_overlap, "trace": trace_rec}
 
 
 def _ms(seconds):
     return round(seconds * 1e3, 3)
+
+
+def _stage_bytes_lines(stage_bytes):
+    """Each distinct (IR bytes, bytes sent) of a step's stages, with how
+    many stages had it."""
+    counts = collections.Counter((ir, sent)
+                                 for _p, ir, _exact, sent in stage_bytes)
+    return "; ".join(f"IR {ir} B, sent {sent} B ({sent / ir:.4f}) x{n}"
+                     for (ir, sent), n in sorted(counts.items()))
+
+
+def _require_lint(rank, label, steps):
+    for s_, step in enumerate(steps, 1):
+        lint = step["lint"]
+        require(not lint["errors"] and not lint["warnings"],
+                f"rank {rank} {label} step {s_}: the hop lint found "
+                f"{lint['errors'][:3]} {lint['warnings'][:3]}")
 
 
 def run_telemetry_phase(phase7, phase8):
@@ -3319,13 +3396,18 @@ def run_telemetry_phase(phase7, phase8):
     hops, K5 AdamW, 3 steps): parameters and K1/K2/K3/K5/K6 launches per
     step equal phase 7's telemetry-off run; every stage and bucket path
     of the executed schedule has one span per step with the IR's wire
-    bytes and algorithm, as many hop spans as the plan's hops, and the
-    hops' payloads account for the bytes written through the mappings;
-    ``train_step_s`` has 3 samples.  (b) phase 8's overlapped ResNet-50:
-    parameters equal phase 8's, every bucket's spans on the channel's
-    track.  (c) the closure on (a)'s schedule: every path measured, k
-    finite and positive.  (d) rank 0's trace file reloads.  Returns each
-    rank's record."""
+    bytes and algorithm, as many hop spans as the plan's hops; the hop
+    lint (phase 15(b)) finds no error and no unbaselined warning, and the
+    bytes the hops sent account for the bytes written through the
+    mappings; ``train_step_s`` has 3 samples.  (b) phase 8's overlapped
+    ResNet-50: parameters equal phase 8's, every bucket's spans on the
+    channel's track, the hop lint clean with HL002 checked.  (c) the
+    closure on (a)'s schedule: every path measured, k finite and
+    positive.  (e) phase 8's overlapped smollm-360m, 2 steps: the lint
+    clean, HL002's witness printed.  (d) rank 0's trace file reloads.
+    With ``phase7``/``phase8`` None (``--analysis-only``) the runs are
+    not held to theirs, and (a) requires every main-path kernel to
+    launch.  Returns each rank's record."""
     from repro_torch.core.dist import run_ranks
     from repro_torch.telemetry import trace
     args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
@@ -3334,8 +3416,9 @@ def run_telemetry_phase(phase7, phase8):
         f"ranks: (a) smollm-360m seq 512 {args.strategy} + {args.codec}, "
         f"{args.steps} steps (phase 7's run); (c) the closure on its "
         f"schedule, {CLOSURE_REPS} reps; (b) ResNet-50 rhd_rsa overlap=True, "
-        f"{CNN_WARMUP} + {CNN_TIMED} steps (phase 8's run); (d) rank 0's "
-        f"trace file")
+        f"{CNN_WARMUP} + {CNN_TIMED} steps (phase 8's run); (e) smollm-360m "
+        f"overlap=True, {OVERLAP_LINT_STEPS} steps; (d) rank 0's trace file; "
+        f"every step's hops linted")
     t0 = time.perf_counter()
     os.environ[trace.ENV_VAR] = "1"
     try:
@@ -3352,26 +3435,42 @@ def run_telemetry_phase(phase7, phase8):
     log(f"  {TRAIN_WORLD} ranks done in {seconds:.1f} s")
 
     # (a)
-    for r, base in zip(results, phase7["lm"]):
+    base7 = phase7["lm"] if phase7 else [None] * len(results)
+    for r, base in zip(results, base7):
         lm, rank = r["lm"], r["rank"]
         _require_cached(rank, "phase 11 smollm-360m", lm["steps"])
         _require_cached(rank, "phase 11 ResNet-50", r["cnn"]["steps"])
-        require(lm["checksum"] == base["checksum"],
-                f"rank {rank}: traced smollm parameters {lm['checksum']} "
-                f"differ from phase 7's {base['checksum']}")
-        for s_, (step, ref) in enumerate(zip(lm["steps"], base["steps"]),
-                                         1):
+        _require_lint(rank, "smollm-360m", lm["steps"])
+        if base is not None:
+            require(lm["checksum"] == base["checksum"],
+                    f"rank {rank}: traced smollm parameters "
+                    f"{lm['checksum']} differ from phase 7's "
+                    f"{base['checksum']}")
+        for s_, step in enumerate(lm["steps"], 1):
             got = {k: step["launches"][k] for k in LM_LAUNCHES}
-            want = {k: ref["launches"][k] for k in LM_LAUNCHES}
-            require(got == want, f"rank {rank} step {s_}: traced launches "
-                                 f"{got}, phase 7's {want}")
+            if base is not None:
+                want = {k: base["steps"][s_ - 1]["launches"][k]
+                        for k in LM_LAUNCHES}
+                require(got == want, f"rank {rank} step {s_}: traced "
+                                     f"launches {got}, phase 7's {want}")
+            else:
+                require(all(got.values()), f"rank {rank} step {s_}: "
+                                           f"launches {got}")
             require(not step["problems"], f"rank {rank} step {s_}: spans "
                                           f"{step['problems'][:5]}")
+            # Every stage's hops sent exactly what the IR charges, with
+            # one scale per encoded block in place of one per hop
+            # (smollm's payloads split evenly over 4 ranks): a payload
+            # sent twice, padded or cut short misses by a byte or more.
+            off = [(p, exact, sent) for p, _ir, exact, sent
+                   in step["stage_bytes"] if sent != exact]
+            require(not off, f"rank {rank} step {s_}: (stage, bytes the "
+                             f"IR gives, bytes the hops sent) {off[:5]}")
             # The step's staged bytes are the metrics' psum (gloo), not
             # the aggregate's.
             mapped = step["traffic"]["mapped_bytes"]
             require(step["span_mapped_bytes"] == mapped,
-                    f"rank {rank} step {s_}: hop spans account for "
+                    f"rank {rank} step {s_}: the hops sent "
                     f"{step['span_mapped_bytes']} B, the transport wrote "
                     f"{mapped} B ({step['traffic']})")
             require(math.isfinite(step["loss"]), "non-finite loss")
@@ -3379,24 +3478,32 @@ def run_telemetry_phase(phase7, phase8):
                 f"rank {rank}: train_step_s has {lm['train_step_samples']} "
                 f"samples")
     lm0 = results[0]["lm"]
-    log(f"  (a) plan {lm0['render']}; parameters bit for bit phase 7's on "
-        f"every rank (checksum {lm0['checksum']}); K1/K2/K3/K5/K6 per step "
-        f"{[lm0['steps'][0]['launches'][k] for k in LM_LAUNCHES]}, as in "
-        f"phase 7; every stage and bucket path one span per step; hop spans "
-        f"per stage as the plan's hops; hop payloads = bytes written "
-        f"through the mappings ({lm0['steps'][0]['span_mapped_bytes']} B a "
-        f"step on rank 0); train_step_s {TRAIN_STEPS} samples")
-    for r in results:
+    held = "bit for bit phase 7's" if phase7 else "not held (phase 7 not run)"
+    log(f"  (a) plan {lm0['render']}; parameters {held} on every rank "
+        f"(checksum {lm0['checksum']}); K1/K2/K3/K5/K6 per step "
+        f"{[lm0['steps'][0]['launches'][k] for k in LM_LAUNCHES]}; every "
+        f"stage and bucket path one span per step; hop spans per stage as "
+        f"the plan's hops; the hop lint clean on every rank and step; "
+        f"each stage's hops sent exactly the IR's bytes with a scale per "
+        f"encoded block; the bytes the hops sent = bytes written through "
+        f"the mappings "
+        f"({lm0['steps'][0]['span_mapped_bytes']} B a step on rank 0); "
+        f"train_step_s {TRAIN_STEPS} samples; peak allocated per rank "
+        f"{[round(r['lm']['peak_gib'], 2) for r in results]} GiB")
+    log(f"    rank 0 step 1, per stage (phase 15(b)): "
+        f"{_stage_bytes_lines(lm0['steps'][0]['stage_bytes'])}")
+    for r, base in zip(results, base7):
         log(f"    rank {r['rank']} host ms per step: "
             + "; ".join(
-                f"step {i} train.step {_ms(st['train_step_s'])} "
-                f"(phase 7 step_s {_ms(base['step_s'])}), aggregate "
-                f"{_ms(st['aggregate_s'])} = hops {_ms(st['hop_s'])} + "
-                f"stages outside hops {_ms(st['stage_s'])} + buckets "
-                f"outside stages {_ms(st['bucket_s'])} + the rest"
-                for i, (st, base) in enumerate(
-                    zip(r["lm"]["steps"],
-                        phase7["lm"][r["rank"]]["steps"]), 1)))
+                f"step {i} train.step {_ms(st['train_step_s'])}"
+                + (f" (phase 7 step_s {_ms(b['step_s'])})" if b else "")
+                + f", aggregate {_ms(st['aggregate_s'])} = hops "
+                f"{_ms(st['hop_s'])} + stages outside hops "
+                f"{_ms(st['stage_s'])} + buckets outside stages "
+                f"{_ms(st['bucket_s'])} + the rest"
+                for i, (st, b) in enumerate(
+                    zip(r["lm"]["steps"], base["steps"] if base
+                        else [None] * len(r["lm"]["steps"])), 1)))
 
     # (c)
     for r in results:
@@ -3430,13 +3537,16 @@ def run_telemetry_phase(phase7, phase8):
         f"{f['executor_traces']}")
 
     # (b)
-    base8 = {r["rank"]: r["runs"][0] for r in phase8["cnn"]}
+    base8 = {r["rank"]: r["runs"][0] for r in phase8["cnn"]} \
+        if phase8 else {}
     for r in results:
         cnn, rank = r["cnn"], r["rank"]
-        require(cnn["checksum"] == base8[rank]["checksum"],
-                f"rank {rank}: traced ResNet-50 parameters "
-                f"{cnn['checksum']} differ from phase 8's "
-                f"{base8[rank]['checksum']}")
+        if phase8:
+            require(cnn["checksum"] == base8[rank]["checksum"],
+                    f"rank {rank}: traced ResNet-50 parameters "
+                    f"{cnn['checksum']} differ from phase 8's "
+                    f"{base8[rank]['checksum']}")
+        _require_lint(rank, "ResNet-50 overlapped", cnn["steps"])
         for s_, step in enumerate(cnn["steps"], 1):
             require(step["bucket_paths"] == step["want_paths"]
                     and len(step["buckets"]) == len(step["want_paths"]),
@@ -3445,8 +3555,16 @@ def run_telemetry_phase(phase7, phase8):
             require(not step["off_track"],
                     f"rank {rank} step {s_}: spans off the channel's "
                     f"track {step['off_track'][:5]}")
-    log(f"  (b) ResNet-50 overlapped: parameters bit for bit phase 8's on "
-        f"every rank; every bucket's spans on the overlap-channel track")
+    witness = [step["lint"]["witness"] for r in results
+               for step in r["cnn"]["steps"]]
+    log(f"  (b) ResNet-50 overlapped: parameters "
+        f"{'bit for bit phase 8' if phase8 else 'not held (phase 8 not run)'}"
+        f"'s on every rank; every bucket's spans on the overlap-channel "
+        f"track; the hop lint clean on every rank and step with HL002: "
+        f"buckets whose hops all ended before the backward did, of those "
+        f"with hops, per rank and step {witness}")
+    log(f"    rank 0 last step, per stage: "
+        f"{_stage_bytes_lines(results[0]['cnn']['steps'][-1]['stage_bytes'])}")
     last = results[0]["cnn"]["steps"][-1]
     log(f"    rank 0, last step, channel order, ms from the start of "
         f"backward (backward {_ms(last['backward_s'])}): bucket ready "
@@ -3465,6 +3583,17 @@ def run_telemetry_phase(phase7, phase8):
             f"{_ms(tot[0])}, stages outside hops {_ms(tot[1])}, rest "
             f"{_ms(tot[2])}; backward {_ms(step['backward_s'])} ms; step "
             f"{_ms(step['step_s'])} ms")
+
+    # (e)
+    for r in results:
+        _require_lint(r["rank"], "smollm-360m overlapped",
+                      r["lm_overlap"]["steps"])
+    witness = [step["lint"]["witness"] for r in results
+               for step in r["lm_overlap"]["steps"]]
+    log(f"  (e) smollm-360m overlapped: the hop lint clean on every rank "
+        f"and step (HL002 not required: its layer-stacked leaves and tied "
+        f"embedding complete at the end of backward); buckets whose hops "
+        f"all ended before the backward did, per rank and step {witness}")
 
     # (d)
     t = results[0]["trace"]
@@ -4994,6 +5123,204 @@ def run_recurrent_phase(phase4=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: analysis/ and the planning tools
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BUDGET_S = 60.0
+ANALYSIS_CELLS = 157
+DRYRUN_RECORDS = 80              # 10 archs x 4 shapes x 2 meshes
+
+
+def _gib(n):
+    return n / 2 ** 30
+
+
+def _dryrun_phase():
+    """(c) ``dryrun --all`` on both meshes in this process: every record
+    OK or SKIP with the shape policy's reason, every train record
+    statically verified, ``report.py`` rendering them."""
+    from repro_torch.configs import get_spec, shape_supported
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.launch import dryrun, report
+    t0 = time.perf_counter()
+    recs = [r for mp in (False, True)
+            for r in dryrun.run_all(mp, verbose=False)]
+    seconds = time.perf_counter() - t0
+    require(len(recs) == DRYRUN_RECORDS,
+            f"dryrun --all wrote {len(recs)} records, not {DRYRUN_RECORDS}")
+    for r in recs:
+        where = f"{r['arch']} x {r['shape']} x {r['mesh']}"
+        ok, why = shape_supported(get_spec(r["arch"]), r["shape"])
+        if ok:
+            require(r["status"] == "OK",
+                    f"{where}: {r['status']} {r.get('error', '')}")
+            require(r["roofline"]["chip"] == H100_SXM.name,
+                    f"{where}: priced on {r['roofline']['chip']}")
+            if r["shape"] == "train_4k":
+                require(r.get("verified_static") is True,
+                        f"{where}: not statically verified "
+                        f"{r.get('analysis', {}).get('diagnostics')}")
+        else:
+            require(r["status"] == "SKIP" and r["reason"] == why,
+                    f"{where}: {r['status']} {r.get('reason')}")
+    md = [report.dryrun_matrix(recs, m) for m in ("16x16", "2x16x16")]
+    md += [report.skips(recs), report.roofline_table(recs),
+           report.schedule_table(recs)]
+    require(all(md[:2]) and "OK" in md[0], "report.py rendered nothing")
+    counts = collections.Counter(r["status"] for r in recs)
+    fits = collections.Counter(
+        (r["mesh"], r["memory_estimate"]["fits"]) for r in recs
+        if r["status"] == "OK")
+    log(f"  (c) dryrun --all, 16x16 and 2x16x16, in this process: "
+        f"{len(recs)} records ({dict(counts)}) in {seconds:.1f} s; every "
+        f"train record verified_static; priced on {H100_SXM.name}; "
+        f"fits the card's {H100_SXM.hbm_bytes / 1e9:.0f} GB by mesh "
+        f"{dict(fits)}; report.py renders {sum(len(m) for m in md)} "
+        f"characters")
+    for r in recs:
+        if r["status"] != "OK" or r["mesh"] != "16x16":
+            continue
+        rf, mem = r["roofline"], r["memory_estimate"]
+        log(f"      {r['arch']:22s} {r['shape']:12s} rows {r['rows_per_rank']:3d}"
+            f" memory {_gib(mem['total_bytes']):9.2f} GiB (exact "
+            f"{_gib(mem['exact_bytes']):7.2f}) compute "
+            f"{rf['compute_s'] * 1e3:10.2f} ms memory "
+            f"{rf['memory_s'] * 1e3:10.2f} ms collective "
+            f"{rf['collective_s'] * 1e3:8.2f} ms {rf['dominant']}")
+    return recs, seconds
+
+
+def _estimate(label, spec, world, rows, seq):
+    """(d) the dry run's memory estimate and roofline at a phase's own
+    configuration: ``rhd_rsa`` + ``int8`` over ``world`` ranks, one data
+    axis, ``rows`` rows a rank."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    rec = dryrun.plan_step(spec, InputShape(label, seq, rows * world,
+                                            "train"), {"data": world},
+                           codec="int8")
+    rf = rec["roofline"]
+    return {"label": label, "memory": rec["memory_estimate"],
+            "roofline": rf, "step_s": max(rf["compute_s"], rf["memory_s"])
+            + rf["collective_s"]}
+
+
+def _estimates_vs_measured(phase3, phase4, phase6, phase11):
+    """(d) Estimate against measurement: the exact part (parameters,
+    gradients, AdamW moments, inputs) at most each rank's measured peak;
+    the full estimate's ratio to the peak, and the roofline beside the
+    measured forward+backward, aggregate and step, printed."""
+    import dataclasses
+    from repro_torch.configs import get_spec
+    smol = get_spec("smollm-360m")
+    gemma = dataclasses.replace(get_spec("gemma-7b"),
+                                num_layers=GEMMA_LAYERS)
+    cases = []
+    if phase3 is not None:
+        cases += [(f"phase 3: smollm-360m seq 512, {TRAIN_WORLD} ranks",
+                   smol, TRAIN_WORLD, 2, 512, phase3),
+                  (f"phase 4: smollm-360m seq {LONG_SEQ}, {LONG_WORLD} "
+                   f"ranks", smol, LONG_WORLD, 1, LONG_SEQ, phase4),
+                  (f"phase 6: gemma-7b {GEMMA_LAYERS} layer seq {LONG_SEQ},"
+                   f" {GEMMA_WORLD} ranks", gemma, GEMMA_WORLD, 1,
+                   LONG_SEQ, phase6)]
+    else:
+        cases += [(f"phase 11(a) (phase 3's configuration on cuda_ipc): "
+                   f"smollm-360m seq 512, {TRAIN_WORLD} ranks", smol,
+                   TRAIN_WORLD, 2, 512, None)]
+    out = []
+    for label, spec, world, rows, seq, results in cases:
+        est = _estimate(label, spec, world, rows, seq)
+        mem, rf = est["memory"], est["roofline"]
+        if results is not None:
+            peaks = [r["peak_gib"] for r in results]
+            fb = min(r["breakdown"]["fwd_bwd_s"] for r in results)
+            agg_s = min(r["breakdown"]["aggregate_s"] for r in results)
+            steps = [st["step_s"] for st in results[0]["steps"][1:]]
+        else:
+            peaks = [r["lm"]["peak_gib"] for r in phase11]
+            fb = None
+            agg_s = min(st["aggregate_s"] for r in phase11
+                        for st in r["lm"]["steps"][1:])
+            steps = [st["train_step_s"] for st in phase11[0]["lm"]["steps"][1:]]
+        step = sum(steps) / len(steps)
+        require(_gib(mem["exact_bytes"]) <= min(peaks),
+                f"{label}: the exact part {_gib(mem['exact_bytes']):.3f} GiB "
+                f"exceeds a rank's measured peak {min(peaks):.3f} GiB")
+        log(f"  (d) {label}: memory estimate {_gib(mem['total_bytes']):.3f} "
+            f"GiB a rank = exact {_gib(mem['exact_bytes']):.3f} "
+            f"({ {k: round(_gib(v), 3) for k, v in mem['exact'].items()} }) "
+            f"+ activations {_gib(mem['activations_bytes']):.3f}; measured "
+            f"peak allocated per rank {[round(p, 3) for p in peaks]} GiB: "
+            f"exact/peak {_gib(mem['exact_bytes']) / max(max(peaks), 1e-9):.3f}"
+            f", estimate/peak "
+            f"{_gib(mem['total_bytes']) / max(max(peaks), 1e-9):.3f}")
+        log(f"      roofline ({rf['chip']}): compute "
+            f"{rf['compute_s'] * 1e3:.3f} ms, memory (eager aten bytes) "
+            f"{rf['memory_s'] * 1e3:.3f} ms, collective over NVLink "
+            f"{rf['collective_s'] * 1e3:.3f} ms (these ranks share one card: "
+            f"their hops never cross NVLink), step estimate "
+            f"{est['step_s'] * 1e3:.3f} ms; measured forward+backward "
+            f"{'not measured' if fb is None else f'{fb * 1e3:.3f} ms'}, "
+            f"aggregate {agg_s * 1e3:.3f} ms, step {step * 1e3:.3f} ms")
+        out.append({**est, "peaks_gib": peaks, "fwd_bwd_s": fb,
+                    "aggregate_s": agg_s, "measured_step_s": step})
+    return out
+
+
+def run_analysis_phase(phase3=None, phase4=None, phase6=None,
+                       phase11=None):
+    """Phase 15: (a) the schedule and source gate, (b) phase 11's hop
+    lint (summarised here), (c) the dry run on both meshes, (d) the
+    estimates against phases 3, 4 and 6 (phase 11's run alone under
+    ``--analysis-only``).  Returns its record."""
+    from repro_torch.analysis import __main__ as analysis_cli
+    t_start = time.perf_counter()
+    # (a)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "analysis.json")
+        rc = analysis_cli.main(["--source", "--schedules",
+                                "--check-baseline", "--root", ROOT,
+                                "--json", out, "-q"])
+        with open(out) as f:
+            summary = json.load(f)
+    gate_s = time.perf_counter() - t0
+    require(rc == 0 and summary["n_errors"] == 0,
+            f"python -m repro_torch.analysis exited {rc}: "
+            f"{summary['diagnostics'][:3]}")
+    require(summary["n_cells"] == ANALYSIS_CELLS,
+            f"{summary['n_cells']} schedule cells, not {ANALYSIS_CELLS}")
+    require(summary["n_source_files"] > 0, "the import lint read no file")
+    log(f"  (a) python -m repro_torch.analysis --source --schedules "
+        f"--check-baseline: exit 0, {summary['n_cells']} schedule cells and "
+        f"the import lint over {summary['n_source_files']} source files, "
+        f"{summary['n_errors']} errors, "
+        f"{summary['n_warnings']} warnings, in {gate_s:.2f} s")
+    # (b)
+    if phase11 is not None:
+        n = sum(len(r[p]["steps"]) for r in phase11
+                for p in ("lm", "cnn", "lm_overlap"))
+        log(f"  (b) phase 11's spawn linted {n} rank-steps of full-width "
+            f"smollm-360m (rhd_rsa + int8 fused hops, post-backward and "
+            f"overlapped) and ResNet-50 (overlapped, HL002 checked): no "
+            f"error, no unbaselined warning")
+    # (c)
+    recs, dry_s = _dryrun_phase()
+    # (d)
+    t0 = time.perf_counter()
+    estimates = _estimates_vs_measured(phase3, phase4, phase6, phase11)
+    est_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_start
+    log(f"  phase 15 {seconds:.1f} s ((a) {gate_s:.1f}, (c) {dry_s:.1f}, "
+        f"(d) {est_s:.1f}; budget {ANALYSIS_BUDGET_S:.0f} s) on "
+        f"{gpu_line()}")
+    return {"gate_s": gate_s, "dryrun_s": dry_s, "estimates_s": est_s,
+            "seconds": seconds, "records": len(recs),
+            "estimates": estimates}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve-only", action="store_true",
@@ -5003,6 +5330,9 @@ def main(argv=None):
     ap.add_argument("--recurrent-only", action="store_true",
                     help="build the kernels and run phase 14 alone (with "
                          "phase 4's run for remat's comparison)")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="build the kernels and run phases 11 and 15 "
+                         "alone (not held to phases 3-8)")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5029,6 +5359,14 @@ def main(argv=None):
         backend.build_all()
         log("phase 14 alone")
         run_recurrent_phase()
+        print(gpu_line(), flush=True)
+        return 0
+    if opts.analysis_only:
+        backend.build_all()
+        log("phases 11 and 15 alone")
+        phase11 = run_telemetry_phase(None, None)
+        log("phase 15: analysis/ and the planning tools")
+        run_analysis_phase(phase11=phase11)
         print(gpu_line(), flush=True)
         return 0
     t_start = time.perf_counter()
@@ -5131,6 +5469,11 @@ def main(argv=None):
         f"host, remat against phase 4")
     phase14 = run_recurrent_phase(phase4)
 
+    log("phase 15: analysis/ and the planning tools: the schedule and "
+        "source gate, phase 11's hop lint, the dry run on 16x16 and "
+        "2x16x16, the estimates against phases 3, 4 and 6")
+    run_analysis_phase(phase3, phase4, phase6, phase11)
+
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
                 "phase4": sum(r[field][k] for r in phase4),
@@ -5148,7 +5491,7 @@ def main(argv=None):
                 "phase10": sum(run[field][k] for r in phase10
                                for run in r["runs"]),
                 "phase11": sum(r[part][field][k] for r in phase11
-                               for part in ("lm", "cnn")),
+                               for part in ("lm", "cnn", "lm_overlap")),
                 "phase12": phase12["gemma"][field][k]
                 + sum(r[field][k] for r in phase12["ranks"]),
                 "phase13": phase13["a"][field][k] + phase13["b"][field][k]

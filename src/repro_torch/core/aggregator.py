@@ -329,12 +329,20 @@ class BucketTimes:
 class OverlapRecord:
     """One overlapped step: ``backward_s`` (host seconds until
     ``loss.backward()`` returned), the buckets in channel order, the
-    bytes the transport moved meanwhile (``dist.traffic`` deltas) and
-    the leaves that got no gradient (reduced as zeros)."""
+    bytes the transport moved meanwhile (``dist.traffic`` deltas), the
+    leaves that got no gradient (reduced as zeros) and ``t0``, the
+    ``time.perf_counter()`` at the start of backward (the clock of the
+    telemetry spans: the backward ends at ``t0 + backward_s``)."""
     backward_s: float
     buckets: tuple[BucketTimes, ...]
     traffic: dict
     zero_leaves: tuple[int, ...]
+    t0: float = 0.0
+
+    @property
+    def backward_end(self) -> float:
+        """``time.perf_counter()`` when ``loss.backward()`` returned."""
+        return self.t0 + self.backward_s
 
     def _tasks(self) -> list:
         """Each bucket's task: its measured ready time, and the time from
@@ -524,5 +532,5 @@ class OverlapRun:
         self.executor.calls += 1
         agg.last_overlap = OverlapRecord(
             backward_s=backward_s, buckets=tuple(self.times),
-            traffic=self.traffic, zero_leaves=tuple(zero))
+            traffic=self.traffic, zero_leaves=tuple(zero), t0=self.t0)
         return tree_mod.unflatten(self.params, flat)

@@ -11,9 +11,10 @@ in float32 while the wire carries 1-2 bytes per element:
 ``int8``       ``q = round(x/s)``, ``s = absmax/127`` (+ one f32 scale)
 ``fp8_e4m3``   ``x/s`` cast to ``float8_e4m3fn``, ``s = absmax/448``
 
-Payloads travel as their raw bytes (``.view(torch.uint8)``): the process
-group moves opaque bytes, so nothing can convert them on the way — the
-reference's XLA bitcast pinning has no counterpart to keep.
+Payloads travel as their raw bytes (the transport views every part as
+``torch.uint8``, ``core/dist.py``): the process group moves opaque
+bytes, so nothing can convert them on the way — the reference's XLA
+bitcast pinning has no counterpart to keep.
 
 ``encode``/``decode`` are the plain torch arithmetic of the fused-hop
 kernels (``kernels/fused_hop.py``); the ``fused`` permuter runs the
@@ -185,18 +186,17 @@ def roundtrip(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def _wire(payload, scale, group, perm, consume):
-    """Ship ``payload`` as raw bytes and ``scale`` (None, or a 1-d f32
-    tensor of one scale per block) beside it, and return
-    ``consume(received payload, received scales)``.  On gloo the two go
-    as two ppermutes; on cuda_ipc the scales ride in their payload's
-    slot (one handshake) and ``consume`` reads the slot in place."""
-    parts = [payload.reshape(-1).view(torch.uint8)]
+    """Ship ``payload`` and ``scale`` (None, or a 1-d f32 tensor of one
+    scale per block) beside it, and return ``consume(received payload,
+    received scales)``.  On gloo the two go as two ppermutes; on
+    cuda_ipc the scales ride in their payload's slot (one handshake)
+    and ``consume`` reads the slot in place."""
+    parts = [payload.reshape(-1)]
     if scale is not None:
         parts.append(scale.reshape(-1))
 
-    def unpack(raw, rscale=None):
-        recv = raw.view(payload.dtype).reshape(payload.shape)
-        return consume(recv, rscale)
+    def unpack(recv, rscale=None):
+        return consume(recv.reshape(payload.shape), rscale)
 
     return dist_mod.ppermute_parts(parts, group, perm, consume=unpack)
 

@@ -31,6 +31,8 @@ class LinkParams:
 ICI = LinkParams(hw.V5E.ici_alpha_s, hw.V5E.ici_link_bandwidth)
 DCN = LinkParams(hw.V5E.dcn_alpha_s, hw.V5E.dcn_bandwidth)
 PAPER_LINK = LinkParams(alpha_s=5e-6, bandwidth=8e9)
+# The paper's P100 (fp32 peak): the experiment matrix's "paper" profile.
+PAPER_P100_FLOPS = 10.6e12
 
 LINK_PROFILES = {"ici": ICI, "dcn": DCN, "paper": PAPER_LINK}
 
@@ -94,6 +96,29 @@ def allreduce_latency(strategy: str, n_bytes: float, p: int,
     if strategy == "hierarchical":
         raise ValueError("use hierarchical_latency(n_bytes, d, pods)")
     raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
+
+
+# The paper's default MVAPICH2 (the reference's constants): the rate of
+# staging between the card and the host, the host's reduction rate, and
+# the driver's pointer query paid once a call.
+STAGING_BANDWIDTH = 16e9
+HOST_REDUCE_BANDWIDTH = 13e9
+DRIVER_QUERY_S = 25e-6
+
+
+def allreduce_latency_host_staged(strategy: str, n_bytes: float, p: int,
+                                  link: LinkParams = ICI) -> float:
+    """The paper's default MVAPICH2: reductions on the host (every call
+    stages the payload down and up, and reduces at host-memory speed)
+    and a driver pointer query per call — the two terms the paper's
+    CUDA-kernel reduction and pointer cache remove."""
+    base = allreduce_latency(strategy, n_bytes, p, link=link, gamma=0.0)
+    frac = (p - 1) / p
+    staged_bytes = 2 * n_bytes * frac
+    reduce_bytes = 3 * n_bytes * frac
+    return base + DRIVER_QUERY_S \
+        + staged_bytes / STAGING_BANDWIDTH \
+        + reduce_bytes / HOST_REDUCE_BANDWIDTH
 
 
 def composed_latency(outer_alg: str, n_bytes: float, d: int, pods: int,

@@ -32,6 +32,16 @@ Three transports, chosen by the caller (``run_ranks(backend=...)``, or
               fails raises on every rank; nothing falls back to staging.
 
 :func:`run_ranks` spawns the ranks of a job with file rendezvous.
+
+With telemetry on, each collective records what this rank put on the
+wire, where it puts it: the innermost open span around a ppermute (the
+``hop[k]`` span the reducers open around each hop) gains
+``sent_bytes`` and ``sent_parts`` (``[dtype, bytes]`` per tensor sent,
+the payload first, by its element type even where gloo ships its raw
+bytes) and ``sent_dtype`` (the payload's); ``psum`` and ``all_gather``
+open a ``trace`` span of their own (``psum``, ``all_gather``) with the
+same fields and ``kind``.  ``analysis/hop_lint.py`` reads these spans.
+With telemetry off nothing is recorded.
 """
 from __future__ import annotations
 
@@ -47,6 +57,8 @@ import traceback
 import torch
 import torch.distributed as dist
 from torch.multiprocessing import reductions
+
+from ..telemetry import trace as telemetry_trace
 
 TRANSPORTS = ("gloo", "nccl", "cuda_ipc")
 
@@ -68,6 +80,46 @@ _channels_opened = 0
 
 def _span(name: str):
     return torch.profiler.record_function(name)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _sent(parts) -> list:
+    """``[[dtype, bytes], ...]`` of the tensors ``parts`` sent once
+    each."""
+    return [[_dtype_name(p.dtype), p.numel() * p.element_size()]
+            for p in parts]
+
+
+def _note_sent(span, sent, kind) -> None:
+    span.attrs["kind"] = kind
+    span.attrs.setdefault("sent_parts", []).extend(sent)
+    span.attrs["sent_bytes"] = span.attrs.get("sent_bytes", 0) \
+        + sum(b for _, b in sent)
+    if sent and "sent_dtype" not in span.attrs:
+        span.attrs["sent_dtype"] = sent[0][0]
+
+
+def _record_hop(parts, sends: bool) -> None:
+    """Add what this rank sends on a ppermute to the innermost open
+    span (nothing when telemetry is off or no span is open)."""
+    tracer = telemetry_trace.get_tracer()
+    span = tracer.current() if tracer.enabled else None
+    if span is not None:
+        _note_sent(span, _sent(parts) if sends else [],
+                   "collective-permute")
+
+
+def _vendor_span(name: str, kind: str, x: torch.Tensor, copies: int):
+    """A ``trace`` span around a vendor collective that sends ``copies``
+    copies of ``x`` (the shared no-op when telemetry is off)."""
+    tracer = telemetry_trace.get_tracer()
+    ctx = tracer.span(name, cat="trace")
+    if tracer.enabled:
+        _note_sent(ctx.span, _sent([x] * copies), kind)
+    return ctx
 
 
 def init_process_group(transport: str, init_method: str, rank: int,
@@ -500,8 +552,10 @@ def _pair(group: Group, perm):
 
 
 def _gloo_ppermute(x: torch.Tensor, group: Group, dst, src) -> torch.Tensor:
+    """One part over gloo, shipped as its bytes whatever its element
+    type (a codec's float8 payload too)."""
     stage = group.host_staged(x)
-    send = x.contiguous()
+    send = _as_bytes(x)
     if stage:
         send = send.cpu()
     recv = torch.empty_like(send) if src is not None \
@@ -519,8 +573,8 @@ def _gloo_ppermute(x: torch.Tensor, group: Group, dst, src) -> torch.Tensor:
                 req.wait()
     if stage:
         traffic["staged_bytes"] += send.nbytes + recv.nbytes
-        return recv.to(x.device)
-    return recv
+        recv = recv.to(x.device)
+    return recv.view(x.dtype).reshape(x.shape)
 
 
 def ppermute_parts(parts, group: Group, perm, consume=None):
@@ -536,6 +590,7 @@ def ppermute_parts(parts, group: Group, perm, consume=None):
     was given."""
     parts = list(parts)
     dst, src = _pair(group, perm)
+    _record_hop(parts, dst is not None and dst != group.rank)
     if group.transport == "cuda_ipc" and group.size > 1:
         ch = _channel(group)
         consume = consume or _clone_all
@@ -567,27 +622,28 @@ def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
     and copies what the peers wrote into a new device tensor."""
     if group.size == 1:
         return x.unsqueeze(0)
-    if group.transport == "cuda_ipc":
-        ch = _channel(group)
-        peers = [q for q in range(group.size) if q != group.rank]
-        for q in peers:
-            ch.post(q, [x])
-        out = torch.empty((group.size,) + tuple(x.shape), dtype=x.dtype,
-                          device=x.device)
-        out[group.rank].copy_(x)
-        for q in peers:
-            ch.take(q, [x], out[q].copy_)
-        ch.finish(peers)
+    with _vendor_span("all_gather", "all-gather", x, group.size - 1):
+        if group.transport == "cuda_ipc":
+            ch = _channel(group)
+            peers = [q for q in range(group.size) if q != group.rank]
+            for q in peers:
+                ch.post(q, [x])
+            out = torch.empty((group.size,) + tuple(x.shape),
+                              dtype=x.dtype, device=x.device)
+            out[group.rank].copy_(x)
+            for q in peers:
+                ch.take(q, [x], out[q].copy_)
+            ch.finish(peers)
+            return out
+        stage = group.host_staged(x)
+        src = x.contiguous().cpu() if stage else x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(group.size)]
+        with _span("gloo.all_gather"):
+            dist.all_gather(parts, src, group=group.pg)
+        out = torch.stack(parts).to(x.device)
+        if stage:
+            traffic["staged_bytes"] += src.nbytes + out.nbytes
         return out
-    stage = group.host_staged(x)
-    src = x.contiguous().cpu() if stage else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(group.size)]
-    with _span("gloo.all_gather"):
-        dist.all_gather(parts, src, group=group.pg)
-    out = torch.stack(parts).to(x.device)
-    if stage:
-        traffic["staged_bytes"] += src.nbytes + out.nbytes
-    return out
 
 
 def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -595,13 +651,14 @@ def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
     gloo and cuda_ipc a CUDA ``x`` is staged through host memory."""
     if group.size == 1:
         return x
-    stage = group.host_staged(x)
-    y = x.detach().cpu().clone() if stage else x.detach().clone()
-    with _span("gloo.psum"):
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group.pg)
-    if stage:
-        traffic["staged_bytes"] += 2 * y.nbytes
-    return y.to(x.device)
+    with _vendor_span("psum", "all-reduce", x, 1):
+        stage = group.host_staged(x)
+        y = x.detach().cpu().clone() if stage else x.detach().clone()
+        with _span("gloo.psum"):
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group.pg)
+        if stage:
+            traffic["staged_bytes"] += 2 * y.nbytes
+        return y.to(x.device)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,14 @@ plans must be byte-identical to the reference's.  It describes no
 hardware the port runs on.
 
 ``H100_SXM`` is the published data sheet of the card the port targets
-(NVIDIA, SXM part, dense rates, 700 W): the roofline bounds that
-``chip_smoke.py`` reports are computed from it.
+(NVIDIA H100 Tensor Core GPU data sheet, SXM part, dense rates, 700 W):
+the roofline bounds that ``chip_smoke.py`` reports, and
+``launch/roofline.py``'s terms, are computed from it.  Its NVLink rate
+is NVLink 4's 900 GB/s per GPU, 450 GB/s each direction: the link a
+collective between cards crosses.  Ranks that share one card (the
+``cuda_ipc`` hops of a one-card run) copy within its memory and never
+cross NVLink, so a roofline priced on ``nvlink_bandwidth`` is the
+multi-card step's, not such a run's.
 """
 from __future__ import annotations
 
@@ -33,7 +39,12 @@ class Gpu:
     hbm_bandwidth: float        # bytes/s
     peak_f32_flops: float       # outside the tensor cores
     peak_bf16_flops: float      # tensor cores, dense
+    hbm_bytes: float = 0.0      # device memory capacity
+    nvlink_bandwidth: float = 0.0   # bytes/s per GPU, each direction
 
 
+# NVIDIA H100 Tensor Core GPU data sheet, H100 SXM: 3.35 TB/s HBM3,
+# 67 TFLOP/s FP32, 989 TFLOP/s dense BF16, 80 GB, NVLink 900 GB/s.
 H100_SXM = Gpu("h100-sxm", hbm_bandwidth=3.35e12, peak_f32_flops=67e12,
-               peak_bf16_flops=989e12)
+               peak_bf16_flops=989e12, hbm_bytes=80e9,
+               nvlink_bandwidth=450e9)

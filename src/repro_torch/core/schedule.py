@@ -131,6 +131,30 @@ class Stage:
             rec["fused_hop"] = True
         return rec
 
+    @property
+    def hlo_kind(self) -> "str | None":
+        """The collective family this stage runs as, under the
+        reference's names (its wire check's per-kind ledger): explicit
+        hops are ``collective-permute``, the vendor ``psum`` is
+        ``all-reduce``, the PS pattern ``all-gather``; the bracket's
+        local ``shard`` none."""
+        if self.op == "shard":
+            return None
+        if self.algorithm == "psum":
+            return "all-reduce"
+        if self.algorithm == "ps_gather":
+            return "all-gather"
+        return "collective-permute"
+
+    @property
+    def hlo_bytes(self) -> int:
+        """The bytes this stage charges to its kind: the algorithmic wire
+        bytes, except one payload for a ``psum`` (the vendor call's
+        result size, the reference's convention)."""
+        if self.algorithm == "psum":
+            return self.n_bytes
+        return self.wire_bytes
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketSchedule:
@@ -234,6 +258,13 @@ class ReduceSchedule:
         """Distinct strategy names, sorted."""
         return tuple(sorted({b.strategy for b in self.buckets}))
 
+    def algorithms(self) -> dict:
+        """{strategy: bucket count}."""
+        out: dict = {}
+        for b in self.buckets:
+            out[b.strategy] = out.get(b.strategy, 0) + 1
+        return out
+
     def readiness_order(self) -> tuple[int, ...]:
         """Bucket indices in issue order (readiness rank ascending): the
         order the in-backward channel reduces them in."""
@@ -258,8 +289,13 @@ class ReduceSchedule:
     def bracketed(self) -> bool:
         return self.model_axis is not None and self.model_axis_size > 1
 
-    def to_json(self) -> dict:
-        """Schema ``repro/schedule/v1`` (the per-bucket form)."""
+    def to_json(self, group: bool = False) -> dict:
+        """Schema ``repro/schedule/v1``.  ``group=True`` gives the
+        reference's grouped form: runs of buckets with the same bytes and
+        strategy collapse into one entry with a ``count``, the leaf
+        layout is dropped (so the detached fingerprint is embedded), and
+        readiness ranks are listed only when they are not reverse plan
+        order."""
         rec = {
             "schema": SCHEMA,
             "axis_names": list(self.axis_names),
@@ -272,7 +308,7 @@ class ReduceSchedule:
             "total_wire_bytes": self.total_wire_bytes,
             "predicted_s": self.predicted_s,
             "decomposition": self.render(),
-            "fingerprint": self.fingerprint(),
+            "fingerprint": self.fingerprint(detached=group),
         }
         if self.codec != "none":
             rec["codec"] = self.codec
@@ -281,7 +317,29 @@ class ReduceSchedule:
         if self.bracketed:
             rec["model_axis"] = self.model_axis
             rec["model_axis_size"] = self.model_axis_size
-        rec["buckets"] = [b.to_json() for b in self.buckets]
+        if not group:
+            rec["buckets"] = [b.to_json() for b in self.buckets]
+            return rec
+        rec["grouped"] = True
+        n = len(self.buckets)
+        canonical = all(b.readiness_rank == n - 1 - i
+                        for i, b in enumerate(self.buckets))
+        groups: list[dict] = []
+        for b in self.buckets:
+            g = b.to_json()
+            for drop in ("index", "leaf_indices", "readiness_rank"):
+                g.pop(drop)
+            if groups and groups[-1]["bytes"] == g["bytes"] \
+                    and groups[-1]["strategy"] == g["strategy"]:
+                groups[-1]["count"] += 1
+                if not canonical:
+                    groups[-1]["readiness_ranks"].append(b.readiness_rank)
+            else:
+                g["count"] = 1
+                if not canonical:
+                    g["readiness_ranks"] = [b.readiness_rank]
+                groups.append(g)
+        rec["buckets"] = groups
         return rec
 
     def fingerprint(self, detached: bool = False) -> str:
@@ -720,14 +778,19 @@ def plan(tree, *, axis_names: Sequence[str], axis_sizes: Sequence[int],
 def synthetic(bucket_bytes: Sequence[float], strategy: str,
               axis_sizes: Sequence[int],
               axis_names: Sequence[str] | None = None,
-              wire_dtype: str = "float32", codec: str = "none",
+              intra=cost_model.ICI, latency_fn=None,
+              wire_dtype: str = "float32",
+              threshold_bytes: int = 0, codec: str = "none",
               model_axis: "str | None" = None,
               model_axis_size: int = 1) -> ReduceSchedule:
     """A DETACHED schedule (``plan=None``) for a list of bucket sizes in
-    bytes, as the reference's ``synthetic`` builds one with its defaults
-    (links, placement, no fused hops): bucket ``i`` is the ``i``-th from
-    the start of the network, so readiness is reverse plan order; a
-    ``model_axis`` of size > 1 brackets every bucket."""
+    bytes, as the reference's ``synthetic`` builds one (the cross-pod
+    level on its default link, post-backward, no fused hops): bucket
+    ``i`` is the ``i``-th from the start of the network, so readiness is
+    reverse plan order;
+    ``latency_fn(n_bytes)`` overrides each bucket's predicted latency
+    (the stages keep the cost model's); a ``model_axis`` of size > 1
+    brackets every bucket."""
     sizes = tuple(int(s) for s in axis_sizes)
     names = tuple(axis_names) if axis_names is not None else \
         (("pod", "data") if len(sizes) == 2
@@ -744,18 +807,20 @@ def synthetic(bucket_bytes: Sequence[float], strategy: str,
     buckets = []
     for i, b in enumerate(bucket_bytes):
         n_bytes = int(b)
-        stages = decompose(strat, n_bytes, names, sizes, codec=codec,
-                           wire_itemsize=itemsize,
+        stages = decompose(strat, n_bytes, names, sizes, intra=intra,
+                           codec=codec, wire_itemsize=itemsize,
                            model_axis=model_axis if bracket else None,
                            model_axis_size=model_m if bracket else 1)
+        predicted = float(latency_fn(n_bytes)) if latency_fn is not None \
+            else sum(st.predicted_s for st in stages)
         buckets.append(BucketSchedule(
             index=i, leaf_indices=(), size=max(n_bytes // itemsize, 1),
             n_bytes=n_bytes, readiness_rank=n - 1 - i, strategy=strat,
-            stages=stages,
-            predicted_s=sum(st.predicted_s for st in stages)))
+            stages=stages, predicted_s=predicted))
     return ReduceSchedule(
         axis_names=names, axis_sizes=sizes, wire_dtype=wire_dtype,
-        placement="post_backward", threshold_bytes=0, switch_points=(),
+        placement="post_backward", threshold_bytes=int(threshold_bytes),
+        switch_points=(),
         buckets=tuple(buckets), codec=codec,
         model_axis=model_axis if bracket else None,
         model_axis_size=model_m if bracket else 1, plan=None)

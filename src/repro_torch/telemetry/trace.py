@@ -203,6 +203,11 @@ class Tracer:
         if stack and stack[-1] is span:
             stack.pop()
 
+    def current(self) -> "Span | None":
+        """The calling thread's innermost open span, or None."""
+        stack = self._stack
+        return stack[-1] if stack else None
+
     def current_path(self) -> str:
         """IR path of the calling thread's innermost open span that
         carries one: ``execute_stages`` builds ``bucket[i].stage[j]``

@@ -253,12 +253,25 @@ def test_sdpa_dispatch_matches_reference(s):
 
 
 def test_wrappers_refuse_other_devices():
+    """Mixed devices are refused.  Meta tensors alone take the plain
+    versions, launching nothing: the dry run counts their arithmetic
+    (``launch/roofline.py``)."""
     x = torch.empty((1, 64, 2, 16), device="meta")
+    c = torch.zeros((1, 64, 2, 16))
     with pytest.raises(ValueError):
-        fa.flash_attention_fwd(x, x, x)
+        fa.flash_attention_fwd(c, x, x)
     lse = torch.empty((1, 2, 64), device="meta")
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd(x, x, x, x, lse, x)
+        fa.flash_attention_bwd(x, x, x, x, torch.zeros((1, 2, 64)), x)
+    launches = (fa.flash_attention_fwd.launches,
+                fa.flash_attention_bwd.launches)
+    out, got_lse = fa.flash_attention_fwd(x, x, x)
+    assert (out.device.type, tuple(out.shape), tuple(got_lse.shape)) == \
+        ("meta", (1, 64, 2, 16), (1, 2, 64))
+    grads = fa.flash_attention_bwd(x, x, x, x, lse, x)
+    assert [tuple(g.shape) for g in grads] == [(1, 64, 2, 16)] * 3
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches) == launches
 
 
 # ---------------------------------------------------------------------------

@@ -424,9 +424,17 @@ def test_rmsnorm_grad_matches_jax_grad(shape):
 
 
 def test_rmsnorm_wrapper_refuses_other_devices():
+    """Mixed devices are refused.  Meta tensors alone take the plain
+    version, launching nothing: the dry run counts its arithmetic
+    (``launch/roofline.py``)."""
     from repro_torch.kernels import fused_rmsnorm as frn
     x = torch.empty((4, 16), device="meta")
     with pytest.raises(ValueError):
-        frn.fused_rmsnorm(x, torch.empty(16, device="meta"))
-    with pytest.raises(ValueError):
         frn.fused_rmsnorm(torch.zeros(4, 16), torch.empty(16, device="meta"))
+    with pytest.raises(ValueError):
+        frn.fused_rmsnorm(x, torch.zeros(16))
+    before = frn.fused_rmsnorm.launches
+    y, rstd = frn.fused_rmsnorm(x, torch.empty(16, device="meta"))
+    assert (y.device.type, tuple(y.shape), tuple(rstd.shape)) == \
+        ("meta", (4, 16), (4,))
+    assert frn.fused_rmsnorm.launches == before

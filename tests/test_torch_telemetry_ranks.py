@@ -55,6 +55,9 @@ FMA_REL = 2.0 ** -20            # tests/test_fused_hop.py's bound
 RUNS = (("rhd", "none", False), ("rhd+int8", "int8", False),
         ("rhd overlap", "none", True))
 HLO_KEYS = ("hlo_kind", "hlo_bytes")
+# What the port's transport records on a hop span (core/dist.py), for
+# the hop lint: the reference has no counterpart.
+SENT_KEYS = ("kind", "sent_bytes", "sent_dtype", "sent_parts")
 
 
 def _inputs():
@@ -290,7 +293,7 @@ def both(tmp_path_factory):
 # spans against the reference's
 # ---------------------------------------------------------------------------
 
-def _norm(rec, drop=HLO_KEYS + ("thread",)):
+def _norm(rec, drop=HLO_KEYS + SENT_KEYS + ("thread",)):
     return {"name": rec["name"], "cat": rec["cat"],
             "attrs": {k: v for k, v in rec["attrs"].items()
                       if k not in drop},
@@ -347,6 +350,9 @@ def test_every_ir_path_has_its_span(both, label):
             rows = 16 * 16 * 4
             assert [h.attrs["payload_bytes"] for h in hops] == \
                 [rows // 2, rows // 4, rows // 4, rows // 2]
+            if label == "rhd":          # uncoded: the payload itself sent
+                assert [h.attrs["sent_bytes"] for h in hops] == \
+                    [h.attrs["payload_bytes"] for h in hops]
             assert {h.attrs["codec"] for h in hops} == \
                 {sched.codec}
         for bucket in sched.buckets:
