@@ -315,13 +315,40 @@ nothing between host and card.
    aggregate and step.  Prints its seconds (budget 60) beside the card's
    name and power limit.
 
+16. The characterization (``experiments/``, ``dryrun --trace``, the
+   closure artifact).  (a) ``python -m repro_torch.experiments.regen
+   --check`` in this process must return 0 and C1-C10 PASS (printed with
+   their values and bands).  (b) The measured backend: the paper's five
+   designs on the port's reducers (``matrix.measure_points``, one spawn
+   of 4 ranks sharing the card), ResNet-50 and MobileNet-v1 at p = 2 and
+   4, on ``cuda_ipc`` and on gloo, every distinct bucket size at full
+   size, best of 5 after a warm-up, every sum checked exact; every
+   bucket size must have a finite, positive latency.  Prints each row's
+   measured comm_s beside the ``paper`` profile's model comm_s, and
+   whether every no-gRPC design beat ``gRPC_PS`` (printed, not
+   required).  (c) ``dryrun --trace`` on smollm-360m ``train_4k`` on
+   16x16 and on the largest other arch whose replay fits 16 ranks of
+   this card (the arches that do not fit are listed with the memory
+   they would need: not replayed): 16 ``cuda_ipc`` ranks, each stage on
+   a group of its own axis size; prints n_stages, k, max_ratio,
+   within_band, the measured overlap beside the predicted one, each
+   distinct stage, the replay's memory beside its estimate, and
+   ``report.telemetry_table``.  (d) ``python -m
+   repro_torch.telemetry.closure --check
+   artifacts_torch/telemetry_closure.json`` (8 gloo ranks on the host's
+   CPU, where the closure's band was declared) must return 0; the same
+   cells measured on 8 ``cuda_ipc`` ranks sharing the card (committed
+   beside it) are printed with their max_ratio.  Prints its
+   seconds (budget 180) beside the card's name and power limit.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.  ``python3 chip_smoke.py
 --serve-only`` builds the kernels and runs phase 12 alone, ``--family-only``
 phase 13 alone, ``--recurrent-only`` phase 14 alone (with phase 4's run
 for (f)), ``--analysis-only`` phases 11 and 15 alone (not held to phases
-3-8; (d) then against phase 11's smollm-360m run); the last line is then
-the card's name and power limit.
+3-8; (d) then against phase 11's smollm-360m run),
+``--characterization-only`` phase 16 alone; the last line is then the
+card's name and power limit.
 """
 import argparse
 import collections
@@ -4676,7 +4703,7 @@ def _xlstm_checks(params, spec, toks, label):
     rounding, in the reference as in the port (at 256 wide and 24
     layers the reference's own chunked and sequential forms are ~0.1
     apart in float32, 1e-6 at 2 layers:
-    ``tests/test_torch_xlstm.py::test_depth_amplifies_rounding_alike``).
+    ``tests/test_torch_xlstm_depth.py::test_depth_amplifies_rounding_alike``).
     So the reference's criteria are held where rounding is not
     amplified: at full depth decode = forward in float32 on the
     reference test's short prompt (``XLSTM_SHORT``: prefill 8, 4
@@ -5321,6 +5348,215 @@ def run_analysis_phase(phase3=None, phase4=None, phase6=None,
             "estimates": estimates}
 
 
+CHARACTERIZATION_BUDGET_S = 180.0
+MEASURED_PS = (2, 4)
+MEASURED_MODELS = ("resnet50", "mobilenet")
+MEASURED_TRANSPORTS = ("cuda_ipc", "gloo")
+MEASURED_REPS = 5
+TRACE_FIRST = "smollm-360m"
+TRACE_SHAPE = "train_4k"
+CLOSURE_ARTIFACT = os.path.join(ROOT, "artifacts_torch",
+                                "telemetry_closure.json")
+# the same cells on 8 cuda_ipc ranks sharing the card: host-bound hops,
+# out of the band (a record, not gated)
+CLOSURE_CARD = os.path.join(ROOT, "artifacts_torch",
+                            "telemetry_closure_card_cuda_ipc.json")
+
+
+def _claims_check():
+    """(a) ``python -m repro_torch.experiments.regen --check`` in this
+    process: exit 0, C1-C10 all PASS."""
+    from repro_torch.experiments import claims, regen
+    rc = regen.main(["--check"])
+    require(rc == 0, f"repro_torch.experiments.regen --check exited {rc}")
+    rows = claims.evaluate()
+    require(len(rows) == 10 and all(r["status"] == "PASS" for r in rows),
+            f"claims not all PASS: {[(r['key'], r['status']) for r in rows]}")
+    for r in rows:
+        log(f"      {r['key']:36s} {r['value']:.4f} {r['units']:8s} "
+            f"[{r['lo']:g}, {r['hi']:g}] {r['status']}")
+    return rows
+
+
+def _measured_backend():
+    """(b) The paper's five designs on the port's reducers: ResNet-50
+    and MobileNet-v1 at p = 2 and 4 ranks sharing the card, on cuda_ipc
+    and gloo, every bucket size at full size, best of 5; each row's
+    measured comm_s beside the paper profile's model comm_s, and whether
+    every no-gRPC design beat gRPC_PS."""
+    from repro_torch.experiments import matrix as mx
+    points = [mx.ExperimentPoint(d, m, p) for m in MEASURED_MODELS
+              for p in MEASURED_PS for d in mx.DESIGNS]
+    t0 = time.perf_counter()
+    rows = mx.measure_points(points, MEASURED_TRANSPORTS, reps=MEASURED_REPS,
+                             scale=1.0, device="cuda")
+    seconds = time.perf_counter() - t0
+    require(len(rows) == len(points) * len(MEASURED_TRANSPORTS),
+            f"{len(rows)} measured rows")
+    model = {(pt.design, pt.model, pt.p): mx.run_point(pt) for pt in points}
+    by = {}
+    for transport, row in rows:
+        key = (row["design"], row["model"], row["p"])
+        lats = [b["predicted_s"] for b in row["schedule"]["buckets"]]
+        sizes = sorted(int(b["bytes"]) for b in row["schedule"]["buckets"])
+        require(row["backend"] == "measured"
+                and sorted(row) == sorted(model[key])
+                and sizes == mx.bucket_sizes(row["model"], row["design"])
+                and all(math.isfinite(v) and v > 0 for v in lats),
+                f"{transport} {key}: a bucket size without a finite, "
+                f"positive latency ({sizes}, {lats})")
+        by[(transport,) + key] = row
+        m = model[key]
+        log(f"      {transport:8s} {row['model']:9s} p={row['p']} "
+            f"{row['design']:16s} {row['n_buckets']:3d} buckets: measured "
+            f"comm {row['comm_s'] * 1e3:9.3f} ms (per bucket size "
+            f"{', '.join(f'{b}: {v * 1e3:.3f}' for b, v in zip(sizes, lats))}"
+            f" ms) | paper model {m['comm_s'] * 1e3:9.3f} ms")
+    order = {}
+    for transport in MEASURED_TRANSPORTS:
+        for model_name in MEASURED_MODELS:
+            for p in MEASURED_PS:
+                ps = by[(transport, "gRPC_PS", model_name, p)]["comm_s"]
+                beat = {d: by[(transport, d, model_name, p)]["comm_s"] < ps
+                        for d in mx.DESIGNS if d != "gRPC_PS"}
+                order[(transport, model_name, p)] = all(beat.values())
+                log(f"      no-gRPC < gRPC_PS, {transport} {model_name} "
+                    f"p={p}: {all(beat.values())} "
+                    f"({ {d: round(ps / by[(transport, d, model_name, p)]['comm_s'], 2) for d in beat} } x)")
+    log(f"  (b) {len(rows)} measured rows ({len(mx.DESIGNS)} designs x "
+        f"{len(MEASURED_MODELS)} models x p {MEASURED_PS} x "
+        f"{MEASURED_TRANSPORTS}) in {seconds:.1f} s, one spawn of "
+        f"{max(MEASURED_PS)} ranks; no-gRPC < gRPC_PS in "
+        f"{sum(order.values())} of {len(order)} cells (printed, not "
+        f"required)")
+    return {"rows": rows, "order": order, "seconds": seconds}
+
+
+def _trace_candidates():
+    """(c) The train_4k records on 16x16 by parameter count, with the
+    bytes their replay needs on 16 ranks of this card."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_spec, list_archs, shape_supported, \
+        spec_for_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    free = torch.cuda.mem_get_info()[0]
+    out = []
+    for arch in list_archs():
+        spec = get_spec(arch)
+        if not shape_supported(spec, TRACE_SHAPE)[0]:
+            continue
+        params = build_model(spec_for_shape(spec, TRACE_SHAPE)).init(
+            torch.Generator().manual_seed(0), "meta").tree()
+        n = sum(t.numel() for t in tree.leaves(params))
+        sched = dryrun.train_schedule(params, dryrun.mesh_axes(False))
+        world = max(int(st.axis_size) for _p, _b, st in sched.iter_stages())
+        need = world * (dryrun.replay_bytes(sched) + dryrun.CONTEXT_BYTES)
+        out.append({"arch": arch, "params": n, "need": need,
+                    "fits": need <= free, "world": world})
+    return sorted(out, key=lambda c: -c["params"]), free
+
+
+def _dryrun_traces():
+    """(c) ``dryrun --trace`` on smollm-360m train_4k on 16x16 and on
+    the largest other arch whose replay fits 16 ranks of this card."""
+    from repro_torch.launch import dryrun, report
+    cands, free = _trace_candidates()
+    other = next(
+        c["arch"] for c in cands if c["fits"] and c["arch"] != TRACE_FIRST)
+    for c in cands:
+        log(f"      {c['arch']:22s} {c['params'] / 1e9:6.2f} G parameters: "
+            f"the replay needs ~{_gib(c['need']):6.1f} GiB on {c['world']} "
+            f"ranks ({_gib(free):.1f} GiB free): "
+            f"{'fits' if c['fits'] else 'cut: not replayed on one card'}")
+    recs = []
+    for arch in (TRACE_FIRST, other):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            rec = dryrun.run_one(arch, TRACE_SHAPE, False, verbose=False,
+                                 trace_path=path, device="cuda")
+            require(rec["status"] == "OK" and "calibration"
+                    in rec.get("measured", {}),
+                    f"dryrun --trace {arch}: {rec['status']} "
+                    f"{rec.get('error', '')} {rec.get('measured')}")
+            with open(path) as f:
+                n_spans = len(json.load(f)["traceEvents"])
+        m, so = rec["measured"], rec["schedule"]
+        mo, po = so["measured_overlap"], so["overlap"]
+        log(f"  (c) dryrun --trace {arch} {TRACE_SHAPE} 16x16 "
+            f"({time.perf_counter() - t0:.1f} s, {n_spans} trace events): "
+            f"{m['n_stages']} stages ({m['n_gated']} gated), k "
+            f"{m['calibration']['k']:.4g} (per axis size "
+            f"{ {p: round(v['k'], 4) for p, v in m['calibration']['per_axis_size'].items()} }), "
+            f"max_ratio {m['max_ratio']:.3f}, within_band "
+            f"{m['all_within_band']}; overlap measured "
+            f"{mo['overlap_fraction']:.4f} vs predicted "
+            f"{po['overlap_fraction']:.4f} (exposed comm "
+            f"{mo['exposed_comm_s'] * 1e3:.3f} vs "
+            f"{po['timeline']['exposed_comm_s'] * 1e3:.3f} ms, model units)")
+        seen = collections.Counter((r["op"], r["algorithm"], r["axis"],
+                                    r["axis_size"], r["n_bytes"])
+                                   for r in m["stages"])
+        for r in m["stages"]:
+            key = (r["op"], r["algorithm"], r["axis"], r["axis_size"],
+                   r["n_bytes"])
+            if key not in seen or r["op"] == "shard":
+                continue
+            log(f"      x{seen.pop(key):2d} {r['op']:10s} {r['algorithm']:8s} "
+                f"{r['axis']}@{r['axis_size']:2d} {r['n_bytes']:11d} B: "
+                f"measured {r['measured_s'] * 1e3:8.3f} ms, predicted "
+                f"{r['predicted_s'] * 1e6:8.2f} us, ratio {r['ratio']:.3f}"
+                f"{'' if r['gated'] else ' (not gated)'}")
+        rp = rec["trace_replay"]
+        log(f"      replay on {rp['ranks']} ranks: estimate "
+            f"{_gib(rp['estimate_bytes']):.2f} GiB a rank, peak reserved "
+            f"{_gib(max(rp['peak_bytes'])):.2f} GiB (largest rank)")
+        recs.append(rec)
+    table = report.telemetry_table(recs)
+    require(all(r["arch"] in table for r in recs),
+            "report.telemetry_table rendered nothing")
+    log(table)
+    return recs
+
+
+def run_characterization_phase():
+    """Phase 16: (a) regen --check and the claims, (b) the measured
+    backend on the card, (c) dryrun --trace, (d) the committed closure
+    artifact's --check.  Returns its record."""
+    from repro_torch.telemetry import closure
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    claims = _claims_check()
+    a_s = time.perf_counter() - t0
+    log(f"  (a) python -m repro_torch.experiments.regen --check: exit 0, "
+        f"C1-C10 all PASS ({a_s:.1f} s)")
+    measured = _measured_backend()
+    t0 = time.perf_counter()
+    traces = _dryrun_traces()
+    c_s = time.perf_counter() - t0
+    rc = closure.main(["--check", CLOSURE_ARTIFACT])
+    require(rc == 0, f"closure --check {CLOSURE_ARTIFACT} exited {rc}")
+    with open(CLOSURE_ARTIFACT) as f:
+        platform = json.load(f)["platform"]
+    log(f"  (d) python -m repro_torch.telemetry.closure --check "
+        f"artifacts_torch/telemetry_closure.json: exit 0 ({platform})")
+    with open(CLOSURE_CARD) as f:
+        card = json.load(f)
+    log(f"      {os.path.basename(CLOSURE_CARD)} ({card['platform']}), "
+        f"printed, not required: max_ratio "
+        f"{ {c['name']: round(c['max_ratio'], 3) for c in card['cells']} }"
+        f" against the band's {closure.BAND_FACTOR:g}; --check finds "
+        f"{len(closure.check_artifact(CLOSURE_CARD))} problems")
+    seconds = time.perf_counter() - t_start
+    log(f"  phase 16 {seconds:.1f} s ((a) {a_s:.1f}, (b) "
+        f"{measured['seconds']:.1f}, (c) {c_s:.1f}; budget "
+        f"{CHARACTERIZATION_BUDGET_S:.0f} s) on {gpu_line()}")
+    return {"claims": claims, "measured": measured, "traces": traces,
+            "seconds": seconds}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve-only", action="store_true",
@@ -5333,6 +5569,8 @@ def main(argv=None):
     ap.add_argument("--analysis-only", action="store_true",
                     help="build the kernels and run phases 11 and 15 "
                          "alone (not held to phases 3-8)")
+    ap.add_argument("--characterization-only", action="store_true",
+                    help="build the kernels and run phase 16 alone")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5367,6 +5605,12 @@ def main(argv=None):
         phase11 = run_telemetry_phase(None, None)
         log("phase 15: analysis/ and the planning tools")
         run_analysis_phase(phase11=phase11)
+        print(gpu_line(), flush=True)
+        return 0
+    if opts.characterization_only:
+        backend.build_all()
+        log("phase 16 alone")
+        run_characterization_phase()
         print(gpu_line(), flush=True)
         return 0
     t_start = time.perf_counter()
@@ -5473,6 +5717,11 @@ def main(argv=None):
         "source gate, phase 11's hop lint, the dry run on 16x16 and "
         "2x16x16, the estimates against phases 3, 4 and 6")
     run_analysis_phase(phase3, phase4, phase6, phase11)
+
+    log("phase 16: the characterization: regen --check and the claims, "
+        "the measured backend on the card, dryrun --trace, the closure "
+        "artifact")
+    run_characterization_phase()
 
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),

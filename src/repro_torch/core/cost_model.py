@@ -30,6 +30,8 @@ class LinkParams:
 
 ICI = LinkParams(hw.V5E.ici_alpha_s, hw.V5E.ici_link_bandwidth)
 DCN = LinkParams(hw.V5E.dcn_alpha_s, hw.V5E.dcn_bandwidth)
+# The reference's gRPC/TCP transport (the ``v5e`` profile's PS link).
+GRPC = LinkParams(hw.GRPC_ALPHA_S, hw.GRPC_BANDWIDTH)
 PAPER_LINK = LinkParams(alpha_s=5e-6, bandwidth=8e9)
 # The paper's P100 (fp32 peak): the experiment matrix's "paper" profile.
 PAPER_P100_FLOPS = 10.6e12

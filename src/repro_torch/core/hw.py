@@ -1,9 +1,11 @@
 """Hardware constants.
 
-``V5E`` is the reference's TPU v5e model (``repro/core/hw.py``), kept
-verbatim because the cost model prices schedules with it and the port's
-plans must be byte-identical to the reference's.  It describes no
-hardware the port runs on.
+``V5E`` (with ``GRPC_ALPHA_S`` / ``GRPC_BANDWIDTH``) is the reference's
+TPU v5e model (``repro/core/hw.py``), kept verbatim because the cost
+model prices schedules with it, the experiment matrix's ``v5e`` profile
+reads it, and the port's plans and characterization must be
+byte-identical to the reference's.  It describes no hardware the port
+runs on.
 
 ``H100_SXM`` is the published data sheet of the card the port targets
 (NVIDIA H100 Tensor Core GPU data sheet, SXM part, dense rates, 700 W):
@@ -22,7 +24,9 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class Chip:
-    """The reference's TPU v5e constants that the cost model reads."""
+    """The reference's TPU v5e constants that the cost model and the
+    experiment matrix's ``v5e`` profile read."""
+    peak_bf16_flops: float = 197e12      # FLOP/s per chip (MXU, bf16)
     hbm_bandwidth: float = 819e9         # bytes/s
     ici_link_bandwidth: float = 50e9     # bytes/s per ICI link
     ici_alpha_s: float = 1e-6
@@ -31,6 +35,13 @@ class Chip:
 
 
 V5E = Chip()
+
+# The reference's gRPC/TCP transport, a cost-model entry only (high
+# alpha, modest beta): the parameter server's link in the ``v5e``
+# profile.  Like ``V5E``, a model of the reference's target, not of any
+# link the port runs on.
+GRPC_ALPHA_S = 100e-6
+GRPC_BANDWIDTH = 10e9  # bytes/s
 
 
 @dataclasses.dataclass(frozen=True)

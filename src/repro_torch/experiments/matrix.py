@@ -19,12 +19,33 @@ clean: the grid, 512 workers, composed two-level and three-axis meshes,
 codec'd and model-bracketed cells — the same 157 cells, with the same
 labels, as the reference.
 
-The profile is the reference's ``paper`` one (P100-class compute, the
-paper's links), an analytic model, not a measurement of any card.  The
-reference's ``v5e`` profile and its measured backend
-(``measure_design_latencies``, ``run_measured_point``, ``bucket_sizes``),
-which wall-clocks the reducers on host devices, are not ported
-(ROADMAP, Queue 1).
+Two profiles, both the reference's and both analytic models, not
+measurements of any card: ``paper`` (P100-class compute, the paper's
+links) and ``v5e`` (the reference's TPU target, ``core/hw.py``'s
+``V5E``, its ICI link and gRPC transport).
+
+Two execution backends, as in the reference:
+
+``model``     the timeline cost model (any p).
+``measured``  the host wall-clock of the design's reducer on spawned
+              ranks (:func:`measure_design_latencies`): each distinct
+              fused-bucket size (:func:`bucket_sizes`) is reduced by
+              ``reducers.allreduce`` on a :class:`~repro_torch.core.dist.
+              Group` of p ranks, the best of ``reps`` calls after one
+              warm-up, each opened with a device sync and a barrier and
+              closed with a device sync, the slowest rank's; every call's
+              sum is checked exact.  The table is keyed by full-size
+              bucket bytes and not rescaled (see
+              :func:`measure_design_latencies`), and :func:`run_point`
+              plays it through the same timeline, so measured and
+              modelled rows share their keys.  ``compute_s`` stays the
+              profile's analytic term, as in the reference.  Transport
+              (``gloo``, ``cuda_ipc``) and device are the caller's and
+              never swapped: the tests time gloo ranks on the host, the
+              card both.  ``Horovod_NCCL2`` measures ``dist.psum``; ranks
+              sharing one card cannot run NCCL (it refuses two ranks on
+              one device), so there it is a gloo all-reduce staged
+              through host memory on either transport.
 
 The design → reducer mapping is DESIGN_STRATEGY (the PS transport maps
 to the ``ps_gather`` pattern; both MPI designs execute ``rhd_rsa`` —
@@ -36,6 +57,7 @@ import dataclasses
 from typing import Callable, Iterable, Mapping, Sequence
 
 from ..core import cost_model as cm
+from ..core import hw
 from ..core import overlap as ov
 from ..core import schedule as schedule_mod
 from ..models.cnn import PAPER_MODELS
@@ -90,6 +112,8 @@ PROFILES = {
     "paper": HwProfile("paper", cm.PAPER_P100_FLOPS, 0.19,
                        cm.LinkParams(alpha_s=5e-6, bandwidth=3e9),
                        cm.LinkParams(50e-6, 3e9), sync_s=6e-3),
+    "v5e": HwProfile("v5e", hw.V5E.peak_bf16_flops, 0.45, cm.ICI,
+                     cm.GRPC),
 }
 
 
@@ -170,9 +194,9 @@ def point_schedule(model: str, p: int, design: str, prof: HwProfile,
     records for real configs, built here from the analytic model's
     variable list — one bucket per fused message, decomposed into
     stages of the design's executed strategy (DESIGN_STRATEGY).
-    ``latency_fn`` overrides the per-bucket latency (default: the
-    design's cost function); p=1 yields an empty schedule (no
-    communication)."""
+    ``latency_fn`` overrides the per-bucket latency (the per-design
+    cost functions, or the measured backend's wall-clock table); p=1
+    yields an empty schedule (no communication)."""
     strategy = DESIGN_STRATEGY[design]
     if p == 1:
         return schedule_mod.synthetic([], strategy, (1,), ("data",),
@@ -189,13 +213,17 @@ def point_schedule(model: str, p: int, design: str, prof: HwProfile,
 
 
 def step_timeline(model: str, p: int, design: str, prof: HwProfile,
-                  batch_per_dev: int = BATCH_PER_DEV) -> ov.Timeline:
+                  batch_per_dev: int = BATCH_PER_DEV,
+                  latency_fn: Callable[[float], float] | None = None
+                  ) -> ov.Timeline:
     """Timeline-simulated step: every design overlaps communication
     with backward compute to the extent bucket readiness allows (the
     wait-free-backprop schedule of core/overlap.py), played from the
-    cell's ReduceSchedule IR."""
+    cell's ReduceSchedule IR.  ``latency_fn`` overrides the cost model
+    — the measured backend passes measured per-bucket latencies through
+    the SAME composition."""
     compute_s = compute_seconds(model, prof, batch_per_dev)
-    sched = point_schedule(model, p, design, prof)
+    sched = point_schedule(model, p, design, prof, latency_fn=latency_fn)
     return ov.simulate_schedule(sched, compute_s)
 
 
@@ -331,23 +359,43 @@ def _row(point: ExperimentPoint, prof: HwProfile, backend: str,
     return row
 
 
-def run_point(point: ExperimentPoint, profile: str = "paper") -> dict:
-    """Evaluate one grid cell on the analytic backend: resolve the
-    cell's ReduceSchedule IR and play it through the timeline."""
+def run_point(point: ExperimentPoint, profile: str = "paper",
+              backend: str = "model",
+              measured_latencies: Mapping[int, float] | None = None) -> dict:
+    """Evaluate one grid cell.  ``backend="measured"`` needs the
+    per-bucket-size measured latency table from
+    :func:`measure_design_latencies` (seconds, keyed by message bytes).
+    Both backends resolve the cell's ReduceSchedule IR and play it
+    through the same timeline composition."""
     point.validate()
     prof = PROFILES[profile]
-    sched = point_schedule(point.model, point.p, point.design, prof)
+    if backend == "model":
+        lat = None
+    elif backend == "measured":
+        if point.p > 1 and measured_latencies is None:
+            raise ValueError("backend='measured' needs measured_latencies "
+                             "(measure_design_latencies)")
+        lat = None if point.p == 1 else \
+            (lambda b: measured_latencies[int(b)])
+    else:
+        raise ValueError(f"unknown backend {backend!r}; model|measured")
+    sched = point_schedule(point.model, point.p, point.design, prof,
+                           latency_fn=lat)
     compute_s = compute_seconds(point.model, prof, point.batch_per_dev)
     tl = ov.simulate_schedule(sched, compute_s)
-    return _row(point, prof, "model", tl, sched)
+    return _row(point, prof, backend, tl, sched)
 
 
 def run_matrix(points: Iterable[ExperimentPoint] | None = None,
-               profile: str = "paper") -> list[dict]:
-    """Evaluate the matrix on the analytic backend."""
+               profile: str = "paper", backend: str = "model") -> list[dict]:
+    """Evaluate the matrix on the cost-model backend (the measured
+    backend goes point by point through :func:`run_point` with its
+    latency tables: :func:`run_measured_point`,
+    :func:`measure_points`)."""
     if points is None:
         points = grid()
-    return [run_point(pt, profile=profile) for pt in points]
+    return [run_point(pt, profile=profile, backend=backend)
+            for pt in points]
 
 
 def query(rows: Iterable[Mapping], **filters) -> list[dict]:
@@ -368,3 +416,190 @@ def value(rows: Iterable[Mapping], field: str, **filters) -> float:
         raise ValueError(f"query {filters} matched {len(hits)} rows, "
                          "expected exactly 1")
     return hits[0][field]
+
+
+# -- measured backend (spawned ranks) ---------------------------------------
+
+def bucket_sizes(model: str, design: str) -> list[int]:
+    """The distinct fused-message sizes the design's schedule reduces
+    for ``model`` — what the measured backend has to wall-clock."""
+    info = PAPER_MODELS[model]
+    sizes = ov.fused_bucket_bytes(info["params"] * 4,
+                                  MODEL_VARIABLES[model],
+                                  fusion_threshold(design))
+    return sorted({int(b) for b in sizes})
+
+
+def _slot_bytes(strategy: str, p: int, n: int) -> int:
+    """The receive slot a ``cuda_ipc`` group of ``p`` ranks needs for
+    ``strategy``'s hops on ``n`` float32 elements (0: no hop)."""
+    from ..core.plan_cache import stage_slot_bytes
+    stages = schedule_mod.decompose(strategy, n * 4, ("data",), [p])
+    return max((stage_slot_bytes(st, (n,), 4) for st in stages),
+               default=0)
+
+
+def group_latencies(design: str, group, sizes: Sequence[int],
+                    reps: int = 5, scale: float = 1.0,
+                    device=None) -> dict[int, float]:
+    """Wall-clock the design's reducer (``DESIGN_STRATEGY``) through
+    ``reducers.allreduce`` on ``group`` for each message size (bytes);
+    every rank of the group calls it.  Returns ``{bytes: seconds}``:
+    the best of ``reps`` calls after one warm-up, each opened with a
+    device sync and a barrier and closed with a device sync, the
+    slowest rank's, the same on every rank.  Rank r reduces a buffer of
+    r + 1, so every call's sum, p(p+1)/2 everywhere, is exact and
+    checked (``RuntimeError`` otherwise).  On a ``cuda_ipc`` group a
+    channel of its own, sized to the largest hop, carries the payloads
+    and is closed after.  ``scale`` as in
+    :func:`measure_design_latencies`."""
+    import math
+    import time
+
+    import torch
+
+    from ..core import dist as dist_mod
+    from ..core import reducers
+    from ..kernels.backend import resolve_device
+    from ..telemetry.closure import _barrier, _group_max, _sync
+
+    device = resolve_device(device)
+    strategy = DESIGN_STRATEGY[design]
+    p = group.size
+    elems = {int(b): max(max(int(b * scale), 4) // 4, 1) for b in sizes}
+    channel = None
+    if group.transport == "cuda_ipc" and p > 1:
+        slot = max((_slot_bytes(strategy, p, n) for n in elems.values()),
+                   default=0)
+        if slot:
+            channel = dist_mod.IpcChannel(group, slot, device)
+            group = channel.group
+    want = p * (p + 1) / 2
+    out: dict[int, float] = {}
+    try:
+        for n_bytes, n in elems.items():
+            x = torch.full((n,), float(group.rank + 1), dtype=torch.float32,
+                           device=device)
+            y = reducers.allreduce(x, [group], strategy)      # warm-up
+            best = math.inf
+            for _ in range(max(reps, 1)):
+                _sync(device)
+                _barrier(group)
+                t0 = time.perf_counter()
+                y = reducers.allreduce(x, [group], strategy)
+                _sync(device)
+                best = min(best, time.perf_counter() - t0)
+                if not bool((y == want).all()):
+                    raise RuntimeError(
+                        f"{design} ({strategy}) on {p} ranks: the sum of "
+                        f"{n_bytes} B is not {want} everywhere")
+            out[n_bytes] = best
+        _barrier(group)
+    finally:
+        if channel is not None:
+            channel.close()
+    return dict(zip(out, _group_max(list(out.values()), group)))
+
+
+def _rank_latencies(rank, world, jobs, reps, scale, device):
+    """One rank of :func:`measure_jobs`: each job on a group of the
+    world's first p ranks (the ranks outside it skip the job)."""
+    import torch
+    import torch.distributed as tdist
+
+    from ..core.dist import Group
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    # new_group is collective over the world, even for its non-members
+    pgs = {p: None if p == world else tdist.new_group(list(range(p)))
+           for p in sorted({job[2] for job in jobs})}
+    out = {}
+    for transport, design, p, sizes in jobs:
+        if rank < p:
+            group = Group(pgs[p], name="data", transport=transport)
+            out[(transport, design, p)] = group_latencies(
+                design, group, sizes, reps, scale, device)
+    return out
+
+
+def measure_jobs(jobs: Sequence[tuple], reps: int = 5, scale: float = 1.0,
+                 *, device=None) -> dict:
+    """Wall-clock many ``(transport, design, p, sizes)`` jobs in one
+    spawn of max(p) ranks (:func:`group_latencies` on a group of the
+    first p); returns ``{(transport, design, p): {bytes: seconds}}``.
+    The world runs on ``cuda_ipc`` when a job asks for it (its groups
+    can then take either transport), else on gloo."""
+    import tempfile
+
+    from ..core.dist import run_ranks
+    from ..kernels.backend import resolve_device
+
+    device = str(resolve_device(device))
+    world = max(job[2] for job in jobs)
+    backend = "cuda_ipc" if any(job[0] == "cuda_ipc" for job in jobs) \
+        else "gloo"
+    with tempfile.TemporaryDirectory() as rdv:
+        results = run_ranks(_rank_latencies, world,
+                            (list(jobs), reps, scale, device),
+                            backend=backend, rendezvous_dir=rdv, threads=1,
+                            timeout_s=1800)
+    return results[0]
+
+
+def measure_design_latencies(design: str, p: int, sizes: Sequence[int],
+                             reps: int = 5, scale: float = 1.0, *,
+                             transport: str, device=None) -> dict[int, float]:
+    """Wall-clock the design's reducer on ``p`` spawned ranks of
+    ``transport`` (``gloo`` or ``cuda_ipc``) on ``device`` (``None``:
+    the card) for each message size (bytes); returns {bytes: seconds}.
+
+    ``scale`` shrinks the MEASURED message so host-run checks stay fast
+    on the ~100 MB ResNet-50 buckets; the returned latency is the
+    honest wall-clock of the scaled message, keyed by the full-size
+    bucket bytes (NOT rescaled back up — a linear rescale would inflate
+    the fixed per-call dispatch/alpha term by 1/scale).  Scaled
+    measurements therefore sit closer to the alpha-dominated regime:
+    per-design comparisons at equal scale remain apples-to-apples, but
+    absolute full-size latencies need scale=1."""
+    return measure_jobs([(transport, design, p, list(sizes))], reps, scale,
+                        device=device)[(transport, design, p)]
+
+
+def run_measured_point(point: ExperimentPoint, profile: str = "paper",
+                       reps: int = 5, scale: float = 1.0, *,
+                       transport: str, device=None) -> dict:
+    """One grid cell on the measured backend: wall-clock every distinct
+    bucket size of the design's schedule, then compose the SAME timeline
+    the model backend uses."""
+    lats = None
+    if point.p > 1:
+        lats = measure_design_latencies(
+            point.design, point.p, bucket_sizes(point.model, point.design),
+            reps=reps, scale=scale, transport=transport, device=device)
+    return run_point(point, profile=profile, backend="measured",
+                     measured_latencies=lats)
+
+
+def measure_points(points: Sequence[ExperimentPoint],
+                   transports: Sequence[str], profile: str = "paper",
+                   reps: int = 5, scale: float = 1.0, *,
+                   device=None) -> list[tuple[str, dict]]:
+    """:func:`run_measured_point` for every point on every transport,
+    measured in one spawn of max(p) ranks: ``[(transport, row), ...]``
+    in the order given (each design's distinct bucket sizes measured
+    once per p, whatever the model asks for)."""
+    want: dict = {}
+    for pt in points:
+        pt.validate()
+        if pt.p > 1:
+            for tr in transports:
+                want.setdefault((tr, pt.design, pt.p), set()).update(
+                    bucket_sizes(pt.model, pt.design))
+    lats = measure_jobs([(tr, d, p, sorted(sizes))
+                         for (tr, d, p), sizes in want.items()],
+                        reps, scale, device=device) if want else {}
+    return [(tr, run_point(pt, profile=profile, backend="measured",
+                           measured_latencies=lats.get((tr, pt.design,
+                                                        pt.p))))
+            for tr in transports for pt in points]

@@ -32,9 +32,21 @@ implement, fails here as it would in the step).  The reference refuses
 partial-auto meshes above 32 devices on old jax and records them as
 statically verified ``SKIP`` s; the port has no such ceiling, so those
 records are ``OK`` here.  Not ported: ``--legacy-partial-auto`` (jax's
-partial-auto lowering; the port has only the full-manual step) and
-``--trace`` (it replays each stage at the mesh's axis size 16, which on
-one card means 16 spawned ranks a cell; ROADMAP, Queue 1).
+partial-auto lowering; the port has only the full-manual step).
+
+``--trace PATH`` (one record; the reference's ``_attach_trace``) turns
+telemetry on and replays the train record's schedule, resolved as
+above, through the closure's probe (``telemetry/closure.py``) on as many
+spawned ranks as its largest axis (16 on both meshes), each stage on a
+group of its own axis size: ``cuda_ipc`` ranks sharing the card, or
+gloo ranks with ``--device cpu``.  It attaches the residual table as
+``measured``, the measured overlap beside the predicted one as
+``schedule.measured_overlap``, the metrics snapshot as ``metrics``, the
+replay's ranks and memory (estimate and each rank's peak) as
+``trace_replay``, and writes the Perfetto trace to PATH.  The replay's
+memory is checked first: where the largest stage's buffers and channel
+slots cannot fit 16 ranks of one card, ``measured`` records the error
+and what to cut.
 
 Two fields are not the card's: ``schedule.predicted_comm_s`` and the
 timeline under ``schedule.overlap`` come from the cost model, whose
@@ -46,7 +58,8 @@ activations and gathered parameters), ``memory_estimate`` its parts.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k \\
-      [--multi-pod] [--strategy rhd_rsa] [--json out.json]
+      [--multi-pod] [--strategy rhd_rsa] [--json out.json] \\
+      [--trace trace.json [--device cpu]]
   python -m repro_torch.launch.dryrun --all [--multi-pod]   # in-process
 """
 from __future__ import annotations
@@ -167,6 +180,23 @@ def resolve_schedule(agg, params, axis_sizes, m: int):
                        model_axis_size=m if agg.model_axis else None)
 
 
+def train_schedule(params, axes: dict, strategy: str = "rhd_rsa",
+                   fusion_mb: float = 4.0, sharding_aware: bool = True,
+                   wire_dtype: str = "", selector_mode: str = "analytic",
+                   selector_table: str = "", overlap: bool = False,
+                   codec: str = "", error_feedback: bool = False):
+    """The plan the train step executes for ``params`` (meta, full
+    size) on a mesh ``{axis: size}``: the aggregator over its dp axes,
+    bracketed by the model axis when it is larger than 1."""
+    dp_axes = tuple(a for a in ("pod", "data") if a in axes)
+    axis_sizes = tuple(int(axes[a]) for a in dp_axes)
+    m = int(axes.get("model", 1))
+    agg = _aggregator(strategy, fusion_mb, sharding_aware, wire_dtype,
+                      selector_mode, selector_table, overlap, codec,
+                      error_feedback, dp_axes, "model" if m > 1 else None)
+    return resolve_schedule(agg, params, axis_sizes, m)
+
+
 def _schedule_record(sched, roof, verify_diags) -> dict:
     """The reference's ``_schedule_record`` fields on the resolved IR.
     ``wire_check`` is None: nothing ran, so no bytes were sent to hold
@@ -282,10 +312,9 @@ def plan_step(spec, shape, axes: dict, strategy: str = "rhd_rsa",
         out.update(collectives=coll, roofline=roof.to_dict())
         return out
     t0 = time.perf_counter()
-    agg = _aggregator(strategy, fusion_mb, sharding_aware, wire_dtype,
-                      selector_mode, selector_table, overlap, codec,
-                      error_feedback, dp_axes, "model" if m > 1 else None)
-    sched = resolve_schedule(agg, params, axis_sizes, m)
+    sched = train_schedule(params, axes, strategy, fusion_mb,
+                           sharding_aware, wire_dtype, selector_mode,
+                           selector_table, overlap, codec, error_feedback)
     diags = analysis_verify.verify_schedule(sched)
     kinds = _ir_collectives(sched)
     coll = _collectives(kinds)
@@ -300,13 +329,190 @@ def plan_step(spec, shape, axes: dict, strategy: str = "rhd_rsa",
     return out
 
 
+# ---------------------------------------------------------------------------
+# --trace: the schedule's stages replayed on spawned ranks
+# ---------------------------------------------------------------------------
+
+TRACE_REPS = 2
+# An allowance for one rank's CUDA context and allocator on the card,
+# beside its replay buffers.
+CONTEXT_BYTES = 640 * 2 ** 20
+
+
+def replay_bytes(sched) -> int:
+    """One rank's device bytes to replay ``sched``'s most demanding
+    stage on ``cuda_ipc`` ranks: four buffers of the stage's size (its
+    input, its result and the reducer's working copies; on an H100 the
+    largest rank reserved 0.41 and 3.84 GiB replaying smollm-360m's and
+    phi-3-vision-4.2b's train_4k on 16 ranks against estimates of 0.35
+    and 3.56 GiB) and the channel's receive slots (``dist.SLOTS`` for
+    every peer of the group, each sized to the stage's largest hop)."""
+    from ..core.dist import SLOTS, slot_bytes
+    from ..core.plan_cache import stage_slot_bytes
+    from ..core.schedule import DTYPES
+    worst = 0
+    for _p, _b, st in sched.iter_stages():
+        if st.op == "shard":
+            continue
+        p = int(st.axis_size)
+        coded = (getattr(st, "codec", "none") or "none") != "none"
+        itemsize = 4 if coded else torch.empty(
+            (), dtype=DTYPES[sched.wire_dtype]).element_size()
+        n = max(int(st.n_bytes) // itemsize, 1)
+        slot = slot_bytes([stage_slot_bytes(st, (n,), itemsize)])
+        worst = max(worst, 4 * n * itemsize + SLOTS * (p - 1) * slot)
+    return worst
+
+
+def _trace_groups(sched, world: int) -> dict:
+    """A group of the world's first ``s`` ranks for each axis of size
+    ``s`` in ``sched`` (``None`` on the ranks outside it); collective
+    over the world, in the same order on every rank."""
+    import torch.distributed as tdist
+    from ..core.dist import Group
+    sizes = {}
+    for _p, _b, st in sched.iter_stages():
+        sizes.setdefault(st.axis, int(st.axis_size))
+    groups = {}
+    for ax, size in sizes.items():
+        pg = None if size == world else tdist.new_group(list(range(size)))
+        me = tdist.get_rank()
+        groups[ax] = Group(pg, name=ax) if me < size else None
+    return groups
+
+
+def _trace_rank(rank, world, sched, reps, device, attrs):
+    """One rank of :func:`trace_schedule`: telemetry on, every distinct
+    stage replayed on a group of its axis size."""
+    from .. import telemetry
+    from ..telemetry import closure
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    tracer = telemetry.configure(telemetry.TelemetryConfig(enabled=True))
+    groups = _trace_groups(sched, world)
+    with tracer.span("dryrun.trace", cat="wall", **attrs):
+        measured = closure.measure_schedule(sched, groups, reps=reps,
+                                            device=device)
+    peak = torch.cuda.max_memory_reserved() \
+        if torch.device(device).type == "cuda" else 0
+    if rank:
+        return {"peak_bytes": peak}
+    return {"measured": measured,
+            "metrics": telemetry.METRICS.snapshot(),
+            "trace": tracer.to_json(), "peak_bytes": peak}
+
+
+def trace_schedule(sched, device=None, reps: int = TRACE_REPS,
+                   attrs=None) -> dict:
+    """Replay every distinct stage of ``sched`` (the closure's probe,
+    ``telemetry/closure.py``) on as many spawned ranks as its largest
+    axis, each stage on a group of its own axis size: ``cuda_ipc`` ranks
+    sharing the card (``device`` None or CUDA), gloo ranks on the host
+    (``device="cpu"``).  Returns rank 0's ``measured`` (``{ir_path:
+    seconds}``, the slowest rank's), ``metrics`` (``REGISTRY``'s
+    snapshot), ``trace`` (its ``repro/trace/v1`` record) and
+    ``replay``: the ranks, the estimate of one rank's bytes
+    (:func:`replay_bytes`) and each rank's peak reserved bytes.  Raises
+    ``ValueError``, naming what to cut, when the ranks' replay cannot
+    fit the card's free memory."""
+    import tempfile
+
+    from ..core.dist import run_ranks
+    from ..kernels.backend import resolve_device
+
+    device = str(resolve_device(device))
+    world = max(int(st.axis_size) for _p, _b, st in sched.iter_stages())
+    cuda = device.startswith("cuda")
+    if cuda:
+        free = torch.cuda.mem_get_info()[0]
+        need = world * (replay_bytes(sched) + CONTEXT_BYTES)
+        if need > free:
+            big = max((st for _p, _b, st in sched.iter_stages()),
+                      key=lambda st: int(st.n_bytes))
+            raise ValueError(
+                f"the replay needs ~{need / 2 ** 30:.1f} GiB on {world} "
+                f"ranks of one card, {free / 2 ** 30:.1f} GiB free: its "
+                f"largest stage ({big.op}@{big.axis}, {big.algorithm}, "
+                f"{int(big.n_bytes)} B a rank, channel slots for "
+                f"{int(big.axis_size) - 1} peers) does not fit; cut the "
+                f"axis size or leave that bucket out")
+    with tempfile.TemporaryDirectory() as rdv:
+        out = run_ranks(_trace_rank, world,
+                        (sched, reps, device, dict(attrs or {})),
+                        backend="cuda_ipc" if cuda else "gloo",
+                        rendezvous_dir=rdv, threads=1, timeout_s=1800)
+    got = dict(out[0])
+    got["replay"] = {"ranks": world, "device": device,
+                     "estimate_bytes": replay_bytes(sched),
+                     "peak_bytes": [o["peak_bytes"] for o in out]}
+    del got["peak_bytes"]
+    return got
+
+
+def _attach_trace(rec: dict, spec, shape, axes: dict, trace_path: str,
+                  device=None, verbose: bool = True, **plan) -> None:
+    """--trace: resolve the train record's schedule exactly as
+    :func:`plan_step` does (the model bracket included), replay it on
+    spawned ranks with telemetry on (:func:`trace_schedule`), attach
+    the closure's residual table as ``rec["measured"]``, the measured
+    overlap beside the predicted one as
+    ``rec["schedule"]["measured_overlap"]``, the metrics snapshot as
+    ``rec["metrics"]``, the replay's ranks and memory as
+    ``rec["trace_replay"]``, and write the Perfetto trace to
+    ``trace_path``."""
+    from .. import telemetry
+    from ..models import build_model
+    from ..telemetry import closure
+    if shape.kind != "train":
+        rec["measured"] = {"skipped":
+                           "no ReduceSchedule on non-train shapes"}
+        return
+    params = build_model(spec).init(torch.Generator().manual_seed(0),
+                                    "meta").tree()
+    sched = train_schedule(params, axes, **plan)
+    got = trace_schedule(sched, device=device,
+                         attrs={"arch": rec["arch"], "shape": rec["shape"]})
+    measured = got["measured"]
+    report = closure.closure_report(sched, measured)
+    rec["measured"] = report
+    compute_s = rec.get("roofline", {}).get("compute_s")
+    k = report["calibration"]["k"]
+    if rec.get("schedule") and compute_s and k > 0:
+        # replay the simulator with the measured per-bucket latencies
+        # (calibrated back into model units) so report.py can put a
+        # measured overlap fraction next to the predicted one
+        tl = closure.measured_timeline(sched, measured, k,
+                                       compute_s=float(compute_s))
+        rec["schedule"]["measured_overlap"] = {
+            "overlap_fraction": tl.overlap_fraction,
+            "hidden_comm_s": tl.hidden_comm_s,
+            "exposed_comm_s": tl.exposed_comm_s,
+            "step_s": tl.step_s,
+        }
+    rec["metrics"] = got["metrics"]
+    rec["trace_replay"] = got["replay"]
+    tracer = telemetry.Tracer(telemetry.TelemetryConfig(enabled=True))
+    tracer.roots.extend(telemetry.trace.from_json(got["trace"]))
+    tracer.write(trace_path)
+    if verbose:
+        cal = report["calibration"]
+        print(f"  trace: {report['n_stages']} stages "
+              f"({report['n_gated']} gated) k={cal['k']:.3g} "
+              f"max_ratio={report['max_ratio']:.2f} "
+              f"within_band={report['all_within_band']} -> {trace_path}")
+
+
 def run_one(arch: str, shape_name: str, multi_pod: bool,
             strategy: str = "rhd_rsa", fusion_mb: float = 4.0,
             sharding_aware: bool = True, verbose: bool = True,
             remat: bool = False, wire_dtype: str = "",
             spec_overrides=None, selector_mode: str = "analytic",
             selector_table: str = "", overlap: bool = False,
-            codec: str = "", error_feedback: bool = False) -> dict:
+            codec: str = "", error_feedback: bool = False,
+            trace_path: str = "", device=None) -> dict:
+    """One record.  With ``trace_path``, an OK or SKIP record also gets
+    :func:`_attach_trace`'s measured replay on ``device`` (``None``: the
+    card); an error there is recorded under ``measured``."""
     from ..configs import SHAPES, get_spec, shape_supported, spec_for_shape
     spec = get_spec(arch)
     ok, why = shape_supported(spec, shape_name)
@@ -317,34 +523,43 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
            "wire_dtype": wire_dtype, "overlap": overlap,
            "codec": codec or "none", "error_feedback": error_feedback,
            "spec_overrides": spec_overrides or {}}
+    plan = dict(strategy=strategy, fusion_mb=fusion_mb,
+                sharding_aware=sharding_aware, wire_dtype=wire_dtype,
+                selector_mode=selector_mode, selector_table=selector_table,
+                overlap=overlap, codec=codec, error_feedback=error_feedback)
     if not ok:
         rec.update(status="SKIP", reason=why)
         if verbose:
             print(f"[dryrun] {arch} × {shape_name} × {mesh}: SKIP ({why})")
-        return rec
-    t0 = time.perf_counter()
-    try:
-        spec = spec_for_shape(spec, shape_name)
-        if remat:
-            spec = dataclasses.replace(spec, remat=True)
-        if spec_overrides:
-            spec = dataclasses.replace(spec, **spec_overrides)
-        rec.update(plan_step(
-            spec, SHAPES[shape_name], mesh_axes(multi_pod),
-            strategy=strategy, fusion_mb=fusion_mb,
-            sharding_aware=sharding_aware, wire_dtype=wire_dtype,
-            selector_mode=selector_mode, selector_table=selector_table,
-            overlap=overlap, codec=codec, error_feedback=error_feedback,
-            context=f"{arch}/{shape_name}"))
-        rec["status"] = "OK"
-        rec["seconds"] = round(time.perf_counter() - t0, 3)
-        if verbose:
-            _print_ok(rec)
-    except Exception as e:  # noqa: BLE001 — recorded, not swallowed
-        rec.update(status="FAIL", error=f"{type(e).__name__}: {e}",
-                   traceback=traceback.format_exc()[-4000:])
-        if verbose:
-            print(f"[dryrun] {arch} × {shape_name} × {mesh}: FAIL {e}")
+    else:
+        t0 = time.perf_counter()
+        try:
+            spec = spec_for_shape(spec, shape_name)
+            if remat:
+                spec = dataclasses.replace(spec, remat=True)
+            if spec_overrides:
+                spec = dataclasses.replace(spec, **spec_overrides)
+            rec.update(plan_step(spec, SHAPES[shape_name],
+                                 mesh_axes(multi_pod),
+                                 context=f"{arch}/{shape_name}", **plan))
+            rec["status"] = "OK"
+            rec["seconds"] = round(time.perf_counter() - t0, 3)
+            if verbose:
+                _print_ok(rec)
+        except Exception as e:  # noqa: BLE001 — recorded, not swallowed
+            rec.update(status="FAIL", error=f"{type(e).__name__}: {e}",
+                       traceback=traceback.format_exc()[-4000:])
+            if verbose:
+                print(f"[dryrun] {arch} × {shape_name} × {mesh}: FAIL {e}")
+    if trace_path and rec["status"] in ("OK", "SKIP"):
+        try:
+            _attach_trace(rec, spec, SHAPES[shape_name],
+                          mesh_axes(multi_pod), trace_path, device=device,
+                          verbose=verbose, **plan)
+        except Exception as e:  # noqa: BLE001 — recorded, not raised
+            rec["measured"] = {"error": f"{type(e).__name__}: {e}"}
+            if verbose:
+                print(f"  trace: FAILED ({e})")
     return rec
 
 
@@ -408,6 +623,14 @@ def main(argv=None):
     ap.add_argument("--override", action="append", default=[],
                     help="spec override k=v (int/float/bool literal)")
     ap.add_argument("--json")
+    ap.add_argument("--trace", default="",
+                    help="write a Perfetto/Chrome trace_event JSON here "
+                         "and attach the measured replay's residual table "
+                         "(repro_torch.telemetry.closure) to the record: "
+                         "every stage replayed on spawned ranks")
+    ap.add_argument("--device", default=None,
+                    help="where --trace replays: the card (the default; "
+                         "cuda_ipc ranks) or cpu (gloo ranks)")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -430,7 +653,8 @@ def main(argv=None):
                       selector_mode=args.selector_mode,
                       selector_table=args.selector_table,
                       overlap=args.overlap, codec=args.codec,
-                      error_feedback=args.error_feedback)
+                      error_feedback=args.error_feedback,
+                      trace_path=args.trace, device=args.device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -20,7 +20,10 @@ over stages whose wire bytes fall inside ``[MIN_BAND_BYTES,
 MAX_BAND_BYTES]``; smaller stages are dominated by dispatch latency,
 larger ones by the host's cache curvature.  Out-of-regime stages are
 reported with their ratio but neither fitted nor gated.  The band was
-declared for host-CPU replays; on the card it is read, not required.
+declared for host-CPU replays.  On the card the replays are bound by
+each hop's host time, flat in the message size, and miss it: the
+canonical artifact is measured on the host's CPU, and the card's
+``cuda_ipc`` run is kept beside it as a record (``artifacts_torch/``).
 
 :func:`check_artifact` re-derives a committed artifact's predicted side
 from the CURRENT cost model without re-measuring, so a cost-model change
@@ -172,11 +175,13 @@ def measure_schedule(sched, groups, reps: int = 3,
                      device=None) -> Dict[str, float]:
     """Replay every stage of ``sched`` (deduplicated by
     :func:`stage_key`) on ``groups`` (axis name to
-    :class:`~repro_torch.core.dist.Group`; every rank of the world calls
-    this); returns ``{ir_path: measured_s}`` covering ALL paths,
-    duplicates sharing one measurement, each the largest over the
-    world's ranks.  When the global tracer is enabled each distinct
-    replay records a ``wall`` span named by its IR path."""
+    :class:`~repro_torch.core.dist.Group`, or ``None`` on a rank outside
+    the group that replays that axis's stages, which skips them; every
+    rank of the world calls this); returns ``{ir_path: measured_s}``
+    covering ALL paths, duplicates sharing one measurement, each the
+    largest over the world's ranks.  When the global tracer is enabled
+    each distinct replay records a ``wall`` span named by its IR
+    path."""
     wire = sched.wire_dtype
     tr = trace_mod.get_tracer()
     cache: Dict[tuple, float] = {}
@@ -190,21 +195,25 @@ def measure_schedule(sched, groups, reps: int = 3,
             continue
         key = stage_key(st)
         keys[path] = key
-        if key not in cache:
-            with tr.span(f"probe:{path}", cat="wall", ir_path=path,
-                         op=st.op, algorithm=st.algorithm,
-                         axis_size=int(st.axis_size),
-                         n_bytes=int(st.n_bytes),
-                         wire_bytes=int(st.wire_bytes),
-                         codec=getattr(st, "codec", "none") or "none",
-                         reps=reps) as sp:
-                cache[key] = measure_stage(st, groups[st.axis], wire,
-                                           reps=reps, device=device)
-                sp.set("measured_s", cache[key])
-            metrics_mod.REGISTRY.histogram(
-                "probe_stage_s",
-                help="measured-replay stage latency (s)").observe(
-                    cache[key], op=st.op, algorithm=st.algorithm)
+        if key in cache:
+            continue
+        if groups[st.axis] is None:
+            cache[key] = 0.0
+            continue
+        with tr.span(f"probe:{path}", cat="wall", ir_path=path,
+                     op=st.op, algorithm=st.algorithm,
+                     axis_size=int(st.axis_size),
+                     n_bytes=int(st.n_bytes),
+                     wire_bytes=int(st.wire_bytes),
+                     codec=getattr(st, "codec", "none") or "none",
+                     reps=reps) as sp:
+            cache[key] = measure_stage(st, groups[st.axis], wire,
+                                       reps=reps, device=device)
+            sp.set("measured_s", cache[key])
+        metrics_mod.REGISTRY.histogram(
+            "probe_stage_s",
+            help="measured-replay stage latency (s)").observe(
+                cache[key], op=st.op, algorithm=st.algorithm)
     # Ranks of one axis measure different groups (each pod's data
     # group): the world's largest, so every rank reports one value.
     if tdist.is_available() and tdist.is_initialized():
@@ -516,12 +525,36 @@ def build_artifact(measured_by_cell: Dict[str, Dict[str, float]],
     }
 
 
-def emit_artifact(path: str, reps: int = ARTIFACT_REPS,
-                  device=None) -> dict:
+def _where(device: str) -> str:
+    """The card as ``nvidia-smi`` names it, with its power limit (a card
+    may be capped below its maximum), or the host's CPU."""
+    if not device.startswith("cuda"):
+        model = "model unknown"
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next(line.split(":", 1)[1].strip() for line in f
+                             if line.startswith("model name"))
+        except (OSError, StopIteration):
+            pass
+        import platform
+        return (f"the host's CPU ({platform.machine()}, {model}, "
+                f"{os.cpu_count()} cores)")
+    import subprocess
+    try:
+        return "one " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"one {torch.cuda.get_device_name(0)} (power limit not read)"
+
+
+def emit_artifact(path: str, reps: int = ARTIFACT_REPS, device=None) -> dict:
     """Measure the canonical cells on ``ARTIFACT_DEVICES`` spawned ranks
     and write the artifact to ``path``.  ``device``: ``None`` is the
-    card, whose ranks take the ``cuda_ipc`` transport; ``"cpu"`` ranks
-    take gloo."""
+    card (``cuda_ipc`` ranks), ``"cpu"`` the host (gloo ranks); the
+    artifact's ``platform`` names the transport and where it ran (the
+    card with its power limit, or the host's CPU)."""
     from ..core.dist import run_ranks
     from ..kernels.backend import resolve_device
 
@@ -531,10 +564,9 @@ def emit_artifact(path: str, reps: int = ARTIFACT_REPS,
         results = run_ranks(_measure_cells_rank, ARTIFACT_DEVICES,
                             (reps, device), backend=backend,
                             rendezvous_dir=rdv, threads=1, timeout_s=1800)
-    where = torch.cuda.get_device_name(0) if device.startswith("cuda") \
-        else "CPU"
     artifact = build_artifact(
-        results[0], f"{ARTIFACT_DEVICES} {backend} ranks on {where}", reps)
+        results[0], f"{ARTIFACT_DEVICES} {backend} ranks on "
+                    f"{_where(device)}", reps)
     with open(path, "w") as f:
         json.dump(artifact, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -53,6 +53,17 @@ _JAX = {"resnet50": (jcnn.resnet50_params, jcnn.resnet50_forward),
 IMAGE, BATCH = 32, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """This file's work on one thread: beside five busy processes the
+    float64 gradients took over 480 s on 8 OpenMP threads and ~41 s on
+    one (~12 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_numpy(model):
     return jax.tree_util.tree_map(np.asarray,
@@ -73,7 +84,8 @@ def _batch():
 @functools.lru_cache(maxsize=None)
 def _reference(model, dtype):
     """(logits, loss, grads as a leaf list) of the reference, float64
-    under ``jax.enable_x64``."""
+    under ``jax.enable_x64``; jitted (eager, each of the ~1,000 ops of
+    forward and backward is a program of its own)."""
     init, forward = _JAX[model]
     images, labels = _batch()
     cast = np.float64 if dtype == "float64" else np.float32
@@ -88,8 +100,8 @@ def _reference(model, dtype):
     with jax.enable_x64(dtype == "float64"):
         params = jax.tree_util.tree_map(lambda a: jnp.asarray(a.astype(cast)),
                                         _ref_numpy(model))
-        (loss, logits), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-            params)
+        (loss, logits), grads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(params)
         return (np.asarray(logits, np.float64), float(loss),
                 [np.asarray(g, np.float64)
                  for g in jax.tree_util.tree_leaves(grads)])

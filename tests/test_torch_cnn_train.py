@@ -4,6 +4,8 @@ ResNet-50 and MobileNet-v1 at full width, image 32, global batch 8 (2
 per rank), float32, from the reference's ``PRNGKey(0)`` parameters and
 the same numpy batches, 2 steps under ``rhd_rsa`` and under
 ``ps_gather`` with fused hops (its terminal sum on K4's plain version).
+One JAX subprocess per model writes the initial parameters first; the
+ranks, started with them, train while they compile and run their steps.
 
 The port runs ``make_train_step`` with ``optim.sgd(0.05, momentum=0)``
 and a clip that never clips (``max_norm`` 1e30: the scale is exactly
@@ -27,6 +29,7 @@ subprocess with 4 host devices.
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -60,55 +63,59 @@ sys.path.insert(0, sys.argv[1])
 from devflags import force_host_devices
 force_host_devices(4)
 import jax, numpy as np
-from jax.sharding import PartitionSpec as P
+from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.core import AggregatorConfig, GradientAggregator
 from repro.core.compat import make_mesh, shard_map
 from repro.models import cnn
 
-out_dir = sys.argv[2]
+out_dir, name = sys.argv[2], sys.argv[3]
 data = np.load(f"{out_dir}/batches.npz")
 mesh = make_mesh((4,), ("data",))
+init_fn = cnn.resnet50_params if name == "resnet50" else cnn.mobilenet_params
+init = init_fn(jax.random.PRNGKey(0))
+np.savez(f"{out_dir}/init_{name}.npz", **{
+    f"init|{name}|{i}": np.asarray(leaf)
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(init))})
+open(f"{out_dir}/init_{name}.done", "w").close()
 res = {}
-for name in ("mobilenet", "resnet50"):
-    init_fn = cnn.resnet50_params if name == "resnet50" else cnn.mobilenet_params
-    fwd = cnn.resnet50_forward if name == "resnet50" else cnn.mobilenet_forward
-    spec = cnn.CnnSpec(name, image_size=data["images"].shape[2], dtype="float32")
-    params = init_fn(jax.random.PRNGKey(0))
-    for i, leaf in enumerate(jax.tree_util.tree_leaves(params)):
-        res[f"init|{name}|{i}"] = np.asarray(leaf)
-    for strategy in ("rhd_rsa", "ps_gather"):
-        agg = GradientAggregator(AggregatorConfig(
-            strategy=strategy, fused_hops=strategy == "ps_gather" or None),
-            ("data",))
+fwd = cnn.resnet50_forward if name == "resnet50" else cnn.mobilenet_forward
+spec = cnn.CnnSpec(name, image_size=data["images"].shape[2], dtype="float32")
+# placed as the step returns them, so the step compiles once
+params = jax.device_put(init, NamedSharding(mesh, P()))
+for strategy in ("rhd_rsa", "ps_gather"):
+    agg = GradientAggregator(AggregatorConfig(
+        strategy=strategy, fused_hops=strategy == "ps_gather" or None),
+        ("data",))
 
-        # benchmarks/tf_cnn_analogue.py's local_step
-        def local_step(p, batch):
-            loss, grads = jax.value_and_grad(
-                lambda q: cnn.cnn_loss(fwd, q, batch, spec)[0])(p)
-            grads = agg(grads)
-            p = jax.tree_util.tree_map(lambda a, g: a - 0.05 * g, p, grads)
-            return p, jax.lax.pmean(loss, "data")
+    # benchmarks/tf_cnn_analogue.py's local_step
+    def local_step(p, batch):
+        loss, grads = jax.value_and_grad(
+            lambda q: cnn.cnn_loss(fwd, q, batch, spec)[0])(p)
+        grads = agg(grads)
+        p = jax.tree_util.tree_map(lambda a, g: a - 0.05 * g, p, grads)
+        return p, jax.lax.pmean(loss, "data")
 
-        bspec = {"images": P("data", None, None, None), "labels": P("data")}
-        step = jax.jit(shard_map(local_step, mesh, in_specs=(P(), bspec),
-                                 out_specs=(P(), P()), axis_names={"data"},
-                                 check_vma=False))
-        p, losses = params, []
-        for s in range(data["images"].shape[0]):
-            p, loss = step(p, {"images": data["images"][s],
-                               "labels": data["labels"][s]})
-            losses.append(float(loss))
-        res[f"losses|{name}|{strategy}"] = np.asarray(losses)
-        for i, leaf in enumerate(jax.tree_util.tree_leaves(p)):
-            res[f"final|{name}|{strategy}|{i}"] = np.asarray(leaf)
-np.savez(f"{out_dir}/out.npz", **res)
+    bspec = {"images": P("data", None, None, None), "labels": P("data")}
+    step = jax.jit(shard_map(local_step, mesh, in_specs=(P(), bspec),
+                             out_specs=(P(), P()), axis_names={"data"},
+                             check_vma=False))
+    p, losses = params, []
+    for s in range(data["images"].shape[0]):
+        p, loss = step(p, {"images": data["images"][s],
+                           "labels": data["labels"][s]})
+        losses.append(float(loss))
+    res[f"losses|{name}|{strategy}"] = np.asarray(losses)
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(p)):
+        res[f"final|{name}|{strategy}|{i}"] = np.asarray(leaf)
+np.savez(f"{out_dir}/out_{name}.npz", **res)
 print("JAX CNN TRAIN DONE")
 """
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    d = tmp_path_factory.mktemp("jaxcnn")
+def _run_both(d, rdv):
+    """One JAX subprocess per model and the ranks, started together; the
+    ranks train once both subprocesses have written the initial
+    parameters, while those compile and run their steps."""
     images, labels = _batches()
     np.savez(d / "batches.npz", images=images, labels=labels)
     script = d / "ref.py"
@@ -117,16 +124,61 @@ def reference(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     env["REPRO_TEST_DEVICES"] = "4"
     env["JAX_PLATFORMS"] = "cpu"
-    proc = subprocess.run(
-        [sys.executable, str(script), os.path.join(ROOT, "tests"), str(d)],
-        capture_output=True, text=True, timeout=900, env=env)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "JAX CNN TRAIN DONE" in proc.stdout
-    return dict(np.load(d / "out.npz"))
+    procs = {}
+    try:
+        for name in MODELS:
+            with open(d / f"stderr_{name}.txt", "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(script),
+                     os.path.join(ROOT, "tests"), str(d), name],
+                    stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+        port = dist.run_ranks(_rank_train, WORLD, (str(d),),
+                              rendezvous_dir=str(rdv), threads=1,
+                              timeout_s=600)
+        ref = {}
+        for name, proc in procs.items():
+            rest, _ = proc.communicate(timeout=900)
+            assert proc.returncode == 0, \
+                (d / f"stderr_{name}.txt").read_text()[-4000:]
+            assert "JAX CNN TRAIN DONE" in rest
+            ref.update(np.load(d / f"init_{name}.npz"))
+            ref.update(np.load(d / f"out_{name}.npz"))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return ref, port
 
 
-def _rank_train(rank, world, inits):
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    return _run_both(tmp_path_factory.mktemp("jaxcnn"),
+                     tmp_path_factory.mktemp("rdv"))
+
+
+@pytest.fixture(scope="module")
+def reference(both):
+    return both[0]
+
+
+def _await_inits(d, names, timeout_s=300):
+    """The reference's initial parameters, once its subprocesses in
+    ``d`` have written them."""
+    deadline = time.monotonic() + timeout_s
+    out = {}
+    for name in names:
+        while not os.path.exists(os.path.join(d, f"init_{name}.done")):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no initial parameters of {name}")
+            time.sleep(0.1)
+        out.update(np.load(os.path.join(d, f"init_{name}.npz")))
+    return out
+
+
+def _rank_train(rank, world, d):
     torch.set_num_threads(1)
+    inits = _await_inits(d, MODELS)
     images, labels = _batches()
     res = {}
     for name in MODELS:
@@ -161,11 +213,8 @@ def _rank_train(rank, world, inits):
 
 
 @pytest.fixture(scope="module")
-def port(reference, tmp_path_factory):
-    inits = {k: v for k, v in reference.items() if k.startswith("init|")}
-    return dist.run_ranks(_rank_train, WORLD, (inits,),
-                          rendezvous_dir=str(tmp_path_factory.mktemp("rdv")),
-                          threads=1, timeout_s=600)
+def port(both):
+    return both[1]
 
 
 @pytest.mark.parametrize("strategy", STRATEGIES)

@@ -1,6 +1,6 @@
 """The Mamba2 hybrid and the xLSTM LM on gloo ranks against the
-reference (4 gloo ranks spawned once, with file rendezvous, and one JAX
-subprocess with 4 host devices running while they run; ~50 s).
+reference (4 gloo ranks spawned once, with file rendezvous, and a JAX
+subprocess per arch with 4 host devices running while they run).
 
 The reduced float32 zamba2-1.2b (2 Mamba2 layers, the shared attention
 block applied twice) and xlstm-350m (an mLSTM and an sLSTM layer), each
@@ -26,6 +26,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -89,8 +90,23 @@ def _train(arch, opt_name, init_flat):
                        tree.leaves_with_path(extras["mspecs"])}}
 
 
-def _rank_cases(rank, world, inits):
+def _await_inits(d, timeout_s=300):
+    """The reference's initial parameters of every arch, once its
+    subprocesses in ``d`` have written them."""
+    deadline = time.monotonic() + timeout_s
+    out = {}
+    for arch in ARCHS:
+        while not os.path.exists(os.path.join(d, f"init_{arch}.done")):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no initial parameters of {arch}")
+            time.sleep(0.1)
+        out[arch] = dict(np.load(os.path.join(d, f"init_{arch}.npz")))
+    return out
+
+
+def _rank_cases(rank, world, d):
     torch.set_num_threads(1)
+    inits = _await_inits(d)
     return {(arch, opt): _train(arch, opt, inits[arch]) for arch in ARCHS
             for opt in OPTS}
 
@@ -101,31 +117,42 @@ sys.path.insert(0, sys.argv[1])
 from devflags import force_host_devices
 force_host_devices(4)
 import jax, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs import get_spec
 from repro.core import AggregatorConfig
 from repro.core.compat import make_mesh
 from repro.models import build_model
 from repro.optim import adamw, sgd
+from repro.serve.step import sanitize_pspec
 from repro.train import TrainStepConfig, make_train_step
 
 out_dir, archs = sys.argv[2], sys.argv[3:]
 opts = {"adamw": (adamw, 1e-3), "sgd": (sgd, 0.1)}
 key = lambda path: "/".join(k.key for k in path)
-models = {}
+
+
+def put(tree, specs):
+    # placed as the step returns it, so the step compiles once
+    return jax.device_put(tree, jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, sanitize_pspec(s, mesh)), specs,
+        is_leaf=lambda x: isinstance(x, P)))
+
+
+models, inits = {}, {}
 for arch in archs:
     spec = dataclasses.replace(get_spec(arch).reduced(), dtype="float32")
     models[arch] = model = build_model(spec)
-    init = model.init(jax.random.PRNGKey(0))
+    inits[arch] = init = model.init(jax.random.PRNGKey(0))
     flat = jax.tree_util.tree_flatten_with_path(init)[0]
     np.savez(f"{out_dir}/init_{arch}.npz",
              **{key(p): np.asarray(v) for p, v in flat})
-print("INIT WRITTEN", flush=True)
+for arch in archs:
+    open(f"{out_dir}/init_{arch}.done", "w").close()
 data = np.load(f"{out_dir}/batches.npz")
 tokens, labels = data["tokens"], data["labels"]
 mesh = make_mesh((2, 2), ("data", "model"))
 for arch in archs:
-    model = models[arch]
-    init = model.init(jax.random.PRNGKey(0))
+    model, init = models[arch], inits[arch]
     out = {}
     for name, (make, lr) in opts.items():
         opt = make(lr)
@@ -135,7 +162,8 @@ for arch in archs:
         step, sh = make_train_step(model, opt, mesh, cfg,
                                    {"tokens": tokens[0],
                                     "labels": labels[0]}, donate=False)
-        params, state, losses = init, opt.init(init), []
+        params, state = put(init, sh["params"]), put(opt.init(init), sh["opt"])
+        losses = []
         for i in range(tokens.shape[0]):
             params, state, m = step(params, state, {"tokens": tokens[i],
                                                     "labels": labels[i]})
@@ -151,8 +179,9 @@ print("JAX RECURRENT DONE")
 
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    """The JAX subprocess, started first; the ranks start once it has
-    written the initial parameters, and run while it trains."""
+    """One JAX subprocess per arch and the ranks, started together; the
+    ranks train once both subprocesses have written the initial
+    parameters, while those compile and run their steps."""
     d = tmp_path_factory.mktemp("jax_recurrent")
     tokens, labels = _batches()
     np.savez(d / "batches.npz", tokens=tokens, labels=labels)
@@ -162,27 +191,28 @@ def both(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     env["REPRO_TEST_DEVICES"] = str(WORLD)
     env["JAX_PLATFORMS"] = "cpu"
-    proc = subprocess.Popen(
-        [sys.executable, str(script), os.path.join(ROOT, "tests"), str(d),
-         *ARCHS],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    procs = {}
     try:
-        for line in proc.stdout:
-            if line.startswith("INIT WRITTEN"):
-                break
-        inits = {arch: dict(np.load(d / f"init_{arch}.npz"))
-                 for arch in ARCHS}
+        for arch in ARCHS:
+            with open(d / f"stderr_{arch}.txt", "w") as err:
+                procs[arch] = subprocess.Popen(
+                    [sys.executable, str(script),
+                     os.path.join(ROOT, "tests"), str(d), arch],
+                    stdout=subprocess.PIPE, stderr=err, text=True, env=env)
         port = dist.run_ranks(
-            _rank_cases, WORLD, (inits,),
-            rendezvous_dir=str(tmp_path_factory.mktemp("rdv")), threads=1,
-            timeout_s=300)
-        rest, err = proc.communicate(timeout=300)
+            _rank_cases, WORLD, (str(d),),
+            rendezvous_dir=str(tmp_path_factory.mktemp("rdv")),
+            threads=1, timeout_s=300)
+        for arch, proc in procs.items():
+            rest, _ = proc.communicate(timeout=300)
+            assert proc.returncode == 0, \
+                (d / f"stderr_{arch}.txt").read_text()[-4000:]
+            assert "JAX RECURRENT DONE" in rest
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    assert proc.returncode == 0, err[-4000:]
-    assert "JAX RECURRENT DONE" in rest
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     return {arch: dict(np.load(d / f"out_{arch}.npz")) for arch in ARCHS}, \
         port
 
