@@ -502,10 +502,16 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "flash_attention_bwd": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:129"),
 }
-MAX_ERR = {k: 0.0 for k in KERNELS}
+# K7/K8's build that takes a query offset (``Sq != Sk`` or ``q_off > 0``:
+# a sequence split over the model ranks, phase 17), counted apart
+# (``.offset_launches``) and listed as rows of their own.
+OFFSET_KERNELS = {"flash_attention_fwd[q_offset]": "flash_attention_fwd",
+                  "flash_attention_bwd[q_offset]": "flash_attention_bwd"}
+MAX_ERR = {k: 0.0 for k in (*KERNELS, *OFFSET_KERNELS)}
 # K8's bf16 kernels at head_dim 256, which must build without spills or a
 # serialising ptxas "Performance Loss".
-WIDE_KERNELS = ("flash_dq_wide_tc<256>", "flash_dkv_wide_tc<256>")
+WIDE_KERNELS = ("flash_dq_wide_tc<256>", "flash_dkv_wide_tc<256>",
+                "flash_dq_wide_tc<256, q_off>", "flash_dkv_wide_tc<256, q_off>")
 
 
 def agree(key, a, b, what):
@@ -522,13 +528,16 @@ def agree(key, a, b, what):
 
 def _kernel_name(mangled):
     """``flash_dkv_tc<64>`` / ``flash_fwd_kernel<float, 64, 64>`` (head
-    width, tile rows) from a mangled name."""
+    width, tile rows) from a mangled name; the build that takes a query
+    offset (``Sq != Sk`` or ``q_off > 0``) ends in ``, q_off>``."""
     import re
-    m = re.search(r"(flash_[a-z_]+)I(f?)Li(\d+)E(?:Li(\d+)E)?", mangled)
+    m = re.search(r"(flash_[a-z_]+)I(f?)Li(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
+                  mangled)
     if not m:
         return mangled
     return (f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}"
-            f"{f', {m[4]}' if m[4] else ''}>")
+            f"{f', {m[4]}' if m[4] else ''}"
+            f"{', q_off' if m[5] == '1' else ''}>")
 
 
 def _sass_counts(lib_path):
@@ -609,7 +618,7 @@ def report_build(source, text):
             base = name.split("<")[0]
             smem = ""
             if flash and base in smem_kind:
-                head_dim = int(name.split("<")[1].rstrip(">"))
+                head_dim = int(name.split("<")[1].split(",")[0].rstrip(">"))
                 smem = (f", dynamic smem "
                         f"{fla._lib().flash_attention_tc_smem(smem_kind[base], head_dim)}"
                         f" B")
@@ -977,6 +986,16 @@ def _excess(a, b, atol, rtol):
     return float(((a - b).abs() - rtol * b.abs()).max()) / atol
 
 
+def _flash_tol(dtype):
+    """K7's and K8's ``(atol, rtol)`` against the plain versions at
+    ``dtype``: f32 forward 2e-5 / 1e-4, backward 2e-3; bf16 3e-2
+    (tests/test_kernels.py's tolerances)."""
+    import torch
+    if dtype == torch.float32:
+        return (2e-5, 1e-4), (2e-3, 2e-3)
+    return (3e-2, 3e-2), (3e-2, 3e-2)
+
+
 def check_flash(gen):
     """K7/K8 against the chunked plain versions: causal at phase 4's,
     phase 6's and phase 13's (phi-3-vision, head_dim 96) shapes in f32
@@ -999,10 +1018,7 @@ def check_flash(gen):
              (PHI3_ATTN, True, 1024, 1024)]
     for shape, causal, window, chunk in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            if dtype == torch.float32:
-                tol_f, tol_b = (2e-5, 1e-4), (2e-3, 2e-3)
-            else:
-                tol_f = tol_b = (3e-2, 3e-2)
+            tol_f, tol_b = _flash_tol(dtype)
             q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
                            .to(dtype) for _ in range(4))
             kw = dict(causal=causal, window=window, chunk=chunk)
@@ -1307,7 +1323,11 @@ SCALAR = ("hop_encode", "adamw_update", "fused_rmsnorm")   # with a scalar loop
 
 
 def _counts():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    wrappers = _wrappers()
+    out = {k: fn.launches for k, fn in wrappers.items()}
+    out.update({k: wrappers[base].offset_launches
+                for k, base in OFFSET_KERNELS.items()})
+    return out
 
 
 def _scalar_counts():
@@ -1317,6 +1337,8 @@ def _scalar_counts():
 def _reset_counts():
     for k, fn in _wrappers().items():
         fn.launches = 0
+        if hasattr(fn, "offset_launches"):
+            fn.offset_launches = 0
         if k in SCALAR:
             fn.scalar_launches = 0
 
@@ -3137,6 +3159,49 @@ def _bucket_split(span):
     return hops, in_stages - hops, span.duration_s - in_stages
 
 
+WAIT_NAMES = ("cuda_ipc.notify_wait", "cuda_ipc.ack_wait")
+
+
+def _hop_split(span):
+    """A bucket span's hop host seconds split into issue (the copy, the
+    event record, the control message published, the consumer), the
+    wait for the peer's notify and the wait for its acknowledgement (the
+    transport's ``cuda_ipc.*_wait`` spans)."""
+    from repro_torch.telemetry.trace import walk
+    hops = [h for h in walk([span]) if h.name.startswith("hop[")]
+    waits = [sum(w.duration_s for h in hops for w in walk(h.children)
+                 if w.name == name) for name in WAIT_NAMES]
+    total = sum(h.duration_s for h in hops)
+    return (total - sum(waits), *waits)
+
+
+def _log_hop_split(results, prefix):
+    """Phase 11(b)'s hop host time per rank and step, split into issue,
+    notify wait and ack wait, beside the backward's time, when its backward
+    began after the first rank's (the ranks share the host's monotonic
+    clock), when the first bucket in channel order ended, HL002's witness
+    and the nice value the overlap channel's thread ran at (whether
+    :data:`~repro_torch.core.aggregator.CHANNEL_NICE` took effect)."""
+    from repro_torch.core.aggregator import CHANNEL_NICE
+    first = [min(r["cnn"]["steps"][i]["t0"] for r in results)
+             for i in range(len(results[0]["cnn"]["steps"]))]
+    for r in results:
+        for s_, step in enumerate(r["cnn"]["steps"], 1):
+            sp = step["hop_split"]
+            tot = [sum(x[i] for x in sp) for i in range(3)]
+            nice = step["channel_nice"]
+            taken = "taken" if nice == CHANNEL_NICE else "not taken"
+            log(f"{prefix} rank {r['rank']} step {s_}: hops of {len(sp)} "
+                f"buckets {_ms(sum(tot))} ms: issue {_ms(tot[0])}, notify "
+                f"wait {_ms(tot[1])}, ack wait {_ms(tot[2])}; backward "
+                f"{_ms(step['backward_s'])} ms, begun "
+                f"{_ms(step['t0'] - first[s_ - 1])} ms after the first "
+                f"rank's, first bucket ended at "
+                f"{_ms(step['buckets'][0][3])} ms; HL002 witness "
+                f"{step['lint']['witness']}; channel thread nice {nice} "
+                f"(CHANNEL_NICE {taken})")
+
+
 def _stage_bytes(sched, log):
     """``[(stage path, the IR's bytes, the bytes its hops send when
     nothing is padded (``hop_lint.exact_sent_bytes``), the bytes its
@@ -3343,10 +3408,15 @@ def telemetry_rank(rank, world, args, trace_path):
             "want_paths": sorted(b.path for b in bsched.buckets),
             "off_track": off_track,
             "backward_s": rec.backward_s,
+            "t0": rec.t0,
+            "channel_nice": rec.channel_nice,
             "buckets": [(t.index, t.ready_s, t.start_s, t.end_s,
                          *_bucket_split(spans[f"bucket[{t.index}]"]))
                         for t in rec.buckets
-                        if f"bucket[{t.index}]" in spans]})
+                        if f"bucket[{t.index}]" in spans],
+            "hop_split": [_hop_split(spans[f"bucket[{t.index}]"])
+                          for t in rec.buckets
+                          if f"bucket[{t.index}]" in spans]})
     cnn = {"steps": cnn_steps, "totals": _counts(),
            "scalar": _scalar_counts(),
            "checksum": _checksum(module.tree())}
@@ -3564,6 +3634,7 @@ def run_telemetry_phase(phase7, phase8):
         f"{f['executor_traces']}")
 
     # (b)
+    _log_hop_split(results, "  (b) hop split:")
     base8 = {r["rank"]: r["runs"][0] for r in phase8["cnn"]} \
         if phase8 else {}
     for r in results:
@@ -5557,6 +5628,418 @@ def run_characterization_phase():
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: seq_parallel and overlap on the model axis, K7/K8 with a
+# query offset, F9's measure
+# ---------------------------------------------------------------------------
+
+SP_SEQ = LONG_SEQ                 # full-width smollm-360m at seq 4096
+SP_BATCH = MA_DATA                # global batch 2: one row a dp shard
+SP_STEPS = 3
+SP_LOSS_RTOL = 1e-3               # each step's loss against the manual run's
+SP_BUDGET_S = 120.0
+# (label, seq_parallel, overlap, loss scale), all uncoded rhd_rsa (the
+# model bracket).  "manual x3" is the witness for what rounding alone
+# does to p3 - p0: the manual step under loss scaling by 3 (the loss
+# times 3, each parameter's gradient divided by 3), the same function
+# and update with every rounding of the backward changed.
+SP_RUNS = (("manual", False, False, 1.0), ("manual x3", False, False, 3.0),
+           ("sp", True, False, 1.0), ("sp overlap", True, True, 1.0))
+SP_WITNESS = "manual x3"
+SP_LAUNCHES = ("adamw_update", "fused_rmsnorm",
+               "flash_attention_fwd[q_offset]",
+               "flash_attention_bwd[q_offset]")
+# K7/K8's offset build at a model rank's chunk: the second half of the
+# sequence's queries (Sq = S/2 at q_off = S/2) against every key, at
+# phase 4's and phase 6's shapes.
+OFFSET_ATTN = ((ATTN_SHAPE, ""), (GEMMA_ATTN, " dh256"))
+OFFSET_TOL = {"flash_attention_fwd[q_offset]": 0.015625,
+              "flash_attention_bwd[q_offset]": 0.03125}
+
+
+def offset_flash_rows(gen):
+    """K7/K8 with a query offset against their plain versions, bf16 and
+    f32, causal, at :func:`check_flash`'s per-dtype atol/rtol and within
+    :data:`OFFSET_TOL` (the largest absolute difference K7 and K8 show at
+    the square shapes), the output rows bit for bit the square launch's
+    rows from the offset on, then timed (50
+    calls in turns) beside SDPA with the same mask as a boolean
+    ``attn_mask`` and beside the square launch of the whole sequence.
+    Returns the two rows (bf16 at dh 64; every case a variant)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fla
+    cuda = torch.device("cuda")
+    fwd_rows, bwd_rows = {}, {}
+    for shape, tag in OFFSET_ATTN:
+        b, s_, h, dh = shape
+        off = s_ // 2
+        sq = s_ - off
+        # query i (position off + i) sees keys 0 .. off + i
+        pairs = b * h * sum(range(off + 1, s_ + 1))
+        mask = torch.arange(off, s_, device=cuda)[:, None] \
+            >= torch.arange(s_, device=cuda)[None, :]
+        base = [torch.randn(shape, generator=gen, device=cuda)
+                for _ in range(4)]
+        for name, dtype, size in (("bf16", torch.bfloat16, 2),
+                                  ("f32", torch.float32, 4)):
+            q_all, k, v, do_all = (t.to(dtype) for t in base)
+            q, do = q_all[:, off:].contiguous(), do_all[:, off:].contiguous()
+            kw = dict(causal=True, window=0, q_offset=off)
+            out, lse = fla.flash_attention_fwd(q, k, v, **kw)
+            grads = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            full, full_lse = fla.flash_attention_fwd(q_all, k, v)
+            pout, plse = fla.flash_fwd_plain(q, k, v, chunk=1024, **kw)
+            pgrads = fla.flash_bwd_plain(q, k, v, pout, plse, do,
+                                         chunk=1024, **kw)
+            torch.cuda.synchronize()
+            err = {"flash_attention_fwd[q_offset]": max(
+                max_abs(out, pout), max_abs(lse, plse)),
+                "flash_attention_bwd[q_offset]": max(
+                    max_abs(g, p) for g, p in zip(grads, pgrads))}
+            tol_f, tol_b = _flash_tol(dtype)
+            excess = {"flash_attention_fwd[q_offset]": max(
+                _excess(out, pout, *tol_f), _excess(lse, plse, *tol_f)),
+                "flash_attention_bwd[q_offset]": max(
+                    _excess(g, p, *tol_b) for g, p in zip(grads, pgrads))}
+            what = f"{tuple(shape)} {name} Sq {sq} at q_off {off}"
+            for key, e in err.items():
+                MAX_ERR[key] = max(MAX_ERR[key], e)
+                require(excess[key] <= 1.0, f"{key} {what}: max err/tol "
+                        f"{excess[key]:.3f} against the plain version at "
+                        f"check_flash's atol/rtol")
+                require(e <= OFFSET_TOL[key], f"{key} {what}: max |diff| "
+                        f"{e} from the plain version > {OFFSET_TOL[key]}")
+            # the offset launch's tiles are the square launch's tiles from
+            # row off (a multiple of every tile height), so its rows are
+            # the square launch's bits
+            require(bits_equal(out, full[:, off:])
+                    and bits_equal(lse, full_lse[..., off:]),
+                    f"K7 offset {what}: output rows differ from the square "
+                    f"launch's rows {off}..")
+            log(f"  K7/K8 offset {what}: max err/tol fwd "
+                f"{excess['flash_attention_fwd[q_offset]']:.3f} bwd "
+                f"{excess['flash_attention_bwd[q_offset]']:.3f}, max |diff| "
+                f"fwd {err['flash_attention_fwd[q_offset]']:.3g} bwd "
+                f"{err['flash_attention_bwd[q_offset]']:.3g}; output rows "
+                f"bit for bit the square launch's rows {off}..")
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask)
+            elems_q, elems_k = b * sq * h * dh, b * s_ * h * dh
+            cases = (
+                ("flash_attention_fwd[q_offset]", fwd_rows,
+                 lambda: fla.flash_attention_fwd(q, k, v, **kw),
+                 lambda: fla.flash_fwd_plain(q, k, v, chunk=1024, **kw),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        attn_mask=mask),
+                 lambda: fla.flash_attention_fwd(q_all, k, v),
+                 (2 * elems_q + 2 * elems_k) * size + 4 * b * h * sq,
+                 4 * pairs * dh),
+                ("flash_attention_bwd[q_offset]", bwd_rows,
+                 lambda: fla.flash_attention_bwd(q, k, v, out, lse, do,
+                                                 **kw),
+                 lambda: fla.flash_bwd_plain(q, k, v, out, lse, do,
+                                             chunk=1024, **kw),
+                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                             retain_graph=True),
+                 lambda: fla.flash_attention_bwd(q_all, k, v, full,
+                                                 full_lse, do_all),
+                 (4 * elems_q + 4 * elems_k) * size + 8 * b * h * sq,
+                 8 * pairs * dh))
+            for key, table, fn, plain, library, square, n_bytes, n_flops \
+                    in cases:
+                runs = {fn: [], library: [], square: []}
+                for f in (fn, library, square, square, library, fn):
+                    runs[f].append(time_ms(f, reps=50))
+                ms = sum(runs[fn]) / 2
+                b_ms, by = bound_ms(n_bytes, n_flops, name == "bf16")
+                table[name + tag] = {
+                    "ms": ms, "plain_ms": time_ms(plain),
+                    "library_ms": sum(runs[library]) / 2,
+                    "square_ms": sum(runs[square]) / 2,
+                    "bound_ms": b_ms, "bound_by": by}
+                log(f"  {key:30s} {what}: {ms:.4f} ms (bound {b_ms:.4f} "
+                    f"ms by {by}; plain {table[name + tag]['plain_ms']:.4f};"
+                    f" SDPA with the boolean mask "
+                    f"{table[name + tag]['library_ms']:.4f}; the square "
+                    f"launch of all {s_} queries "
+                    f"{table[name + tag]['square_ms']:.4f}; turns "
+                    f"{[round(x, 4) for x in runs[fn]]})")
+            del q_all, k, v, do_all, q, do, out, lse, grads, full, \
+                full_lse, pout, plse, pgrads, qt, kt, vt, dot, lib_out
+            torch.cuda.empty_cache()
+        del base, mask
+    return {"flash_attention_fwd[q_offset]": {**fwd_rows["bf16"],
+                                              "variants": fwd_rows},
+            "flash_attention_bwd[q_offset]": {**bwd_rows["bf16"],
+                                              "variants": bwd_rows}}
+
+
+def _sp_args():
+    return train_args(full=True, batch=SP_BATCH, seq=SP_SEQ, device="cuda",
+                      steps=SP_STEPS, strategy="rhd_rsa", codec="none",
+                      mesh=MODEL_MESH)
+
+
+def _witness(agg):
+    """Buckets whose channel issue ended before the backward returned, of
+    the overlapped step's buckets (HL002's reading on host times)."""
+    ov = agg.last_overlap
+    return (sum(b.end_s <= ov.backward_s for b in ov.buckets),
+            len(ov.buckets))
+
+
+def _loss_scaled(model, scale):
+    """``model`` under loss scaling: its loss times ``scale`` and each
+    parameter's gradient divided by ``scale`` where it leaves the loss."""
+    import dataclasses
+    import torch
+    from repro_torch.tree import tree_map
+
+    class Unscale(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g / scale
+
+    def loss(params, batch, seq_group=None):
+        value, metrics = model.loss(tree_map(Unscale.apply, params), batch,
+                                    seq_group=seq_group)
+        return value * scale, metrics
+    return dataclasses.replace(model, loss=loss)
+
+
+def seq_parallel_rank(rank, world, twin):
+    """On the data 2 x model 2 mesh (``cuda_ipc``): each run of
+    :data:`SP_RUNS` (full-width smollm-360m, seq 4096, global batch 2,
+    K5 AdamW) from one seed, with per-step losses, gradient norms,
+    launches, step time, peak allocated memory and the overlap witness,
+    and what 3 steps changed (p3 - p0) held against the manual run's;
+    then (b) phase 10's configuration overlapped (with its post-backward
+    twin when ``twin`` is None)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_spec
+    from repro_torch.core import dist as core_dist
+    from repro_torch.core import plan_cache
+    from repro_torch.launch.mesh import make_groups
+    from repro_torch.launch.train import aggregator_config, build_trainer
+    from repro_torch.models import build_model
+
+    args = _sp_args()
+    torch.cuda.set_device(0)
+    groups = make_groups(1, MA_DATA, MA_MODEL)
+    del groups["pod"]
+    require(groups["model"].transport == "cuda_ipc",
+            "the mesh's groups are not on cuda_ipc")
+
+    def train(args, model, overlap, keep_delta=False):
+        n0 = len(core_dist._open_channels)
+        trainer = build_trainer(
+            args, verbose=False, model=model, groups=groups,
+            aggregator=dataclasses.replace(aggregator_config(args),
+                                           overlap=overlap))
+        module, opt_state = trainer.init_state(args.seed)
+        p0 = [t.detach().clone() for t in tree.leaves(module.tree())] \
+            if keep_delta else []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        steps = []
+        _reset_counts()                        # main path starts here
+        for s in range(args.steps):
+            before = _counts()
+            module, opt_state, hist = trainer.run(1, module, opt_state,
+                                                  start_step=s)
+            after = _counts()
+            steps.append({**hist[0], "launches": {
+                k: after[k] - before[k] for k in after},
+                "witness": _witness(trainer.extras["aggregator"])
+                if overlap else None})
+        totals = _counts()                     # main path ends here
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"steps": steps, "totals": totals,
+               "scalar": _scalar_counts(),
+               "peak_gib": peak / 2 ** 30,
+               "step_peak_gib": (peak - start) / 2 ** 30,
+               "checksum": _checksum(module.tree()),
+               "render": trainer.extras["aggregator"].last_schedule.render()}
+        delta = [(p.detach() - q).float() for p, q in
+                 zip(tree.leaves(module.tree()), p0)]
+        del trainer, module, opt_state, p0
+        plan_cache.GLOBAL_EXECUTOR_CACHE.clear()    # closes the channels
+        for ch in list(core_dist._open_channels[n0:]):
+            ch.close()                         # the step's own channels
+        torch.cuda.empty_cache()
+        return rec, delta
+
+    base = get_spec(args.arch)
+    runs, manual_delta = {}, None
+    for label, sp, overlap, scale in SP_RUNS:
+        model = build_model(dataclasses.replace(base, seq_parallel=sp))
+        if scale != 1.0:
+            model = _loss_scaled(model, scale)
+        rec, delta = train(args, model, overlap,
+                           keep_delta=label != "sp overlap")
+        rec["loss_scale"] = scale
+        if label == "manual":
+            manual_delta = delta
+        elif delta:
+            worst = {"excess": float("-inf"), "diff": 0.0, "outside": 0}
+            with torch.no_grad():
+                for d, m in zip(delta, manual_delta):
+                    diff = (d - m).abs()
+                    excess = diff - (MA_ATOL + MA_RTOL * m.abs())
+                    worst["excess"] = max(worst["excess"],
+                                          float(excess.max()))
+                    worst["diff"] = max(worst["diff"], float(diff.max()))
+                    worst["outside"] += int((excess > 0).sum())
+            rec["distance"] = worst
+        del delta
+        runs[label] = rec
+    del manual_delta
+    # (b) phase 10's configuration, overlapped on the model axis.
+    args10 = _model_args("none")
+    b = {"overlap": train(args10, None, True)[0]}
+    if twin is None:
+        b["post"] = train(args10, None, False)[0]
+    return {"rank": rank, "runs": runs, "b": b}
+
+
+def run_seq_parallel_phase(phase10=None, phase11=None, phase16=None):
+    """Phase 17 on the 4 ranks of the card laid out as data 2 x model 2
+    (one ``cuda_ipc`` spawn): full-width smollm-360m at seq 4096 with
+    ``seq_parallel`` (each model rank's chunk of 2048 positions, K7/K8's
+    offset build) against the manual step, each step's loss and the
+    first step's gradient norm within :data:`SP_LOSS_RTOL`, no more
+    elements of p3 - p0 outside the manual run's than the loss-scaled
+    witness (:data:`SP_WITNESS`) leaves, every rank's peak allocated
+    memory below the manual run's, the overlapped SP run bit for bit the
+    SP run; (b)
+    phase 10's run overlapped, bit for bit phase 10's post-backward run
+    (its twin in this spawn when phase 10 did not run), HL002's witness
+    printed; (c) F9's measure: phase 11(b)'s hop host time split into
+    issue, notify wait and ack wait, and phase 16's host time per hop.
+    Returns each rank's record."""
+    from repro_torch.core import reducers
+    from repro_torch.core.dist import run_ranks
+    t0 = time.perf_counter()
+    twin = None if phase10 is None else {
+        r["rank"]: next(run["checksum"] for run in r["runs"]
+                        if run["label"] == "cuda_ipc") for r in phase10}
+    with tempfile.TemporaryDirectory() as rdv:
+        results = run_ranks(seq_parallel_rank, MA_DATA * MA_MODEL, (twin,),
+                            backend="cuda_ipc", rendezvous_dir=rdv,
+                            timeout_s=900)
+    seconds = time.perf_counter() - t0
+    log(f"  (a) smollm-360m, seq {SP_SEQ}, mesh {MODEL_MESH} (data "
+        f"{MA_DATA} x model {MA_MODEL}) on cuda_ipc, global batch "
+        f"{SP_BATCH}, bf16, rhd_rsa (bracketed), K5 AdamW, {SP_STEPS} "
+        f"steps a run, one spawn; plans: "
+        f"{ {k: v['render'] for k, v in results[0]['runs'].items()} }")
+    for r in results:
+        man = r["runs"]["manual"]
+        for label, run in r["runs"].items():
+            scale = run["loss_scale"]
+            losses = [st["loss"] / scale for st in run["steps"]]
+            norms = [st["grad_norm"] for st in run["steps"]]
+            times = [round(st["step_s"], 4) for st in run["steps"]]
+            dist_ = run.get("distance")
+            log(f"    rank {r['rank']} {label:11s} losses "
+                f"{[round(x, 6) for x in losses]}, gradient norms "
+                f"{[round(x, 6) for x in norms]}"
+                + (f" (losses over the loss scale {scale})" if scale != 1
+                   else "")
+                + f", step s {times}, peak "
+                f"allocated {run['peak_gib']:.3f} GiB (the steps' own "
+                f"{run['step_peak_gib']:.3f}), launches "
+                f"{ {k: run['totals'][k] for k in SP_LAUNCHES} }"
+                + (f", overlap witness {[st['witness'] for st in run['steps']]}"
+                   if run["steps"][0]["witness"] else "")
+                + (f"; p3 - p0 against the manual run's: largest diff "
+                   f"{dist_['diff']:.3g}, worst excess over {MA_ATOL} + "
+                   f"{MA_RTOL}|x| {dist_['excess']:.3g}, "
+                   f"{dist_['outside']} elements outside" if dist_ else ""))
+            if label in ("manual", SP_WITNESS):
+                continue
+            for s_, (a, b) in enumerate(zip(losses, [st["loss"] for st in
+                                                     man["steps"]]), 1):
+                require(abs(a - b) <= SP_LOSS_RTOL * abs(b),
+                        f"rank {r['rank']} {label} step {s_}: loss {a} not "
+                        f"within {SP_LOSS_RTOL} of the manual run's {b}")
+            # the first step's aggregated gradient (the same parameters in
+            # both runs) by its global norm: a gradient sum over the
+            # sequence chunks that drops or double-counts a chunk moves it
+            # by far more than the tolerance.  From the second step on the
+            # parameters differ by rounding, and so do the norms.
+            a, b = norms[0], man["steps"][0]["grad_norm"]
+            require(abs(a - b) <= SP_LOSS_RTOL * abs(b),
+                    f"rank {r['rank']} {label} step 1: gradient norm {a} "
+                    f"not within {SP_LOSS_RTOL} of the manual run's {b}")
+            # held by the count: the largest difference is an AdamW step
+            # size or two either way (one update whose sign flips), so it
+            # is printed beside the witness's, not compared
+            if dist_:
+                wit = r["runs"][SP_WITNESS]["distance"]
+                require(dist_["outside"] <= wit["outside"],
+                        f"rank {r['rank']} {label}: p3 - p0 against the "
+                        f"manual run's, {dist_['outside']} elements outside, "
+                        f"more than rounding alone gives ({SP_WITNESS}: "
+                        f"{wit['outside']})")
+            require(run["peak_gib"] < man["peak_gib"],
+                    f"rank {r['rank']} {label}: peak {run['peak_gib']:.3f} "
+                    f"GiB not below the manual run's {man['peak_gib']:.3f}")
+            for k in SP_LAUNCHES:
+                require(run["totals"][k] > 0, f"rank {r['rank']} {label}: "
+                        f"{k} never launched on the main path")
+        sp, ov = r["runs"]["sp"], r["runs"]["sp overlap"]
+        require(ov["checksum"] == sp["checksum"]
+                and [st["loss"] for st in ov["steps"]]
+                == [st["loss"] for st in sp["steps"]],
+                f"rank {r['rank']}: the overlapped SP run's parameters "
+                f"differ from the SP run's")
+    log(f"    every SP step's loss and the first step's gradient norm "
+        f"within {SP_LOSS_RTOL} of the manual run's, SP's p3 - p0 with no "
+        f"more elements outside the manual run's than {SP_WITNESS}'s "
+        f"(rounding alone) and every rank's peak below the manual run's; "
+        f"the overlapped SP run bit for bit the SP run on every rank")
+    for r in results:
+        want = (r["b"]["post"]["checksum"] if "post" in r["b"]
+                else next(run["checksum"] for p10 in phase10
+                          if p10["rank"] == r["rank"] for run in p10["runs"]
+                          if run["label"] == "cuda_ipc"))
+        require(r["b"]["overlap"]["checksum"] == want,
+                f"rank {r['rank']}: phase 10's run overlapped differs from "
+                f"its post-backward run")
+    log(f"  (b) phase 10's run (seq 512, global batch 8, uncoded rhd_rsa on "
+        f"cuda_ipc) with overlap=True: bit for bit "
+        f"{'its twin in this spawn' if phase10 is None else 'phase 10'} "
+        f"on every rank; HL002's witness per rank and step (not required: "
+        f"layer-stacked leaves) "
+        f"{[[st['witness'] for st in r['b']['overlap']['steps']] for r in results]}")
+    if phase11:
+        _log_hop_split(phase11, "  (c) phase 11(b)")
+    if phase16:
+        for transport, row in phase16["measured"]["rows"]:
+            if transport != "cuda_ipc" or row["design"] != "Horovod_MPI_Opt":
+                continue
+            hops = reducers.allreduce_steps("rhd_rsa", row["p"])
+            lats = [b["predicted_s"] for b in row["schedule"]["buckets"]]
+            log(f"  (c) phase 16 cuda_ipc rhd_rsa {row['model']} p="
+                f"{row['p']}: {hops} hops a bucket, host ms per hop "
+                f"{[round(x * 1e3 / hops, 3) for x in lats]}")
+    log(f"  phase 17 {seconds:.1f} s (budget {SP_BUDGET_S:.0f} s) on "
+        f"{gpu_line()}")
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve-only", action="store_true",
@@ -5571,6 +6054,10 @@ def main(argv=None):
                          "alone (not held to phases 3-8)")
     ap.add_argument("--characterization-only", action="store_true",
                     help="build the kernels and run phase 16 alone")
+    ap.add_argument("--seq-parallel-only", action="store_true",
+                    help="build the kernels, check and time K7/K8 with a "
+                         "query offset and run phase 17 alone (its (b) "
+                         "against a twin in its spawn, no (c))")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5613,6 +6100,14 @@ def main(argv=None):
         run_characterization_phase()
         print(gpu_line(), flush=True)
         return 0
+    if opts.seq_parallel_only:
+        backend.build_all()
+        log("K7/K8 with a query offset, then phase 17 alone")
+        offset_flash_rows(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.empty_cache()
+        run_seq_parallel_phase()
+        print(gpu_line(), flush=True)
+        return 0
     t_start = time.perf_counter()
     gpu = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
@@ -5638,6 +6133,8 @@ def main(argv=None):
     check_rmsnorm(gen)
     check_flash(gen)
     rows = measure(gen)
+    log("phase 2: K7/K8 with a query offset (phase 17's sequence chunks)")
+    rows.update(offset_flash_rows(gen))
     torch.cuda.empty_cache()     # the ranks of phases 3-6 share the card
 
     log("phase 3: train full-width smollm-360m, seq 512")
@@ -5721,7 +6218,12 @@ def main(argv=None):
     log("phase 16: the characterization: regen --check and the claims, "
         "the measured backend on the card, dryrun --trace, the closure "
         "artifact")
-    run_characterization_phase()
+    phase16 = run_characterization_phase()
+
+    log(f"phase 17: seq_parallel and overlap on the model axis: "
+        f"full-width smollm-360m at seq {SP_SEQ} on mesh {MODEL_MESH} "
+        f"(K7/K8's offset build), phase 10 overlapped, F9's measure")
+    phase17 = run_seq_parallel_phase(phase10, phase11, phase16)
 
     def phases(field, k):
         return {"phase3": sum(r[field][k] for r in phase3),
@@ -5747,7 +6249,10 @@ def main(argv=None):
                 + sum(r[field][k] for r in phase13["c"] + phase13["d"]),
                 "phase14": sum(phase14[p][field][k]
                                for p in ("(a)", "(b)", "(c)"))
-                + sum(r[field][k] for r in phase14["d"] + phase14["f"])}
+                + sum(r[field][k] for r in phase14["d"] + phase14["f"]),
+                "phase17": sum(run[field][k] for r in phase17
+                               for run in (*r["runs"].values(),
+                                           *r["b"].values()))}
 
     def scalar(k):
         if k not in SCALAR:
@@ -5758,12 +6263,13 @@ def main(argv=None):
 
     record = {"kernels": [
         {"name": k, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{KERNELS[k][0]}",
-         "replaces": KERNELS[k][1],
+         "source": "src/repro_torch/kernels/csrc/"
+                   f"{KERNELS[OFFSET_KERNELS.get(k, k)][0]}",
+         "replaces": KERNELS[OFFSET_KERNELS.get(k, k)][1],
          "launches": sum(phases("totals", k).values()),
          "launches_by_phase": phases("totals", k), **scalar(k),
          "max_abs_err": MAX_ERR[k], **rows[k]}
-        for k in KERNELS]}
+        for k in (*KERNELS, *OFFSET_KERNELS)]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(gpu, flush=True)

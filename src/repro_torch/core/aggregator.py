@@ -29,6 +29,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import os
+import sys
 import threading
 import time
 import weakref
@@ -45,6 +47,27 @@ from . import schedule as schedule_mod
 from . import selector as selector_mod
 from .plan_cache import GLOBAL_EXECUTOR_CACHE, GLOBAL_PLAN_CACHE, PlanCache
 from .schedule import DTYPES, ReduceSchedule
+
+# The overlap channel's thread's nice value on the card: below the rank's
+# other threads', so that while the backward keeps the host's cores busy
+# the hops' host work (copies, events, control messages) is scheduled
+# ahead of it.  With 4 ranks sharing an H100 80GB HBM3 (700 W), the
+# first bucket of ResNet-50's overlapped step took ~24 ms of hop host
+# time while the backward ran and 2-4 ms a bucket after it
+# (chip_smoke.py phase 11(b)).
+CHANNEL_NICE = -10
+
+# The interpreter's switch interval while an overlapped backward runs on
+# the card (seconds; Python's default is 5 ms).  The backward's thread
+# takes the interpreter lock for each leaf's hook and may take it back
+# before the channel's thread, which needs it between all its calls, has
+# woken; that thread then waits for a forced switch, one interval at
+# most.  On 4 ranks sharing an H100 80GB HBM3 (700 W) some spawns ran the
+# first bucket's hops 35-50 ms into the backward, most of it issue time,
+# against 10-20 ms in the others: 1 spawn of 4 with this interval, 3 of 8
+# without (tools/hl002_rate.py), so it bounds a wait but is not the
+# whole cause.
+CHANNEL_SWITCH_S = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,12 +299,11 @@ class GradientAggregator:
         the same order) through the schedule's cached
         :class:`~repro_torch.core.plan_cache.StageExecutor`, exactly as
         the post-backward path does: the same bits, at other times.
-        Every ``.grad`` must be None when the backward starts.  Overlap on
-        a model axis is not ported (ROADMAP, Queue 1)."""
-        if self.model_axis is not None:
-            raise NotImplementedError(
-                f"overlap=True with a model axis ({self.model_axis!r}) is "
-                f"not ported yet (ROADMAP.md, Queue 1)")
+        Every ``.grad`` must be None when the backward starts.  On a
+        model axis ``params`` are this rank's shards (the leaves inside
+        the gather boundary, as the reference's bucket boundaries wrap
+        the shard leaves), and a bracketed bucket's stages (``shard``,
+        the dp hops, ``ag@model``) run on the channel too."""
         self._idle("overlap_params")
         sched, scale = self._context(params, groups)
         leaves = tree_mod.leaves(params)
@@ -330,14 +352,17 @@ class OverlapRecord:
     """One overlapped step: ``backward_s`` (host seconds until
     ``loss.backward()`` returned), the buckets in channel order, the
     bytes the transport moved meanwhile (``dist.traffic`` deltas), the
-    leaves that got no gradient (reduced as zeros) and ``t0``, the
+    leaves that got no gradient (reduced as zeros), ``t0``, the
     ``time.perf_counter()`` at the start of backward (the clock of the
-    telemetry spans: the backward ends at ``t0 + backward_s``)."""
+    telemetry spans: the backward ends at ``t0 + backward_s``), and
+    ``channel_nice``, the nice value the channel's thread ran at (None
+    off the card; :data:`CHANNEL_NICE` when the process may lower it)."""
     backward_s: float
     buckets: tuple[BucketTimes, ...]
     traffic: dict
     zero_leaves: tuple[int, ...]
     t0: float = 0.0
+    channel_nice: int | None = None
 
     @property
     def backward_end(self) -> float:
@@ -398,6 +423,7 @@ class OverlapRun:
         self.t0 = None
         self.finished = False
         self.consumer = None
+        self.channel_nice = None          # set by the channel's thread
 
     @property
     def active(self) -> bool:
@@ -437,6 +463,13 @@ class OverlapRun:
         plan = self.sched.plan
         before = dict(dist_mod.traffic)
         cuda = self.stream is not None
+        if cuda:
+            tid = threading.get_native_id()
+            try:
+                os.setpriority(os.PRIO_PROCESS, tid, CHANNEL_NICE)
+            except PermissionError:
+                pass     # without the privilege it keeps the rank's nice
+            self.channel_nice = os.getpriority(os.PRIO_PROCESS, tid)
         try:
             with torch.cuda.device(self.device) if cuda \
                     else contextlib.nullcontext(), \
@@ -491,6 +524,9 @@ class OverlapRun:
             self.consumer = torch.cuda.current_stream(self.device)
         thread = threading.Thread(target=self._channel,
                                   name="overlap-channel", daemon=True)
+        switch = sys.getswitchinterval()
+        if self.stream is not None:
+            sys.setswitchinterval(CHANNEL_SWITCH_S)
         with self.cond:
             self.t0 = time.perf_counter()
         thread.start()
@@ -516,6 +552,7 @@ class OverlapRun:
             raise
         finally:
             thread.join()
+            sys.setswitchinterval(switch)
             self.finished, agg._run = True, None
         if self.error is not None:
             raise RuntimeError("the overlap channel failed") from self.error
@@ -532,5 +569,6 @@ class OverlapRun:
         self.executor.calls += 1
         agg.last_overlap = OverlapRecord(
             backward_s=backward_s, buckets=tuple(self.times),
-            traffic=self.traffic, zero_leaves=tuple(zero), t0=self.t0)
+            traffic=self.traffic, zero_leaves=tuple(zero), t0=self.t0,
+            channel_nice=self.channel_nice)
         return tree_mod.unflatten(self.params, flat)

@@ -18,14 +18,15 @@ Three transports, chosen by the caller (``run_ranks(backend=...)``, or
               because NCCL refuses that.  Unverified until a multi-card
               run exists.
 ``cuda_ipc``  Ranks of one host, any number to a card.  A gloo process
-              group carries small control messages only; ``ppermute``
+              group sets channels up and tears them down; ``ppermute``
               and ``all_gather`` payloads stay in device memory.  Each
-              rank owns receive slots that its peers map once
-              (:class:`IpcChannel`, the paper's pointer cache); a hop is
-              a device-to-device copy into the target's slot through
-              that mapping, an interprocess CUDA event and a control
-              message.  CPU tensors take the same protocol over shared
-              memory.  ``psum`` stays gloo's host-staged allreduce: it
+              rank owns receive slots and a mailbox in shared host
+              memory that its peers map once (:class:`IpcChannel`, the
+              paper's pointer cache); a hop is a device-to-device copy
+              into the target's slot through that mapping, an
+              interprocess CUDA event and a control message in the
+              target's mailbox.  CPU tensors take the same protocol over
+              shared memory.  ``psum`` stays gloo's host-staged allreduce: it
               is the vendor baseline (NCCL2's), which ranks sharing one
               card cannot run.  A group refuses to form unless every
               rank is on this host, and an export or a mapping that
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import multiprocessing as mp
 import os
 import queue as queue_mod
@@ -80,6 +82,40 @@ _channels_opened = 0
 
 def _span(name: str):
     return torch.profiler.record_function(name)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _spans(name: str, tracer):
+    with _span(name), tracer.span(name, cat="trace"):
+        yield
+
+
+def _wait_span(name: str):
+    """A control wait: a profiler range while a profiler records, and
+    with telemetry on a ``trace`` span under the hop's (the split of a
+    hop's host time into issue and waits); nothing while neither records
+    (a hop's waits are its hottest host path)."""
+    tracer = telemetry_trace.get_tracer()
+    if torch._C._autograd._profiler_enabled():
+        return _spans(name, tracer)
+    return tracer.span(name, cat="trace") if tracer.enabled else _NO_SPAN
+
+
+def _mailbox_lib():
+    """``csrc/mailbox.cu``'s post and wait, built at first use."""
+    from ..kernels import backend
+    lib = backend.load("mailbox")
+    if not getattr(lib, "_typed", False):
+        lib.mailbox_post.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 3
+        lib.mailbox_post.restype = ctypes.c_int64
+        lib.mailbox_wait.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_double, ctypes.c_void_p]
+        lib.mailbox_wait.restype = ctypes.c_int
+        lib._typed = True
+    return lib
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -219,7 +255,8 @@ def axis_size(group: Group) -> int:
 
 SLOTS = 2          # receive slots per ordered pair of ranks
 ALIGN = 16         # every part of a payload starts 16-byte aligned
-_TAG_BASE = 1000   # control-message tags, clear of torch's default 0
+MAILBOX_TIMEOUT_S = 300.0   # a control wait longer than this raises
+_NOTIFY, _ACK = 0, 1        # the two cells a peer writes in a mailbox
 
 
 def _round_up(n: int) -> int:
@@ -273,27 +310,36 @@ class IpcChannel:
     """The cuda_ipc transport between the ranks of one group.
 
     Each rank owns, for every peer, ``SLOTS`` receive slots of
-    ``slot_bytes`` on ``device`` that only that peer writes.  Opening a
-    channel is collective: every rank exports its slots (and, on CUDA,
-    its interprocess events) once, gathers the peers' handles, and maps
-    each once, keyed by peer; later hops reuse those mappings (the
-    paper's pointer cache, Sec. V-B).  ``channel.group`` is the group
-    with this channel bound.
+    ``slot_bytes`` on ``device`` that only that peer writes, and one
+    mailbox in shared host memory: for every peer a notify cell and an
+    acknowledgement cell that only that peer writes (four int64 each,
+    ``(gen, seq, slot, bytes)``).  Opening a channel is collective:
+    every rank exports its slots, its mailbox (and, on CUDA, its
+    interprocess events) once, gathers the peers' handles, and maps each
+    once, keyed by peer; later hops reuse those mappings (the paper's
+    pointer cache, Sec. V-B).  ``channel.group`` is the group with this
+    channel bound.
 
     A hop from ``s`` to ``t`` (:meth:`post`, :meth:`take`,
     :meth:`finish`): ``s`` makes its stream wait for ``t``'s
     acknowledgement of the payload that last used the slot, copies into
     the slot through its mapping, records its event for the slot, and
-    only then sends a control message ``(seq, slot, bytes)`` over gloo.
-    ``t`` waits for the message, makes its stream wait for that event,
-    consumes the slot in place, records its own event and sends the
-    acknowledgement, which ``s`` receives before the collective call
+    only then publishes ``(seq, slot, bytes)`` in its cell of ``t``'s
+    mailbox (release ordering).  ``t`` waits for it (acquire ordering),
+    makes its stream wait for that event, consumes the slot in place,
+    records its own event and publishes the acknowledgement in its cell
+    of ``s``'s mailbox, which ``s`` waits for before the collective call
     returns.  So no control message outlives the call that sent it, and
     with two slots a payload is written while the one before it may
-    still be read on the card.
+    still be read on the card.  A message other than the one expected
+    raises.  On CUDA the writes and waits run in ``csrc/mailbox.cu``,
+    called with the interpreter lock released; on the CPU the wait polls
+    in Python.  A wait that outlasts :data:`MAILBOX_TIMEOUT_S` (read when
+    the channel opens) raises, naming the peer, the channel and the
+    sequence number it expected.
 
-    :meth:`close` is collective too: it unmaps the peers' slots on every
-    rank, and only then frees this rank's own."""
+    :meth:`close` is collective too: it unmaps the peers' slots and
+    mailboxes on every rank, and only then frees this rank's own."""
 
     def __init__(self, group: Group, slot_bytes: int, device):
         global _channels_opened
@@ -304,22 +350,22 @@ class IpcChannel:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.slot_bytes = _round_up(max(int(slot_bytes), 1))
+        self.timeout_s = MAILBOX_TIMEOUT_S
         self.closed = False
         self.group = group.bind(self)
         self._cuda = self.device.type == "cuda"
         me = group.rank
         self._peers = [q for q in range(group.size) if q != me]
-        # The tag pair: the same on every rank, apart from every other
-        # channel this process has opened.
+        # The channel's number: the same on every rank, apart from every
+        # other channel this process has opened (it names the channel in
+        # errors).
         idx = [None] * group.size
         dist.all_gather_object(idx, _channels_opened, group=group.pg)
-        index = max(idx)
-        _channels_opened = index + 1
-        self._tag_notify = _TAG_BASE + 2 * index
-        self._tag_ack = self._tag_notify + 1
+        self.index = max(idx)
+        _channels_opened = self.index + 1
+        self.name = f"{group.name}#{self.index}"
         self._sent = {q: 0 for q in self._peers}
         self._taken = {q: 0 for q in self._peers}
-        self._pending: list = []          # this call's sends
         self._register()
         _open_channels.append(self)
 
@@ -341,6 +387,7 @@ class IpcChannel:
             # step's temporaries too little room (phase 6, gemma-7b on
             # one H100: the card held 71.32 GiB with them in the shared
             # pool, 66.20 with a pool of their own).
+            self._lib = _mailbox_lib() if self._cuda else None
             self._pool = torch.cuda.MemPool() if self._cuda else None
             with torch.cuda.use_mem_pool(self._pool) if self._cuda \
                     else contextlib.nullcontext():
@@ -352,28 +399,53 @@ class IpcChannel:
                             if self._cuda else None for q in self._peers}
             self._ack = {q: [self._event() for _ in range(SLOTS)]
                          if self._cuda else None for q in self._peers}
-            record = {q: (_export(self._recv[q]),
-                          self._ipc_handles(self._notify[q]),
-                          self._ipc_handles(self._ack[q]))
-                      for q in self._peers}
+            # box[q, NOTIFY]: q's notifies to this rank; box[q, ACK]:
+            # q's acknowledgements of what this rank sent it.
+            self._box = torch.zeros((g.size, 2, 4), dtype=torch.int64)
+            record = ({q: (_export(self._recv[q]),
+                           self._ipc_handles(self._notify[q]),
+                           self._ipc_handles(self._ack[q]))
+                       for q in self._peers},
+                      _export(self._box.view(torch.uint8)))
         except (RuntimeError, OSError) as e:
             err = e
         _gather_or_raise(g, "exporting receive slots", err)
         records = [None] * g.size
         dist.all_gather_object(records, record, group=g.pg)
         self._send, self._peer_notify, self._peer_ack = {}, {}, {}
+        self._peer_box = {}
         try:
             for q in self._peers:
-                area, notify, ack = records[q][me]
+                area, notify, ack = records[q][0][me]
                 self._send[q] = _import(area)
                 self._peer_notify[q] = self._open_events(notify)
                 self._peer_ack[q] = self._open_events(ack)
                 if self._send[q].shape != (SLOTS, self.slot_bytes):
                     raise RuntimeError(f"rank {q}'s slots have shape "
                                        f"{tuple(self._send[q].shape)}")
+                box = _import(records[q][1])
+                if box.shape != (g.size, 2, 32):
+                    raise RuntimeError(f"rank {q}'s mailbox has shape "
+                                       f"{tuple(box.shape)}")
+                self._peer_box[q] = box.view(torch.int64)
         except (RuntimeError, OSError) as e:
             err = e
         _gather_or_raise(g, "mapping the peers' receive slots", err)
+        # What every hop touches, looked up once: each slot's view, and
+        # each mailbox cell with its address (cells[q][kind]: q's cell in
+        # this rank's mailbox; peer_cells[q][kind]: this rank's in q's).
+        self._send_slots = {q: list(self._send[q]) for q in self._peers}
+        self._recv_slots = {q: list(self._recv[q]) for q in self._peers}
+        self._cells = {q: [self._cell(self._box[q, kind])
+                           for kind in (_NOTIFY, _ACK)]
+                       for q in self._peers}
+        self._peer_cells = {q: [self._cell(self._peer_box[q][me, kind])
+                                for kind in (_NOTIFY, _ACK)]
+                            for q in self._peers}
+
+    @staticmethod
+    def _cell(view):
+        return view, ctypes.c_void_p(view.data_ptr())
 
     def _ipc_handles(self, events):
         return None if events is None else [e.ipc_handle() for e in events]
@@ -386,17 +458,51 @@ class IpcChannel:
 
     # -- control messages ---------------------------------------------------
 
-    def _isend(self, q: int, tag: int, values) -> None:
-        msg = torch.tensor(values, dtype=torch.int64)
-        self._pending.append((dist.isend(msg, dst=self.group.global_rank(q),
-                                         group=self.group.pg, tag=tag), msg))
+    def _publish(self, q: int, kind: int, values) -> None:
+        """Write ``(seq, slot, bytes)`` into this rank's ``kind`` cell of
+        ``q``'s mailbox, then raise its gen."""
+        cell, addr = self._peer_cells[q][kind]
+        if self._cuda:
+            self._lib.mailbox_post(addr, *values)
+        else:
+            cell[1:] = torch.tensor(values, dtype=torch.int64)
+            cell[0] = int(cell[0]) + 1
         traffic["control_messages"] += 1
 
-    def _recv_msg(self, q: int, tag: int, n: int) -> list:
-        msg = torch.empty(n, dtype=torch.int64)
-        dist.recv(msg, src=self.group.global_rank(q), group=self.group.pg,
-                  tag=tag)
-        return msg.tolist()
+    def _wait(self, q: int, kind: int, want: list) -> None:
+        """Wait for message number ``want[0] + 1`` in ``q``'s ``kind``
+        cell of this rank's mailbox and check that it is ``want``
+        (``(seq, slot, bytes)``)."""
+        cell, addr = self._cells[q][kind]
+        gen = want[0] + 1
+        what = ("notify", "acknowledgement")[kind]
+        if self._cuda:
+            out = (ctypes.c_int64 * 4)()
+            late = self._lib.mailbox_wait(addr, gen, self.timeout_s, out)
+            got = list(out)
+        else:
+            late, t0, pause = 1, time.monotonic(), 0.0
+            while time.monotonic() - t0 <= self.timeout_s:
+                if int(cell[0]) >= gen:
+                    late = 0
+                    break
+                time.sleep(pause)
+                pause = min(1e-3, pause * 2 or 1e-5)
+            got = cell.tolist()
+        if late:
+            raise TimeoutError(
+                f"cuda_ipc channel {self.name}: no {what} from rank {q} "
+                f"(global rank {self.group.global_rank(q)}) in "
+                f"{self.timeout_s} s; expected seq {want[0]}")
+        if got[0] != gen or got[1:1 + len(want)] != list(want):
+            raise RuntimeError(
+                f"cuda_ipc channel {self.name}: rank {q} sent the notify "
+                f"{got[1:1 + len(want)]} (message {got[0]}), expected "
+                f"(seq, slot, bytes) {list(want)} (message {gen})"
+                if kind == _NOTIFY else
+                f"cuda_ipc channel {self.name}: rank {q} acknowledged "
+                f"{got[1:2]} (message {got[0]}), expected payload "
+                f"{want[0]} (message {gen})")
 
     # -- a hop --------------------------------------------------------------
 
@@ -424,7 +530,7 @@ class IpcChannel:
             else None
         if self._cuda and seq >= SLOTS:   # q has read the slot's last payload
             stream.wait_event(self._peer_ack[q][k])
-        slot = self._send[q][k]
+        slot = self._send_slots[q][k]
         nbytes = 0
         for p, off in zip(parts, offsets):
             b = _as_bytes(p)
@@ -432,7 +538,7 @@ class IpcChannel:
             nbytes += b.numel()
         if self._cuda:
             self._notify[q][k].record(stream)
-        self._isend(q, self._tag_notify, [seq, k, nbytes])
+        self._publish(q, _NOTIFY, (seq, k, nbytes))
         traffic["mapped_bytes"] += nbytes
         self._sent[q] = seq + 1
 
@@ -444,15 +550,12 @@ class IpcChannel:
         seq = self._taken[q]
         k = seq % SLOTS
         nbytes = sum(t.numel() * t.element_size() for t in like)
-        with _span("cuda_ipc.notify_wait"):
-            got = self._recv_msg(q, self._tag_notify, 3)
-        if got != [seq, k, nbytes]:
-            raise RuntimeError(f"cuda_ipc: rank {q} sent {got}, expected "
-                               f"(seq, slot, bytes) {[seq, k, nbytes]}")
+        with _wait_span("cuda_ipc.notify_wait"):
+            self._wait(q, _NOTIFY, [seq, k, nbytes])
         if self._cuda:
             torch.cuda.current_stream(self.device).wait_event(
                 self._peer_notify[q][k])
-        slot = self._recv[q][k]
+        slot = self._recv_slots[q][k]
         views = [slot[off:off + t.numel() * t.element_size()]
                  .view(t.dtype).reshape(t.shape)
                  for t, off in zip(like, offsets)]
@@ -460,24 +563,17 @@ class IpcChannel:
         self._check_not_slot(out, slot)
         if self._cuda:
             self._ack[q][k].record(torch.cuda.current_stream(self.device))
-        self._isend(q, self._tag_ack, [seq])
+        self._publish(q, _ACK, (seq, 0, 0))
         self._taken[q] = seq + 1
         return out
 
     def finish(self, posted) -> None:
-        """End a collective call: receive the acknowledgement of what
-        this rank posted to each of ``posted``, then complete every
-        send of the call (each peer has read them by now)."""
+        """End a collective call: wait for the acknowledgement of what
+        this rank posted to each of ``posted`` (each peer has read it by
+        then)."""
         for q in posted:
-            seq = self._sent[q] - 1
-            with _span("cuda_ipc.ack_wait"):
-                got = self._recv_msg(q, self._tag_ack, 1)
-            if got != [seq]:
-                raise RuntimeError(f"cuda_ipc: rank {q} acknowledged {got}, "
-                                   f"expected payload {seq}")
-        for work, _ in self._pending:
-            work.wait()
-        self._pending = []
+            with _wait_span("cuda_ipc.ack_wait"):
+                self._wait(q, _ACK, [self._sent[q] - 1])
 
     @staticmethod
     def _check_not_slot(out, slot):
@@ -501,7 +597,12 @@ class IpcChannel:
             torch.cuda.synchronize(self.device)
         dist.barrier(group=self.group.pg)
         self._send = self._peer_notify = self._peer_ack = None
+        self._peer_box = self._send_slots = self._peer_cells = None
         dist.barrier(group=self.group.pg)
+        # Every tensor from the slots' pool goes before the pool: one
+        # still alive when the pool goes keeps its block out of the
+        # allocator's reach.
+        self._recv_slots = self._cells = self._box = None
         self._recv = self._notify = self._ack = self._pool = None
         if self._cuda:
             torch.cuda.ipc_collect()

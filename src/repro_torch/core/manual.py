@@ -25,6 +25,20 @@ A leaf whose sharded dim the model axis does not divide falls back to
 replicated, as ``models.divisibility_check`` would report it, so any
 architecture runs on any model-axis size.
 
+Sequence parallelism (``seq=True``; the reference's ``seq_parallel``,
+there a GSPMD constraint on the residual stream): each model rank runs
+the loss on its chunk of the sequence (``models/transformer.py``), so
+the cotangents differ across the model ranks and the boundary sums
+them: a sharded leaf gathers forward and reduce-scatters backward (its
+block of the sum over the model ranks), a replicated leaf passes
+through forward and is summed over the model group backward.  After it
+the replicated gradients are equal on every model rank, so the
+aggregator's bracketed plan stays as it is.  :func:`seq_gather` is the
+activations' boundary: an all-gather along the sequence forward, a
+reduce-scatter backward.  The reduce-scatter is a ring of ``m - 1``
+ppermute hops (``dist.ppermute``, so it runs on every transport,
+through the group's channel on ``cuda_ipc``).
+
 Specs are tuples with one entry per dim (``None`` or ``"model"``);
 ``()`` is replicated.
 """
@@ -97,6 +111,14 @@ def sharded_mask(params, mspecs):
         lambda _, spec: sharded_dim(spec) is not None, params, mspecs)
 
 
+def _all_gather_dim(x, dim: int, group) -> torch.Tensor:
+    """Every model rank's ``x`` joined along ``dim`` in rank order."""
+    stacked = dist_mod.all_gather(x.detach().contiguous(), group)
+    full = torch.movedim(stacked, 0, dim)
+    return full.reshape(x.shape[:dim] + (x.shape[dim] * group.size,)
+                        + x.shape[dim + 1:])
+
+
 class _GatherLeaf(torch.autograd.Function):
     """All-gather forward, this rank's block of the cotangent backward
     (see the module docstring: no sum)."""
@@ -104,11 +126,7 @@ class _GatherLeaf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.index, ctx.shard = dim, group.rank, x.shape[dim]
-        stacked = dist_mod.all_gather(x.detach().contiguous(), group)
-        full = torch.movedim(stacked, 0, dim)
-        shape = x.shape[:dim] + (x.shape[dim] * group.size,) \
-            + x.shape[dim + 1:]
-        return full.reshape(shape)
+        return _all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, ct):
@@ -116,16 +134,75 @@ class _GatherLeaf(torch.autograd.Function):
         return block.contiguous(), None, None
 
 
-def gather_params(params, mspecs, group):
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every model rank's
+    ``x``: a ring of ``m - 1`` hops, each sending one block, the partial
+    sum of block ``r - t - 1`` going to rank ``r + 1`` at step ``t``."""
+    m, r = group.size, group.rank
+    if x.shape[dim] % m:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {m} ranks")
+    blocks = [b.contiguous() for b in x.chunk(m, dim)]
+    ring = [(i, (i + 1) % m) for i in range(m)]
+    acc = blocks[(r - 1) % m]
+    for t in range(m - 1):
+        got = dist_mod.ppermute(acc, group, ring)
+        acc = got + blocks[(r - t - 2) % m]
+    return acc
+
+
+class _GatherLeafSeq(torch.autograd.Function):
+    """All-gather forward, this rank's block of the summed cotangent
+    backward (sequence parallelism: the model ranks' cotangents
+    differ)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return reduce_scatter(ct, ctx.dim, ctx.group), None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Identity forward, the cotangent summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return dist_mod.psum(ct.contiguous(), ctx.group), None
+
+
+def seq_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x``'s chunks of every model rank joined along ``dim``,
+    differentiably: all-gather forward, reduce-scatter backward (the
+    model ranks' cotangents of the whole sequence summed, each keeping
+    its chunk's)."""
+    if group.size == 1:
+        return x
+    return _GatherLeafSeq.apply(x, dim, group)
+
+
+def gather_params(params, mspecs, group, seq: bool = False):
     """The full parameters from this rank's shards, differentiably;
-    replicated leaves pass through untouched.  ``group``: the model
-    axis's :class:`~repro_torch.core.dist.Group` (on ``cuda_ipc`` one
-    with a channel bound, :func:`gather_group`)."""
+    replicated leaves pass through untouched (with ``seq``, summed over
+    the model group backward).  ``group``: the model axis's
+    :class:`~repro_torch.core.dist.Group` (on ``cuda_ipc`` one with a
+    channel bound, :func:`gather_group`)."""
     if group.size == 1:
         return params
 
     def leaf(x, spec):
         dim = sharded_dim(spec)
+        if seq:
+            return _SumBackward.apply(x, group) if dim is None \
+                else _GatherLeafSeq.apply(x, dim, group)
         return x if dim is None else _GatherLeaf.apply(x, dim, group)
 
     return tree_mod.tree_map(leaf, params, mspecs)
@@ -157,3 +234,15 @@ def gather_group(group, params, mspecs, device):
                                       tree_mod.leaves(mspecs))
                    if sharded_dim(spec) is not None), default=0)
     return dist_mod.IpcChannel(group, largest, device).group
+
+
+def own_group(group):
+    """A second process group over ``group``'s ranks, with its
+    transport: collectives that the backward issues on the main thread
+    then never share a process group with the overlap channel's thread.
+    Collective over the group's ranks only (local synchronization)."""
+    if group.size == 1 or not torch.distributed.is_initialized():
+        return group
+    ranks = [group.global_rank(r) for r in range(group.size)]
+    pg = torch.distributed.new_group(ranks, use_local_synchronization=True)
+    return dist_mod.Group(pg, name=group.name, transport=group.transport)

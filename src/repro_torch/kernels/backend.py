@@ -36,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_hop", "fused_reduce", "fused_adamw", "fused_rmsnorm",
-           "flash_attention")
+           "flash_attention", "mailbox")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-ftz=true",

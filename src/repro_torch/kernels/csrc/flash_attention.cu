@@ -5,10 +5,13 @@
 // _flash_fwd_kernel (flash_attention_fwd, K7), _flash_dq_kernel and
 // _flash_dkv_kernel (flash_attention_bwd, K8).
 //
-// Layout: q, k, v, out, dout, dq, dk, dv are (B, S, H, D) row-major with
-// the kv heads already repeated to H; lse and delta are (B, H, S) f32.
-// Positions are 0..S-1; a key is visible to a query when both lie below
-// S, and (causal) k <= q, and (window > 0) q - k < window.  A masked
+// Layout: q, out, dout, dq are (B, Sq, H, D) and k, v, dk, dv (B, Sk, H, D),
+// row-major, with the kv heads already repeated to H; lse and delta are
+// (B, H, Sq) f32.  Query row i stands at position q_off + i, key row j at
+// j (the square case: Sq = Sk, q_off = 0; a sequence split over ranks
+// gives each rank its queries at an offset against every key).  A key is
+// visible to a query when both rows lie below Sq and Sk, and (causal)
+// k <= q, and (window > 0) q - k < window, in positions.  A masked
 // score is the reference's finite NEG_INF = -1e30, so a fully masked
 // row stays finite; l is clamped at 1e-30 as in the reference.
 //
@@ -92,38 +95,56 @@ __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
 
-__device__ __forceinline__ bool visible(int q, int k, int S, int causal,
+// The rows of one call: sq queries at positions qoff .. qoff + sq - 1,
+// sk keys at 0 .. sk - 1.
+struct Seqs {
+  int sq, sk, qoff;
+};
+
+// The rows as a kernel sees them.  Every kernel comes in two builds: the
+// square one (OFF false) folds sk = sq and qoff = 0 at compile time, so
+// its code is the square kernel's; the other takes any sq, sk and qoff.
+template <bool OFF>
+__device__ __forceinline__ Seqs rows_of(Seqs s) {
+  return OFF ? s : Seqs{s.sq, s.sq, 0};
+}
+
+// Query row q (its position q + qoff) against key row k.
+__device__ __forceinline__ bool visible(int q, int k, Seqs L, int causal,
                                         int window) {
-  if (q >= S || k >= S) return false;
-  if (causal && k > q) return false;
-  if (window > 0 && q - k >= window) return false;
+  if (q >= L.sq || k >= L.sk) return false;
+  const int qp = q + L.qoff;
+  if (causal && k > qp) return false;
+  if (window > 0 && qp - k >= window) return false;
   return true;
 }
 
 // Key tiles (`tile` rows each) [lo, hi) that can hold a key visible to a
-// query in [q_first, q_first + n); empty when no such query lies below S.
-__device__ __forceinline__ void keys_for(int q_first, int n, int tile, int S,
+// query row in [q_first, q_first + n); empty when no such row lies below
+// sq.
+__device__ __forceinline__ void keys_for(int q_first, int n, int tile, Seqs L,
                                          int causal, int window, int* lo,
                                          int* hi) {
   *lo = *hi = 0;
-  if (q_first >= S) return;
-  const int nt = (S + tile - 1) / tile;
-  const int q_last = min(q_first + n - 1, S - 1);
+  if (q_first >= L.sq) return;
+  const int nt = (L.sk + tile - 1) / tile;
+  const int q_last = min(q_first + n - 1, L.sq - 1) + L.qoff;
   *hi = causal ? min(nt, q_last / tile + 1) : nt;
-  *lo = window > 0 ? max(0, (q_first - window + 1) / tile) : 0;
+  *lo = window > 0 ? max(0, (q_first + L.qoff - window + 1) / tile) : 0;
 }
 
-// Query tiles (`tile` rows each) [lo, hi) that can see a key in
-// [k_first, k_first + n); empty when no such key lies below S.
+// Query-row tiles (`tile` rows each) [lo, hi) that can see a key in
+// [k_first, k_first + n); empty when no such key lies below sk.
 __device__ __forceinline__ void queries_for(int k_first, int n, int tile,
-                                            int S, int causal, int window,
+                                            Seqs L, int causal, int window,
                                             int* lo, int* hi) {
   *lo = *hi = 0;
-  if (k_first >= S) return;
-  const int nt = (S + tile - 1) / tile;
-  const int k_last = min(k_first + n - 1, S - 1);
-  *lo = causal ? k_first / tile : 0;
-  *hi = window > 0 ? min(nt, (k_last + window - 1) / tile + 1) : nt;
+  if (k_first >= L.sk) return;
+  const int nt = (L.sq + tile - 1) / tile;
+  const int k_last = min(k_first + n - 1, L.sk - 1);
+  *lo = causal ? max(0, k_first - L.qoff) / tile : 0;
+  const int q_last = k_last + window - 1 - L.qoff;  // the last row that sees
+  *hi = window <= 0 ? nt : (q_last < 0 ? 0 : min(nt, q_last / tile + 1));
 }
 
 // Rows [r0, r0 + R) of head (b, h) into an (R, D + 1) f32 tile; rows at
@@ -169,12 +190,13 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 // K7: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool OFF>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int H, float scale,
+                     float* __restrict__ lse, Seqs seqs, int H, float scale,
                      int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   constexpr int P = D + 1;
   constexpr int PP = R + 1;  // pitch of a score tile in shared memory
   constexpr int CD = D / 16;
@@ -189,11 +211,12 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int row_stride = H * D;
-  const long long base = (static_cast<long long>(b) * S * H + h) * D;
+  const long long qbase = (static_cast<long long>(b) * L.sq * H + h) * D;
+  const long long kbase = (static_cast<long long>(b) * L.sk * H + h) * D;
   const int q0 = qt * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, D, R>(Qs, q, base, q0, S, row_stride);
+  load_tile<T, D, R>(Qs, q, qbase, q0, L.sq, row_stride);
   float m[RI], l[RI], acc[RI][CD];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -203,12 +226,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.0f;
   }
   int lo, hi;
-  keys_for(q0, R, R, S, causal, window, &lo, &hi);
+  keys_for(q0, R, R, L, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D, R>(Ks, k, base, k0, S, row_stride);
-    load_tile<T, D, R>(Vs, v, base, k0, S, row_stride);
+    load_tile<T, D, R>(Ks, k, kbase, k0, L.sk, row_stride);
+    load_tile<T, D, R>(Vs, v, kbase, k0, L.sk, row_stride);
     __syncthreads();
     float s[RI][RI];
 #pragma unroll
@@ -234,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < RI; ++j) {
         const float x =
-            visible(qi, k0 + tx + 16 * j, S, causal, window) ? s[i][j] * scale
+            visible(qi, k0 + tx + 16 * j, L, causal, window) ? s[i][j] * scale
                                                              : kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -270,14 +293,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty * RI + i;
-    if (qi >= S) continue;
+    if (qi >= L.sq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    const long long o = base + static_cast<long long>(qi) * row_stride;
+    const long long o = qbase + static_cast<long long>(qi) * row_stride;
 #pragma unroll
     for (int c = 0; c < CD; ++c)
       out[o + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
     if (tx == 0)
-      lse[static_cast<long long>(bh) * S + qi] = m[i] + logf(l_safe);
+      lse[static_cast<long long>(bh) * L.sq + qi] = m[i] + logf(l_safe);
   }
 }
 
@@ -285,13 +308,14 @@ __global__ void __launch_bounds__(kThreads)
 // K8, pass 1: dq, one block per query tile
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool OFF>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, int H, float scale, int causal, int window) {
+                        Seqs seqs, int H, float scale, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   constexpr int P = D + 1;
   constexpr int PP = R + 1;
   constexpr int CD = D / 16;
@@ -309,27 +333,28 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int row_stride = H * D;
-  const long long base = (static_cast<long long>(b) * S * H + h) * D;
-  const long long row_base = static_cast<long long>(bh) * S;
+  const long long qbase = (static_cast<long long>(b) * L.sq * H + h) * D;
+  const long long kbase = (static_cast<long long>(b) * L.sk * H + h) * D;
+  const long long row_base = static_cast<long long>(bh) * L.sq;
   const int q0 = qt * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, D, R>(Qs, q, base, q0, S, row_stride);
-  load_tile<T, D, R>(dOs, dout, base, q0, S, row_stride);
-  load_rows<R>(lse_s, lse, row_base, q0, S);
-  load_rows<R>(delta_s, delta, row_base, q0, S);
+  load_tile<T, D, R>(Qs, q, qbase, q0, L.sq, row_stride);
+  load_tile<T, D, R>(dOs, dout, qbase, q0, L.sq, row_stride);
+  load_rows<R>(lse_s, lse, row_base, q0, L.sq);
+  load_rows<R>(delta_s, delta, row_base, q0, L.sq);
   float acc[RI][CD];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.0f;
   int lo, hi;
-  keys_for(q0, R, R, S, causal, window, &lo, &hi);
+  keys_for(q0, R, R, L, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D, R>(Ks, k, base, k0, S, row_stride);
-    load_tile<T, D, R>(Vs, v, base, k0, S, row_stride);
+    load_tile<T, D, R>(Ks, k, kbase, k0, L.sk, row_stride);
+    load_tile<T, D, R>(Vs, v, kbase, k0, L.sk, row_stride);
     __syncthreads();
     float s[RI][RI], dp[RI][RI];
 #pragma unroll
@@ -364,7 +389,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const float x =
-            visible(q0 + r, k0 + c, S, causal, window) ? s[i][j] * scale
+            visible(q0 + r, k0 + c, L, causal, window) ? s[i][j] * scale
                                                        : kNegInf;
         const float p = expf(x - lse_s[r]);
         dSs[r * PP + c] = (p * (dp[i][j] - delta_s[r])) * scale;
@@ -387,8 +412,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty * RI + i;
-    if (qi >= S) continue;
-    const long long o = base + static_cast<long long>(qi) * row_stride;
+    if (qi >= L.sq) continue;
+    const long long o = qbase + static_cast<long long>(qi) * row_stride;
 #pragma unroll
     for (int c = 0; c < CD; ++c) dq[o + tx + 16 * c] = from_f32<T>(acc[i][c]);
   }
@@ -398,14 +423,15 @@ __global__ void __launch_bounds__(kThreads)
 // K8, pass 2: dk and dv, one block per key tile
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool OFF>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int S, int H, float scale,
+                         T* __restrict__ dv, Seqs seqs, int H, float scale,
                          int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   constexpr int P = D + 1;
   constexpr int PP = R + 1;
   constexpr int CD = D / 16;
@@ -424,27 +450,28 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int row_stride = H * D;
-  const long long base = (static_cast<long long>(b) * S * H + h) * D;
-  const long long row_base = static_cast<long long>(bh) * S;
+  const long long qbase = (static_cast<long long>(b) * L.sq * H + h) * D;
+  const long long kbase = (static_cast<long long>(b) * L.sk * H + h) * D;
+  const long long row_base = static_cast<long long>(bh) * L.sq;
   const int k0 = kt * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, D, R>(Ks, k, base, k0, S, row_stride);
-  load_tile<T, D, R>(Vs, v, base, k0, S, row_stride);
+  load_tile<T, D, R>(Ks, k, kbase, k0, L.sk, row_stride);
+  load_tile<T, D, R>(Vs, v, kbase, k0, L.sk, row_stride);
   float dk_acc[RI][CD], dv_acc[RI][CD];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < CD; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
   int lo, hi;
-  queries_for(k0, R, R, S, causal, window, &lo, &hi);
+  queries_for(k0, R, R, L, causal, window, &lo, &hi);
   for (int qt = lo; qt < hi; ++qt) {
     const int q0 = qt * R;
     __syncthreads();
-    load_tile<T, D, R>(Qs, q, base, q0, S, row_stride);
-    load_tile<T, D, R>(dOs, dout, base, q0, S, row_stride);
-    load_rows<R>(lse_s, lse, row_base, q0, S);
-    load_rows<R>(delta_s, delta, row_base, q0, S);
+    load_tile<T, D, R>(Qs, q, qbase, q0, L.sq, row_stride);
+    load_tile<T, D, R>(dOs, dout, qbase, q0, L.sq, row_stride);
+    load_rows<R>(lse_s, lse, row_base, q0, L.sq);
+    load_rows<R>(delta_s, delta, row_base, q0, L.sq);
     __syncthreads();
     // s[i][j]: key ty*RI+i against query tx+16j (the forward's products
     // in the forward's order, so p is the forward's p).
@@ -481,7 +508,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const float x =
-            visible(q0 + c, k0 + r, S, causal, window) ? s[i][j] * scale
+            visible(q0 + c, k0 + r, L, causal, window) ? s[i][j] * scale
                                                        : kNegInf;
         const float p = expf(x - lse_s[c]);
         Pt[r * PP + c] = p;
@@ -514,8 +541,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int ki = k0 + ty * RI + i;
-    if (ki >= S) continue;
-    const long long o = base + static_cast<long long>(ki) * row_stride;
+    if (ki >= L.sk) continue;
+    const long long o = kbase + static_cast<long long>(ki) * row_stride;
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
       dk[o + tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
@@ -886,10 +913,10 @@ __device__ __forceinline__ void st_xch(uint32_t tile, int r, int c,
 // Whether every (query, key) pair of queries [q0, q0 + nq) and keys
 // [k0, k0 + nk) is visible, so the tile needs no mask.
 __device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk,
-                                            int S, int causal, int window) {
-  return q0 + nq <= S && k0 + nk <= S &&
-         (!causal || k0 + nk - 1 <= q0) &&
-         (window <= 0 || q0 + nq - 1 - k0 < window);
+                                            Seqs L, int causal, int window) {
+  return q0 + nq <= L.sq && k0 + nk <= L.sk &&
+         (!causal || k0 + nk - 1 <= q0 + L.qoff) &&
+         (window <= 0 || q0 + L.qoff + nq - 1 - k0 < window);
 }
 
 // Barriers, then the roles split for good: the producer warp returns when
@@ -1007,22 +1034,23 @@ __device__ __forceinline__ void store_half(__nv_bfloat16* __restrict__ dst,
 // K7 on the tensor cores.  Grid (B*H, query tiles of kOwn rows, last
 // first); warpgroup wg owns queries q0 + 64 wg .. + 63.  At every D the
 // keys stream in 64-row tiles (at 256: 64 KiB of Q, a 128 KiB ring).
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 int S, int H, float scale_log2, int causal, int window) {
+                 Seqs seqs, int H, float scale_log2, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   using G = Geo<D>;
-  using L = Smem<D, 1, kOwn, kTile>;
+  using M = Smem<D, 1, kOwn, kTile>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
-  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
   int lo, hi;
-  keys_for(q0, kOwn, kTile, S, causal, window, &lo, &hi);
+  keys_for(q0, kOwn, kTile, L, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
@@ -1036,7 +1064,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int qw = q0 + wg * kTile;
   const int row = qw + wi * 16 + g;  // and row + 8
   int wlo, whi;
-  keys_for(qw, kTile, kTile, S, causal, window, &wlo, &whi);
+  keys_for(qw, kTile, kTile, L, causal, window, &wlo, &whi);
   float o[G::NB][G::CW / 2];
 #pragma unroll
   for (int nb = 0; nb < G::NB; ++nb)
@@ -1048,8 +1076,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int s = i % kStages;
     mbar_wait(full_bar(bars, s), (i / kStages) & 1);
     if (j >= wlo && j < whi) {
-      const uint32_t k_s = base + L::stream + s * 2 * L::tile;
-      const uint32_t v_s = k_s + L::tile;
+      const uint32_t k_s = base + M::stream + s * 2 * M::tile;
+      const uint32_t v_s = k_s + M::tile;
       float sc[32];
 #pragma unroll
       for (int e = 0; e < 32; ++e) sc[e] = 0.0f;
@@ -1061,14 +1089,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_commit();
       wg_wait0();
       const int k0 = j * kTile;
-      const bool mask = !all_visible(qw, kTile, k0, kTile, S, causal, window);
+      const bool mask = !all_visible(qw, kTile, k0, kTile, L, causal, window);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int hf = (e >> 1) & 1;
         float x = __fmul_rn(sc[e], scale_log2);
         if (mask && !visible(row + 8 * hf, k0 + 8 * (e >> 2) + 2 * t + (e & 1),
-                             S, causal, window))
+                             L, causal, window))
           x = kNegInf;
         sc[e] = x;
         mx[hf] = fmaxf(mx[hf], x);
@@ -1116,41 +1144,42 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     l_safe[hf] = fmaxf(lt, 1e-30f);
   }
   const long long row_stride = static_cast<long long>(H) * D;
-  store_rows<D>(out, (static_cast<long long>(b) * S * H + h) * D, row_stride,
-                row, S, o, l_safe);
+  store_rows<D>(out, (static_cast<long long>(b) * L.sq * H + h) * D,
+                row_stride, row, L.sq, o, l_safe);
   if (t == 0)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
-      if (row + 8 * hf < S)
-        lse[static_cast<long long>(bh) * S + row + 8 * hf] =
+      if (row + 8 * hf < L.sq)
+        lse[static_cast<long long>(bh) * L.sq + row + 8 * hf] =
             m[hf] * kLn2 + logf(l_safe[hf]);
 }
 
 // K8, dq pass on the tensor cores up to head_dim 128: grid as the
 // forward's; Q and dO are the block's own tiles, K and V stream in
 // TN-row tiles.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dq_tc(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, int S, int H, float scale,
+                __nv_bfloat16* __restrict__ dq, Seqs seqs, int H, float scale,
                 float scale_log2, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   static_assert(!kWide<D>, "head_dim 256 takes flash_dq_wide_tc");
   using G = Geo<D>;
   constexpr int TN = kTile;
   constexpr int NS = TN / 2;   // accumulators of a 64 x TN score tile
   constexpr int KK = TN / 16;  // reduction steps over a streamed tile
-  using L = Smem<D, 2, kOwn, TN>;
+  using M = Smem<D, 2, kOwn, TN>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
-  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
   int lo, hi;
-  keys_for(q0, kOwn, TN, S, causal, window, &lo, &hi);
+  keys_for(q0, kOwn, TN, L, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
@@ -1164,28 +1193,28 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int qw = q0 + wg * kTile;
   const int row = qw + wi * 16 + g;  // and row + 8
   int wlo, whi;
-  keys_for(qw, kTile, TN, S, causal, window, &wlo, &whi);
-  const long long rbase = static_cast<long long>(bh) * S;
+  keys_for(qw, kTile, TN, L, causal, window, &wlo, &whi);
+  const long long rbase = static_cast<long long>(bh) * L.sq;
   float lse2[2], dl[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = row + 8 * hf;
-    lse2[hf] = r < S ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
-    dl[hf] = r < S ? delta[rbase + r] : 0.0f;
+    lse2[hf] = r < L.sq ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
+    dl[hf] = r < L.sq ? delta[rbase + r] : 0.0f;
   }
   float acc[G::NB][G::CW / 2];
 #pragma unroll
   for (int nb = 0; nb < G::NB; ++nb)
 #pragma unroll
     for (int e = 0; e < G::CW / 2; ++e) acc[nb][e] = 0.0f;
-  const uint32_t do_own = base + L::own;
+  const uint32_t do_own = base + M::own;
   mbar_wait(bars, 0);
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int s = i % kStages;
     mbar_wait(full_bar(bars, s), (i / kStages) & 1);
     if (j >= wlo && j < whi) {
-      const uint32_t k_s = base + L::stream + s * 2 * L::tile;
-      const uint32_t v_s = k_s + L::tile;
+      const uint32_t k_s = base + M::stream + s * 2 * M::tile;
+      const uint32_t v_s = k_s + M::tile;
       float sc[NS], dp[NS];
 #pragma unroll
       for (int e = 0; e < NS; ++e) sc[e] = dp[e] = 0.0f;
@@ -1200,7 +1229,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_commit();
       wg_wait0();
       const int k0 = j * TN;
-      const bool mask = !all_visible(qw, kTile, k0, TN, S, causal, window);
+      const bool mask = !all_visible(qw, kTile, k0, TN, L, causal, window);
       uint32_t da[KK][4];
 #pragma unroll
       for (int e = 0; e < NS; e += 2) {
@@ -1210,7 +1239,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         for (int u = 0; u < 2; ++u) {
           const int x = e + u;
           float p = 0.0f;
-          if (!mask || visible(row + 8 * hf, k0 + 8 * (x >> 2) + 2 * t + u, S,
+          if (!mask || visible(row + 8 * hf, k0 + 8 * (x >> 2) + 2 * t + u, L,
                                causal, window))
             p = exp2f(__fmul_rn(sc[x], scale_log2) - lse2[hf]);
           ds[u] = __fmul_rn(__fmul_rn(p, dp[x] - dl[hf]), scale);
@@ -1229,8 +1258,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     mbar_arrive(empty_bar(bars, s));
   }
   const float one[2] = {1.0f, 1.0f};
-  store_rows<D>(dq, (static_cast<long long>(b) * S * H + h) * D,
-                static_cast<long long>(H) * D, row, S, acc, one);
+  store_rows<D>(dq, (static_cast<long long>(b) * L.sq * H + h) * D,
+                static_cast<long long>(H) * D, row, L.sq, acc, one);
 }
 
 // K8, dk/dv pass on the tensor cores up to head_dim 128: grid (B*H, key
@@ -1238,7 +1267,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // and dO stream.  The products run transposed (S^T = K Q^T, dP^T = V
 // dO^T), so P^T and dS^T come out as the A fragments of dV += P^T dO and
 // dK += dS^T Q.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dkv_tc(const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
@@ -1247,17 +1276,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int S, int H, float scale,
+                 __nv_bfloat16* __restrict__ dv, Seqs seqs, int H, float scale,
                  float scale_log2, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   using G = Geo<D>;
-  using L = Smem<D, 2, kOwn, kTile>;
+  using M = Smem<D, 2, kOwn, kTile>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
-  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kOwn;
   int lo, hi;
-  queries_for(k0, kOwn, kTile, S, causal, window, &lo, &hi);
+  queries_for(k0, kOwn, kTile, L, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
@@ -1271,14 +1301,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int kw = k0 + wg * kTile;
   const int row = kw + wi * 16 + g;  // keys row and row + 8
   int wlo, whi;
-  queries_for(kw, kTile, kTile, S, causal, window, &wlo, &whi);
-  const long long rbase = static_cast<long long>(bh) * S;
+  queries_for(kw, kTile, kTile, L, causal, window, &wlo, &whi);
+  const long long rbase = static_cast<long long>(bh) * L.sq;
   float acc_k[G::NB][G::CW / 2], acc_v[G::NB][G::CW / 2];
 #pragma unroll
   for (int nb = 0; nb < G::NB; ++nb)
 #pragma unroll
     for (int e = 0; e < G::CW / 2; ++e) acc_k[nb][e] = acc_v[nb][e] = 0.0f;
-  const uint32_t v_own = base + L::own;
+  const uint32_t v_own = base + M::own;
   mbar_wait(bars, 0);
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int s = i % kStages;
@@ -1290,14 +1320,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const int q = q0 + 8 * (c >> 1) + 2 * t + (c & 1);
-        lq[c] = q < S ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
-        dl[c] = q < S ? delta[rbase + q] : 0.0f;
+        lq[c] = q < L.sq ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
+        dl[c] = q < L.sq ? delta[rbase + q] : 0.0f;
       }
     }
     mbar_wait(full_bar(bars, s), (i / kStages) & 1);
     if (active) {
-      const uint32_t q_s = base + L::stream + s * 2 * L::tile;
-      const uint32_t do_s = q_s + L::tile;
+      const uint32_t q_s = base + M::stream + s * 2 * M::tile;
+      const uint32_t do_s = q_s + M::tile;
       float sc[32], dp[32];
 #pragma unroll
       for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
@@ -1311,7 +1341,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
       wg_commit();
       wg_wait0();
-      const bool mask = !all_visible(q0, kTile, kw, kTile, S, causal, window);
+      const bool mask = !all_visible(q0, kTile, kw, kTile, L, causal, window);
       uint32_t pa[4][4], da[4][4];
 #pragma unroll
       for (int e = 0; e < 32; e += 2) {
@@ -1322,7 +1352,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           const int x = e + u;
           const int c = 2 * (x >> 2) + u;  // this lane's column index
           p[u] = 0.0f;
-          if (!mask || visible(q0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf, S,
+          if (!mask || visible(q0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf, L,
                                causal, window))
             p[u] = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
           ds[u] = __fmul_rn(__fmul_rn(p[u], dp[x] - dl[c]), scale);
@@ -1344,10 +1374,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     mbar_arrive(empty_bar(bars, s));
   }
   const float one[2] = {1.0f, 1.0f};
-  const long long obase = (static_cast<long long>(b) * S * H + h) * D;
+  const long long obase = (static_cast<long long>(b) * L.sk * H + h) * D;
   const long long row_stride = static_cast<long long>(H) * D;
-  store_rows<D>(dk, obase, row_stride, row, S, acc_k, one);
-  store_rows<D>(dv, obase, row_stride, row, S, acc_v, one);
+  store_rows<D>(dk, obase, row_stride, row, L.sk, acc_k, one);
+  store_rows<D>(dv, obase, row_stride, row, L.sk, acc_v, one);
 }
 
 // The wide kernels' score products for one streamed tile: sc += A0 B0^T
@@ -1399,7 +1429,7 @@ static_assert(2 * 64 + 2 * 16 + 2 * 8 + 48 <= kConsumerRegs,
 // in bf16, to an exchange tile; after the consumers' barrier it
 // accumulates dq[:, 128 wg : 128 wg + 128] += dS K over all 64 keys.
 // Three products a tile; both warpgroups do the same work.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dq_wide_tc(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -1407,17 +1437,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                      const __grid_constant__ CUtensorMap tv,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dq, int S, int H,
+                     __nv_bfloat16* __restrict__ dq, Seqs seqs, int H,
                      float scale, float scale_log2, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   static_assert(kWide<D> && Geo<D>::NB % 2 == 0, "a wide kernel");
-  using L = WideSmem<D, 2>;
+  using M = WideSmem<D, 2>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
-  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   int lo, hi;
-  keys_for(q0, kTile, kTile, S, causal, window, &lo, &hi);
+  keys_for(q0, kTile, kTile, L, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
@@ -1431,30 +1462,30 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int r0 = wi * 16 + g;  // this lane's tile rows r0 and r0 + 8
   const int row = q0 + r0;
   const int c0 = wg * 32;      // this warpgroup's key columns of a tile
-  const long long rbase = static_cast<long long>(bh) * S;
+  const long long rbase = static_cast<long long>(bh) * L.sq;
   float lse2[2], dl[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = row + 8 * hf;
-    lse2[hf] = r < S ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
-    dl[hf] = r < S ? delta[rbase + r] : 0.0f;
+    lse2[hf] = r < L.sq ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
+    dl[hf] = r < L.sq ? delta[rbase + r] : 0.0f;
   }
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
-  const uint32_t do_own = base + L::S::own;
+  const uint32_t do_own = base + M::S::own;
   mbar_wait<true>(bars, 0);
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int s = i % kStages;
-    const uint32_t k_s = base + L::S::stream + s * 2 * L::S::tile;
-    const uint32_t v_s = k_s + L::S::tile;
-    const uint32_t ds_s = base + L::xch + (i & 1) * L::xtile;
+    const uint32_t k_s = base + M::S::stream + s * 2 * M::S::tile;
+    const uint32_t v_s = k_s + M::S::tile;
+    const uint32_t ds_s = base + M::xch + (i & 1) * M::xtile;
     float sc[16], dp[16];
     mbar_wait<true>(full_bar(bars, s), (i / kStages) & 1);
     wide_scores<D>(sc, dp, base, k_s, do_own, v_s, c0);
     wg_wait0();
     const int k0 = j * kTile;
-    const bool mask = !all_visible(q0, kTile, k0, kTile, S, causal, window);
+    const bool mask = !all_visible(q0, kTile, k0, kTile, L, causal, window);
 #pragma unroll
     for (int e = 0; e < 16; e += 2) {
       const int hf = (e >> 1) & 1;
@@ -1464,7 +1495,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int x = e + u;
         float p = 0.0f;
         if (!mask || visible(row + 8 * hf, k0 + c0 + 8 * (x >> 2) + 2 * t + u,
-                             S, causal, window))
+                             L, causal, window))
           p = exp2f(__fmul_rn(sc[x], scale_log2) - lse2[hf]);
         ds[u] = __fmul_rn(__fmul_rn(p, dp[x] - dl[hf]), scale);
       }
@@ -1480,8 +1511,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wg_wait0();
     mbar_arrive(empty_bar(bars, s));
   }
-  store_half(dq, (static_cast<long long>(b) * S * H + h) * D,
-             static_cast<long long>(H) * D, row, S, 128 * wg, acc);
+  store_half(dq, (static_cast<long long>(b) * L.sq * H + h) * D,
+             static_cast<long long>(H) * D, row, L.sq, 128 * wg, acc);
 }
 
 // K8, dk/dv pass on the tensor cores at head_dim 256: grid (B*H, key
@@ -1492,7 +1523,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // consumers' barrier it accumulates dV[:, 128 wg : 128 wg + 128] += P^T dO
 // and dK[:, 128 wg : 128 wg + 128] += dS^T Q over all 64 queries.  Four
 // products a tile; both warpgroups do the same work.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dkv_wide_tc(const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -1501,18 +1532,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int H,
+                      __nv_bfloat16* __restrict__ dv, Seqs seqs, int H,
                       float scale, float scale_log2, int causal,
                       int window) {
+  const Seqs L = rows_of<OFF>(seqs);
   static_assert(kWide<D> && Geo<D>::NB % 2 == 0, "a wide kernel");
-  using L = WideSmem<D, 4>;
+  using M = WideSmem<D, 4>;
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
-  const uint32_t bars = setup(smem_raw, L::bars, &base);
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kTile;
   int lo, hi;
-  queries_for(k0, kTile, kTile, S, causal, window, &lo, &hi);
+  queries_for(k0, kTile, kTile, L, causal, window, &lo, &hi);
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x == kConsumers)
@@ -1526,19 +1558,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int r0 = wi * 16 + g;  // this lane's tile rows r0 and r0 + 8
   const int row = k0 + r0;     // keys
   const int c0 = wg * 32;      // this warpgroup's query columns of a tile
-  const long long rbase = static_cast<long long>(bh) * S;
+  const long long rbase = static_cast<long long>(bh) * L.sq;
   float acc_k[64], acc_v[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc_k[e] = acc_v[e] = 0.0f;
-  const uint32_t v_own = base + L::S::own;
+  const uint32_t v_own = base + M::S::own;
   mbar_wait<true>(bars, 0);
   for (int j = lo, i = 0; j < hi; ++j, ++i) {
     const int s = i % kStages;
     const int q0 = j * kTile;
-    const uint32_t q_s = base + L::S::stream + s * 2 * L::S::tile;
-    const uint32_t do_s = q_s + L::S::tile;
-    const uint32_t pt_s = base + L::xch + (i & 1) * 2 * L::xtile;
-    const uint32_t dst_s = pt_s + L::xtile;
+    const uint32_t q_s = base + M::S::stream + s * 2 * M::S::tile;
+    const uint32_t do_s = q_s + M::S::tile;
+    const uint32_t pt_s = base + M::xch + (i & 1) * 2 * M::xtile;
+    const uint32_t dst_s = pt_s + M::xtile;
     float sc[16], dp[16];
     mbar_wait<true>(full_bar(bars, s), (i / kStages) & 1);
     wide_scores<D>(sc, dp, base, q_s, v_own, do_s, c0);
@@ -1548,11 +1580,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int q = q0 + c0 + 8 * (c >> 1) + 2 * t + (c & 1);
-      lq[c] = q < S ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
-      dl[c] = q < S ? delta[rbase + q] : 0.0f;
+      lq[c] = q < L.sq ? __fmul_rn(lse[rbase + q], kLog2e) : 0.0f;
+      dl[c] = q < L.sq ? delta[rbase + q] : 0.0f;
     }
     wg_wait0();
-    const bool mask = !all_visible(q0, kTile, k0, kTile, S, causal, window);
+    const bool mask = !all_visible(q0, kTile, k0, kTile, L, causal, window);
 #pragma unroll
     for (int e = 0; e < 16; e += 2) {
       const int hf = (e >> 1) & 1;
@@ -1563,7 +1595,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int c = 2 * (x >> 2) + u;  // this lane's column index
         p[u] = 0.0f;
         if (!mask || visible(q0 + c0 + 8 * (x >> 2) + 2 * t + u, row + 8 * hf,
-                             S, causal, window))
+                             L, causal, window))
           p[u] = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
         ds[u] = __fmul_rn(__fmul_rn(p[u], dp[x] - dl[c]), scale);
       }
@@ -1582,10 +1614,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wg_wait0();
     mbar_arrive(empty_bar(bars, s));
   }
-  const long long obase = (static_cast<long long>(b) * S * H + h) * D;
+  const long long obase = (static_cast<long long>(b) * L.sk * H + h) * D;
   const long long row_stride = static_cast<long long>(H) * D;
-  store_half(dk, obase, row_stride, row, S, 128 * wg, acc_k);
-  store_half(dv, obase, row_stride, row, S, 128 * wg, acc_v);
+  store_half(dk, obase, row_stride, row, L.sk, 128 * wg, acc_k);
+  store_half(dv, obase, row_stride, row, L.sk, 128 * wg, acc_v);
 }
 
 // ---------------------------------------------------------------------------
@@ -1612,49 +1644,50 @@ int prepare(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool OFF>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-        int B, int S, int H, float scale, int causal, int window,
+        int B, Seqs L, int H, float scale, int causal, int window,
         cudaStream_t stream) {
   constexpr size_t smem = fwd_smem<D, kB>();
   static_assert(smem <= kSmemLimit, "f32 forward tiles exceed shared memory");
-  const int rc = prepare(flash_fwd_kernel<T, D, kB>, smem);
+  const int rc = prepare(flash_fwd_kernel<T, D, kB, OFF>, smem);
   if (rc != 0) return rc;
-  const dim3 grid((S + kB - 1) / kB, B * H);
-  flash_fwd_kernel<T, D, kB><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((L.sq + kB - 1) / kB, B * H);
+  flash_fwd_kernel<T, D, kB, OFF><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, scale,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, L, H, scale,
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool OFF>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dq, void* dk, void* dv,
-        int B, int S, int H, float scale, int causal, int window, int passes,
+        int B, Seqs L, int H, float scale, int causal, int window, int passes,
         cudaStream_t stream) {
   constexpr int R = f32_bwd_rows<D>();
   constexpr size_t smem_dq = dq_smem<D, R>(), smem_dkv = dkv_smem<D, R>();
   static_assert(smem_dq <= kSmemLimit && smem_dkv <= kSmemLimit,
                 "f32 backward tiles exceed shared memory");
-  int rc = prepare(flash_bwd_dq_kernel<T, D, R>, smem_dq);
+  int rc = prepare(flash_bwd_dq_kernel<T, D, R, OFF>, smem_dq);
   if (rc != 0) return rc;
-  rc = prepare(flash_bwd_dkv_kernel<T, D, R>, smem_dkv);
+  rc = prepare(flash_bwd_dkv_kernel<T, D, R, OFF>, smem_dkv);
   if (rc != 0) return rc;
-  const dim3 grid((S + R - 1) / R, B * H);
+  const dim3 grid_q((L.sq + R - 1) / R, B * H);
+  const dim3 grid_k((L.sk + R - 1) / R, B * H);
   if (passes & 1) {
-    flash_bwd_dq_kernel<T, D, R><<<grid, kThreads, smem_dq, stream>>>(
+    flash_bwd_dq_kernel<T, D, R, OFF><<<grid_q, kThreads, smem_dq, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), S, H, scale, causal, window);
+        static_cast<T*>(dq), L, H, scale, causal, window);
     rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
   if (passes & 2) {
-    flash_bwd_dkv_kernel<T, D, R><<<grid, kThreads, smem_dkv, stream>>>(
+    flash_bwd_dkv_kernel<T, D, R, OFF><<<grid_k, kThreads, smem_dkv, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal,
+        static_cast<T*>(dk), static_cast<T*>(dv), L, H, scale, causal,
         window);
     rc = static_cast<int>(cudaGetLastError());
   }
@@ -1684,9 +1717,9 @@ EncodeTiled encode_tiled() {
 // (then kMapError + the CUresult).
 constexpr int kMapError = 1000;
 
-// A map of a (B, S, H, D) bf16 tensor whose box is `rows` rows of one
-// head by CW columns, in the swizzle that Geo<D> names.  Coordinates
-// past S read as zeros (OOB fill NONE fills zeros).
+// A map of a (B, S, H, D) bf16 tensor (S: Sq or Sk) whose box is `rows`
+// rows of one head by CW columns, in the swizzle that Geo<D> names.
+// Coordinates past S read as zeros (OOB fill NONE fills zeros).
 template <int D>
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
              int rows) {
@@ -1715,60 +1748,61 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
 }
 
-template <int D>
+template <int D, bool OFF>
 int fwd_tc(const void* q, const void* k, const void* v, void* out,
-           float* lse, int B, int S, int H, float scale, int causal,
+           float* lse, int B, Seqs L, int H, float scale, int causal,
            int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = make_map<D>(&mq, q, B, S, H, kOwn);
-  if (rc == 0) rc = make_map<D>(&mk, k, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&mv, v, B, S, H, kTile);
+  int rc = make_map<D>(&mq, q, B, L.sq, H, kOwn);
+  if (rc == 0) rc = make_map<D>(&mk, k, B, L.sk, H, kTile);
+  if (rc == 0) rc = make_map<D>(&mv, v, B, L.sk, H, kTile);
   if (rc != 0) return rc;
   constexpr uint32_t smem = TcSmem<D>::fwd;
-  rc = prepare(flash_fwd_tc<D>, smem);
+  rc = prepare(flash_fwd_tc<D, OFF>, smem);
   if (rc != 0) return rc;
-  const dim3 grid(B * H, (S + kOwn - 1) / kOwn);
-  flash_fwd_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, S, H,
+  const dim3 grid(B * H, (L.sq + kOwn - 1) / kOwn);
+  flash_fwd_tc<D, OFF><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, L, H,
       scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // passes: bit 0 launches the dq pass, bit 1 the dk/dv pass.
-template <int D>
+template <int D, bool OFF>
 int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
-           int B, int S, int H, float scale, int causal, int window,
+           int B, Seqs L, int H, float scale, int causal, int window,
            int passes, cudaStream_t stream) {
   constexpr int OWN = kWide<D> ? kTile : kOwn;  // rows a block owns
   CUtensorMap q_own, do_own, k_str, v_str, k_own, v_own, q_str, do_str;
-  int rc = make_map<D>(&q_own, q, B, S, H, OWN);
-  if (rc == 0) rc = make_map<D>(&do_own, dout, B, S, H, OWN);
-  if (rc == 0) rc = make_map<D>(&k_str, k, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&v_str, v, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&k_own, k, B, S, H, OWN);
-  if (rc == 0) rc = make_map<D>(&v_own, v, B, S, H, OWN);
-  if (rc == 0) rc = make_map<D>(&q_str, q, B, S, H, kTile);
-  if (rc == 0) rc = make_map<D>(&do_str, dout, B, S, H, kTile);
+  int rc = make_map<D>(&q_own, q, B, L.sq, H, OWN);
+  if (rc == 0) rc = make_map<D>(&do_own, dout, B, L.sq, H, OWN);
+  if (rc == 0) rc = make_map<D>(&k_str, k, B, L.sk, H, kTile);
+  if (rc == 0) rc = make_map<D>(&v_str, v, B, L.sk, H, kTile);
+  if (rc == 0) rc = make_map<D>(&k_own, k, B, L.sk, H, OWN);
+  if (rc == 0) rc = make_map<D>(&v_own, v, B, L.sk, H, OWN);
+  if (rc == 0) rc = make_map<D>(&q_str, q, B, L.sq, H, kTile);
+  if (rc == 0) rc = make_map<D>(&do_str, dout, B, L.sq, H, kTile);
   if (rc != 0) return rc;
   constexpr uint32_t smem_dq = TcSmem<D>::dq, smem_dkv = TcSmem<D>::dkv;
   const float scale_log2 = scale * kLog2e;
-  const dim3 grid(B * H, (S + OWN - 1) / OWN);
+  const dim3 grid_q(B * H, (L.sq + OWN - 1) / OWN);
+  const dim3 grid_k(B * H, (L.sk + OWN - 1) / OWN);
   __nv_bfloat16* dq_ = static_cast<__nv_bfloat16*>(dq);
   __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
   __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
   if (passes & 1) {
     if constexpr (kWide<D>) {
-      rc = prepare(flash_dq_wide_tc<D>, smem_dq);
+      rc = prepare(flash_dq_wide_tc<D, OFF>, smem_dq);
       if (rc != 0) return rc;
-      flash_dq_wide_tc<D><<<grid, kTcThreads, smem_dq, stream>>>(
-          q_own, do_own, k_str, v_str, lse, delta, dq_, S, H, scale,
+      flash_dq_wide_tc<D, OFF><<<grid_q, kTcThreads, smem_dq, stream>>>(
+          q_own, do_own, k_str, v_str, lse, delta, dq_, L, H, scale,
           scale_log2, causal, window);
     } else {
-      rc = prepare(flash_dq_tc<D>, smem_dq);
+      rc = prepare(flash_dq_tc<D, OFF>, smem_dq);
       if (rc != 0) return rc;
-      flash_dq_tc<D><<<grid, kTcThreads, smem_dq, stream>>>(
-          q_own, do_own, k_str, v_str, lse, delta, dq_, S, H, scale,
+      flash_dq_tc<D, OFF><<<grid_q, kTcThreads, smem_dq, stream>>>(
+          q_own, do_own, k_str, v_str, lse, delta, dq_, L, H, scale,
           scale_log2, causal, window);
     }
     rc = static_cast<int>(cudaGetLastError());
@@ -1776,16 +1810,16 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
   }
   if (passes & 2) {
     if constexpr (kWide<D>) {
-      rc = prepare(flash_dkv_wide_tc<D>, smem_dkv);
+      rc = prepare(flash_dkv_wide_tc<D, OFF>, smem_dkv);
       if (rc != 0) return rc;
-      flash_dkv_wide_tc<D><<<grid, kTcThreads, smem_dkv, stream>>>(
-          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
+      flash_dkv_wide_tc<D, OFF><<<grid_k, kTcThreads, smem_dkv, stream>>>(
+          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, L, H, scale,
           scale_log2, causal, window);
     } else {
-      rc = prepare(flash_dkv_tc<D>, smem_dkv);
+      rc = prepare(flash_dkv_tc<D, OFF>, smem_dkv);
       if (rc != 0) return rc;
-      flash_dkv_tc<D><<<grid, kTcThreads, smem_dkv, stream>>>(
-          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, S, H, scale,
+      flash_dkv_tc<D, OFF><<<grid_k, kTcThreads, smem_dkv, stream>>>(
+          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, L, H, scale,
           scale_log2, causal, window);
     }
     rc = static_cast<int>(cudaGetLastError());
@@ -1815,24 +1849,29 @@ int tc_smem(int kernel) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim one of 16, 32, 64, 96, 128,
-// 256.
+// 256; Sq query rows at positions q_off.., Sk key rows at 0...
 // Each returns a cudaError_t, or kMapError (+ the CUresult) when a
 // tensor map cannot be made.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v, void* out,
-                                   float* lse, int B, int S, int H,
-                                   float scale, int causal, int window,
-                                   void* stream) {
-  if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1)
+                                   float* lse, int B, int Sq, int Sk,
+                                   int q_off, int H, float scale, int causal,
+                                   int window, void* stream) {
+  if ((dtype != 0 && dtype != 1) || B < 1 || Sq < 1 || Sk < 1 || q_off < 0 ||
+      H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Seqs L = {Sq, Sk, q_off};
+  const bool off = q_off != 0 || Sq != Sk;
+#define FWD_ARGS q, k, v, out, lse, B, L, H, scale, causal, window, st
 #define FWD_F32(D) \
-  fwd<float, D>(q, k, v, out, lse, B, S, H, scale, causal, window, st)
+  (off ? fwd<float, D, true>(FWD_ARGS) : fwd<float, D, false>(FWD_ARGS))
 #define FWD_BF16(D) \
-  fwd_tc<D>(q, k, v, out, lse, B, S, H, scale, causal, window, st)
+  (off ? fwd_tc<D, true>(FWD_ARGS) : fwd_tc<D, false>(FWD_ARGS))
   FLASH_DISPATCH(FWD_F32, FWD_BF16)
 #undef FWD_F32
 #undef FWD_BF16
+#undef FWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1857,21 +1896,25 @@ extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
                                    const void* k, const void* v,
                                    const void* dout, const float* lse,
                                    const float* delta, void* dq, void* dk,
-                                   void* dv, int B, int S, int H, float scale,
-                                   int causal, int window, int passes,
-                                   void* stream) {
-  if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1 || passes < 1 ||
-      passes > 3)
+                                   void* dv, int B, int Sq, int Sk, int q_off,
+                                   int H, float scale, int causal, int window,
+                                   int passes, void* stream) {
+  if ((dtype != 0 && dtype != 1) || B < 1 || Sq < 1 || Sk < 1 || q_off < 0 ||
+      H < 1 || passes < 1 || passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BWD_F32(D)                                                        \
-  bwd<float, D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale,    \
-                causal, window, passes, st)
-#define BWD_BF16(D)                                                       \
-  bwd_tc<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, scale,        \
-            causal, window, passes, st)
+  const Seqs L = {Sq, Sk, q_off};
+  const bool off = q_off != 0 || Sq != Sk;
+#define BWD_ARGS                                                          \
+  q, k, v, dout, lse, delta, dq, dk, dv, B, L, H, scale, causal, window,  \
+      passes, st
+#define BWD_F32(D) \
+  (off ? bwd<float, D, true>(BWD_ARGS) : bwd<float, D, false>(BWD_ARGS))
+#define BWD_BF16(D) \
+  (off ? bwd_tc<D, true>(BWD_ARGS) : bwd_tc<D, false>(BWD_ARGS))
   FLASH_DISPATCH(BWD_F32, BWD_BF16)
 #undef BWD_F32
 #undef BWD_BF16
+#undef BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,11 +27,15 @@ each accumulates half of the head dimension.  float32 stays on the CUDA
 cores (64×64 f32 tiles, 32×32 in the backward at ``dh`` 256): the
 tensor cores take f32 only as TF32.
 
-Shapes: ``q, k, v`` are ``(B, S, H, dh)`` with the kv heads already
-repeated to ``H``; ``lse`` is ``(B, H, S)`` f32.  Positions are
-``0..S-1``; a key is visible to a query when ``k <= q`` (``causal``) and
-``q - k < window`` (``window > 0``).  Any ``S`` is taken: keys past the
-end are masked and rows past the end are not written.
+Shapes: ``q`` is ``(B, Sq, H, dh)`` and ``k, v`` ``(B, Sk, H, dh)``,
+with the kv heads already repeated to ``H``; ``lse`` is ``(B, H, Sq)``
+f32.  Query row ``i`` stands at position ``q_offset + i`` and key row
+``j`` at ``j`` (the square case: ``Sq = Sk``, ``q_offset = 0``; a
+sequence split over the model ranks gives each rank its chunk of
+queries against every key); a key is visible to a query when ``k <= q``
+(``causal``) and ``q - k < window`` (``window > 0``), in positions.  Any
+``Sq`` and ``Sk`` are taken: keys past the end are masked and rows past
+the end are not written.
 
 Beside the kernels live :func:`flash_fwd_plain` and
 :func:`flash_bwd_plain`, torch transcriptions of the reference's chunked
@@ -47,7 +51,9 @@ and backward for autograd.
 
 ``flash_attention_fwd.launches`` counts K7 launches;
 ``flash_attention_bwd.launches`` counts K8 calls (one per call, though
-each call launches its two kernels).
+each call launches its two kernels); ``.offset_launches`` counts, of
+those, the ones with a query offset or ``Sq != Sk`` (the kernels' other
+build).
 """
 from __future__ import annotations
 
@@ -73,12 +79,14 @@ def _scale(dh: int) -> float:
 # Plain versions (CPU path, tests, and the card-side comparison)
 # ---------------------------------------------------------------------------
 
-def _bias(q0: int, k0: int, chunk: int, s: int, causal: bool, window: int,
-          device) -> torch.Tensor:
-    """(chunk, chunk) additive f32 mask of one (query, key) chunk pair."""
+def _bias(q0: int, k0: int, chunk: int, sq: int, sk: int, causal: bool,
+          window: int, device, q_offset: int = 0) -> torch.Tensor:
+    """(chunk, chunk) additive f32 mask of one (query rows, key rows)
+    chunk pair; query row ``i`` at position ``q_offset + i``."""
     qp = torch.arange(q0, q0 + chunk, device=device)[:, None]
     kp = torch.arange(k0, k0 + chunk, device=device)[None, :]
-    m = (qp < s) & (kp < s)
+    m = (qp < sq) & (kp < sk)
+    qp = qp + q_offset
     if causal:
         m = m & (qp >= kp)
     if window > 0:
@@ -96,14 +104,15 @@ def _chunks(x: torch.Tensor, chunk: int):
 
 
 def flash_fwd_plain(q, k, v, causal: bool = True, window: int = 0,
-                    chunk: int = 64):
-    """``(out (B,S,H,dh) in q's dtype, lse (B,H,S) f32)``: the
+                    chunk: int = 64, q_offset: int = 0):
+    """``(out (B,Sq,H,dh) in q's dtype, lse (B,H,Sq) f32)``: the
     reference's ``_flash_fwd_impl`` over ``chunk``-sized blocks."""
     b, s, h, dh = q.shape
+    sk = k.shape[1]
     sp = -(-s // chunk) * chunk
     qs = _chunks(_pad_seq(q, sp), chunk)
-    ks = _chunks(_pad_seq(k, sp), chunk)
-    vs = _chunks(_pad_seq(v, sp), chunk)
+    ks = _chunks(_pad_seq(k, -(-sk // chunk) * chunk), chunk)
+    vs = _chunks(_pad_seq(v, -(-sk // chunk) * chunk), chunk)
     scale = _scale(dh)
     outs, lses = [], []
     for i, qb in enumerate(qs):
@@ -114,8 +123,8 @@ def flash_fwd_plain(q, k, v, causal: bool = True, window: int = 0,
         l = torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device)
         for j, (kb, vb) in enumerate(zip(ks, vs)):
             sc = torch.einsum("bqhd,bkhd->bhqk", qb, kb).to(torch.float32)
-            sc = sc * scale + _bias(i * chunk, j * chunk, chunk, s, causal,
-                                    window, q.device)
+            sc = sc * scale + _bias(i * chunk, j * chunk, chunk, s, sk,
+                                    causal, window, q.device, q_offset)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -139,25 +148,27 @@ def _delta(out, dout) -> torch.Tensor:
 
 
 def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
-                    window: int = 0, chunk: int = 64):
+                    window: int = 0, chunk: int = 64, q_offset: int = 0):
     """``(dq, dk, dv)``: the reference's ``_flash_bwd`` (a dq pass over
     query chunks, then a dk/dv pass over key chunks)."""
     b, s, h, dh = q.shape
+    sk = k.shape[1]
     sp = -(-s // chunk) * chunk
+    skp = -(-sk // chunk) * chunk
     scale = _scale(dh)
     delta = F.pad(_delta(out, dout), (0, sp - s))
     lse = F.pad(lse, (0, sp - s))
     qs = _chunks(_pad_seq(q, sp), chunk)
     dos = _chunks(_pad_seq(dout, sp), chunk)
-    ks = _chunks(_pad_seq(k, sp), chunk)
-    vs = _chunks(_pad_seq(v, sp), chunk)
+    ks = _chunks(_pad_seq(k, skp), chunk)
+    vs = _chunks(_pad_seq(v, skp), chunk)
     lses = [lse[..., i:i + chunk] for i in range(0, sp, chunk)]
     deltas = [delta[..., i:i + chunk] for i in range(0, sp, chunk)]
 
     def probs(i, j):
         sc = torch.einsum("bqhd,bkhd->bhqk", qs[i], ks[j]).to(torch.float32)
-        sc = sc * scale + _bias(i * chunk, j * chunk, chunk, s, causal,
-                                window, q.device)
+        sc = sc * scale + _bias(i * chunk, j * chunk, chunk, s, sk, causal,
+                                window, q.device, q_offset)
         p = torch.exp(sc - lses[i][..., None])
         dp = torch.einsum("bqhd,bkhd->bhqk", dos[i].to(torch.float32),
                           vs[j].to(torch.float32))
@@ -187,7 +198,8 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
         dvs.append(dv)
 
     def join(parts, like):
-        return torch.cat(parts, dim=1)[:, :s].to(like.dtype).contiguous()
+        return torch.cat(parts, dim=1)[:, :like.shape[1]].to(like.dtype) \
+            .contiguous()
     return join(dqs, q), join(dks, k), join(dvs, v)
 
 
@@ -198,7 +210,7 @@ def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
 def _lib():
     lib = backend.load("flash_attention")
     if not getattr(lib, "_typed", False):
-        ints = [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
+        ints = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
         lib.flash_attention_fwd.argtypes = [ctypes.c_int] * 2 \
             + [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
         lib.flash_attention_fwd.restype = ctypes.c_int
@@ -222,7 +234,9 @@ def _on_cpu(what: str, *tensors) -> bool:
     return False
 
 
-def _check_kernel_inputs(what: str, q, *same, f32=()):
+def _check_kernel_inputs(what: str, q, *same, f32=(), keys=()):
+    """``q`` and ``same`` (B, Sq, H, dh), ``keys`` (B, Sk, H, dh), ``f32``
+    (B, H, Sq)."""
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be (B, S, H, dh), got "
                          f"{tuple(q.shape)}")
@@ -234,46 +248,62 @@ def _check_kernel_inputs(what: str, q, *same, f32=()):
                          f"got {q.shape[-1]}")
     for t in same:
         if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{what}: every (B, S, H, dh) input must "
+            raise ValueError(f"{what}: every (B, Sq, H, dh) input must "
                              f"match q's shape and dtype")
+    for t in keys:
+        if t.dim() != 4 or t.shape[0] != q.shape[0] \
+                or t.shape[2:] != q.shape[2:] or t.dtype != q.dtype \
+                or t.shape != keys[0].shape:
+            raise ValueError(f"{what}: k and v must be (B, Sk, H, dh) "
+                             f"with q's B, H, dh and dtype")
     b, s, h, _ = q.shape
     for t in f32:
         if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s):
             raise ValueError(f"{what}: lse/delta must be float32 "
                              f"({b}, {h}, {s})")
-    backend.check_cuda(what, q, *same, *f32)
+    backend.check_cuda(what, q, *same, *keys, *f32)
     if q.dtype == torch.bfloat16:
         # TMA's rule for the (B, S, H, dh) inputs: base and row stride
         # 16-byte aligned.
-        for t in (q, *same):
+        for t in (q, *same, *keys):
             if t.data_ptr() % 16 or t.shape[2] * t.shape[3] * 2 % 16:
                 raise ValueError(f"{what}: bfloat16 inputs must start on "
                                  f"a 16-byte boundary (TMA)")
 
 
+def _offset(q_offset) -> int:
+    if int(q_offset) < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return int(q_offset)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        chunk: int = 64):
+                        chunk: int = 64, q_offset: int = 0):
     """``(out, lse)``.  ``chunk`` sets the plain version's blocks (CPU);
     the kernels tile by 64 (f32) or 128 queries by 64 keys (bf16)."""
+    q_offset = _offset(q_offset)
     if _on_cpu("flash_attention_fwd", q, k, v):
-        return flash_fwd_plain(q, k, v, causal, window, chunk)
-    _check_kernel_inputs("flash_attention_fwd", q, k, v)
+        return flash_fwd_plain(q, k, v, causal, window, chunk, q_offset)
+    _check_kernel_inputs("flash_attention_fwd", q, keys=(k, v))
     b, s, h, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     backend.check(_lib().flash_attention_fwd(
         _DTYPE_CODE[q.dtype], dh, *(backend.ptr(t) for t in (q, k, v, out,
                                                               lse)),
-        b, s, h, _scale(dh), int(causal), int(window),
+        b, s, k.shape[1], q_offset, h, _scale(dh), int(causal), int(window),
         backend.stream_ptr()), "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.offset_launches += q_offset > 0 or k.shape[1] != s
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.offset_launches = 0
 
 
-def _bwd_launch(q, k, v, dout, lse, delta, causal, window, passes=3):
+def _bwd_launch(q, k, v, dout, lse, delta, causal, window, passes=3,
+                q_offset=0):
     """K8's kernels on checked CUDA inputs: ``passes`` 3 launches both,
     1 the dq pass alone, 2 the dk/dv pass alone (the outputs the other
     pass would write are left unset).  Counts nothing."""
@@ -282,38 +312,46 @@ def _bwd_launch(q, k, v, dout, lse, delta, causal, window, passes=3):
     backend.check(_lib().flash_attention_bwd(
         _DTYPE_CODE[q.dtype], dh,
         *(backend.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)),
-        b, s, h, _scale(dh), int(causal), int(window), passes,
-        backend.stream_ptr()), "flash_attention_bwd")
+        b, s, k.shape[1], int(q_offset), h, _scale(dh), int(causal),
+        int(window), passes, backend.stream_ptr()), "flash_attention_bwd")
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                        window: int = 0, chunk: int = 64):
+                        window: int = 0, chunk: int = 64, q_offset: int = 0):
     """``(dq, dk, dv)`` in the inputs' dtype."""
+    q_offset = _offset(q_offset)
     if _on_cpu("flash_attention_bwd", q, k, v, out, lse, dout):
         return flash_bwd_plain(q, k, v, out, lse, dout, causal, window,
-                               chunk)
+                               chunk, q_offset)
     delta = _delta(out, dout)
-    _check_kernel_inputs("flash_attention_bwd", q, k, v, out, dout,
-                         f32=(lse, delta))
-    grads = _bwd_launch(q, k, v, dout, lse, delta, causal, window)
+    _check_kernel_inputs("flash_attention_bwd", q, out, dout,
+                         f32=(lse, delta), keys=(k, v))
+    grads = _bwd_launch(q, k, v, dout, lse, delta, causal, window,
+                        q_offset=q_offset)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.offset_launches += q_offset > 0 \
+        or k.shape[1] != q.shape[1]
     return grads
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.offset_launches = 0
 
 
 class FlashAttnFn(torch.autograd.Function):
     """Attention through K7 forward and K8 backward on CUDA, or the plain
-    versions on the CPU.  ``apply(q, k, v, causal, window, chunk)``."""
+    versions on the CPU.  ``apply(q, k, v, causal, window, chunk,
+    q_offset=0)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, chunk):
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset=0):
         out, lse = flash_attention_fwd(q, k, v, causal=causal,
-                                       window=window, chunk=chunk)
+                                       window=window, chunk=chunk,
+                                       q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = {"causal": causal, "window": window, "chunk": chunk}
+        ctx.cfg = {"causal": causal, "window": window, "chunk": chunk,
+                   "q_offset": q_offset}
         return out
 
     @staticmethod
@@ -321,5 +359,5 @@ class FlashAttnFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.cfg)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 

@@ -46,7 +46,10 @@ def build_engine(args, spec=None):
     without; the reference leaves them out, F8 in ROADMAP.md); the mesh's
     groups through ``make_groups`` when ``--mesh`` has more than one
     rank.  ``spec``, when given, is the model's spec as it is (no CLI
-    flag), in place of ``args.arch`` and ``args.full``."""
+    flag), in place of ``args.arch`` and ``args.full``.  A
+    ``seq_parallel`` spec is served as the reference serves it, outside
+    the tensor-parallel path (``serve/step.py``): every rank holds the
+    full weights."""
     import torch
 
     from repro_torch.configs import get_spec
@@ -72,7 +75,7 @@ def build_engine(args, spec=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device).tree()
     mgroup = (groups or {}).get(manual.MODEL_AXIS)
-    if mgroup is not None and mgroup.size > 1:
+    if mgroup is not None and mgroup.size > 1 and not spec.seq_parallel:
         mspecs = manual.model_shard_specs(params, mgroup.size)
         params = manual.shard_params(params, mspecs, mgroup)
     data_src = SyntheticText(spec.vocab_size, batch=args.batch,

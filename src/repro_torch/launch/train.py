@@ -93,7 +93,7 @@ def aggregator_config(args):
 
 
 def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
-                  groups=None):
+                  groups=None, model=None):
     """The :class:`~repro_torch.train.Trainer` that ``args`` describe,
     for this rank (``groups``: the mesh's groups; a ``PxDxM`` mesh, or a
     ``DxM`` mesh with ``M > 1``, builds them through
@@ -103,8 +103,10 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
     (a depth-cut or otherwise altered spec), in place of ``args.arch``,
     ``args.full`` and ``args.dtype``; ``aggregator``, an
     :class:`~repro_torch.core.AggregatorConfig` in place of
-    :func:`aggregator_config`'s (``overlap=True``, for one).  Neither
-    has a command-line flag."""
+    :func:`aggregator_config`'s (``overlap=True``, for one); ``model``,
+    a :class:`~repro_torch.models.ModelApi` in place of the spec's (its
+    loss wrapped, for one; ``spec`` is then its spec).  None has a
+    command-line flag."""
     from repro_torch.configs import get_spec
     from repro_torch.data.synthetic import SyntheticText, extra_inputs
     from repro_torch.launch.mesh import DP_AXES, make_groups
@@ -112,7 +114,9 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
     from repro_torch.optim import adamw, cosine_warmup, sgd
     from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 
-    if spec is None:
+    if model is not None:
+        spec = model.spec
+    elif spec is None:
         spec = get_spec(args.arch)
         if not args.full:
             spec = spec.reduced()
@@ -127,10 +131,10 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
 
     lr = cosine_warmup(args.lr, max(args.steps // 20, 1), args.steps)
     opt = adamw(lr) if args.optimizer == "adamw" else sgd(lr)
-    pods, data_size, model = mesh_shape(args)
+    pods, data_size, model_size = mesh_shape(args)
     dp_axes = DP_AXES if pods else ("data",)
-    if groups is None and (pods or model > 1):
-        groups = make_groups(max(pods, 1), data_size, model)
+    if groups is None and (pods or model_size > 1):
+        groups = make_groups(max(pods, 1), data_size, model_size)
         if not pods:
             del groups["pod"]
     cfg = TrainerConfig(
@@ -138,7 +142,7 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         step=TrainStepConfig(aggregator=aggregator
                              or aggregator_config(args), dp_axes=dp_axes))
-    return Trainer(build_model(spec), opt, batch_at, cfg,
+    return Trainer(model or build_model(spec), opt, batch_at, cfg,
                    device=args.device, verbose=verbose, groups=groups)
 
 

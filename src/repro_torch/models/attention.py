@@ -10,6 +10,15 @@ forward and K8 backward on CUDA, the chunked plain versions (chunk
 ``0..S-1`` (``transformer.forward`` builds them so), which is what the
 kernels assume.
 
+Under sequence parallelism (``seq``, a :class:`~.common.SeqSplit`) each
+model rank projects its chunk of the sequence, ropes it at its global
+positions and gathers the keys and values of the whole sequence along
+it (GQA's K and V after RoPE, before the kv-head repeat; MLA's latent
+``(c_kv, k_rope)``, ``r + rd`` values a token); its queries attend at
+their offset (K7/K8's ``q_offset``).  The route between ``sdpa_full``
+and the flash path is chosen by the whole sequence's length, as the
+reference, which sees the whole sequence, chooses it.
+
 :func:`gqa_decode` is the reference's one-token decode against a KV
 cache (plain torch, as the reference computes it outside any kernel):
 it writes the new key and value into the preallocated cache in place,
@@ -79,29 +88,37 @@ def sdpa_full(q, k, v, q_pos, k_pos, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def sdpa_chunked(q, k, v, window: int, q_chunk: int):
+def sdpa_chunked(q, k, v, window: int, q_chunk: int, q_offset: int = 0):
     """Flash attention (the reference's ``sdpa_chunked``): no (S, S)
-    score tensor in either pass.  q (B,S,H,dh); k,v (B,S,KV,dh) at
-    positions 0..S-1.  The kv heads are repeated to H here, so autograd
-    sums their gradients back over each group, as ``jnp.repeat`` does;
-    a ragged S is padded inside the plain version and masked in the
-    kernels."""
+    score tensor in either pass.  q (B,Sq,H,dh) at positions
+    ``q_offset..``; k,v (B,Sk,KV,dh) at positions 0..Sk-1.  The kv heads
+    are repeated to H here, so autograd sums their gradients back over
+    each group, as ``jnp.repeat`` does; a ragged length is padded inside
+    the plain version and masked in the kernels."""
     rep = q.shape[2] // k.shape[2]
     k = torch.repeat_interleave(k, rep, dim=2)
     v = torch.repeat_interleave(v, rep, dim=2)
     return FlashAttnFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                             True, window, q_chunk)
+                             True, window, q_chunk, q_offset)
 
 
-def sdpa(q, k, v, q_pos, k_pos, spec: ModelSpec, window: int = 0):
-    if q.shape[1] <= spec.attn_full_seq_max and \
+def sdpa(q, k, v, q_pos, k_pos, spec: ModelSpec, window: int = 0,
+         seq=None):
+    """``sdpa_full`` when the sequence (its whole length under ``seq``)
+    is at most ``attn_full_seq_max``, else the flash path."""
+    q_len = q.shape[1] if seq is None else seq.total
+    if q_len <= spec.attn_full_seq_max and \
             k.shape[1] <= spec.attn_full_seq_max:
         return sdpa_full(q, k, v, q_pos, k_pos, window)
-    return sdpa_chunked(q, k, v, window, spec.attn_chunk)
+    return sdpa_chunked(q, k, v, window, spec.attn_chunk,
+                        0 if seq is None else seq.offset)
 
 
-def gqa_forward(params, x, positions, spec: ModelSpec, rope: bool = True):
-    """Full-sequence GQA. x (B,S,d). Returns (out, (k, v))."""
+def gqa_forward(params, x, positions, spec: ModelSpec, rope: bool = True,
+                seq=None):
+    """Full-sequence GQA. x (B,S,d) (under ``seq`` this rank's chunk, at
+    ``positions``). Returns (out, (k, v)), k and v of the whole
+    sequence."""
     b, s, _ = x.shape
     h, kv, hd = spec.num_heads, spec.num_kv_heads, spec.resolved_head_dim
     cd = spec.compute_dtype
@@ -111,8 +128,13 @@ def gqa_forward(params, x, positions, spec: ModelSpec, rope: bool = True):
     if rope:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
-    out = sdpa(q, k, v, positions[0], positions[0], spec,
-               window=spec.sliding_window)
+    k_pos = positions[0]
+    if seq is not None:
+        k, v = seq.gather(k), seq.gather(v)
+        k_pos = torch.arange(seq.total, dtype=positions.dtype,
+                             device=x.device)
+    out = sdpa(q, k, v, positions[0], k_pos, spec,
+               window=spec.sliding_window, seq=seq)
     out = out.reshape(b, s, h * hd) @ params["wo"].to(cd)
     return out, (k, v)
 
@@ -166,9 +188,10 @@ def _shared_rope(k_rope, positions, theta: float):
     return apply_rope(k_rope[:, :, None, :], positions, theta)[:, :, 0, :]
 
 
-def mla_forward(params, x, positions, spec: ModelSpec):
+def mla_forward(params, x, positions, spec: ModelSpec, seq=None):
     """Full-sequence MLA (non-absorbed expansion).  Returns ``(out,
-    (c_kv, k_rope))``, the latents for cache seeding."""
+    (c_kv, k_rope))``, the latents for cache seeding.  Under ``seq`` x is
+    this rank's chunk and the latents are gathered over the sequence."""
     b, s, _ = x.shape
     h = spec.num_heads
     r, nd, vd = spec.kv_lora_rank, spec.qk_nope_dim, spec.v_head_dim
@@ -181,15 +204,22 @@ def mla_forward(params, x, positions, spec: ModelSpec):
     dkv = x @ params["wdkv"].to(cd)                          # (B, S, r+rd)
     c_kv, k_rope = dkv[..., :r], dkv[..., r:]
     k_rope = _shared_rope(k_rope, positions, spec.rope_theta)
-    k_nope = (c_kv @ params["wuk"].to(cd)).reshape(b, s, h, nd)
-    v = (c_kv @ params["wuv"].to(cd)).reshape(b, s, h, vd)
+    k_pos = positions[0]
+    if seq is not None:
+        lat = seq.gather(torch.cat([c_kv, k_rope], dim=-1))
+        c_kv, k_rope = lat[..., :r], lat[..., r:]
+        k_pos = torch.arange(seq.total, dtype=positions.dtype,
+                             device=x.device)
+    sk = c_kv.shape[1]
+    k_nope = (c_kv @ params["wuk"].to(cd)).reshape(b, sk, h, nd)
+    v = (c_kv @ params["wuv"].to(cd)).reshape(b, sk, h, vd)
 
     # (B, H, S, S) scores: summed, scaled and masked in place (no
     # backward needs them before the softmax), the reference's arithmetic.
     sc = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope).add_(
         torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)).to(torch.float32)
     sc.mul_(1.0 / math.sqrt(nd + rd)).add_(
-        _mask_bias(positions[0], positions[0], 0))
+        _mask_bias(positions[0], k_pos, 0))
     probs = torch.softmax(sc, dim=-1).to(v.dtype)
     del sc
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)

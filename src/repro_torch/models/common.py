@@ -166,6 +166,47 @@ class ModelModule(nn.Module):
         return self._loss(self.tree(), batch, self.spec)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """This model rank's chunk of a sequence split over the model group
+    (``seq_parallel`` in the full-manual train step): positions
+    ``[offset, offset + length)`` of ``total``."""
+    group: object
+    offset: int
+    length: int
+    total: int
+
+    @classmethod
+    def of(cls, group, total: int) -> "SeqSplit":
+        m = group.size
+        if total % m:
+            raise ValueError(f"seq_parallel: a sequence of {total} positions "
+                             f"(image patches included) does not split "
+                             f"over {m} model ranks")
+        n = total // m
+        return cls(group, group.rank * n, n, total)
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    def positions(self, batch: int, device) -> torch.Tensor:
+        """(batch, length) int32 positions of the chunk."""
+        return torch.arange(self.offset, self.offset + self.length,
+                            dtype=torch.int32, device=device) \
+            .expand(batch, self.length)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's chunk of ``x`` (B, length, ...) joined along the
+        sequence: all-gather forward, reduce-scatter backward."""
+        from ..core import manual
+        return manual.seq_gather(x, 1, self.group)
+
+    def narrow(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of a whole-sequence ``x`` (B, total, ...)."""
+        return x.narrow(1, self.offset, self.length)
+
+
 def stack_layers(n: int, make) -> dict:
     """``n`` layers of ``make()`` stacked along a leading dim.  Each layer
     is drawn in turn and copied into the stacked leaves, so the stack
@@ -311,9 +352,15 @@ class _TokenNLL(torch.autograd.Function):
         return grad.to(logits.dtype), None
 
 
-def cross_entropy(logits, labels, mask=None):
-    """Token-mean CE; logits (..., V) any dtype, stats in fp32."""
+def cross_entropy(logits, labels, mask=None, count=None):
+    """Token-mean CE; logits (..., V) any dtype, stats in fp32.  With
+    ``count`` the (masked) sum over these tokens divided by ``count``:
+    a sequence chunk's share of the whole sequence's mean."""
     nll = _TokenNLL.apply(logits, labels.long())
+    if count is not None:
+        if mask is not None:
+            nll = nll * mask.to(torch.float32)
+        return torch.sum(nll) / count
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

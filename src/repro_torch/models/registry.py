@@ -56,7 +56,10 @@ class ModelApi:
     parameter tree); ``loss(params_tree, batch) -> (loss, metrics)``;
     for serving ``prefill(params, batch, max_seq) -> (last logits,
     cache)``, ``decode_step(params, cache, tokens) -> (logits, cache)``
-    and ``init_cache(batch, seq, device=None)``."""
+    and ``init_cache(batch, seq, device=None)``.  ``seq_parallel``: the
+    loss splits the sequence over a model group given as
+    ``loss(params, batch, seq_group=group)`` (``spec.seq_parallel`` on a
+    transformer family; ``models/transformer.py``)."""
     spec: "ModelSpec | cnn.CnnSpec"
     init: Callable
     loss: Callable
@@ -64,6 +67,7 @@ class ModelApi:
     decode_step: Optional[Callable] = None
     init_cache: Optional[Callable] = None
     has_decode: bool = True
+    seq_parallel: bool = False
 
 
 def build_model(spec: ModelSpec) -> ModelApi:
@@ -72,14 +76,16 @@ def build_model(spec: ModelSpec) -> ModelApi:
             spec=spec,
             init=lambda gen, device=None: transformer.TransformerLM(
                 spec, transformer.init_params(gen, spec, device)),
-            loss=lambda p, b: transformer.loss_fn(p, b, spec),
+            loss=lambda p, b, seq_group=None: transformer.loss_fn(
+                p, b, spec, seq_group=seq_group),
             prefill=lambda p, b, max_seq=None: transformer.prefill(
                 p, b["tokens"], spec, patches=b.get("patches"),
                 max_seq=max_seq),
             decode_step=lambda p, c, t: transformer.decode_step(p, c, t,
                                                                 spec),
             init_cache=lambda batch, seq, device=None:
-                transformer.init_cache(spec, batch, seq, device))
+                transformer.init_cache(spec, batch, seq, device),
+            seq_parallel=bool(spec.seq_parallel))
     if spec.family == "audio":
         return ModelApi(
             spec=spec,

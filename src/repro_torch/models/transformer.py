@@ -27,6 +27,22 @@ layer's cache slot in place.  Without a sliding window the cache must
 hold the whole prompt with its patches: :func:`prefill` raises where
 the reference would keep the trailing positions and lose the first
 (F8, ROADMAP.md).
+
+Sequence parallelism (``spec.seq_parallel``; the reference's is a GSPMD
+constraint ``P(None, "model", None)`` on the residual stream): with a
+sequence group (``loss_fn(..., seq_group=)``, the full-manual train
+step's model group) each model rank keeps positions ``[r·S/m,
+(r+1)·S/m)`` of the embedded sequence (``n_img + S`` for the VLM) and
+runs the position-wise work on that chunk: the norms, the dense MLP,
+``ln_f``, the logits and the CE.  Attention gathers the keys and values
+of the whole sequence (``attention.py``); an MoE layer gathers its
+input, dispatches the whole sequence as the reference groups it, and
+keeps its chunk's rows.  The loss is this chunk's CE sum over the dp
+shard's token count, plus the aux loss on model rank 0 alone (every
+rank holds all of it); the model ranks' losses and gradients sum to
+the reference's (``core/manual.py``'s boundary sums the gradients).
+Without a sequence group ``seq_parallel`` changes nothing, as the
+reference's constraint without a model axis.
 """
 from __future__ import annotations
 
@@ -38,8 +54,9 @@ from torch.utils.checkpoint import checkpoint
 from . import moe as moe_lib
 from .attention import (gqa_decode, gqa_forward, gqa_params, mla_decode,
                         mla_forward, mla_params)
-from .common import (ModelModule, ModelSpec, cross_entropy, embed_init,
-                     layer_views, norm, norm_params, stack_layers)
+from .common import (ModelModule, ModelSpec, SeqSplit, cross_entropy,
+                     embed_init, layer_views, norm, norm_params,
+                     stack_layers)
 from .mlp import mlp_forward, mlp_params
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -52,10 +69,6 @@ def _check_supported(spec: ModelSpec) -> None:
             f"{spec.name}: family {spec.family!r} with "
             f"{spec.attention_type!r} attention is not ported yet "
             f"(transformer families: {FAMILIES})")
-    if spec.seq_parallel:
-        # The reference's is a GSPMD sharding constraint on the residual
-        # stream; the port has no GSPMD (ROADMAP.md, Queue 1).
-        raise NotImplementedError("seq_parallel is not ported yet")
 
 
 def _n_prefix(spec: ModelSpec) -> int:
@@ -102,16 +115,25 @@ def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
-def _block_forward(lp, h, positions, spec: ModelSpec, is_moe: bool):
-    """One pre-norm block, full sequence.  Returns ``(h, kv, aux,
-    drop)``: ``kv`` the layer's ``(k, v)`` (B, S, KV, dh), or MLA's
-    ``(c_kv, k_rope)``."""
+def _block_forward(lp, h, positions, spec: ModelSpec, is_moe: bool,
+                   seq: "SeqSplit | None" = None):
+    """One pre-norm block, full sequence (under ``seq`` this rank's
+    chunk).  Returns ``(h, kv, aux, drop)``: ``kv`` the layer's ``(k,
+    v)`` (B, S, KV, dh), or MLA's ``(c_kv, k_rope)``."""
     a_in = norm(h, lp["ln1"], spec.norm_type)
-    attn = mla_forward if spec.attention_type == "mla" else gqa_forward
-    a_out, kv = attn(lp["attn"], a_in, positions, spec)
+    if spec.attention_type == "mla":
+        a_out, kv = mla_forward(lp["attn"], a_in, positions, spec, seq=seq)
+    else:
+        a_out, kv = gqa_forward(lp["attn"], a_in, positions, spec, seq=seq)
     h = h + a_out
     m_in = norm(h, lp["ln2"], spec.norm_type)
-    if is_moe:
+    if is_moe and seq is not None:
+        # The reference groups the global tokens: dispatch the whole
+        # sequence, keep this chunk's rows.
+        m_out, aux, drop = moe_lib.moe_forward(lp["moe"], seq.gather(m_in),
+                                               spec)
+        m_out = seq.narrow(m_out)
+    elif is_moe:
         m_out, aux, drop = moe_lib.moe_forward(lp["moe"], m_in, spec)
     else:
         m_out = mlp_forward(lp["mlp"], m_in, spec.mlp_type)
@@ -157,15 +179,30 @@ def lm_logits(params, h, spec: ModelSpec):
     return h @ params["lm_head"].to(cd)
 
 
+def _split(spec: ModelSpec, seq_group, total: int):
+    """This rank's :class:`~.common.SeqSplit`, or None (no sequence
+    parallelism, or a model group of one)."""
+    if not spec.seq_parallel or seq_group is None or seq_group.size == 1:
+        return None
+    return SeqSplit.of(seq_group, total)
+
+
 def _forward(params, tokens, spec: ModelSpec, patches=None,
-             collect_cache: bool = False):
-    """``(logits, kvs, {"aux", "drop"})``: ``kvs`` every layer's cache
-    entries, prefix first (with ``collect_cache``, else empty)."""
+             collect_cache: bool = False, seq_group=None):
+    """``(logits, kvs, {"aux", "drop"}, seq)``: ``kvs`` every layer's
+    cache entries, prefix first (with ``collect_cache``, else empty);
+    ``seq`` this rank's :class:`~.common.SeqSplit` under sequence
+    parallelism (the logits are then the chunk's), else None."""
     _check_supported(spec)
     h = embed_tokens(params, tokens, spec, patches=patches)
     b, s = h.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
+    seq = _split(spec, seq_group, s)
+    if seq is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    else:
+        h = seq.narrow(h)
+        positions = seq.positions(b, tokens.device)
     kvs = []
     aux_total = drop_total = _zero(h.device)
     for name, n, is_moe in _stacks(spec):
@@ -176,7 +213,7 @@ def _forward(params, tokens, spec: ModelSpec, patches=None,
             block = functools.partial(checkpoint, _block_forward,
                                       use_reentrant=False)
         for lp in layer_views(params[name], n):
-            h, kv, aux, drop = block(lp, h, positions, spec, is_moe)
+            h, kv, aux, drop = block(lp, h, positions, spec, is_moe, seq)
             if collect_cache:
                 kvs.append(kv)
             aux_total = aux_total + aux
@@ -184,7 +221,7 @@ def _forward(params, tokens, spec: ModelSpec, patches=None,
                 drop_total = drop_total + drop
     h = norm(h, params["ln_f"], spec.norm_type)
     return lm_logits(params, h, spec), kvs, {"aux": aux_total,
-                                             "drop": drop_total}
+                                             "drop": drop_total}, seq
 
 
 def forward(params, tokens, spec: ModelSpec, patches=None,
@@ -192,22 +229,43 @@ def forward(params, tokens, spec: ModelSpec, patches=None,
     """Logits (B, n_img + S, V_padded) for tokens (B, S) after ``patches``
     (B, n_img, d), if any; with ``collect_cache`` ``(logits, kv)``,
     ``kv`` each layer's cache entries, prefix first."""
-    logits, kvs, _ = _forward(params, tokens, spec, patches, collect_cache)
+    logits, kvs, _, _ = _forward(params, tokens, spec, patches,
+                                 collect_cache)
     return (logits, kvs) if collect_cache else logits
 
 
-def loss_fn(params, batch, spec: ModelSpec):
+def loss_fn(params, batch, spec: ModelSpec, seq_group=None):
     """``(loss, metrics)`` as the reference's ``loss_fn``: the CE over
     the text positions plus ``router_aux_weight`` times the MoE layers'
     summed aux loss; ``metrics`` ``{"ce", "aux", "drop"}`` (zeros for a
-    dense stack)."""
+    dense stack).  Under sequence parallelism (``spec.seq_parallel``
+    and a ``seq_group``) ``loss`` is this rank's share, which the model
+    ranks' shares sum to, and ``metrics`` holds the whole step's
+    ``loss`` and ``ce`` (summed over ``seq_group``)."""
     patches = batch.get("patches")
-    logits, _, aux = _forward(params, batch["tokens"], spec, patches)
-    if patches is not None:
-        logits = logits[:, patches.shape[1]:]       # only text positions
-    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    total = loss + spec.router_aux_weight * aux["aux"]
-    return total, {"ce": loss, "aux": aux["aux"], "drop": aux["drop"]}
+    logits, _, aux, seq = _forward(params, batch["tokens"], spec, patches,
+                                   seq_group=seq_group)
+    n_img = 0 if patches is None else patches.shape[1]
+    labels, mask = batch["labels"], batch.get("mask")
+    if seq is None:
+        logits = logits[:, n_img:]                  # only text positions
+        loss = cross_entropy(logits, labels, mask)
+        total = loss + spec.router_aux_weight * aux["aux"]
+        return total, {"ce": loss, "aux": aux["aux"], "drop": aux["drop"]}
+    # This chunk's text positions, over the dp shard's token count.
+    lo = max(seq.offset, n_img)
+    hi = max(seq.offset + seq.length, lo)
+    count = float(labels.numel()) if mask is None \
+        else torch.clamp_min(torch.sum(mask.to(torch.float32)), 1.0)
+    part = None if mask is None else mask[:, lo - n_img:hi - n_img]
+    loss = cross_entropy(logits[:, lo - seq.offset:hi - seq.offset],
+                         labels[:, lo - n_img:hi - n_img], part, count)
+    # Every rank holds the whole aux loss: count it once.
+    total = loss + spec.router_aux_weight * aux["aux"] * (seq.rank == 0)
+    from ..core import dist as dist_mod
+    summed = dist_mod.psum(torch.stack([loss, total]).detach(), seq.group)
+    return total, {"ce": summed[0], "aux": aux["aux"], "drop": aux["drop"],
+                   "loss": summed[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +316,8 @@ def prefill(params, tokens, spec: ModelSpec, patches=None, max_seq=None):
             f"{spec.name}: a prompt of {s} positions (image patches "
             f"included) does not fit a cache of max_seq {max_seq}: size "
             f"max_seq with the patches")
-    logits, kvs, _ = _forward(params, tokens, spec, patches=patches,
-                              collect_cache=True)
+    logits, kvs, _, _ = _forward(params, tokens, spec, patches=patches,
+                                 collect_cache=True)
     cache = init_cache(spec, b, max_seq, device=tokens.device)
     bufs = [(cache[name]["k"][i], cache[name]["v"][i])
             for name, n, _ in _stacks(spec) for i in range(n)]

@@ -24,6 +24,18 @@ only (the model ranks of one dp index take the same rows); the
 aggregator reduces over the dp axes with the model bracket on
 replicated buckets; the clip sums the sharded leaves' squares over the
 model group; and K5 AdamW updates the shards.
+
+With ``seq_parallel`` on a model axis (``model.seq_parallel``) each
+model rank runs the loss on its chunk of the sequence
+(``models/transformer.py``), given the sequence group as
+``model.loss(params, batch, seq_group=)``, and the gather boundary sums
+the model ranks' gradients (``core/manual.py``).  Those collectives run
+inside the backward, on the main thread, on a process group of their
+own over the model ranks (``manual.own_group``, made when the step is
+built), so that with ``overlap=True`` they never share one with the
+overlap channel's ``ag@model`` hops.  With ``overlap=True`` the
+bucket hooks sit on the shard leaves, inside the gather boundary, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -68,6 +80,23 @@ def shard_batch(batch: dict, groups: "Sequence[dist_mod.Group]") -> dict:
     return out
 
 
+def _seq_channel(group, spec, batch: dict, device):
+    """``group`` ready for the sequence chunks of ``batch``'s rows: on
+    ``cuda_ipc`` a channel whose slots hold the widest chunk a layer
+    gathers or reduce-scatters in float32 (the residual stream, the kv
+    heads, MLA's latent)."""
+    if group.transport != "cuda_ipc":
+        return group
+    rows, seq = batch["tokens"].shape
+    if "patches" in batch:
+        seq += batch["patches"].shape[1]
+    width = max(spec.d_model, spec.num_kv_heads * spec.resolved_head_dim,
+                spec.kv_lora_rank + spec.qk_rope_dim)
+    chunk = -(-seq // group.size)
+    return dist_mod.IpcChannel(group, rows * chunk * width * 4,
+                               device).group
+
+
 def make_train_step(model: ModelApi, optimizer: Optimizer,
                     cfg: TrainStepConfig, device=None,
                     groups: "Mapping[str, dist_mod.Group] | None" = None):
@@ -87,7 +116,9 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
     ``extras["mspecs"]`` the leaves' model-axis specs,
     ``extras["model_group"]`` the model group and ``extras["gather"]``
     the gather boundary (shards -> full tree, collective over the model
-    group).  A caller may set ``extras["inspect"]``: each step then calls
+    group); with ``seq_parallel``, from the first step on,
+    ``extras["seq_group"]`` the group the sequence chunks travel on.  A
+    caller may set ``extras["inspect"]``: each step then calls
     ``inspect(reduced, gnorm)`` with the aggregated gradient tree (shards
     on a model axis, before the clip) and the global norm the clip
     used.  With telemetry enabled when the step is built
@@ -107,23 +138,38 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
                              else None)
     shard_groups = [agg.groups[ax] for ax in dp_axes]
     extras = {"aggregator": agg}
+    seq = manual and model.seq_parallel and model_group.size > 1
     if manual:
         # The specs from the full tree's shapes, on meta tensors.
         full = model.init(torch.Generator().manual_seed(0), "meta").tree()
         mspecs = manual_mod.model_shard_specs(full, model_group.size)
         mask = manual_mod.sharded_mask(mspecs, mspecs)
         extras.update(mspecs=mspecs, model_group=model_group)
-    # The gather boundary's group: on cuda_ipc a channel of its own,
-    # opened at the first step (collective over the model group).
+    # Sequence parallelism's collectives run on a group of their own.
+    boundary = manual_mod.own_group(model_group) if seq else model_group
+    # The gather boundary's group and the sequence chunks' group: on
+    # cuda_ipc each with a channel of its own, opened at the first step
+    # (collective over the model group).
     gather_group: list = []
+    seq_group: list = []
 
     def gather(params):
         if not manual:
             return params
         if not gather_group:
             gather_group.append(manual_mod.gather_group(
-                model_group, params, mspecs, device))
-        return manual_mod.gather_params(params, mspecs, gather_group[0])
+                boundary, params, mspecs, device))
+        return manual_mod.gather_params(params, mspecs, gather_group[0],
+                                        seq=seq)
+
+    def loss_of(params, batch):
+        if not seq:
+            return model.loss(gather(params), batch)
+        if not seq_group:
+            seq_group.append(_seq_channel(boundary, model.spec, batch,
+                                          device))
+            extras["seq_group"] = seq_group[0]
+        return model.loss(gather(params), batch, seq_group=seq_group[0])
 
     if manual:
         extras["gather"] = gather
@@ -140,10 +186,10 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
             # aggregator's channel as its gradients complete; backward
             # returns once they are all reduced.
             run = agg.overlap_params(params, groups=groups)
-            loss, metrics = model.loss(params, local)
+            loss, metrics = loss_of(params, local)
             grads = run.backward(loss)                  # ← the technique
         else:
-            loss, metrics = model.loss(gather(params), local)
+            loss, metrics = loss_of(params, local)
             loss.backward()
             # A leaf with no gradient reduces as zeros (JAX's cotangent).
             grads = tree_mod.unflatten(params, [
@@ -160,7 +206,8 @@ def make_train_step(model: ModelApi, optimizer: Optimizer,
         opt_state = optimizer.update(grads, opt_state, params)
         for p in leaves:
             p.grad = None
-        metrics = {**metrics, "loss": loss, "grad_norm": gnorm}
+        # A sequence-parallel loss reports the whole step's loss itself.
+        metrics = {"loss": loss, **metrics, "grad_norm": gnorm}
         names = sorted(metrics)
         means = agg.mean_scalar(torch.stack(
             [metrics[k].detach().to(torch.float32) for k in names]))

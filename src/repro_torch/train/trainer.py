@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable
 
@@ -92,12 +93,26 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _align(self):
+        """Every rank of the step's groups leaves here together: a
+        barrier on each group in turn (orthogonal axes chain into one
+        barrier over the mesh).  The reference's step is one program
+        that starts on every device at once; here each rank reaches the
+        step after its own device sync and host work, and ranks that
+        share a card are released by its time slices in turn, so without
+        this a rank that starts early waits in its first collective for
+        the others."""
+        for g in self.extras["aggregator"].groups.values():
+            if g.size > 1:
+                dist.barrier(group=g.pg)
+
     def run(self, steps: int | None = None, module=None, opt_state=None,
             start_step: int = 0):
         """Train ``steps`` steps (default: up to ``cfg.steps``).  Returns
         ``(module, opt_state, history)``; ``history`` has one record per
         step: the rank-mean metrics, ``step_s`` (host clock around a
-        synchronised step) and ``n_buckets``."""
+        synchronised step, from a start common to the step's ranks,
+        :meth:`_align`) and ``n_buckets``."""
         if module is None:
             module, opt_state = self.init_state()
         elif opt_state is None:
@@ -108,10 +123,21 @@ class Trainer:
         for step in range(start_step, start_step + steps):
             batch = self.data_iter_fn(step)
             self._sync()
-            t0 = time.perf_counter()
-            params, opt_state, metrics = self.step_fn(params, opt_state,
-                                                      batch)
-            self._sync()
+            self._align()
+            # No cyclic collection inside the step: a collector pause on
+            # one rank holds up its peers in every collective the step
+            # runs (in the backward, with overlap).  It runs between
+            # steps, before the next one's barrier.
+            collect = gc.isenabled()
+            gc.disable()
+            try:
+                t0 = time.perf_counter()
+                params, opt_state, metrics = self.step_fn(params, opt_state,
+                                                          batch)
+                self._sync()
+            finally:
+                if collect:
+                    gc.enable()
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step + 1
             m["step_s"] = time.perf_counter() - t0

@@ -198,10 +198,15 @@ def test_skip_and_fail_records():
     assert rec["status"] == "SKIP"
     assert rec["reason"] == jbase.shape_supported(
         jconfigs.get_spec("smollm-360m"), "long_500k")[1]
+    # seq_parallel plans as the full-manual step does: the port's
+    # bracketed schedule (the reference's legacy step plans without the
+    # model bracket, which the port does not lower).
     rec = dryrun.run_one("smollm-360m", "train_4k", False, verbose=False,
                          spec_overrides={"seq_parallel": True})
-    assert rec["status"] == "FAIL"
-    assert "NotImplementedError" in rec["error"]
+    plain = dryrun.run_one("smollm-360m", "train_4k", False, verbose=False)
+    assert rec["status"] == plain["status"] == "OK"
+    assert rec["schedule"] == plain["schedule"]
+    assert "ag@model" in json.dumps(rec["schedule"])
     rec = dryrun.run_one("whisper-tiny", "decode_32k", True, verbose=False)
     assert rec["status"] == "OK" and "schedule" not in rec
     assert rec["roofline"]["dominant"] in ("compute", "memory",

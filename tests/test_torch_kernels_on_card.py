@@ -374,3 +374,36 @@ def test_bf16_flash_kernels_refuse_unaligned_views_on_card(cuda):
         fla.flash_attention_bwd(good, good, good, out, lse, bad)
     assert (fla.flash_attention_fwd.launches,
             fla.flash_attention_bwd.launches) == (n7 + 1, n8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,off,dh,causal,window", [
+    (150, 300, 150, 64, True, 0), (100, 333, 233, 256, True, 100),
+    (130, 257, 127, 96, True, 0), (64, 200, 0, 32, False, 0),
+    (200, 200, 48, 16, True, 50), (77, 333, 90, 128, True, 0)])
+def test_flash_kernels_with_a_query_offset_match_plain_on_card(
+        cuda, dtype, sq, sk, off, dh, causal, window):
+    """K7/K8's offset build (queries at positions ``off ..`` against keys
+    0 .. sk-1, ragged on both sides, a window reaching past the first
+    keys) against the plain versions, at the square tests' tolerances,
+    and counted in ``offset_launches``."""
+    q, _, _, do = _attn_inputs((2, sq, 3, dh), dtype, cuda, seed=sq + dh)
+    _, k, v, _ = _attn_inputs((2, sk, 3, dh), dtype, cuda, seed=sk + off)
+    kw = dict(causal=causal, window=window, chunk=64, q_offset=off)
+    fwd = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    bwd = dict(atol=2e-3, rtol=2e-3) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    n7 = fla.flash_attention_fwd.offset_launches
+    n8 = fla.flash_attention_bwd.offset_launches
+    out, lse = fla.flash_attention_fwd(q, k, v, **kw)
+    grads = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert (fla.flash_attention_fwd.offset_launches,
+            fla.flash_attention_bwd.offset_launches) == (n7 + 1, n8 + 1)
+    torch.cuda.synchronize()
+    pout, plse = fla.flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), pout.float(), **fwd)
+    torch.testing.assert_close(lse, plse, **fwd)
+    pgrads = fla.flash_bwd_plain(q, k, v, pout, plse, do, **kw)
+    for g, p, name in zip(grads, pgrads, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), p.float(), msg=name, **bwd)

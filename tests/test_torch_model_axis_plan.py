@@ -17,8 +17,8 @@ sharded norm against ``repro``, call for call.
   (``ring@data×rhd@pod×ag@model``);
 * ``from_json`` of the reference's grouped and model-bracket records
   gives its JSON back;
-* what still raises: a composed name on three dp axes, overlap on a
-  model axis;
+* what still raises: a composed name on three dp axes; overlap on a
+  model axis now arms on the shards;
 * ``global_norm`` with neither argument equals the reference's bit for
   bit, and with ``sharded``/``model_group`` over a model axis of one
   rank the reference's under ``shard_map`` within 1e-6 relative (its
@@ -230,7 +230,7 @@ def test_bracketed_plan_matches_reference(reduced, mesh, strategy, codec):
 
 def test_what_still_raises(reduced):
     """A composed name and ``auto`` on three dp axes (the reference's
-    ValueErrors), and overlap on a model axis (not ported); the rest
+    ValueErrors); overlap on a model axis arms, and the rest
     validates."""
     jstruct, tstruct = reduced
     for mod in (schedule, jschedule):
@@ -253,9 +253,12 @@ def test_what_still_raises(reduced):
     groups = {ax: Group(name=ax) for ax in ("pod", "data", "model")}
     agg = GradientAggregator(AggregatorConfig(overlap=True),
                              ("pod", "data"), groups, model_axis="model")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        agg.overlap_params(tree.tree_map(
-            lambda s: torch.zeros(s.shape), tstruct))
+    # Overlap on a model axis arms on the shards (one rank here: the
+    # plan of axes of size 1, nothing bracketed).
+    run = agg.overlap_params(tree.tree_map(
+        lambda s: torch.zeros(s.shape, requires_grad=True), tstruct))
+    assert run.sched.model_axis is None and agg.last_schedule is run.sched
+    agg._run = None
     with pytest.raises(ValueError, match="needs its size"):
         agg.resolve(tstruct, (2, 2))
     sched = agg.resolve(tstruct, (2, 2), model_axis_size=2)

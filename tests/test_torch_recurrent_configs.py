@@ -19,8 +19,9 @@ LayerNorm).
   through ``repro.checkpoint`` and the reference's through the port's;
 * ``remat=True``: loss and every gradient bit for bit ``remat=False`` in
   the port (reduced smollm-360m at 96 tokens, its flash path), and within
-  the tolerance of the reference's ``remat=True``; ``seq_parallel``
-  still raises.
+  the tolerance of the reference's ``remat=True``; a ``seq_parallel``
+  spec without a sequence group gives the plain spec's loss and
+  gradients bit for bit.
 """
 import dataclasses
 import types
@@ -279,6 +280,26 @@ def test_remat_bit_for_bit_and_matches_reference():
 
 
 def test_seq_parallel_still_raises():
-    _, tspec = _specs("smollm-360m", seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        build_model(tspec).init(torch.Generator(), "meta")
+    """Nothing raises any more: a ``seq_parallel`` spec builds, and
+    without a sequence group (one rank, or serving) its loss and
+    gradients are the plain spec's, bit for bit (the reference's
+    constraint does nothing without a model axis either).  The sequence
+    split itself: ``test_torch_seq_parallel.py``."""
+    jspec, tspec = _specs("smollm-360m", seq_parallel=True)
+    assert build_model(tspec).seq_parallel
+    _, params = _ref_params(jspec, 52)
+    rng = np.random.default_rng(53)
+    toks = rng.integers(0, jspec.vocab_size, (2, 33)).astype(np.int64)
+    tbatch = {"tokens": torch.from_numpy(toks[:, :-1]),
+              "labels": torch.from_numpy(toks[:, 1:])}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loss_s, grads_s = _loss_and_grads(tspec, params, tbatch)
+        loss_0, grads_0 = _loss_and_grads(
+            dataclasses.replace(tspec, seq_parallel=False), params, tbatch)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(loss_s, loss_0)
+    for a, b in zip(grads_s, grads_0):
+        assert torch.equal(a, b)

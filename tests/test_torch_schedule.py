@@ -127,10 +127,10 @@ def test_wire_bytes_and_steps_tables_match_reference(strategy):
 def test_unported_plans_raise(shapes):
     """What still raises: a wire codec inside the model bracket and a
     composed name on three dp axes or on one (the reference's
-    ``ValueError``), ``auto`` as a fixed name, and overlap on a model
-    axis (``NotImplementedError``, not ported).  The model bracket,
-    three dp axes, composed and two-axis schedules, ``AggregatorConfig``
-    with a composed name, ``auto`` and ``overlap`` validate."""
+    ``ValueError``) and ``auto`` as a fixed name.  Overlap on a model
+    axis arms on the shards; the model bracket, three dp axes, composed
+    and two-axis schedules, ``AggregatorConfig`` with a composed name,
+    ``auto`` and ``overlap`` validate."""
     from repro_torch.core import Group, GradientAggregator, selector
     _, tstruct = shapes
     with pytest.raises(ValueError, match="wire codecs"):
@@ -149,9 +149,10 @@ def test_unported_plans_raise(shapes):
     groups = {"data": Group(name="data"), "model": Group(name="model")}
     agg = GradientAggregator(AggregatorConfig(overlap=True), ("data",),
                              groups, model_axis="model")
-    with pytest.raises(NotImplementedError, match="model axis"):
-        agg.overlap_params(tree.tree_map(lambda t: torch.zeros(t.shape),
-                                         tstruct))
+    run = agg.overlap_params(tree.tree_map(
+        lambda t: torch.zeros(t.shape, requires_grad=True), tstruct))
+    assert agg._run is run and run.sched is agg.last_schedule
+    agg._run = None
     sched = schedule.plan(tstruct, axis_names=("pod", "data"),
                           axis_sizes=(2, 2), model_axis="model",
                           model_axis_size=2)

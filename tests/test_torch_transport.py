@@ -18,7 +18,11 @@ ranks:
   (integer-valued inputs exactly), with the executors built once;
 * refusals: a group across hosts, a mapping that fails on one rank, a
   payload larger than its slot, and a group with no channel, each
-  raising on every rank.
+  raising on every rank;
+* the control mailbox: a notify other than the one expected raises, a
+  wait that outlasts the channel's timeout raises naming the peer, and
+  channels open and close collectively (one name on every rank, every
+  mapping dropped on close).
 """
 import numpy as np
 import pytest
@@ -86,7 +90,7 @@ def _perms():
 def _expect_raise(fn):
     try:
         fn()
-    except (RuntimeError, ValueError) as e:
+    except (RuntimeError, ValueError, TimeoutError) as e:
         return f"{type(e).__name__}: {e}"
     return None
 
@@ -115,6 +119,32 @@ def _refusals(rank, ipc, ch):
         torch.zeros(SLOT // 4 + 1), ch.group, _perms()["ring"]))
     out["no_channel"] = _expect_raise(
         lambda: dist.ppermute(torch.zeros(3), ipc, _perms()["ring"]))
+    return out
+
+
+def _mailbox(rank, ipc):
+    """Rank 0 publishes a wrong notify to rank 1; rank 2 waits for a
+    notify that rank 3 never sends."""
+    out = {}
+    timeout, dist.MAILBOX_TIMEOUT_S = dist.MAILBOX_TIMEOUT_S, 1.0
+    try:
+        ch = dist.IpcChannel(ipc, SLOT, "cpu")
+    finally:
+        dist.MAILBOX_TIMEOUT_S = timeout
+    with ch:
+        like = [torch.zeros(3)]
+        if rank == 0:
+            ch._publish(1, dist._NOTIFY, (7, 1, 12))
+        elif rank == 1:
+            out["wrong"] = _expect_raise(
+                lambda: ch.take(0, like, dist._clone_all))
+        elif rank == 2:
+            out["late"] = _expect_raise(
+                lambda: ch.take(3, like, dist._clone_all))
+        out["name"], out["open"] = ch.name, ch in dist._open_channels
+    out["closed"] = [ch.closed, ch in dist._open_channels,
+                     ch._peer_box is None, ch._box is None,
+                     ch._send is None]
     return out
 
 
@@ -157,6 +187,7 @@ def _rank_cases(rank, world):
                         for g in (ch.group, gloo)]
         res["mapped_bytes"] = dist.traffic["mapped_bytes"]
         res["refusals"] = _refusals(rank, ipc, ch)
+    res["mailbox"] = _mailbox(rank, ipc)
 
     pg3 = tdist.new_group([0, 1, 2])
     if rank < 3:
@@ -345,6 +376,26 @@ def test_refusals_raise_on_every_rank(ranks, what):
     if what == "mapping":
         assert all("mapping the peers' receive slots failed" in m
                    for m in msgs)
+
+
+def test_mailbox_wrong_message_raises(ranks):
+    msg = ranks[1]["mailbox"]["wrong"]
+    assert msg.startswith("RuntimeError") and "[7, 1, 12]" in msg, msg
+    assert "expected (seq, slot, bytes) [0, 0, 12]" in msg, msg
+
+
+def test_mailbox_wait_times_out_naming_the_peer(ranks):
+    box = ranks[2]["mailbox"]
+    assert box["late"].startswith("TimeoutError"), box
+    assert "from rank 3" in box["late"] and box["name"] in box["late"]
+    assert "expected seq 0" in box["late"]
+
+
+def test_channels_open_and_close_collectively(ranks):
+    assert len({r["mailbox"]["name"] for r in ranks}) == 1
+    assert all(r["mailbox"]["open"] for r in ranks)
+    assert all(r["mailbox"]["closed"] == [True, False, True, True, True]
+               for r in ranks)
 
 
 class _FakeAxis:

@@ -188,6 +188,9 @@ class Tree:
         # from the trees that redesigned them on.
         self.bwd_passes = "int passes" in flash
         self.norm_vec = "int vec" in norm
+        # and (Sq, Sk, q_off) in place of S from the tree that split the
+        # sequence over the model ranks on.
+        self.seqs = "int q_off" in flash
 
     def jobs(self):
         return {(self.name, n): (os.path.join(self.csrc, f"{n}.cu"),
@@ -197,15 +200,20 @@ class Tree:
     def load(self):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.fa = ctypes.CDLL(os.path.join(self.out, "libflash_attention.so"))
+        n = 5 if self.seqs else 3
         self.fa.flash_attention_fwd.argtypes = [ci] * 2 + [vp] * 5 + \
-            [ci] * 3 + [cf] + [ci] * 2 + [vp]
+            [ci] * n + [cf] + [ci] * 2 + [vp]
         self.fa.flash_attention_bwd.argtypes = [ci] * 2 + [vp] * 9 + \
-            [ci] * 3 + [cf] + [ci] * 2 + ([ci] if self.bwd_passes else []) \
+            [ci] * n + [cf] + [ci] * 2 + ([ci] if self.bwd_passes else []) \
             + [vp]
         self.rn = ctypes.CDLL(os.path.join(self.out, "libfused_rmsnorm.so"))
         self.rn.rmsnorm_fwd.argtypes = [ci] + [vp] * 4 + \
             [ctypes.c_longlong, ci, cf] + ([ci] if self.norm_vec else []) \
             + [vp]
+
+    def _rows(self, b, s):
+        """The square case's row arguments in this tree's signature."""
+        return (b, s, s, 0) if self.seqs else (b, s)
 
     @staticmethod
     def _check(rc, what):
@@ -220,8 +228,8 @@ class Tree:
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         self._check(self.fa.flash_attention_fwd(
             fla._DTYPE_CODE[q.dtype], dh,
-            *(t.data_ptr() for t in (q, k, v, out, lse)), b, s, h,
-            fla._scale(dh), int(causal), int(window),
+            *(t.data_ptr() for t in (q, k, v, out, lse)), *self._rows(b, s),
+            h, fla._scale(dh), int(causal), int(window),
             torch.cuda.current_stream().cuda_stream), "fwd")
         return out, lse
 
@@ -236,7 +244,8 @@ class Tree:
         self._check(self.fa.flash_attention_bwd(
             fla._DTYPE_CODE[q.dtype], dh,
             *(t.data_ptr() for t in (q, k, v, do, lse, delta, dq, dk, dv)),
-            b, s, h, fla._scale(dh), int(causal), int(window), *extra,
+            *self._rows(b, s), h, fla._scale(dh), int(causal), int(window),
+            *extra,
             torch.cuda.current_stream().cuda_stream), "bwd")
         return dq, dk, dv
 
