@@ -89,15 +89,18 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    card and on the host's plain versions, which must agree.
 7. The transport: phase 3's smollm-360m and phase 6's gemma-7b again on
    ``cuda_ipc`` (payloads copied device to device into receive slots
-   the peers mapped once; gloo carries control messages), each rank's
+   the peers mapped once; each hop's notify and acknowledgement a
+   counter the card waits on, ``csrc/mailbox.cu``), each rank's
    parameters bit-identical to phases 3 and 6; phase 5's ResNet-50
    (ring_rsa, rhd_rsa, fused ps_gather) and MobileNet-v1 (rhd_rsa, fused
    ps_gather) on gloo and on ``cuda_ipc`` in one spawn, under cuDNN's
    deterministic algorithms (phase 5 keeps the default ones, which
    differ from run to run), each rank's parameters bit-identical across
    the two.  K1-K5 must launch as often as on gloo, phase 6's card stay
-   within 90%, and no aggregate stage a byte through the host; then
-   ``tests/test_torch_transport_on_card.py`` must pass.  Prints both
+   within 90%, and no aggregate stage a byte through the host
+   (``tests/test_torch_transport_on_card.py``, the transport's
+   primitives against gloo on the card, 37-42 s, runs apart; phase
+   11(f) holds the same hops to gloo here).  Prints both
    transports' step, aggregate and images/s beside the card, and phase
    5's images/s beside phase 7's gloo run (the cost of deterministic
    cuDNN).
@@ -140,7 +143,11 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    schedules' bound (``codec.tolerance`` per level) of flat ``rhd_rsa``
    + int8's on the same inputs.  Prints each run's steps, plan, hops
    per bucket per axis, and its aggregate timed alone beside phase 7's
-   and beside flat ``rhd_rsa`` + int8 on the same gradient.
+   and beside flat ``rhd_rsa`` + int8 on the same gradient.  Then
+   ResNet-50 (224x224, global batch 128, SGD) on the same mesh under
+   ``ring_rsa×rhd_rsa`` uncoded, 2 steps on gloo and 2 on ``cuda_ipc``
+   under deterministic cuDNN: each rank's parameters bit for bit across
+   the two transports and across ranks, no kernel launched.
 
 10. The model axis: full-width smollm-360m on the 4 ranks laid out as
    data 2 x model 2 (``--mesh 2x2`` through ``build_trainer``; model
@@ -192,21 +199,36 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    channel's thread, the hop lint clean with HL002 (a whole bucket's
    hops issued before the backward ends); prints each bucket's channel
    time split into hops, stages and the rest beside its ready/start/end
-   times.  (e) Phase 8's overlapped smollm-360m, 2 steps: the hop lint
-   clean, HL002's witness printed, not required (its stacked leaves
-   complete at the end of backward).  (d) Rank 0's trace file must
-   reload through ``trace.from_json``.  Prints, per stage, the IR's
-   bytes beside the bytes the hops sent.
+   times, and per rank and step the hops' issue time (no host wait in a
+   hop on the card), the host's one wait for the channel at the
+   backward's join, and on the card's clock (CUDA events) the buckets
+   that ended before the backward's last kernel and the device overlap
+   fraction (printed, not gated).  (e) Phase 8's overlapped smollm-360m,
+   2 steps: the hop lint clean, HL002's witness printed, not required
+   (its stacked leaves complete at the end of backward).  (d) Rank 0's
+   trace file must reload through ``trace.from_json``.  Prints, per
+   stage, the IR's bytes beside the bytes the hops sent.  (f) The
+   channel's waits on the card (``ipc_wait``, a row of the JSON record's
+   ``transport`` list, not of ``kernels``: it is no kernel and replaces
+   no Pallas kernel, and a hop's time is a latency that no byte or
+   operation count bounds): ring hops of mixed sizes back to back (more
+   than ``SLOTS``), an all-gather, ``rhd_rsa`` and ``ring_rsa`` on a 1 Mi-element bucket,
+   each through a channel of its own, bit for bit gloo's, and every
+   channel must have enqueued waits on the card, as must (a), (b) and
+   (e); then a 4 KiB ring hop timed on the card's clock beside gloo's.
 
 In phases 3-11 the executors must be built once each by the end of step
 1, and neither rebuilt nor added to later; the plan cache must only hit
 from step 2.  In phases 3, 4, 6, 7, 9 and 10 K1-K3 must launch each step
 as the plan's hops imply (``_plan_hop_launches``; a scaled codec encodes
-each chunk an RHD forwarding hop joins at its own scale).  One aggregate per transport and model is profiled (every
-rank of phases 3, 6 and 7's LMs, ResNet-50 rhd_rsa in phase 7) and
+each chunk an RHD forwarding hop joins at its own scale).  One aggregate
+is profiled, on every rank of phase 7's smollm-360m (the profiler's
+start-up took 11.8-18.6 s a spawn on the H100, so no other training
+spawn profiles; every aggregate's host staging is counted by
+``dist.traffic``), and
 split into copies host<->device and device<->device, K1-K3/K4, gloo
-waits and control waits; the profiled cuda_ipc aggregates must copy
-nothing between host and card.
+waits and the channel's waits (on the card only its sync at the
+aggregate's end); it must copy nothing between host and card.
 
 12. Serving (the reference's ``serve/`` and KV-cache decode).  (a)
    Full-width, full-depth gemma-7b (28 layers, 8,537,680,896 f32
@@ -270,7 +292,7 @@ nothing between host and card.
    sLSTM, the published sequential scan; 313,119,828) and (c)
    whisper-tiny (4 + 4 layers, LayerNorm, frames (2, 1500, 384);
    36,487,680) served through ``build_engine`` and ``ServeEngine``:
-   batch 2, prompts 4096, 1024 and 64, 32 greedy tokens.  Per forward K6
+   batch 2, prompts 4096, 512 and 64, 32 greedy tokens.  Per forward K6
    51 times in zamba2 (6 of them at width 4096) and 25 in xLSTM, never in
    whisper; K7 6 times in zamba2's prefill, never in decode nor in xLSTM
    or whisper's serving; tokens in range before the lookup, finite
@@ -289,10 +311,12 @@ nothing between host and card.
    three trained on 2 ``cuda_ipc`` ranks through ``run_phase``
    (``rhd_rsa`` + ``int8``, K5, batch 1 per rank, seq 4096, 2 steps):
    zamba2 depth cut to ``ZAMBA2_TRAIN_LAYERS`` (whole groups of 6), K7
-   and K8 once per application per step; xlstm-350m at full depth with
+   and K8 once per application per step; xlstm-350m with
    ``mlstm_chunk = 64`` (the sequential scan's autograd would keep a
-   ``C`` per token), cut to seq 2048 (its sLSTM time loop took 22-27 s a
-   step at 4096); whisper at full depth, K7 and K8 4 times per step;
+   ``C`` per token), cut to seq 1024 (its sLSTM time loop took 22-27 s a
+   step at 4096, 12-17 s at 2048) and to its first 8 layers (7 mLSTM +
+   1 sLSTM; all 24 took 50.6 s of the phase); whisper at full depth, K7
+   and K8 4 times per step;
    the card at most 90% full, then each reduced float32 spec trained on
    the card and on the host.  (e) The three reduced float32 specs at
    prompt 96 on the card and on the host: prefill logits within K7's
@@ -305,8 +329,9 @@ nothing between host and card.
    repro_torch.analysis --source --schedules --check-baseline`` in this
    process must return 0 over the 157 schedule cells and the import
    lint.  (b) is phase 11's hop lint.  (c) ``launch/dryrun.py --all``
-   on 16x16 and 2x16x16 in this process: 80 records, each OK or SKIP
-   with the shape policy's reason, every train record statically
+   on 16x16 and 2x16x16 in a process of its own, started before phase
+   12 and run beside phases 12-14 (it needs no card): 80 records, each
+   OK or SKIP with the shape policy's reason, every train record statically
    verified, priced on the H100, rendered by ``launch/report.py``.  (d)
    The dry run's memory estimate and roofline at phases 3, 4 and 6's
    own configurations: the exact part (parameters, gradients, AdamW
@@ -327,9 +352,8 @@ nothing between host and card.
    measured comm_s beside the ``paper`` profile's model comm_s, and
    whether every no-gRPC design beat ``gRPC_PS`` (printed, not
    required).  (c) ``dryrun --trace`` on smollm-360m ``train_4k`` on
-   16x16 and on the largest other arch whose replay fits 16 ranks of
-   this card (the arches that do not fit are listed with the memory
-   they would need: not replayed): 16 ``cuda_ipc`` ranks, each stage on
+   16x16 (one arch: a replay spawns 16 ranks and took 38-39 s on the
+   H100): 16 ``cuda_ipc`` ranks, each stage on
    a group of its own axis size; prints n_stages, k, max_ratio,
    within_band, the measured overlap beside the predicted one, each
    distinct stage, the replay's memory beside its estimate, and
@@ -352,9 +376,11 @@ card's name and power limit.
 """
 import argparse
 import collections
+import concurrent.futures
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -377,6 +403,8 @@ SMALL_N = (1, 3, 4, 5, 7, 8, 15, 16, 17, 31, 33)   # tails alone, one unit + tai
 HOP_SHAPE = (16, 960, 2560)  # phase 3: first RHD hop of smollm's d_ff bucket
 LEAF_SHAPE = (32, 960, 2560)  # smollm-360m's largest leaf (body/mlp/w1)
 R50_BUCKET = 2_359_296       # the largest ResNet-50 bucket (a 3x3x512x512 leaf)
+FLASH_SOURCE = "flash_attention"  # built beside phase 2's K1-K5 checks
+TURN_REPS = 20                # calls per timed turn of a kernel
 HOLD_CYCLES = 100_000_000     # ~50 ms of spinning at the H100's 1.98 GHz
 CNN_WORLD = 4
 CNN_BATCH = 32 * CNN_WORLD   # global; the paper's 64 per GPU, halved for 4
@@ -405,12 +433,19 @@ def log(msg):
     print(msg, flush=True)
 
 
+_GPU_LINE = []
+
+
 def gpu_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit from ``nvidia-smi``, read once a
+    process: the phases print it beside their numbers."""
+    if not _GPU_LINE:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60)
+        _GPU_LINE.append(out.stdout.strip().splitlines()[0])
+    return _GPU_LINE[0]
 
 
 def time_ms(fn, reps=10):
@@ -1080,10 +1115,10 @@ def measure(gen):
     def row(key, fn, plain, library, n_bytes, n_flops, what,
             tensor_cores=False):
         # The kernel and its yardstick in turns (kernel, library, library,
-        # kernel), 50 calls each; the mean of each pair.
+        # kernel), TURN_REPS calls each; the mean of each pair.
         runs = {fn: [], library: []}
         for f in (fn, library, library, fn) if library else (fn, fn):
-            runs[f].append(time_ms(f, reps=50))
+            runs[f].append(time_ms(f, reps=TURN_REPS))
         ms = sum(runs[fn]) / 2
         b_ms, by = bound_ms(n_bytes, n_flops, tensor_cores)
         rec = {"ms": ms, "plain_ms": time_ms(plain) if plain else None,
@@ -1460,14 +1495,15 @@ HOP_KERNELS = ("absmax_kernel", "encode_kernel", "decode_add_kernel")
 REDUCE_KERNELS = ("reduce_vec", "reduce_scalar")
 WAIT_SPANS = {"gloo waits": ("gloo.ppermute", "gloo.all_gather",
                              "gloo.psum"),
-              "control waits": ("cuda_ipc.notify_wait",
-                                "cuda_ipc.ack_wait")}
+              "channel waits": ("cuda_ipc.notify_wait",
+                                "cuda_ipc.ack_wait", "cuda_ipc.sync")}
 
 
 def _aggregate_split(run):
     """Run one aggregate under ``torch.profiler`` and split its time:
     ms of host<->device and device<->device copies, K1-K3 and K4 on the
-    card, ms the host spent in gloo's and in cuda_ipc's control waits,
+    card, ms the host spent in gloo's waits and in cuda_ipc's (on the
+    card only the channel's sync at the aggregate's end: no hop waits),
     the number of host<->device copies, and the bytes the transport
     staged through the host or wrote through mappings."""
     import torch
@@ -1482,7 +1518,7 @@ def _aggregate_split(run):
         run()
         sync()
     ms = {"host<->device copies": 0.0, "device<->device copies": 0.0,
-          "K1-K3": 0.0, "K4": 0.0, "gloo waits": 0.0, "control waits": 0.0}
+          "K1-K3": 0.0, "K4": 0.0, "gloo waits": 0.0, "channel waits": 0.0}
     n_host = 0
     for e in prof.key_averages():
         dev = getattr(e, "device_time_total", None)
@@ -1512,7 +1548,8 @@ def _split_line(split):
             + f" (ms); {split['host_device_copies']} host<->device copies, "
               f"{split['staged_bytes']} B staged through the host, "
               f"{split['mapped_bytes']} B written through mappings, "
-              f"{split['control_messages']} control messages")
+              f"{split['control_messages']} control messages, "
+              f"{split['device_waits']} waits on the card")
 
 
 def _card_in_use_gib(world):
@@ -1608,14 +1645,16 @@ def train_rank(rank, world, args, small_args, spec=None, small_spec=None,
 TRANSPORT_NOTE = {
     "gloo": "CUDA payloads staged through host memory explicitly",
     "cuda_ipc": "payloads copied device to device into receive slots the "
-                "peers mapped once, gloo for control messages"}
+                "peers mapped once, each hop's notify and acknowledgement "
+                "a counter the card waits on"}
 
 
 def _traffic_line(bd):
     t = bd["traffic"]
     return (f"aggregate moved {t['staged_bytes']} B staged through the "
             f"host, {t['mapped_bytes']} B written through mappings, "
-            f"{t['control_messages']} control messages")
+            f"{t['control_messages']} control messages, "
+            f"{t['device_waits']} waits on the card")
 
 
 def _require_on_card(bd, what):
@@ -1716,11 +1755,12 @@ def run_phase(world, args, small, required, spec=None, small_spec=None,
 # ---------------------------------------------------------------------------
 
 def cnn_trainer(name, strategy, image, batch, dtype, device, group,
-                data_device=None, overlap=False):
+                data_device=None, overlap=False, groups=None):
     """The CNN step of the tf_cnn_benchmarks analogue: ``make_train_step``
     with SGD ``p - 0.05 g`` (no momentum) and a clip that never clips;
     ``ps_gather`` fuses its terminal sum (K4); ``overlap`` reduces the
-    buckets inside the backward."""
+    buckets inside the backward.  ``groups`` (the dp groups by axis, in
+    place of ``group`` as the one data axis) runs it on a mesh."""
     from repro_torch.core import AggregatorConfig
     from repro_torch.data import SyntheticImages
     from repro_torch.models import CnnSpec, build_cnn
@@ -1729,15 +1769,16 @@ def cnn_trainer(name, strategy, image, batch, dtype, device, group,
     agg = AggregatorConfig(strategy=strategy,
                            fused_hops=True if strategy == "ps_gather"
                            else None, overlap=overlap)
+    groups = groups or {"data": group}
     cfg = TrainerConfig(steps=CNN_WARMUP + CNN_TIMED, step=TrainStepConfig(
-        aggregator=agg, clip_norm=1e30))
+        aggregator=agg, clip_norm=1e30, dp_axes=tuple(groups)))
     data = SyntheticImages(batch, image_size=image, device=data_device)
     return Trainer(build_cnn(CnnSpec(name, image_size=image, dtype=dtype)),
                    sgd(0.05, momentum=0.0), data.batch_at, cfg,
-                   device=device, verbose=False, groups={"data": group})
+                   device=device, verbose=False, groups=groups)
 
 
-def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile,
+def cnn_rank(rank, world, cnn_runs, transports, deterministic,
              overlap=False):
     import torch
     from repro_torch import tree
@@ -1781,7 +1822,7 @@ def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile,
                 "checksum": _checksum(module.tree()),
                 "breakdown": None if overlap else _step_breakdown(
                     trainer, module, "cuda", CNN_WARMUP + CNN_TIMED, rank,
-                    world, profile == (name, strategy))})
+                    world)})
             del trainer, module, opt_state
             plan_cache.GLOBAL_EXECUTOR_CACHE.clear()   # frees the slots
             torch.cuda.empty_cache()
@@ -1802,11 +1843,10 @@ def cnn_rank(rank, world, cnn_runs, transports, deterministic, profile,
 
 
 def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
-                  deterministic=False, profile=None, overlap=False):
+                  deterministic=False, overlap=False):
     """Spawn the 4 ranks once, then train every model and strategy of
     ``runs`` on each of ``transports`` in turn (cuDNN's deterministic
-    algorithms with ``deterministic``; ``profile``, a (model, strategy),
-    has every rank profile one aggregate), and require for each: finite
+    algorithms with ``deterministic``), and require for each: finite
     losses, one parameter checksum on every rank, K4 launched once per
     bucket per step exactly under fused ps_gather and never otherwise,
     no other kernel launched, executors built once and plan-cache hits
@@ -1828,8 +1868,7 @@ def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
         results = run_ranks(cnn_rank, CNN_WORLD,
-                            (runs, transports, deterministic, profile,
-                             overlap),
+                            (runs, transports, deterministic, overlap),
                             backend=backend, rendezvous_dir=rdv,
                             threads=max(1, (os.cpu_count() or 1)
                                         // CNN_WORLD),
@@ -1864,8 +1903,6 @@ def run_cnn_phase(runs=CNN_RUNS, transports=("gloo",),
                             "fwd_bwd_s", "aggregate_s", "optimizer_s")))
                 if r["rank"] == 0:
                     log(f"      {_traffic_line(bd)}")
-                if bd["split"] is not None:
-                    log(f"      rank {r['rank']} {_split_line(bd['split'])}")
                 if transport == "cuda_ipc":
                     _require_on_card(bd, f"rank {r['rank']} {model} "
                                          f"{strategy}")
@@ -1930,8 +1967,7 @@ def run_gemma_phase(rows, backend="gloo"):
                        seq=128, steps=2, dtype="float32")
     results = run_phase(GEMMA_WORLD, args, small,
                         tuple(k for k in KERNELS if k != "fused_reduce"),
-                        spec=spec, small_spec=small_spec, backend=backend,
-                        profile=True)
+                        spec=spec, small_spec=small_spec, backend=backend)
     for r in results:
         for s_, rec in enumerate(r["steps"]):
             for k in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -1968,7 +2004,6 @@ def run_gemma_phase(rows, backend="gloo"):
 
 TRANSPORT_CNN_RUNS = (("resnet50", ("ring_rsa", "rhd_rsa", "ps_gather")),
                       ("mobilenet", ("rhd_rsa", "ps_gather")))
-PROFILED_CNN = ("resnet50", "rhd_rsa")
 HOP_KERNEL_NAMES = ("hop_absmax", "hop_encode", "hop_decode_add",
                     "fused_reduce", "adamw_update")
 
@@ -2004,9 +2039,9 @@ def run_transport_phase(rows, phase3, phase5, phase6):
     """Phases 3 and 6 again on cuda_ipc, each held bit for bit to its gloo
     run; phase 5's ResNet-50 under ring_rsa, rhd_rsa and ps_gather and
     MobileNet-v1 under rhd_rsa and ps_gather on gloo and on cuda_ipc in
-    one spawn under deterministic cuDNN, held bit for bit to each other;
-    then the card tests of the transport.  Prints both transports' times
-    beside the card, and phase 5's images/s beside phase 7's on gloo."""
+    one spawn under deterministic cuDNN, held bit for bit to each other.
+    Prints both transports' times beside the card, and phase 5's
+    images/s beside phase 7's on gloo."""
     log("  smollm-360m, seq 512, 4 ranks (phase 3's configuration)")
     args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
                       device="cuda")
@@ -2019,7 +2054,7 @@ def run_transport_phase(rows, phase3, phase5, phase6):
     _same_as("smollm-360m", phase3, lm)
     log("  the paper's CNNs (phase 5's configurations), gloo then cuda_ipc")
     cnn = run_cnn_phase(TRANSPORT_CNN_RUNS, ("gloo", "cuda_ipc"),
-                        deterministic=True, profile=PROFILED_CNN)
+                        deterministic=True)
 
     def by_run(results):
         """(model, strategy, transport) -> one record per rank."""
@@ -2036,17 +2071,6 @@ def run_transport_phase(rows, phase3, phase5, phase6):
     log("  gemma-7b, 1 layer, seq 4096, 2 ranks (phase 6's configuration)")
     gemma = run_gemma_phase(rows, backend="cuda_ipc")
     _same_as("gemma-7b", phase6, gemma)
-
-    log("  card tests of the transport (tests/test_torch_transport_on_card"
-        ".py)")
-    out = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-         "tests/test_torch_transport_on_card.py"], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
-        capture_output=True, text=True, timeout=600)
-    log("    " + out.stdout.strip().splitlines()[-1])
-    require(out.returncode == 0 and "skipped" not in out.stdout,
-            f"transport card tests failed:\n{out.stdout}\n{out.stderr}")
 
     log(f"  both transports on {gpu_line()}:")
     log(f"    smollm-360m seq 512: gloo {_lm_times(phase3)}; cuda_ipc "
@@ -2380,6 +2404,9 @@ TWO_AXIS_RUNS = (("gloo", "gloo", COMPOSED, False),
                  ("auto post-backward", "cuda_ipc", "auto", False))
 
 
+TWO_AXIS_CNN_STEPS = 2    # ResNet-50 on the composed schedule, each transport
+
+
 def _axes_table():
     """A forced two-axis tuning table: the flat RHD fold below 64 MiB,
     the composed schedule from there on, so one step runs both."""
@@ -2597,7 +2624,40 @@ def two_axis_rank(rank, world, args, table):
         plan_cache.GLOBAL_EXECUTOR_CACHE.clear()     # closes the channels
         if args.device == "cuda":
             torch.cuda.empty_cache()
-    return {"rank": rank, "runs": runs, "check": check}
+    return {"rank": rank, "runs": runs, "check": check,
+            "cnn": _two_axis_cnn(groups, args.device)}
+
+
+def _two_axis_cnn(groups, device):
+    """ResNet-50 on the 2 x 2 mesh under the composed schedule (uncoded),
+    on gloo and then on cuda_ipc, under deterministic cuDNN, 2 steps
+    each: each transport's parameters, launches, losses and plan."""
+    import torch
+    from repro_torch.core import plan_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    for transport in ("gloo", "cuda_ipc"):
+        trainer = cnn_trainer("resnet50", COMPOSED, CNN_IMAGE, CNN_BATCH,
+                              "bfloat16", device, None, data_device=device,
+                              groups=groups[transport])
+        module, opt_state = trainer.init_state(0)
+        _reset_counts()                       # main path starts here
+        module, opt_state, hist = trainer.run(TWO_AXIS_CNN_STEPS, module,
+                                              opt_state)
+        out[transport] = {"totals": _counts(),   # main path ends here
+                          "losses": [h["loss"] for h in hist],
+                          "step_s": [h["step_s"] for h in hist],
+                          "checksum": _checksum(module.tree()),
+                          "render": trainer.extras["aggregator"]
+                          .last_schedule.render()}
+        del trainer, module, opt_state
+        plan_cache.GLOBAL_EXECUTOR_CACHE.clear()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
 
 
 def _host_two_axis_plan(args, table):
@@ -2716,6 +2776,31 @@ def run_two_axis_phase(phase7):
     _same_as(f"smollm-360m {TWO_AXIS_MESH} auto overlap",
              by["auto post-backward"], by["auto overlap"],
              "auto post-backward", "auto overlap")
+    cnn = [r["cnn"] for r in results]
+    for rank, c in enumerate(cnn):
+        for transport, run in c.items():
+            require(all(math.isfinite(x) for x in run["losses"]),
+                    f"rank {rank} ResNet-50 {COMPOSED} {transport}: "
+                    f"non-finite loss")
+            require(not any(run["totals"].values()),
+                    f"rank {rank} ResNet-50 {COMPOSED} {transport}: the "
+                    f"uncoded schedule launched {run['totals']}")
+        require(c["gloo"]["checksum"] == c["cuda_ipc"]["checksum"],
+                f"rank {rank} ResNet-50 {COMPOSED}: parameters differ "
+                f"between gloo ({c['gloo']['checksum']}) and cuda_ipc "
+                f"({c['cuda_ipc']['checksum']})")
+    sums = {c["cuda_ipc"]["checksum"] for c in cnn}
+    require(len(sums) == 1, f"ResNet-50 {COMPOSED}: parameters differ "
+                            f"across ranks {sums}")
+    c = cnn[0]
+    log(f"  ResNet-50 {CNN_IMAGE}x{CNN_IMAGE}, global batch {CNN_BATCH}, "
+        f"{COMPOSED} uncoded on mesh {TWO_AXIS_MESH}, deterministic cuDNN, "
+        f"{TWO_AXIS_CNN_STEPS} steps: plan {c['cuda_ipc']['render']}; "
+        f"parameters bit for bit between gloo and cuda_ipc on every rank "
+        f"and across ranks (checksum {sums.pop()}); losses "
+        f"{[round(x, 5) for x in c['cuda_ipc']['losses']]}; step_s gloo "
+        f"{[round(x, 3) for x in c['gloo']['step_s']]}, cuda_ipc "
+        f"{[round(x, 3) for x in c['cuda_ipc']['step_s']]}")
     checks = [r["check"] for r in results]
     log(f"  step 1's gradient, {COMPOSED} + {LEVEL_CODECS} against flat "
         f"rhd_rsa + int8 over the 4 ranks: largest difference "
@@ -3159,47 +3244,61 @@ def _bucket_split(span):
     return hops, in_stages - hops, span.duration_s - in_stages
 
 
-WAIT_NAMES = ("cuda_ipc.notify_wait", "cuda_ipc.ack_wait")
-
-
-def _hop_split(span):
-    """A bucket span's hop host seconds split into issue (the copy, the
-    event record, the control message published, the consumer), the
-    wait for the peer's notify and the wait for its acknowledgement (the
-    transport's ``cuda_ipc.*_wait`` spans)."""
+def _hop_issue(span):
+    """A bucket span's host seconds in its hop spans: on the card all of
+    it is issue (the copy into the slot, the waits and writes enqueued,
+    the consumer's kernels); a hop never waits for a peer on the host."""
     from repro_torch.telemetry.trace import walk
-    hops = [h for h in walk([span]) if h.name.startswith("hop[")]
-    waits = [sum(w.duration_s for h in hops for w in walk(h.children)
-                 if w.name == name) for name in WAIT_NAMES]
-    total = sum(h.duration_s for h in hops)
-    return (total - sum(waits), *waits)
+    return sum(h.duration_s for h in walk([span])
+               if h.name.startswith("hop["))
+
+
+def _device_clock(rec):
+    """The card's clock of an overlapped step (``OverlapRecord``): the
+    backward on its stream, each bucket's work from its start to its end
+    on the channel's stream (its waits for the peers included), the
+    buckets that ended before the backward's last kernel did, and the
+    device overlap fraction (``overlap.measured_timeline``)."""
+    tl = rec.device_timeline()
+    return {"device_backward_s": rec.device_backward_s,
+            "device_buckets": [(t.index, t.device_start_s, t.device_end_s)
+                               for t in rec.buckets],
+            "device_witness": rec.device_witness(),
+            "device_overlap": None if tl is None else tl.overlap_fraction}
 
 
 def _log_hop_split(results, prefix):
-    """Phase 11(b)'s hop host time per rank and step, split into issue,
-    notify wait and ack wait, beside the backward's time, when its backward
-    began after the first rank's (the ranks share the host's monotonic
-    clock), when the first bucket in channel order ended, HL002's witness
-    and the nice value the overlap channel's thread ran at (whether
-    :data:`~repro_torch.core.aggregator.CHANNEL_NICE` took effect)."""
-    from repro_torch.core.aggregator import CHANNEL_NICE
+    """Phase 11(b) per rank and step.  Host clock: the hops' issue time
+    over the step's buckets (no host wait in a hop on the card), the
+    host's one wait for the channel (its sync at the backward's join),
+    the backward, when it began after the first rank's (the ranks share
+    the host's monotonic clock), when the first bucket in channel order
+    was issued and HL002's witness.  Card clock: the backward, the channel's work from its first
+    bucket's start to its last one's end, when the first bucket ended,
+    the buckets that ended before the backward's last kernel, and the
+    device overlap fraction."""
     first = [min(r["cnn"]["steps"][i]["t0"] for r in results)
              for i in range(len(results[0]["cnn"]["steps"]))]
     for r in results:
         for s_, step in enumerate(r["cnn"]["steps"], 1):
-            sp = step["hop_split"]
-            tot = [sum(x[i] for x in sp) for i in range(3)]
-            nice = step["channel_nice"]
-            taken = "taken" if nice == CHANNEL_NICE else "not taken"
-            log(f"{prefix} rank {r['rank']} step {s_}: hops of {len(sp)} "
-                f"buckets {_ms(sum(tot))} ms: issue {_ms(tot[0])}, notify "
-                f"wait {_ms(tot[1])}, ack wait {_ms(tot[2])}; backward "
+            issue = step["hop_issue"]
+            dev = step["device_buckets"]
+            card = "not recorded (off the card)" if step[
+                "device_backward_s"] is None else (
+                f"backward {_ms(step['device_backward_s'])} ms, the buckets' "
+                f"work {_ms(dev[-1][2] - dev[0][1])} ms, first bucket ended "
+                f"at {_ms(dev[0][2])} ms, {step['device_witness']} of "
+                f"{len(dev)} buckets ended before the backward's last "
+                f"kernel, device overlap fraction "
+                f"{step['device_overlap']:.4f}")
+            log(f"{prefix} rank {r['rank']} step {s_}: host: hops of "
+                f"{len(issue)} buckets issued in {_ms(sum(issue))} ms, "
+                f"the join's wait {_ms(step['join_wait_s'])} ms; backward "
                 f"{_ms(step['backward_s'])} ms, begun "
                 f"{_ms(step['t0'] - first[s_ - 1])} ms after the first "
-                f"rank's, first bucket ended at "
+                f"rank's, first bucket issued by "
                 f"{_ms(step['buckets'][0][3])} ms; HL002 witness "
-                f"{step['lint']['witness']}; channel thread nice {nice} "
-                f"(CHANNEL_NICE {taken})")
+                f"{step['lint']['witness']}; card: {card}")
 
 
 def _stage_bytes(sched, log):
@@ -3281,6 +3380,71 @@ def _lm_step_spans(roots, sched, rank):
             "train_step_s": total("train.step")}
 
 
+IPC_CHECK_N = CHECK_N        # (f): a main-path bucket (1 Mi f32)
+IPC_CHECK_HOPS = 5           # (f): ring hops back to back, past SLOTS
+PINGPONG_BYTES = 4096        # (f): the timed hop
+PINGPONG_HOPS = 100
+
+
+def _ipc_check(rank, world, device):
+    """(f): the cuda_ipc channel's waits on the card (``csrc/mailbox.cu``'s
+    ``ipc_wait``) against gloo in the same ranks: ring hops of mixed sizes
+    back to back (more than ``dist.SLOTS``), an all-gather, and
+    ``rhd_rsa`` and ``ring_rsa`` of a 1 Mi-element f32 bucket, each
+    through a channel of its own and each bit for bit gloo's; every
+    channel must have enqueued waits on the card.  Then one hop's time:
+    ``PINGPONG_HOPS`` ring hops of 4 KiB on the card's clock through a
+    channel, and through gloo (host-staged: host clock, synchronised)."""
+    import torch
+    from repro_torch.core import Group, reducers
+    from repro_torch.core import dist as core_dist
+    gen = torch.Generator(device=device).manual_seed(rank)
+    x = torch.randn(IPC_CHECK_N, generator=gen, device=device)
+    ring = [(i, (i + 1) % world) for i in range(world)]
+    cases = {
+        "ring hops": lambda g: [
+            core_dist.ppermute(x[:1 + (7919 * i) % IPC_CHECK_N] + i, g, ring)
+            for i in range(IPC_CHECK_HOPS)],
+        "all_gather": lambda g: [core_dist.all_gather(x[:4096], g)],
+        "rhd_rsa": lambda g: [reducers.allreduce(x, [g], "rhd_rsa")],
+        "ring_rsa": lambda g: [reducers.allreduce(x, [g], "ring_rsa")]}
+    gloo, ipc = Group(transport="gloo"), Group()
+    out = {"bits": {}, "waits": {}, "max_abs": 0.0}
+    for name, fn in cases.items():
+        want = fn(gloo)
+        with core_dist.IpcChannel(ipc, 4 * IPC_CHECK_N, device) as ch:
+            got = fn(ch.group)
+            ch.sync()
+            out["waits"][name] = ch.waits
+        out["bits"][name] = all(bits_equal(a, b) for a, b in zip(got, want))
+        out["max_abs"] = max([out["max_abs"]]
+                             + [max_abs(a, b) for a, b in zip(got, want)])
+    y = x[:PINGPONG_BYTES // 4]
+    with core_dist.IpcChannel(ipc, PINGPONG_BYTES, device) as ch:
+        for _ in range(10):
+            core_dist.ppermute(y, ch.group, ring)
+        ch.sync()
+        torch.distributed.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PINGPONG_HOPS):
+            core_dist.ppermute(y, ch.group, ring)
+        end.record()
+        ch.sync()
+        out["ms"] = start.elapsed_time(end) / PINGPONG_HOPS
+    for _ in range(10):
+        core_dist.ppermute(y, gloo, ring)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(PINGPONG_HOPS):
+        core_dist.ppermute(y, gloo, ring)
+    torch.cuda.synchronize()
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3 / PINGPONG_HOPS
+    return out
+
+
 def telemetry_rank(rank, world, args, trace_path):
     """Phase 11 on one rank, ``REPRO_TRACE`` set: (a) phase 7's
     smollm-360m on cuda_ipc, its spans checked and its hops linted per
@@ -3314,6 +3478,7 @@ def telemetry_rank(rank, world, args, trace_path):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()                           # main path starts here
+    waits0 = core_dist.traffic["device_waits"]
     for s in range(args.steps):
         n0 = len(tracer.roots)
         before, cache0 = _counts(), _cache_counts()
@@ -3328,9 +3493,11 @@ def telemetry_rank(rank, world, args, trace_path):
                       **_lm_step_spans(tracer.roots[n0:],
                                        agg.last_schedule, rank)})
     totals = _counts()                        # main path ends here
+    waits = core_dist.traffic["device_waits"] - waits0
     sched = agg.last_schedule
     hist = telemetry.METRICS.snapshot()["metrics"]["train_step_s"]
     lm = {"steps": steps, "totals": totals, "scalar": _scalar_counts(),
+          "device_waits": waits,
           "checksum": _checksum(module.tree()),
           "train_step_samples": hist["values"][""]["count"],
           "render": sched.render(), "n_buckets": sched.n_buckets,
@@ -3384,6 +3551,7 @@ def telemetry_rank(rank, world, args, trace_path):
     module, opt_state = trainer.init_state(0)
     cnn_steps = []
     _reset_counts()                           # main path starts here
+    waits0 = core_dist.traffic["device_waits"]
     for s in range(CNN_WARMUP + CNN_TIMED):
         n0 = len(tracer.roots)
         before, cache0 = _counts(), _cache_counts()
@@ -3409,15 +3577,18 @@ def telemetry_rank(rank, world, args, trace_path):
             "off_track": off_track,
             "backward_s": rec.backward_s,
             "t0": rec.t0,
-            "channel_nice": rec.channel_nice,
             "buckets": [(t.index, t.ready_s, t.start_s, t.end_s,
                          *_bucket_split(spans[f"bucket[{t.index}]"]))
                         for t in rec.buckets
                         if f"bucket[{t.index}]" in spans],
-            "hop_split": [_hop_split(spans[f"bucket[{t.index}]"])
+            "hop_issue": [_hop_issue(spans[f"bucket[{t.index}]"])
                           for t in rec.buckets
-                          if f"bucket[{t.index}]" in spans]})
+                          if f"bucket[{t.index}]" in spans],
+            "join_wait_s": sum(s_.duration_s for s_ in trace.walk(roots)
+                               if s_.name == "cuda_ipc.sync"),
+            **_device_clock(rec)})
     cnn = {"steps": cnn_steps, "totals": _counts(),
+           "device_waits": core_dist.traffic["device_waits"] - waits0,
            "scalar": _scalar_counts(),
            "checksum": _checksum(module.tree())}
     del trainer, module, opt_state
@@ -3434,6 +3605,7 @@ def telemetry_rank(rank, world, args, trace_path):
     module, opt_state = trainer.init_state(args.seed)
     ov_steps = []
     _reset_counts()                           # main path starts here
+    waits0 = core_dist.traffic["device_waits"]
     for s in range(OVERLAP_LINT_STEPS):
         n0 = len(tracer.roots)
         module, opt_state, hist = trainer.run(1, module, opt_state,
@@ -3444,6 +3616,7 @@ def telemetry_rank(rank, world, args, trace_path):
             hl002=False),
             "stage_bytes": _stage_bytes(ov_agg.last_schedule, hops)})
     lm_overlap = {"steps": ov_steps, "totals": _counts(),
+                  "device_waits": core_dist.traffic["device_waits"] - waits0,
                   "scalar": _scalar_counts()}
     del trainer, module, opt_state
     plan_cache.GLOBAL_EXECUTOR_CACHE.clear()
@@ -3462,8 +3635,11 @@ def telemetry_rank(rank, world, args, trace_path):
                      "roots": len(forest),
                      "spans": sum(1 for _ in trace.walk(forest)),
                      "tids": sorted({e["tid"] for e in doc["traceEvents"]})}
+    # (f) the channel's waits on the card against gloo, and a hop's time.
+    ipc_check = _ipc_check(rank, world, args.device) if cuda else None
     return {"rank": rank, "lm": lm, "closure": closure_rec, "cnn": cnn,
-            "lm_overlap": lm_overlap, "trace": trace_rec}
+            "lm_overlap": lm_overlap, "trace": trace_rec,
+            "ipc_check": ipc_check}
 
 
 def _ms(seconds):
@@ -3700,8 +3876,41 @@ def run_telemetry_phase(phase7, phase8):
     log(f"  (d) rank 0's trace: {t['events']} events, {t['bytes']} bytes, "
         f"{t['roots']} roots, reloaded through from_json; tracks "
         f"{t['tids']}")
+
+    # (f)
+    for r in results if results[0]["ipc_check"] is not None else ():
+        c = r["ipc_check"]
+        require(all(c["bits"].values()),
+                f"rank {r['rank']}: hops through the waits on the card "
+                f"differ from gloo's: {c['bits']}")
+        require(all(n > 0 for n in c["waits"].values()),
+                f"rank {r['rank']}: a channel enqueued no wait on the card "
+                f"{c['waits']}")
+        for part in ("lm", "cnn", "lm_overlap"):
+            require(r[part]["device_waits"] > 0,
+                    f"rank {r['rank']} ({part}): the main path enqueued no "
+                    f"wait on the card")
+    c = results[0]["ipc_check"]
+    if c is None:
+        log("  (f) not run: the ranks ran off the card")
+    else:
+        _log_ipc_check(results)
     log(f"  phase 11 {seconds:.1f} s on {gpu_line()}")
     return results
+
+
+def _log_ipc_check(results):
+    c = results[0]["ipc_check"]
+    log(f"  (f) the channel's waits on the card (ipc_wait) against gloo: "
+        f"{list(c['bits'])} bit for bit on every rank, waits per channel "
+        f"on rank 0 {c['waits']}; waits on the main path per rank "
+        f"(a)+(b)+(e) "
+        f"{[sum(r[p]['device_waits'] for p in ('lm', 'cnn', 'lm_overlap')) for r in results]}; "
+        f"a {PINGPONG_BYTES}-byte ring hop on {TRAIN_WORLD} ranks, ms per "
+        f"hop per rank: card clock "
+        f"{[round(r['ipc_check']['ms'], 4) for r in results]}, gloo "
+        f"(host-staged, host clock) "
+        f"{[round(r['ipc_check']['plain_ms'], 4) for r in results]}")
 
 
 # ---------------------------------------------------------------------------
@@ -4701,15 +4910,18 @@ RECURRENT_PARAMS = {ZAMBA2: 1_113_328_512, XLSTM: 313_119_828,
 RECURRENT_NEW = 32
 # (a)-(c): prompt and decode-against-forward (prefill, teacher-forced
 # steps); zamba2's lengths are multiples of its ssm_chunk of 256
-RECURRENT_SERVE = {ZAMBA2: (4096, 3840, 256), XLSTM: (1024, 256, 8),
+RECURRENT_SERVE = {ZAMBA2: (4096, 3840, 256), XLSTM: (512, 256, 8),
                    WHISPER: (64, 64, 8)}
 XLSTM_CHUNK = 64                   # (b) the chunked check; (d) training
 XLSTM_PROFILED = 64                # (b) the prefill profiled
 XLSTM_SHORT = (8, 4)               # (b) float32 decode = forward: the
                                    # reference test's prefill and steps
 RECURRENT_TRAIN_SEQ = 4096         # (d)
-XLSTM_TRAIN_SEQ = 2048             # (d) cut: its time loops at 4096 took
-                                   # 22-27 s a step, phase 14 over 180 s
+XLSTM_TRAIN_SEQ = 1024             # (d) cut: its time loops took 22-27 s
+                                   # a step at 4096 and 11.8-17.1 at 2048,
+                                   # phase 14 over its 180 s at both
+XLSTM_TRAIN_LAYERS = 8             # (d) cut: depth, one group of 8 (7
+                                   # mLSTM + 1 sLSTM); 24 took 50.6 s
 ZAMBA2_TRAIN_LAYERS = 12           # (d) cut: depth, whole groups of 6
 RECURRENT_SMALL_PROMPT = 96        # (e): a multiple of the reduced chunk
 RECURRENT_WIDTHS = (1024, 2048, 4096)   # K6 rows in phase 14 (phase 2)
@@ -5003,7 +5215,7 @@ def serve_recurrent(arch, label):
                                      toks[:, :par_prompt + 1], label)
         if cuda:
             # The sequential prefill's cost: its launches, from a short
-            # prompt profiled (the 1024-token one would hold ~10^6 events).
+            # prompt profiled (the 512-token one would hold ~3x10^5 events).
             with torch.inference_mode():
                 pre = _profiled(lambda: engine.model.prefill(
                     engine.params, {"tokens": toks[:, :XLSTM_PROFILED]}),
@@ -5210,7 +5422,7 @@ def run_recurrent_phase(phase4=None):
         rec[label] = serve_recurrent(arch, label)
         torch.cuda.empty_cache()
     rec["d"] = (recurrent_train(ZAMBA2, "(d) zamba2", ZAMBA2_TRAIN_LAYERS)
-                + recurrent_train(XLSTM, "(d) xlstm",
+                + recurrent_train(XLSTM, "(d) xlstm", XLSTM_TRAIN_LAYERS,
                                   overrides={"mlstm_chunk": XLSTM_CHUNK},
                                   seq=XLSTM_TRAIN_SEQ)
                 + recurrent_train(WHISPER, "(d) whisper"))
@@ -5234,17 +5446,28 @@ def _gib(n):
     return n / 2 ** 30
 
 
-def _dryrun_phase():
-    """(c) ``dryrun --all`` on both meshes in this process: every record
-    OK or SKIP with the shape policy's reason, every train record
-    statically verified, ``report.py`` rendering them."""
-    from repro_torch.configs import get_spec, shape_supported
-    from repro_torch.core.hw import H100_SXM
-    from repro_torch.launch import dryrun, report
+def _dryrun_records():
+    """``dryrun --all`` on both meshes, and its seconds.  Host only (meta
+    tensors), so the full run starts it in a process of its own beside
+    phases 12-14."""
+    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     recs = [r for mp in (False, True)
             for r in dryrun.run_all(mp, verbose=False)]
-    seconds = time.perf_counter() - t0
+    return recs, time.perf_counter() - t0
+
+
+def _dryrun_phase(pending=None):
+    """(c) ``dryrun --all`` on both meshes (``pending``'s result, a
+    future of :func:`_dryrun_records`, or run here): every record OK or
+    SKIP with the shape policy's reason, every train record statically
+    verified, ``report.py`` rendering them."""
+    from repro_torch.configs import get_spec, shape_supported
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.launch import report
+    ran = "in this process" if pending is None else "in a process of its own"
+    recs, seconds = (_dryrun_records() if pending is None
+                     else pending.result())
     require(len(recs) == DRYRUN_RECORDS,
             f"dryrun --all wrote {len(recs)} records, not {DRYRUN_RECORDS}")
     for r in recs:
@@ -5270,7 +5493,7 @@ def _dryrun_phase():
     fits = collections.Counter(
         (r["mesh"], r["memory_estimate"]["fits"]) for r in recs
         if r["status"] == "OK")
-    log(f"  (c) dryrun --all, 16x16 and 2x16x16, in this process: "
+    log(f"  (c) dryrun --all, 16x16 and 2x16x16, {ran}: "
         f"{len(recs)} records ({dict(counts)}) in {seconds:.1f} s; every "
         f"train record verified_static; priced on {H100_SXM.name}; "
         f"fits the card's {H100_SXM.hbm_bytes / 1e9:.0f} GB by mesh "
@@ -5368,11 +5591,12 @@ def _estimates_vs_measured(phase3, phase4, phase6, phase11):
 
 
 def run_analysis_phase(phase3=None, phase4=None, phase6=None,
-                       phase11=None):
+                       phase11=None, dryrun=None):
     """Phase 15: (a) the schedule and source gate, (b) phase 11's hop
-    lint (summarised here), (c) the dry run on both meshes, (d) the
-    estimates against phases 3, 4 and 6 (phase 11's run alone under
-    ``--analysis-only``).  Returns its record."""
+    lint (summarised here), (c) the dry run on both meshes (``dryrun``,
+    a future of its records, or run here), (d) the estimates against
+    phases 3, 4 and 6 (phase 11's run alone under ``--analysis-only``).
+    Returns its record."""
     from repro_torch.analysis import __main__ as analysis_cli
     t_start = time.perf_counter()
     # (a)
@@ -5405,7 +5629,7 @@ def run_analysis_phase(phase3=None, phase4=None, phase6=None,
             f"overlapped) and ResNet-50 (overlapped, HL002 checked): no "
             f"error, no unbaselined warning")
     # (c)
-    recs, dry_s = _dryrun_phase()
+    recs, dry_s = _dryrun_phase(dryrun)
     # (d)
     t0 = time.perf_counter()
     estimates = _estimates_vs_measured(phase3, phase4, phase6, phase11)
@@ -5424,7 +5648,7 @@ MEASURED_PS = (2, 4)
 MEASURED_MODELS = ("resnet50", "mobilenet")
 MEASURED_TRANSPORTS = ("cuda_ipc", "gloo")
 MEASURED_REPS = 5
-TRACE_FIRST = "smollm-360m"
+TRACE_ARCH = "smollm-360m"
 TRACE_SHAPE = "train_4k"
 CLOSURE_ARTIFACT = os.path.join(ROOT, "artifacts_torch",
                                 "telemetry_closure.json")
@@ -5503,93 +5727,55 @@ def _measured_backend():
     return {"rows": rows, "order": order, "seconds": seconds}
 
 
-def _trace_candidates():
-    """(c) The train_4k records on 16x16 by parameter count, with the
-    bytes their replay needs on 16 ranks of this card."""
-    import torch
-    from repro_torch import tree
-    from repro_torch.configs import get_spec, list_archs, shape_supported, \
-        spec_for_shape
-    from repro_torch.launch import dryrun
-    from repro_torch.models import build_model
-    free = torch.cuda.mem_get_info()[0]
-    out = []
-    for arch in list_archs():
-        spec = get_spec(arch)
-        if not shape_supported(spec, TRACE_SHAPE)[0]:
-            continue
-        params = build_model(spec_for_shape(spec, TRACE_SHAPE)).init(
-            torch.Generator().manual_seed(0), "meta").tree()
-        n = sum(t.numel() for t in tree.leaves(params))
-        sched = dryrun.train_schedule(params, dryrun.mesh_axes(False))
-        world = max(int(st.axis_size) for _p, _b, st in sched.iter_stages())
-        need = world * (dryrun.replay_bytes(sched) + dryrun.CONTEXT_BYTES)
-        out.append({"arch": arch, "params": n, "need": need,
-                    "fits": need <= free, "world": world})
-    return sorted(out, key=lambda c: -c["params"]), free
-
-
 def _dryrun_traces():
-    """(c) ``dryrun --trace`` on smollm-360m train_4k on 16x16 and on
-    the largest other arch whose replay fits 16 ranks of this card."""
+    """(c) ``dryrun --trace`` on smollm-360m train_4k on 16x16."""
     from repro_torch.launch import dryrun, report
-    cands, free = _trace_candidates()
-    other = next(
-        c["arch"] for c in cands if c["fits"] and c["arch"] != TRACE_FIRST)
-    for c in cands:
-        log(f"      {c['arch']:22s} {c['params'] / 1e9:6.2f} G parameters: "
-            f"the replay needs ~{_gib(c['need']):6.1f} GiB on {c['world']} "
-            f"ranks ({_gib(free):.1f} GiB free): "
-            f"{'fits' if c['fits'] else 'cut: not replayed on one card'}")
-    recs = []
-    for arch in (TRACE_FIRST, other):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "trace.json")
-            rec = dryrun.run_one(arch, TRACE_SHAPE, False, verbose=False,
-                                 trace_path=path, device="cuda")
-            require(rec["status"] == "OK" and "calibration"
-                    in rec.get("measured", {}),
-                    f"dryrun --trace {arch}: {rec['status']} "
-                    f"{rec.get('error', '')} {rec.get('measured')}")
-            with open(path) as f:
-                n_spans = len(json.load(f)["traceEvents"])
-        m, so = rec["measured"], rec["schedule"]
-        mo, po = so["measured_overlap"], so["overlap"]
-        log(f"  (c) dryrun --trace {arch} {TRACE_SHAPE} 16x16 "
-            f"({time.perf_counter() - t0:.1f} s, {n_spans} trace events): "
-            f"{m['n_stages']} stages ({m['n_gated']} gated), k "
-            f"{m['calibration']['k']:.4g} (per axis size "
-            f"{ {p: round(v['k'], 4) for p, v in m['calibration']['per_axis_size'].items()} }), "
-            f"max_ratio {m['max_ratio']:.3f}, within_band "
-            f"{m['all_within_band']}; overlap measured "
-            f"{mo['overlap_fraction']:.4f} vs predicted "
-            f"{po['overlap_fraction']:.4f} (exposed comm "
-            f"{mo['exposed_comm_s'] * 1e3:.3f} vs "
-            f"{po['timeline']['exposed_comm_s'] * 1e3:.3f} ms, model units)")
-        seen = collections.Counter((r["op"], r["algorithm"], r["axis"],
-                                    r["axis_size"], r["n_bytes"])
-                                   for r in m["stages"])
-        for r in m["stages"]:
-            key = (r["op"], r["algorithm"], r["axis"], r["axis_size"],
-                   r["n_bytes"])
-            if key not in seen or r["op"] == "shard":
-                continue
-            log(f"      x{seen.pop(key):2d} {r['op']:10s} {r['algorithm']:8s} "
-                f"{r['axis']}@{r['axis_size']:2d} {r['n_bytes']:11d} B: "
-                f"measured {r['measured_s'] * 1e3:8.3f} ms, predicted "
-                f"{r['predicted_s'] * 1e6:8.2f} us, ratio {r['ratio']:.3f}"
-                f"{'' if r['gated'] else ' (not gated)'}")
-        rp = rec["trace_replay"]
-        log(f"      replay on {rp['ranks']} ranks: estimate "
-            f"{_gib(rp['estimate_bytes']):.2f} GiB a rank, peak reserved "
-            f"{_gib(max(rp['peak_bytes'])):.2f} GiB (largest rank)")
-        recs.append(rec)
-    table = report.telemetry_table(recs)
-    require(all(r["arch"] in table for r in recs),
-            "report.telemetry_table rendered nothing")
+    arch = TRACE_ARCH
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        rec = dryrun.run_one(arch, TRACE_SHAPE, False, verbose=False,
+                             trace_path=path, device="cuda")
+        require(rec["status"] == "OK" and "calibration"
+                in rec.get("measured", {}),
+                f"dryrun --trace {arch}: {rec['status']} "
+                f"{rec.get('error', '')} {rec.get('measured')}")
+        with open(path) as f:
+            n_spans = len(json.load(f)["traceEvents"])
+    m, so = rec["measured"], rec["schedule"]
+    mo, po = so["measured_overlap"], so["overlap"]
+    log(f"  (c) dryrun --trace {arch} {TRACE_SHAPE} 16x16 "
+        f"({time.perf_counter() - t0:.1f} s, {n_spans} trace events): "
+        f"{m['n_stages']} stages ({m['n_gated']} gated), k "
+        f"{m['calibration']['k']:.4g} (per axis size "
+        f"{ {p: round(v['k'], 4) for p, v in m['calibration']['per_axis_size'].items()} }), "
+        f"max_ratio {m['max_ratio']:.3f}, within_band "
+        f"{m['all_within_band']}; overlap measured "
+        f"{mo['overlap_fraction']:.4f} vs predicted "
+        f"{po['overlap_fraction']:.4f} (exposed comm "
+        f"{mo['exposed_comm_s'] * 1e3:.3f} vs "
+        f"{po['timeline']['exposed_comm_s'] * 1e3:.3f} ms, model units)")
+    seen = collections.Counter((r["op"], r["algorithm"], r["axis"],
+                                r["axis_size"], r["n_bytes"])
+                               for r in m["stages"])
+    for r in m["stages"]:
+        key = (r["op"], r["algorithm"], r["axis"], r["axis_size"],
+               r["n_bytes"])
+        if key not in seen or r["op"] == "shard":
+            continue
+        log(f"      x{seen.pop(key):2d} {r['op']:10s} {r['algorithm']:8s} "
+            f"{r['axis']}@{r['axis_size']:2d} {r['n_bytes']:11d} B: "
+            f"measured {r['measured_s'] * 1e3:8.3f} ms, predicted "
+            f"{r['predicted_s'] * 1e6:8.2f} us, ratio {r['ratio']:.3f}"
+            f"{'' if r['gated'] else ' (not gated)'}")
+    rp = rec["trace_replay"]
+    log(f"      replay on {rp['ranks']} ranks: estimate "
+        f"{_gib(rp['estimate_bytes']):.2f} GiB a rank, peak reserved "
+        f"{_gib(max(rp['peak_bytes'])):.2f} GiB (largest rank)")
+    table = report.telemetry_table([rec])
+    require(arch in table, "report.telemetry_table rendered nothing")
     log(table)
-    return recs
+    return [rec]
 
 
 def run_characterization_phase():
@@ -5662,7 +5848,7 @@ def offset_flash_rows(gen):
     f32, causal, at :func:`check_flash`'s per-dtype atol/rtol and within
     :data:`OFFSET_TOL` (the largest absolute difference K7 and K8 show at
     the square shapes), the output rows bit for bit the square launch's
-    rows from the offset on, then timed (50
+    rows from the offset on, then timed (``TURN_REPS``
     calls in turns) beside SDPA with the same mask as a boolean
     ``attn_mask`` and beside the square launch of the whole sequence.
     Returns the two rows (bf16 at dh 64; every case a variant)."""
@@ -5753,7 +5939,7 @@ def offset_flash_rows(gen):
                     in cases:
                 runs = {fn: [], library: [], square: []}
                 for f in (fn, library, square, square, library, fn):
-                    runs[f].append(time_ms(f, reps=50))
+                    runs[f].append(time_ms(f, reps=TURN_REPS))
                 ms = sum(runs[fn]) / 2
                 b_ms, by = bound_ms(n_bytes, n_flops, name == "bf16")
                 table[name + tag] = {
@@ -5926,7 +6112,7 @@ def run_seq_parallel_phase(phase10=None, phase11=None, phase16=None):
     phase 10's run overlapped, bit for bit phase 10's post-backward run
     (its twin in this spawn when phase 10 did not run), HL002's witness
     printed; (c) F9's measure: phase 11(b)'s hop host time split into
-    issue, notify wait and ack wait, and phase 16's host time per hop.
+    issue and the card's clock, and phase 16's host time per hop.
     Returns each rank's record."""
     from repro_torch.core import reducers
     from repro_torch.core.dist import run_ranks
@@ -6040,6 +6226,32 @@ def run_seq_parallel_phase(phase10=None, phase11=None, phase16=None):
     return results
 
 
+def _ipc_wait_row(phase11):
+    """The JSON record's ``transport`` row of the cuda_ipc channel's
+    wait on the card (phase 11): the waits it enqueued on the main path
+    ((a), (b) and (e)), the largest difference from gloo in (f), and a
+    4 KiB ring hop's ms on the card's clock beside gloo's (the
+    host-staged hop).  It is no kernel: the driver's stream memory
+    operations in place of a hop's host waits, not of a Pallas kernel,
+    and a hop's time is a latency (the peers' contexts time-slicing the
+    card), so it has no byte or operation bound."""
+    waits = sum(r[p]["device_waits"] for r in phase11
+                for p in ("lm", "cnn", "lm_overlap"))
+    require(waits > 0, "the channel's wait on the card never launched")
+    checks = [r["ipc_check"] for r in phase11]
+    return {"name": "ipc_wait", "kind": "transport",
+            "mechanism": "cuStreamWaitValue64 / cuStreamWriteValue64",
+            "source": "src/repro_torch/kernels/csrc/mailbox.cu",
+            "replaces": None,
+            "in_place_of": "a cuda_ipc hop's host waits (the reference's "
+                           "ppermute, src/repro/core/compat.py:143)",
+            "waits": waits, "waits_by_phase": {"phase11": waits},
+            "max_abs_err": max(c["max_abs"] for c in checks),
+            "hop_ms": max(c["ms"] for c in checks),
+            "hop_bytes": PINGPONG_BYTES,
+            "gloo_hop_ms": max(c["plain_ms"] for c in checks)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve-only", action="store_true",
@@ -6109,44 +6321,66 @@ def main(argv=None):
         print(gpu_line(), flush=True)
         return 0
     t_start = time.perf_counter()
+    marks = []
+
+    def phase(title):
+        """Log a phase's title with the seconds since the run began."""
+        now = time.perf_counter()
+        marks.append((title.split(":")[0], now))
+        log(f"{title} [at {now - t_start:.1f} s]")
+
     gpu = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {gpu}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    log("phase 1: build")
+    phase("phase 1: build (the flash kernels' nvcc runs on while phase 2 "
+          "checks K1-K5 and phase 3 trains)")
     t0 = time.perf_counter()
-    reports = backend.build_all()
+    # The flash source takes the longest to compile; nothing before
+    # check_flash loads it (phase 3's seq 512 and small model's 32 stay
+    # under attn_full_seq_max).
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    flash = pool.submit(backend.build_all, (FLASH_SOURCE,))
+    reports = backend.build_all(tuple(s for s in backend.SOURCES
+                                      if s != FLASH_SOURCE))
     for name, text in reports.items():
         report_build(name, text)
     log(f"  built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: K1-K5 vs plain versions on the card")
+    phase("phase 2: K1-K5 vs plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_hop_kernels(gen)
     check_fused_reduce(gen)
     check_adamw(gen)
+    torch.cuda.empty_cache()     # the ranks of phase 3 share the card
 
-    log("phase 2: K6 fused_rmsnorm and K7/K8 flash attention")
-    check_rmsnorm(gen)
-    check_flash(gen)
-    rows = measure(gen)
-    log("phase 2: K7/K8 with a query offset (phase 17's sequence chunks)")
-    rows.update(offset_flash_rows(gen))
-    torch.cuda.empty_cache()     # the ranks of phases 3-6 share the card
-
-    log("phase 3: train full-width smollm-360m, seq 512")
+    phase("phase 3: train full-width smollm-360m, seq 512")
     args = train_args(full=True, batch=2 * TRAIN_WORLD, seq=512,
                       device="cuda")
     small = train_args(full=False, batch=2 * TRAIN_WORLD, seq=32, steps=2,
                        dtype="float32")
     main_path = ("hop_absmax", "hop_encode", "hop_decode_add",
                  "adamw_update", "fused_rmsnorm")
-    phase3 = run_phase(TRAIN_WORLD, args, small, main_path, profile=True)
+    phase3 = run_phase(TRAIN_WORLD, args, small, main_path)
 
-    log(f"phase 4: long context, full-width smollm-360m at seq {LONG_SEQ}")
+    phase("phase 2: K6 fused_rmsnorm and K7/K8 flash attention")
+    reports = flash.result()
+    pool.shutdown()
+    for name, text in reports.items():
+        report_build(name, text)
+    log(f"  built {sorted(reports) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s from the start of phase 1")
+    check_rmsnorm(gen)
+    check_flash(gen)
+    rows = measure(gen)
+    phase("phase 2: K7/K8 with a query offset (phase 17's sequence chunks)")
+    rows.update(offset_flash_rows(gen))
+    torch.cuda.empty_cache()     # the ranks of phases 4-6 share the card
+
+    phase(f"phase 4: long context, full-width smollm-360m at seq {LONG_SEQ}")
     args = train_args(full=True, batch=LONG_WORLD, seq=LONG_SEQ,
                       steps=LONG_STEPS, device="cuda")
     small = train_args(full=False, batch=2 * LONG_WORLD, seq=128, steps=2,
@@ -6166,63 +6400,69 @@ def main(argv=None):
         f"{LAYERS} layers) {attn_s:.3f} s of the {fb:.3f} s "
         f"forward+backward of one rank alone: {attn_s / fb:.1%}")
 
-    log("phase 5: the paper's CNNs, full-width ResNet-50 and MobileNet-v1 "
-        f"at {CNN_IMAGE}x{CNN_IMAGE}")
+    phase("phase 5: the paper's CNNs, full-width ResNet-50 and MobileNet-v1 "
+          f"at {CNN_IMAGE}x{CNN_IMAGE}")
     phase5 = run_cnn_phase()
 
-    log(f"phase 6: long context, full-width gemma-7b at seq {LONG_SEQ}")
+    phase(f"phase 6: long context, full-width gemma-7b at seq {LONG_SEQ}")
     phase6 = run_gemma_phase(rows)
 
-    log("phase 7: phases 3, 5 and 6 on the cuda_ipc transport")
+    phase("phase 7: phases 3, 5 and 6 on the cuda_ipc transport")
     phase7 = run_transport_phase(rows, phase3, phase5, phase6)
 
-    log("phase 8: strategy='auto' and overlap=True (in-backward "
-        "reductions) on cuda_ipc")
+    phase("phase 8: strategy='auto' and overlap=True (in-backward "
+          "reductions) on cuda_ipc")
     phase8 = run_overlap_phase(phase7)
 
-    log(f"phase 9: two dp axes, mesh {TWO_AXIS_MESH}: {COMPOSED} + "
-        f"{LEVEL_CODECS} on gloo and cuda_ipc, overlapped, and auto")
+    phase(f"phase 9: two dp axes, mesh {TWO_AXIS_MESH}: {COMPOSED} + "
+          f"{LEVEL_CODECS} on gloo and cuda_ipc, overlapped, and auto")
     phase9 = run_two_axis_phase(phase7)
 
-    log(f"phase 10: the model axis, mesh {MODEL_MESH} (data x model): "
-        f"rhd_rsa on gloo and cuda_ipc, rhd_rsa + int8 on cuda_ipc")
+    phase(f"phase 10: the model axis, mesh {MODEL_MESH} (data x model): "
+          f"rhd_rsa on gloo and cuda_ipc, rhd_rsa + int8 on cuda_ipc")
     phase10 = run_model_axis_phase(phase3)
 
-    log("phase 11: telemetry on the training path (REPRO_TRACE in the "
-        "ranks): smollm-360m as phase 7, the closure, ResNet-50 as phase "
-        "8, the trace file")
+    phase("phase 11: telemetry on the training path (REPRO_TRACE in the "
+          "ranks): smollm-360m as phase 7, the closure, ResNet-50 as phase "
+          "8, the trace file")
     phase11 = run_telemetry_phase(phase7, phase8)
 
-    log(f"phase 12: serving: gemma-7b at full width and depth (prompt "
-        f"{SERVE_PROMPT}, K7 in prefill), card against host, smollm-360m "
-        f"on --mesh {RANK_MESH} ranks")
+    # Phase 15's dry run needs no card: it runs beside phases 12-14.
+    dry_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    dry = dry_pool.submit(_dryrun_records)
+
+    phase(f"phase 12: serving: gemma-7b at full width and depth (prompt "
+          f"{SERVE_PROMPT}, K7 in prefill), card against host, smollm-360m "
+          f"on --mesh {RANK_MESH} ranks")
     phase12 = run_serve_phase()
 
-    log(f"phase 13: the rest of the transformer family: {DSV2} and {PHI3} "
-        f"served at full width and depth, {GRANITE_MOE} and {PHI3} trained "
-        f"on {FAMILY_WORLD} cuda_ipc ranks (depth cut), the reduced specs "
-        f"card against host")
+    phase(f"phase 13: the rest of the transformer family: {DSV2} and {PHI3} "
+          f"served at full width and depth, {GRANITE_MOE} and {PHI3} trained "
+          f"on {FAMILY_WORLD} cuda_ipc ranks (depth cut), the reduced specs "
+          f"card against host")
     phase13 = run_family_phase()
 
-    log(f"phase 14: the recurrent and encoder-decoder families: {ZAMBA2}, "
-        f"{XLSTM} and {WHISPER} served at full width and depth and trained "
-        f"on {LONG_WORLD} cuda_ipc ranks, the reduced specs card against "
-        f"host, remat against phase 4")
+    phase(f"phase 14: the recurrent and encoder-decoder families: {ZAMBA2}, "
+          f"{XLSTM} and {WHISPER} served at full width and depth and trained "
+          f"on {LONG_WORLD} cuda_ipc ranks, the reduced specs card against "
+          f"host, remat against phase 4")
     phase14 = run_recurrent_phase(phase4)
 
-    log("phase 15: analysis/ and the planning tools: the schedule and "
-        "source gate, phase 11's hop lint, the dry run on 16x16 and "
-        "2x16x16, the estimates against phases 3, 4 and 6")
-    run_analysis_phase(phase3, phase4, phase6, phase11)
+    phase("phase 15: analysis/ and the planning tools: the schedule and "
+          "source gate, phase 11's hop lint, the dry run on 16x16 and "
+          "2x16x16, the estimates against phases 3, 4 and 6")
+    run_analysis_phase(phase3, phase4, phase6, phase11, dry)
+    dry_pool.shutdown()
 
-    log("phase 16: the characterization: regen --check and the claims, "
-        "the measured backend on the card, dryrun --trace, the closure "
-        "artifact")
+    phase("phase 16: the characterization: regen --check and the claims, "
+          "the measured backend on the card, dryrun --trace, the closure "
+          "artifact")
     phase16 = run_characterization_phase()
 
-    log(f"phase 17: seq_parallel and overlap on the model axis: "
-        f"full-width smollm-360m at seq {SP_SEQ} on mesh {MODEL_MESH} "
-        f"(K7/K8's offset build), phase 10 overlapped, F9's measure")
+    phase(f"phase 17: seq_parallel and overlap on the model axis: "
+          f"full-width smollm-360m at seq {SP_SEQ} on mesh {MODEL_MESH} "
+          f"(K7/K8's offset build), phase 10 overlapped, F9's measure")
     phase17 = run_seq_parallel_phase(phase10, phase11, phase16)
 
     def phases(field, k):
@@ -6270,7 +6510,13 @@ def main(argv=None):
          "launches_by_phase": phases("totals", k), **scalar(k),
          "max_abs_err": MAX_ERR[k], **rows[k]}
         for k in (*KERNELS, *OFFSET_KERNELS)]}
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    record["transport"] = [_ipc_wait_row(phase11)]
+    end = time.perf_counter()
+    spans = collections.defaultdict(float)
+    for (name, t0_), (_, t1_) in zip(marks, marks[1:] + [("", end)]):
+        spans[name] += t1_ - t0_
+    log(f"seconds by phase: { {k: round(v, 1) for k, v in spans.items()} }")
+    log(f"total {end - t_start:.1f} s")
     print(json.dumps(record), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

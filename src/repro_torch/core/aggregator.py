@@ -29,8 +29,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import os
-import sys
 import threading
 import time
 import weakref
@@ -47,27 +45,6 @@ from . import schedule as schedule_mod
 from . import selector as selector_mod
 from .plan_cache import GLOBAL_EXECUTOR_CACHE, GLOBAL_PLAN_CACHE, PlanCache
 from .schedule import DTYPES, ReduceSchedule
-
-# The overlap channel's thread's nice value on the card: below the rank's
-# other threads', so that while the backward keeps the host's cores busy
-# the hops' host work (copies, events, control messages) is scheduled
-# ahead of it.  With 4 ranks sharing an H100 80GB HBM3 (700 W), the
-# first bucket of ResNet-50's overlapped step took ~24 ms of hop host
-# time while the backward ran and 2-4 ms a bucket after it
-# (chip_smoke.py phase 11(b)).
-CHANNEL_NICE = -10
-
-# The interpreter's switch interval while an overlapped backward runs on
-# the card (seconds; Python's default is 5 ms).  The backward's thread
-# takes the interpreter lock for each leaf's hook and may take it back
-# before the channel's thread, which needs it between all its calls, has
-# woken; that thread then waits for a forced switch, one interval at
-# most.  On 4 ranks sharing an H100 80GB HBM3 (700 W) some spawns ran the
-# first bucket's hops 35-50 ms into the backward, most of it issue time,
-# against 10-20 ms in the others: 1 spawn of 4 with this interval, 3 of 8
-# without (tools/hl002_rate.py), so it bounds a wait but is not the
-# whole cause.
-CHANNEL_SWITCH_S = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,19 +309,31 @@ class GradientAggregator:
         return total / dp_size
 
 
+def _timed_event(stream) -> "torch.cuda.Event":
+    """A timing event recorded on ``stream`` now."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
 @dataclasses.dataclass(frozen=True)
 class BucketTimes:
     """One bucket on the overlap channel: host seconds from the start of
     backward to its last leaf's hook (``ready_s``), to the channel
     taking it (``start_s``) and to the channel having issued its
     reduction (``end_s``).  On the card the channel's work is queued on
-    its stream, so these are issue times."""
+    its stream, so these are issue times; ``device_start_s`` and
+    ``device_end_s`` are the card's clock (CUDA events) from the start of
+    backward on its stream to the bucket's work starting and ending on
+    the channel's stream (None off the card)."""
     index: int
     strategy: str
     n_bytes: int
     ready_s: float
     start_s: float
     end_s: float
+    device_start_s: float | None = None
+    device_end_s: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,19 +344,41 @@ class OverlapRecord:
     leaves that got no gradient (reduced as zeros), ``t0``, the
     ``time.perf_counter()`` at the start of backward (the clock of the
     telemetry spans: the backward ends at ``t0 + backward_s``), and
-    ``channel_nice``, the nice value the channel's thread ran at (None
-    off the card; :data:`CHANNEL_NICE` when the process may lower it)."""
+    ``device_backward_s``, the backward on the card's clock, from an
+    event recorded on its stream before ``loss.backward()`` to one
+    recorded when it returned (None off the card)."""
     backward_s: float
     buckets: tuple[BucketTimes, ...]
     traffic: dict
     zero_leaves: tuple[int, ...]
     t0: float = 0.0
-    channel_nice: int | None = None
+    device_backward_s: float | None = None
 
     @property
     def backward_end(self) -> float:
         """``time.perf_counter()`` when ``loss.backward()`` returned."""
         return self.t0 + self.backward_s
+
+    def device_witness(self) -> int | None:
+        """Buckets whose reduction ended on the card before the
+        backward's last kernel did (None off the card)."""
+        if self.device_backward_s is None:
+            return None
+        return sum(b.device_end_s <= self.device_backward_s
+                   for b in self.buckets)
+
+    def device_timeline(self) -> "overlap_mod.Timeline | None":
+        """:meth:`timeline` on the card's clock: each bucket from its
+        work's start to its end on the channel's stream, against the
+        backward's span on its stream (None off the card)."""
+        if self.device_backward_s is None:
+            return None
+        return overlap_mod.measured_timeline(
+            [overlap_mod.TimelineEvent(dataclasses.replace(
+                t, comm_s=b.device_end_s - b.device_start_s),
+                b.device_start_s, b.device_end_s)
+             for t, b in zip(self._tasks(), self.buckets)],
+            self.device_backward_s)
 
     def _tasks(self) -> list:
         """Each bucket's task: its measured ready time, and the time from
@@ -416,14 +427,16 @@ class OverlapRun:
         self.ready_s: list = [None] * len(sched.buckets)
         self.outs: list = [None] * len(sched.buckets)
         self.done: list = [None] * len(sched.buckets)
+        self.begun: list = [None] * len(sched.buckets)
+        self.clock: list = []             # the backward's start and end
         self.times: list = []
+        self.ran: list = []               # bucket of each of self.times
         self.cond = threading.Condition()
         self.error: BaseException | None = None
         self.abort = False
         self.t0 = None
         self.finished = False
         self.consumer = None
-        self.channel_nice = None          # set by the channel's thread
 
     @property
     def active(self) -> bool:
@@ -463,13 +476,6 @@ class OverlapRun:
         plan = self.sched.plan
         before = dict(dist_mod.traffic)
         cuda = self.stream is not None
-        if cuda:
-            tid = threading.get_native_id()
-            try:
-                os.setpriority(os.PRIO_PROCESS, tid, CHANNEL_NICE)
-            except PermissionError:
-                pass     # without the privilege it keeps the rank's nice
-            self.channel_nice = os.getpriority(os.PRIO_PROCESS, tid)
         try:
             with torch.cuda.device(self.device) if cuda \
                     else contextlib.nullcontext(), \
@@ -490,14 +496,15 @@ class OverlapRun:
                         for i, g in zip(idx, leaves):
                             self.stream.wait_event(self.events[i])
                             g.record_stream(self.stream)
+                        self.begun[bi] = _timed_event(self.stream)
                     out, _ = self.executor.reduce_bucket(bi, leaves,
                                                          self.scale)
                     if cuda:
                         out.record_stream(self.consumer)
-                        self.done[bi] = torch.cuda.Event()
-                        self.done[bi].record(self.stream)
+                        self.done[bi] = _timed_event(self.stream)
                     self.outs[bi] = out
                     b = self.sched.buckets[bi]
+                    self.ran.append(bi)
                     self.times.append(BucketTimes(
                         index=b.index, strategy=b.strategy,
                         n_bytes=b.n_bytes, ready_s=self.ready_s[bi],
@@ -512,9 +519,11 @@ class OverlapRun:
     def backward(self, loss: torch.Tensor):
         """``loss.backward()`` with the channel running; then the leaves
         with no gradient are reduced as zeros (JAX's cotangent for an
-        unused input), the channel is joined, the current stream waits
-        for its reductions, and the mean-reduced gradient tree is
-        returned (``.grad`` keeps each rank's own gradient)."""
+        unused input), the channel is joined and, on the card, its
+        channels synced (``IpcChannel.sync``: the host's one wait for the
+        hops, with their deadline), the current stream waits for its
+        reductions, and the mean-reduced gradient tree is returned
+        (``.grad`` keeps each rank's own gradient)."""
         agg = self.agg
         if agg._run is not self:
             raise RuntimeError("this OverlapRun is not the armed one")
@@ -522,17 +531,17 @@ class OverlapRun:
             raise RuntimeError("clear .grad before an overlapped backward")
         if self.stream is not None:
             self.consumer = torch.cuda.current_stream(self.device)
+            self.clock = [_timed_event(self.consumer)]
         thread = threading.Thread(target=self._channel,
                                   name="overlap-channel", daemon=True)
-        switch = sys.getswitchinterval()
-        if self.stream is not None:
-            sys.setswitchinterval(CHANNEL_SWITCH_S)
         with self.cond:
             self.t0 = time.perf_counter()
         thread.start()
         try:
             loss.backward()
             backward_s = self._now()
+            if self.stream is not None:
+                self.clock.append(_timed_event(self.consumer))
             zero = []
             for i, p in enumerate(self.leaves):
                 if self.grads[i] is not None:
@@ -552,13 +561,25 @@ class OverlapRun:
             raise
         finally:
             thread.join()
-            sys.setswitchinterval(switch)
             self.finished, agg._run = True, None
         if self.error is not None:
             raise RuntimeError("the overlap channel failed") from self.error
+        device_backward_s = None
         if self.stream is not None:
+            # The host's one wait for the channel's hops, with the
+            # channels' deadline; the card's clock can be read after it.
+            for ch in self.executor.channels:
+                ch.sync()
             for ev in self.done:
                 self.consumer.wait_event(ev)
+            for ev in (self.clock[1], *self.done):
+                ev.synchronize()
+            start = self.clock[0]
+            device_backward_s = start.elapsed_time(self.clock[1]) / 1e3
+            self.times = [dataclasses.replace(
+                t, device_start_s=start.elapsed_time(self.begun[bi]) / 1e3,
+                device_end_s=start.elapsed_time(self.done[bi]) / 1e3)
+                for t, bi in zip(self.times, self.ran)]
         plan = self.sched.plan
         flat: list = [None] * len(self.leaves)
         for bi, b in enumerate(self.sched.buckets):
@@ -570,5 +591,5 @@ class OverlapRun:
         agg.last_overlap = OverlapRecord(
             backward_s=backward_s, buckets=tuple(self.times),
             traffic=self.traffic, zero_leaves=tuple(zero), t0=self.t0,
-            channel_nice=self.channel_nice)
+            device_backward_s=device_backward_s)
         return tree_mod.unflatten(self.params, flat)

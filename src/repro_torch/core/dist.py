@@ -20,13 +20,21 @@ Three transports, chosen by the caller (``run_ranks(backend=...)``, or
 ``cuda_ipc``  Ranks of one host, any number to a card.  A gloo process
               group sets channels up and tears them down; ``ppermute``
               and ``all_gather`` payloads stay in device memory.  Each
-              rank owns receive slots and a mailbox in shared host
-              memory that its peers map once (:class:`IpcChannel`, the
-              paper's pointer cache); a hop is a device-to-device copy
-              into the target's slot through that mapping, an
-              interprocess CUDA event and a control message in the
-              target's mailbox.  CPU tensors take the same protocol over
-              shared memory.  ``psum`` stays gloo's host-staged allreduce: it
+              rank owns receive slots and, per peer, a notify and an
+              acknowledgement counter in device memory, which its peers
+              map once (:class:`IpcChannel`, the paper's pointer cache).
+              A hop is enqueued on the stream and never waits on the
+              host: the sender's stream waits on the card for the slot,
+              copies into it through the mapping and writes the notify
+              counter; the receiver's stream waits on the card for that
+              value, consumes the slot and writes the acknowledgement
+              (the driver's stream memory operations).  The host waits,
+              with a deadline, only where it synchronises with the
+              channel (:meth:`IpcChannel.sync`, :func:`sync_channels`,
+              which every other host wait for the card on a channel's
+              path calls first).  CPU tensors take slots
+              and a mailbox in shared memory, polled by the host.
+              ``psum`` stays gloo's host-staged allreduce: it
               is the vendor baseline (NCCL2's), which ranks sharing one
               card cannot run.  A group refuses to form unless every
               rank is on this host, and an export or a mapping that
@@ -49,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import itertools
 import multiprocessing as mp
 import os
 import queue as queue_mod
@@ -66,8 +75,11 @@ TRANSPORTS = ("gloo", "nccl", "cuda_ipc")
 
 # Bytes each transport moved, for the trace split: payload bytes gloo
 # staged between the card and the host, bytes written into peers' slots
-# through the cuda_ipc mappings, and cuda_ipc control messages.
-traffic = {"staged_bytes": 0, "mapped_bytes": 0, "control_messages": 0}
+# through the cuda_ipc mappings, cuda_ipc control messages (a notify and
+# an acknowledgement per hop), and the waits for them a cuda_ipc channel
+# enqueued on the card (``csrc/mailbox.cu``'s, counted as launches).
+traffic = {"staged_bytes": 0, "mapped_bytes": 0, "control_messages": 0,
+           "device_waits": 0}
 
 # The transport the world group was started with (init_process_group);
 # a cuda_ipc world runs on a gloo process group, so the backend alone
@@ -78,6 +90,9 @@ _world_transport: str | None = None
 # order of close_channels()).
 _open_channels: list = []
 _channels_opened = 0
+# The waits every channel of this process enqueued on the card, counted
+# in the order they were enqueued.
+_waits_enqueued = itertools.count()
 
 
 def _span(name: str):
@@ -94,28 +109,84 @@ def _spans(name: str, tracer):
 
 
 def _wait_span(name: str):
-    """A control wait: a profiler range while a profiler records, and
-    with telemetry on a ``trace`` span under the hop's (the split of a
-    hop's host time into issue and waits); nothing while neither records
-    (a hop's waits are its hottest host path)."""
+    """A host wait of the transport: a profiler range while a profiler
+    records, and with telemetry on a ``trace`` span under the open one
+    (on the CPU a hop's, the split of its host time into issue and
+    waits; on the card the channel's sync); nothing while neither
+    records (a hop's waits are its hottest host path)."""
     tracer = telemetry_trace.get_tracer()
     if torch._C._autograd._profiler_enabled():
         return _spans(name, tracer)
     return tracer.span(name, cat="trace") if tracer.enabled else _NO_SPAN
 
 
-def _mailbox_lib():
-    """``csrc/mailbox.cu``'s post and wait, built at first use."""
+_CONTROL: dict = {}     # device index -> csrc/mailbox.cu, opened
+# Cells of pinned host memory the card writes (a channel's count of the
+# waits the card has passed): (host array, the card's address of cell 0,
+# free cell indices), allocated once per process.
+CELLS = 1024
+_cells: list = []
+
+
+def _control_lib(device: torch.device):
+    """``csrc/mailbox.cu``'s device waits and writes, built at first
+    use.  Raises unless ``device`` has the driver's 64-bit stream memory
+    operations: a channel on the card waits there, with no host
+    fallback."""
+    lib = _CONTROL.get(device.index)
+    if lib is not None:
+        return lib
     from ..kernels import backend
     lib = backend.load("mailbox")
-    if not getattr(lib, "_typed", False):
-        lib.mailbox_post.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 3
-        lib.mailbox_post.restype = ctypes.c_int64
-        lib.mailbox_wait.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                     ctypes.c_double, ctypes.c_void_p]
-        lib.mailbox_wait.restype = ctypes.c_int
-        lib._typed = True
+    vp, u64, i64 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64
+    lib.ipc_wait.argtypes = [vp, u64, u64, u64, u64]
+    lib.ipc_wait.restype = ctypes.c_int
+    lib.ipc_host_cells.argtypes = [ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_uint64),
+                                    ctypes.POINTER(ctypes.c_uint64)]
+    lib.ipc_host_cells.restype = ctypes.c_int
+    lib.ipc_signal.argtypes = [vp, vp, i64, i64, u64, u64]
+    lib.ipc_signal.restype = ctypes.c_int
+    lib.ipc_open.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.ipc_open.restype = ctypes.c_int
+    support = ctypes.c_int(0)
+    rc = lib.ipc_open(device.index, ctypes.byref(support))
+    if rc != 0:
+        raise RuntimeError(f"cuda_ipc: the driver's stream memory "
+                           f"operations could not be opened on {device} "
+                           f"(error {rc})")
+    if not support.value:
+        raise RuntimeError(
+            f"cuda_ipc: {device} has no 64-bit stream memory operations "
+            f"(CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS is 0); a "
+            f"channel waits for its peers on the card and has no host "
+            f"fallback")
+    _CONTROL[device.index] = lib
     return lib
+
+
+def _host_cell(lib) -> tuple:
+    """``(index, host view, the card's address)`` of a free cell of
+    pinned host memory that the card writes; give it back with
+    :func:`_free_cell`."""
+    if not _cells:
+        host, dev = ctypes.c_uint64(0), ctypes.c_uint64(0)
+        rc = lib.ipc_host_cells(CELLS, ctypes.byref(host), ctypes.byref(dev))
+        if rc != 0:
+            raise RuntimeError(f"cuda_ipc: pinned host memory for the card "
+                               f"could not be allocated (error {rc})")
+        _cells[:] = [(ctypes.c_int64 * CELLS).from_address(host.value),
+                     dev.value, list(range(CELLS))]
+    array, dev, free = _cells
+    if not free:
+        raise RuntimeError(f"cuda_ipc: more than {CELLS} channels open")
+    i = free.pop()
+    array[i] = 0
+    return i, array, dev + 8 * i
+
+
+def _free_cell(i: int) -> None:
+    _cells[2].append(i)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -256,7 +327,68 @@ def axis_size(group: Group) -> int:
 SLOTS = 2          # receive slots per ordered pair of ranks
 ALIGN = 16         # every part of a payload starts 16-byte aligned
 MAILBOX_TIMEOUT_S = 300.0   # a control wait longer than this raises
-_NOTIFY, _ACK = 0, 1        # the two cells a peer writes in a mailbox
+_NOTIFY, _ACK = 0, 1        # the two messages a peer sends
+_KIND = ("notify", "acknowledgement")
+LINE = 16          # int64 words in 128 bytes: one device counter's line
+LOG = 1024         # byte-count log entries per peer (on the card)
+
+
+# -- the sequence arithmetic, the same on both paths --------------------------
+
+def counter_target(seq: int) -> int:
+    """The value a peer's counter holds once its message ``seq`` of one
+    kind is out: messages count from 1 (a CPU mailbox cell's
+    generation, a device counter on the card)."""
+    return seq + 1
+
+
+def reuse_bound(seq: int) -> int:
+    """The acknowledgement count that payload ``seq`` waits for before
+    it is written into slot ``seq % SLOTS``: the peer has read the
+    payload that last used that slot, ``seq - SLOTS``.  0 for the first
+    ``SLOTS`` payloads."""
+    return max(seq - SLOTS + 1, 0)
+
+
+def check_message(channel: str, q: int, kind: int, got, want) -> None:
+    """Raise unless the message from rank ``q`` is the one expected.
+    ``got`` is ``[message number, *values]`` as it arrived, ``want`` the
+    values expected: ``(seq, slot, bytes)`` for a notify, ``(seq,)`` for
+    an acknowledgement; the message number expected is
+    ``counter_target(want[0])``."""
+    gen = counter_target(want[0])
+    got = [int(v) for v in got]
+    if got[0] == gen and got[1:1 + len(want)] == list(want):
+        return
+    if kind == _NOTIFY:
+        raise RuntimeError(
+            f"cuda_ipc channel {channel}: rank {q} sent the notify "
+            f"{got[1:1 + len(want)]} (message {got[0]}), expected (seq, "
+            f"slot, bytes) {list(want)} (message {gen})")
+    raise RuntimeError(
+        f"cuda_ipc channel {channel}: rank {q} acknowledged {got[1:2]} "
+        f"(message {got[0]}), expected payload {want[0]} (message {gen})")
+
+
+def late_error(channel: str, q: int, global_q: int, kind: int,
+               timeout_s: float, seq: int) -> TimeoutError:
+    """The error of a wait for ``q``'s message ``seq`` that outlasted
+    ``timeout_s``."""
+    return TimeoutError(
+        f"cuda_ipc channel {channel}: no {_KIND[kind]} from rank {q} "
+        f"(global rank {global_q}) in {timeout_s} s; expected seq {seq}")
+
+
+def lagging(waits, passed: int):
+    """``(q, kind, seq)`` of the first wait the card has not passed, or
+    None.  ``waits`` are a channel's waits on the card in the order they
+    were enqueued, each ``(q, kind, seq)``: a take of ``seq`` waits for
+    ``q``'s notify ``seq`` (its counter at ``counter_target(seq)``), a
+    post of ``seq`` for ``q``'s acknowledgement of payload ``seq``
+    (``reuse_bound`` of the post's own number); ``passed`` is how many
+    of them the card has passed.  The stream runs them in order, so the
+    first not passed is the one it is blocked on."""
+    return waits[passed] if passed < len(waits) else None
 
 
 def _round_up(n: int) -> int:
@@ -306,40 +438,76 @@ def _gather_or_raise(group: Group, what: str, err) -> list:
     return errs
 
 
+def _poll(done, deadline: float, longest: float = 2e-4) -> bool:
+    """Poll ``done()`` until it is true (True) or the monotonic clock
+    passes ``deadline`` (False), sleeping between polls from 10 µs,
+    doubling up to ``longest`` seconds."""
+    pause = 0.0
+    while not done():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(pause)
+        pause = min(longest, pause * 2 or 1e-5)
+    return True
+
+
 class IpcChannel:
     """The cuda_ipc transport between the ranks of one group.
 
     Each rank owns, for every peer, ``SLOTS`` receive slots of
-    ``slot_bytes`` on ``device`` that only that peer writes, and one
-    mailbox in shared host memory: for every peer a notify cell and an
-    acknowledgement cell that only that peer writes (four int64 each,
-    ``(gen, seq, slot, bytes)``).  Opening a channel is collective:
-    every rank exports its slots, its mailbox (and, on CUDA, its
-    interprocess events) once, gathers the peers' handles, and maps each
-    once, keyed by peer; later hops reuse those mappings (the paper's
-    pointer cache, Sec. V-B).  ``channel.group`` is the group with this
-    channel bound.
+    ``slot_bytes`` on ``device`` that only that peer writes, and for
+    every peer a notify counter and an acknowledgement counter that only
+    that peer writes.  Opening a channel is collective: every rank
+    exports its slots and counters once, gathers the peers' handles, and
+    maps each once, keyed by peer; later hops reuse those mappings (the
+    paper's pointer cache, Sec. V-B).  ``channel.group`` is the group
+    with this channel bound.
 
-    A hop from ``s`` to ``t`` (:meth:`post`, :meth:`take`,
-    :meth:`finish`): ``s`` makes its stream wait for ``t``'s
-    acknowledgement of the payload that last used the slot, copies into
-    the slot through its mapping, records its event for the slot, and
-    only then publishes ``(seq, slot, bytes)`` in its cell of ``t``'s
-    mailbox (release ordering).  ``t`` waits for it (acquire ordering),
-    makes its stream wait for that event, consumes the slot in place,
-    records its own event and publishes the acknowledgement in its cell
-    of ``s``'s mailbox, which ``s`` waits for before the collective call
-    returns.  So no control message outlives the call that sent it, and
-    with two slots a payload is written while the one before it may
-    still be read on the card.  A message other than the one expected
-    raises.  On CUDA the writes and waits run in ``csrc/mailbox.cu``,
-    called with the interpreter lock released; on the CPU the wait polls
-    in Python.  A wait that outlasts :data:`MAILBOX_TIMEOUT_S` (read when
-    the channel opens) raises, naming the peer, the channel and the
-    sequence number it expected.
+    A hop from ``s`` to ``t`` is :meth:`post` on ``s``, :meth:`take` on
+    ``t`` and :meth:`finish` on ``s``.  With two slots a payload is
+    written while the one before it may still be read.  The counters
+    follow :func:`counter_target` and :func:`reuse_bound`.
 
-    :meth:`close` is collective too: it unmaps the peers' slots and
-    mailboxes on every rank, and only then frees this rank's own."""
+    On CUDA every step is enqueued on the current stream and the host
+    never waits for a peer.  ``s``'s stream waits on the card until
+    ``t``'s acknowledgement count reaches ``reuse_bound(seq)``, copies
+    into the slot through its mapping, and writes ``seq + 1`` into its
+    notify counter in ``t``'s memory (after a memory barrier).  Before
+    it enqueues that write, ``s``'s host stores ``(seq, bytes)`` in its
+    row of ``t``'s byte-count log, in shared host memory.  ``t``'s stream
+    waits until that counter reaches ``seq + 1``, consumes the slot in
+    place, and writes ``seq + 1`` into its acknowledgement counter in
+    ``s``'s memory.  ``finish`` waits for nothing.  The counters are
+    64-bit, each on a 128-byte line, in the channel's memory pool; the
+    waits and writes are the driver's stream memory operations
+    (``kernels/csrc/mailbox.cu``; a card without 64-bit ones makes the
+    channel raise when it opens).  :meth:`sync` is where the host waits:
+    it polls until the streams this rank used have run everything it
+    enqueued, then checks the byte count of every payload taken since
+    the last sync.  The end of an aggregate, an overlapped backward's
+    join, the trainer's step and :meth:`close` sync; so does a collective
+    call after ``LOG // 4`` hops since the last, and every other host
+    wait for the card on a channel's path (:func:`sync_channels`).
+
+    On the CPU the slots and a mailbox are shared host memory: for every
+    peer a notify cell and an acknowledgement cell that only that peer
+    writes (four int64 each, ``(gen, seq, slot, bytes)``).  ``s``
+    publishes ``(seq, slot, bytes)`` after its copy; ``t`` waits for it
+    (polling), consumes and publishes its acknowledgement, which ``s``
+    waits for in :meth:`finish`.
+
+    A message other than the one expected raises (:func:`check_message`).
+    A wait that outlasts :data:`MAILBOX_TIMEOUT_S` (read when the channel
+    opens) raises, naming the peer, the channel and the sequence number
+    it expected (:func:`late_error`; on the card :meth:`sync`'s deadline,
+    and the first wait the card has not passed names the peer,
+    :func:`lagging`: each wait, once passed, writes its number into
+    pinned host memory; of every open channel's, the first enqueued,
+    since channels share streams).
+
+    :meth:`close` is collective too: it syncs, checks that every counter
+    reached its final value, unmaps the peers' slots and counters on
+    every rank, and only then frees this rank's own."""
 
     def __init__(self, group: Group, slot_bytes: int, device):
         global _channels_opened
@@ -366,28 +534,35 @@ class IpcChannel:
         self.name = f"{group.name}#{self.index}"
         self._sent = {q: 0 for q in self._peers}
         self._taken = {q: 0 for q in self._peers}
+        # On the card: the streams used since the last sync (by handle),
+        # the last one, the payloads taken and not yet checked, the hops
+        # since the last sync, and the waits enqueued since then, each
+        # (q, kind, seq), the first of them this channel's wait number
+        # waited0 + 1, and each one's number among the process's waits.
+        self._streams: dict = {}
+        self._last_stream = None
+        self._pending: list = []
+        self._hops = 0
+        self._waits: list = []
+        self._wait_at: list = []
+        self._waited0 = 0
+        self.waits = 0              # waits enqueued on the card
         self._register()
         _open_channels.append(self)
 
     # -- registration -------------------------------------------------------
 
-    def _event(self):
-        return torch.cuda.Event(enable_timing=False, blocking=False,
-                                interprocess=True)
-
     def _register(self):
         g, me = self.group, self.group.rank
         record, err = None, None
         try:
-            # recv[q]: slots q writes into; notify[q]: recorded after
-            # this rank writes into q's slots; ack[q]: recorded after
-            # this rank has consumed what q wrote.  On CUDA the slots
-            # take a memory pool of their own: they live as long as the
-            # channel, and carved out of a cached block they left the
-            # step's temporaries too little room (phase 6, gemma-7b on
-            # one H100: the card held 71.32 GiB with them in the shared
-            # pool, 66.20 with a pool of their own).
-            self._lib = _mailbox_lib() if self._cuda else None
+            # recv[q]: slots q writes into.  On CUDA the slots and the
+            # counters take a memory pool of their own: they live as long
+            # as the channel, and carved out of a cached block they left
+            # the step's temporaries too little room (phase 6, gemma-7b
+            # on one H100: the card held 71.32 GiB with them in the
+            # shared pool, 66.20 with a pool of their own).
+            self._lib = _control_lib(self.device) if self._cuda else None
             self._pool = torch.cuda.MemPool() if self._cuda else None
             with torch.cuda.use_mem_pool(self._pool) if self._cuda \
                     else contextlib.nullcontext():
@@ -395,114 +570,202 @@ class IpcChannel:
                                              dtype=torch.uint8,
                                              device=self.device)
                               for q in self._peers}
-            self._notify = {q: [self._event() for _ in range(SLOTS)]
-                            if self._cuda else None for q in self._peers}
-            self._ack = {q: [self._event() for _ in range(SLOTS)]
-                         if self._cuda else None for q in self._peers}
-            # box[q, NOTIFY]: q's notifies to this rank; box[q, ACK]:
-            # q's acknowledgements of what this rank sent it.
-            self._box = torch.zeros((g.size, 2, 4), dtype=torch.int64)
-            record = ({q: (_export(self._recv[q]),
-                           self._ipc_handles(self._notify[q]),
-                           self._ipc_handles(self._ack[q]))
-                       for q in self._peers},
-                      _export(self._box.view(torch.uint8)))
+                # flags[q, 0]: q's notify count; flags[q, LINE]: q's
+                # acknowledgement count (of what this rank sent q).
+                self._flags = torch.zeros((g.size, 2 * LINE),
+                                          dtype=torch.int64,
+                                          device=self.device) \
+                    if self._cuda else None
+            if self._cuda:
+                # log[q, seq % LOG]: (seq, bytes) of q's payload seq,
+                # stored by q's host.  passed: the number of the last
+                # wait the card has passed, written there after it (pinned
+                # host memory the card writes and the host reads).
+                self._box = torch.zeros((g.size, LOG, 2), dtype=torch.int64)
+                self._cell, self._passed, self._passed_addr = \
+                    _host_cell(self._lib)
+            else:
+                # box[q, NOTIFY]: q's notifies to this rank; box[q, ACK]:
+                # q's acknowledgements of what this rank sent it.
+                self._box = torch.zeros((g.size, 2, 4), dtype=torch.int64)
+            # One export per peer of each CUDA tensor: a peer's mapping is
+            # released against the export it came from.
+            record = ({q: _export(self._recv[q]) for q in self._peers},
+                      _export(self._box.view(torch.uint8)),
+                      {q: _export(self._flags) for q in self._peers}
+                      if self._cuda else None)
         except (RuntimeError, OSError) as e:
             err = e
         _gather_or_raise(g, "exporting receive slots", err)
         records = [None] * g.size
         dist.all_gather_object(records, record, group=g.pg)
-        self._send, self._peer_notify, self._peer_ack = {}, {}, {}
-        self._peer_box = {}
+        box_shape = tuple(self._box.view(torch.uint8).shape)
+        self._send, self._peer_box, self._peer_flags = {}, {}, {}
         try:
             for q in self._peers:
-                area, notify, ack = records[q][0][me]
-                self._send[q] = _import(area)
-                self._peer_notify[q] = self._open_events(notify)
-                self._peer_ack[q] = self._open_events(ack)
+                self._send[q] = _import(records[q][0][me])
                 if self._send[q].shape != (SLOTS, self.slot_bytes):
                     raise RuntimeError(f"rank {q}'s slots have shape "
                                        f"{tuple(self._send[q].shape)}")
                 box = _import(records[q][1])
-                if box.shape != (g.size, 2, 32):
+                if tuple(box.shape) != box_shape:
                     raise RuntimeError(f"rank {q}'s mailbox has shape "
                                        f"{tuple(box.shape)}")
                 self._peer_box[q] = box.view(torch.int64)
+                if self._cuda:
+                    self._peer_flags[q] = _import(records[q][2][me])
+                    if tuple(self._peer_flags[q].shape) != \
+                            tuple(self._flags.shape):
+                        raise RuntimeError(
+                            f"rank {q}'s counters have shape "
+                            f"{tuple(self._peer_flags[q].shape)}")
         except (RuntimeError, OSError) as e:
             err = e
         _gather_or_raise(g, "mapping the peers' receive slots", err)
         # What every hop touches, looked up once: each slot's view, and
-        # each mailbox cell with its address (cells[q][kind]: q's cell in
-        # this rank's mailbox; peer_cells[q][kind]: this rank's in q's).
+        # the addresses of the control messages.  CPU: cells[q][kind] is
+        # q's cell in this rank's mailbox, peer_cells[q][kind] this
+        # rank's in q's.  CUDA: counters in[q][kind] are q's in this
+        # rank's memory (waited on), out[q][kind] this rank's in q's
+        # (written), log_out[q] the address of this rank's row of q's
+        # log.
         self._send_slots = {q: list(self._send[q]) for q in self._peers}
         self._recv_slots = {q: list(self._recv[q]) for q in self._peers}
-        self._cells = {q: [self._cell(self._box[q, kind])
-                           for kind in (_NOTIFY, _ACK)]
-                       for q in self._peers}
-        self._peer_cells = {q: [self._cell(self._peer_box[q][me, kind])
-                                for kind in (_NOTIFY, _ACK)]
-                            for q in self._peers}
+        if self._cuda:
+            self._cells = self._peer_cells = None
+            self._counters_in = {q: [self._flags[q, k * LINE].data_ptr()
+                                     for k in (_NOTIFY, _ACK)]
+                                 for q in self._peers}
+            self._counters_out = {
+                q: [self._peer_flags[q][me, k * LINE].data_ptr()
+                    for k in (_NOTIFY, _ACK)] for q in self._peers}
+            self._log_out = {q: self._peer_box[q][me].data_ptr()
+                             for q in self._peers}
+        else:
+            self._cells = {q: [self._box[q, kind] for kind in (_NOTIFY, _ACK)]
+                           for q in self._peers}
+            self._peer_cells = {q: [self._peer_box[q][me, kind]
+                                    for kind in (_NOTIFY, _ACK)]
+                                for q in self._peers}
 
-    @staticmethod
-    def _cell(view):
-        return view, ctypes.c_void_p(view.data_ptr())
-
-    def _ipc_handles(self, events):
-        return None if events is None else [e.ipc_handle() for e in events]
-
-    def _open_events(self, handles):
-        if handles is None:
-            return None
-        return [torch.cuda.Event.from_ipc_handle(self.device, h)
-                for h in handles]
-
-    # -- control messages ---------------------------------------------------
+    # -- control messages on the CPU -----------------------------------------
 
     def _publish(self, q: int, kind: int, values) -> None:
         """Write ``(seq, slot, bytes)`` into this rank's ``kind`` cell of
         ``q``'s mailbox, then raise its gen."""
-        cell, addr = self._peer_cells[q][kind]
-        if self._cuda:
-            self._lib.mailbox_post(addr, *values)
-        else:
-            cell[1:] = torch.tensor(values, dtype=torch.int64)
-            cell[0] = int(cell[0]) + 1
+        cell = self._peer_cells[q][kind]
+        cell[1:] = torch.tensor(values, dtype=torch.int64)
+        cell[0] = int(cell[0]) + 1
         traffic["control_messages"] += 1
 
     def _wait(self, q: int, kind: int, want: list) -> None:
-        """Wait for message number ``want[0] + 1`` in ``q``'s ``kind``
-        cell of this rank's mailbox and check that it is ``want``
-        (``(seq, slot, bytes)``)."""
-        cell, addr = self._cells[q][kind]
-        gen = want[0] + 1
-        what = ("notify", "acknowledgement")[kind]
-        if self._cuda:
-            out = (ctypes.c_int64 * 4)()
-            late = self._lib.mailbox_wait(addr, gen, self.timeout_s, out)
-            got = list(out)
-        else:
-            late, t0, pause = 1, time.monotonic(), 0.0
-            while time.monotonic() - t0 <= self.timeout_s:
-                if int(cell[0]) >= gen:
-                    late = 0
-                    break
-                time.sleep(pause)
-                pause = min(1e-3, pause * 2 or 1e-5)
-            got = cell.tolist()
-        if late:
-            raise TimeoutError(
-                f"cuda_ipc channel {self.name}: no {what} from rank {q} "
-                f"(global rank {self.group.global_rank(q)}) in "
-                f"{self.timeout_s} s; expected seq {want[0]}")
-        if got[0] != gen or got[1:1 + len(want)] != list(want):
-            raise RuntimeError(
-                f"cuda_ipc channel {self.name}: rank {q} sent the notify "
-                f"{got[1:1 + len(want)]} (message {got[0]}), expected "
-                f"(seq, slot, bytes) {list(want)} (message {gen})"
-                if kind == _NOTIFY else
-                f"cuda_ipc channel {self.name}: rank {q} acknowledged "
-                f"{got[1:2]} (message {got[0]}), expected payload "
-                f"{want[0]} (message {gen})")
+        """Wait for message ``counter_target(want[0])`` in ``q``'s
+        ``kind`` cell of this rank's mailbox and check that it is
+        ``want`` (``(seq, slot, bytes)``)."""
+        cell = self._cells[q][kind]
+        gen = counter_target(want[0])
+        if not _poll(lambda: int(cell[0]) >= gen,
+                     time.monotonic() + self.timeout_s, longest=1e-3):
+            raise late_error(self.name, q, self.group.global_rank(q), kind,
+                             self.timeout_s, want[0])
+        check_message(self.name, q, kind, cell.tolist(), want)
+
+    # -- control messages on the card -----------------------------------------
+
+    def _stream(self):
+        """The current stream, after the last one the channel used (a
+        channel driven from two streams keeps its order on the card)."""
+        stream = torch.cuda.current_stream(self.device)
+        handle = stream.cuda_stream
+        last = self._last_stream
+        if last is not None and last.cuda_stream != handle:
+            ev = torch.cuda.Event()
+            ev.record(last)
+            stream.wait_event(ev)
+        self._last_stream = self._streams[handle] = stream
+        return handle
+
+    def _call(self, rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"cuda_ipc channel {self.name}: {what} "
+                               f"failed with error {rc}")
+
+    def _wait_on_card(self, stream: int, addr: int, value: int,
+                      wait: tuple) -> None:
+        """Enqueue on ``stream`` a wait on the card until the counter at
+        ``addr`` reaches ``value``, for ``wait`` = ``(q, kind, seq)``."""
+        self._call(self._lib.ipc_wait(stream, addr, value,
+                                      self._passed_addr, self.waits + 1),
+                   f"the wait for {_KIND[wait[1]]} {wait[2]} of rank "
+                   f"{wait[0]}")
+        traffic["device_waits"] += 1
+        self.waits += 1
+        self._waits.append(wait)
+        self._wait_at.append(next(_waits_enqueued))
+
+    def sync(self) -> None:
+        """Wait until the streams this rank used for the channel since
+        the last sync have run everything it enqueued, polling with the
+        channel's deadline, then check the byte count of every payload
+        taken since.  Raises :func:`late_error` naming the peer that
+        lags (the counters read on the card) when the deadline passes,
+        and :func:`check_message`'s error for a payload of other bytes
+        than expected.  Nothing to do on the CPU, whose hops wait."""
+        if not self._cuda:
+            return
+        events = []
+        for stream in self._streams.values():
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            events.append(ev)
+        if events:
+            deadline = time.monotonic() + self.timeout_s
+            with _wait_span("cuda_ipc.sync"):
+                for ev in events:
+                    if not _poll(ev.query, deadline):
+                        raise self._late()
+        self._streams.clear()
+        self._last_stream = None
+        self._hops = 0
+        self._waits, self._wait_at, self._waited0 = [], [], self.waits
+        pending, self._pending = self._pending, []
+        if pending:
+            qs, seqs, nbytes = zip(*pending)
+            got = self._box[list(qs), [s % LOG for s in seqs]].tolist()
+            for q, seq, n, (gseq, gbytes) in zip(qs, seqs, nbytes, got):
+                check_message(self.name, q, _NOTIFY,
+                              [counter_target(gseq), gseq, gseq % SLOTS,
+                               gbytes], [seq, seq % SLOTS, n])
+
+    def _not_passed(self):
+        """``(number among the process's waits, wait)`` of this
+        channel's first wait the card has not passed, or None."""
+        passed = self._passed[self._cell] - self._waited0
+        wait = lagging(self._waits, passed)
+        return None if wait is None else (self._wait_at[passed], wait)
+
+    def _late(self) -> TimeoutError:
+        """The error of a sync past its deadline: the first wait the card
+        has not passed names the peer, read from host memory (a call into
+        CUDA here, a copy or even a new stream, can queue behind the
+        blocked stream).  Channels share streams, so this one's sync may
+        wait behind another's wait: the first enqueued of every open
+        channel's waits not passed is the one named."""
+        chans = [self] + [c for c in _open_channels
+                          if c is not self and c._cuda]
+        late = []
+        for ch in chans:
+            first = ch._not_passed()
+            if first is not None:
+                late.append((*first, ch))
+        if not late:
+            return TimeoutError(
+                f"cuda_ipc channel {self.name}: the card passed every wait "
+                f"of this rank's hops but did not finish them in "
+                f"{self.timeout_s} s")
+        _, (q, kind, seq), ch = min(late, key=lambda x: x[0])
+        return late_error(ch.name, q, ch.group.global_rank(q), kind,
+                          self.timeout_s, seq)
 
     # -- a hop --------------------------------------------------------------
 
@@ -526,10 +789,12 @@ class IpcChannel:
         offsets = self._layout(parts)
         seq = self._sent[q]
         k = seq % SLOTS
-        stream = torch.cuda.current_stream(self.device) if self._cuda \
-            else None
-        if self._cuda and seq >= SLOTS:   # q has read the slot's last payload
-            stream.wait_event(self._peer_ack[q][k])
+        if self._cuda:
+            stream = self._stream()
+            bound = reuse_bound(seq)
+            if bound:               # q has read the slot's last payload
+                self._wait_on_card(stream, self._counters_in[q][_ACK],
+                                   bound, (q, _ACK, seq - SLOTS))
         slot = self._send_slots[q][k]
         nbytes = 0
         for p, off in zip(parts, offsets):
@@ -537,8 +802,14 @@ class IpcChannel:
             slot[off:off + b.numel()].copy_(b)
             nbytes += b.numel()
         if self._cuda:
-            self._notify[q][k].record(stream)
-        self._publish(q, _NOTIFY, (seq, k, nbytes))
+            self._call(self._lib.ipc_signal(
+                stream, self._log_out[q] + 16 * (seq % LOG), seq, nbytes,
+                self._counters_out[q][_NOTIFY], counter_target(seq)),
+                "the notify")
+            traffic["control_messages"] += 1
+            self._hops += 1
+        else:
+            self._publish(q, _NOTIFY, (seq, k, nbytes))
         traffic["mapped_bytes"] += nbytes
         self._sent[q] = seq + 1
 
@@ -550,11 +821,13 @@ class IpcChannel:
         seq = self._taken[q]
         k = seq % SLOTS
         nbytes = sum(t.numel() * t.element_size() for t in like)
-        with _wait_span("cuda_ipc.notify_wait"):
-            self._wait(q, _NOTIFY, [seq, k, nbytes])
         if self._cuda:
-            torch.cuda.current_stream(self.device).wait_event(
-                self._peer_notify[q][k])
+            stream = self._stream()
+            self._wait_on_card(stream, self._counters_in[q][_NOTIFY],
+                               counter_target(seq), (q, _NOTIFY, seq))
+        else:
+            with _wait_span("cuda_ipc.notify_wait"):
+                self._wait(q, _NOTIFY, [seq, k, nbytes])
         slot = self._recv_slots[q][k]
         views = [slot[off:off + t.numel() * t.element_size()]
                  .view(t.dtype).reshape(t.shape)
@@ -562,15 +835,28 @@ class IpcChannel:
         out = consume(*views)
         self._check_not_slot(out, slot)
         if self._cuda:
-            self._ack[q][k].record(torch.cuda.current_stream(self.device))
-        self._publish(q, _ACK, (seq, 0, 0))
+            self._call(self._lib.ipc_signal(
+                stream, None, 0, 0, self._counters_out[q][_ACK],
+                counter_target(seq)), "the acknowledgement")
+            traffic["control_messages"] += 1
+            self._pending.append((q, seq, nbytes))
+            self._hops += 1
+        else:
+            self._publish(q, _ACK, (seq, 0, 0))
         self._taken[q] = seq + 1
         return out
 
     def finish(self, posted) -> None:
-        """End a collective call: wait for the acknowledgement of what
-        this rank posted to each of ``posted`` (each peer has read it by
-        then)."""
+        """End a collective call.  On the CPU wait for the
+        acknowledgement of what this rank posted to each of ``posted``
+        (each peer has read it by then).  On the card wait for nothing,
+        unless ``LOG // 4`` hops have passed since the last sync: then
+        :meth:`sync` (which bounds the byte-count log's unchecked
+        entries)."""
+        if self._cuda:
+            if self._hops >= LOG // 4:
+                self.sync()
+            return
         for q in posted:
             with _wait_span("cuda_ipc.ack_wait"):
                 self._wait(q, _ACK, [self._sent[q] - 1])
@@ -587,23 +873,42 @@ class IpcChannel:
 
     # -- tear-down ----------------------------------------------------------
 
+    def _check_final(self) -> None:
+        """After every rank has synced: each peer posted exactly what
+        this rank took, and acknowledged everything it sent."""
+        flags = self._flags.tolist()
+        notify = {q: flags[q][0] for q in self._peers}
+        ack = {q: flags[q][LINE] for q in self._peers}
+        for q in self._peers:
+            if notify[q] != self._taken[q] or ack[q] != self._sent[q]:
+                raise RuntimeError(
+                    f"cuda_ipc channel {self.name}: at close rank {q} had "
+                    f"posted {notify[q]} payloads and acknowledged "
+                    f"{ack[q]}; this rank took {self._taken[q]} and sent "
+                    f"{self._sent[q]}")
+
     def close(self) -> None:
-        """Collective: unmap the peers' slots and events on every rank,
-        then free this rank's own."""
+        """Collective: sync, check every counter's final value, unmap
+        the peers' slots and counters on every rank, then free this
+        rank's own."""
         if self.closed:
             return
+        self.sync()
         self.closed = True
-        if self._cuda:
-            torch.cuda.synchronize(self.device)
         dist.barrier(group=self.group.pg)
-        self._send = self._peer_notify = self._peer_ack = None
-        self._peer_box = self._send_slots = self._peer_cells = None
+        if self._cuda:
+            self._check_final()
+        self._send = self._peer_box = self._peer_flags = None
+        self._send_slots = self._peer_cells = self._counters_out = None
         dist.barrier(group=self.group.pg)
         # Every tensor from the slots' pool goes before the pool: one
         # still alive when the pool goes keeps its block out of the
         # allocator's reach.
         self._recv_slots = self._cells = self._box = None
-        self._recv = self._notify = self._ack = self._pool = None
+        self._counters_in = self._passed = None
+        if self._cuda:
+            _free_cell(self._cell)
+        self._recv = self._flags = self._pool = None
         if self._cuda:
             torch.cuda.ipc_collect()
         _open_channels.remove(self)
@@ -611,8 +916,21 @@ class IpcChannel:
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
-        self.close()
+    def __exit__(self, exc_type, *exc):
+        # A failure inside the block leaves the channel as it is: its
+        # close is collective and would wait on peers and on the card.
+        if exc_type is None:
+            self.close()
+
+
+def sync_channels() -> None:
+    """:meth:`IpcChannel.sync` every channel this process has open: the
+    host's wait for the card's channel work, with its deadline.  A host
+    wait for the card on a path that has channels (a device sync, a
+    copy to the host) calls this first: a stream wait has no timeout of
+    its own, so a peer that never posts would hang it."""
+    for ch in list(_open_channels):
+        ch.sync()
 
 
 def close_channels() -> None:

@@ -335,6 +335,10 @@ class StageExecutor:
                     scale, None if residuals is None else residuals[i])
                 reduced.append(out)
                 new_residuals.append(r)
+            # The aggregate's end: the host waits here for its hops on
+            # the card (with the channels' deadline) and checks them.
+            for ch in self.channels:
+                ch.sync()
         if residuals is not None:
             return plan.unflatten(reduced), tuple(new_residuals)
         return plan.unflatten(reduced)

@@ -1,103 +1,128 @@
-// The cuda_ipc transport's control mailbox: host code, no kernel.
+// The cuda_ipc transport's control path on the card: no host wait.
 //
 // Replaces no TPU kernel.  A cuda_ipc hop (core/dist.py, IpcChannel) tells
 // its peer that a payload is in the peer's slot, and the peer answers once
-// it has read it.  Those two messages travel through a mailbox in shared
-// host memory, one per ordered pair of ranks, mapped once when the channel
-// opens.  A cell is four int64: (gen, seq, slot, bytes).  Only one rank
-// writes a cell: it stores seq, slot and bytes, then publishes gen + 1
-// with release ordering and wakes a waiter.  The reader waits until gen
-// reaches the count it expects, with acquire ordering, and then reads the
-// three values.
+// it has read it.  Both messages are 64-bit counters in device memory, on
+// 128-byte lines of their own, which only the writing peer writes; each
+// rank's counters are mapped once by its peers when the channel opens.  A
+// message is a write of the counter's next value on the writer's stream,
+// ordered after the work before it (the copy into the slot, the consumer
+// that read it) by the write's memory barrier; the reader's stream waits
+// on the card until the counter reaches the value it expects.  The host
+// only enqueues: a hop returns without waiting for a peer.
 //
-// The wait runs here, called through ctypes, which releases the Python
-// interpreter lock for the call: a rank's backward keeps running on its
-// other threads while the overlap channel waits for a peer.  It spins for
-// a few microseconds, then sleeps in the kernel on a futex over gen's low
-// 32 bits (the mapping is shared between processes, so the futex is not
-// private), which the writer wakes: a waiting rank takes no core from the
-// ranks that share the host.  It returns 1 when `timeout_s` passes (the
-// caller raises, naming the peer).
+// The waits are cuStreamWaitValue64 (CU_STREAM_WAIT_VALUE_GEQ), the
+// writes cuStreamWriteValue64: the driver's stream memory operations,
+// which come through cudaGetDriverEntryPoint, so the build needs no
+// -lcuda.
+//
+// ipc_signal also stores (seq, bytes) of a payload into the receiver's
+// byte-count log, in shared host memory, before it enqueues the notify:
+// the receiver's host checks the byte counts when it next synchronises
+// with its channel stream (the host store precedes the enqueue, which
+// precedes the receiver's wait on the card).
 //
 // Built by nvcc like the kernels (kernels/backend.py), with a plain C
-// interface: nvcc hands host code to the host compiler.
-#include <limits.h>
-#include <linux/futex.h>
+// interface.
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
-#include <sys/syscall.h>
-#include <time.h>
-#include <unistd.h>
+#include <string.h>
 
 namespace {
 
-inline double now_s() {
-  timespec ts;
-  clock_gettime(CLOCK_MONOTONIC, &ts);
-  return static_cast<double>(ts.tv_sec) + 1e-9 * static_cast<double>(ts.tv_nsec);
-}
+using WaitValue64 = CUresult (*)(CUstream, CUdeviceptr, cuuint64_t,
+                                 unsigned int);
+using WriteValue64 = CUresult (*)(CUstream, CUdeviceptr, cuuint64_t,
+                                  unsigned int);
+using DeviceGet = CUresult (*)(CUdevice*, int);
+using DeviceGetAttribute = CUresult (*)(int*, CUdevice_attribute, CUdevice);
 
-inline void cpu_relax() {
-#if defined(__x86_64__) || defined(__i386__)
-  __builtin_ia32_pause();
-#elif defined(__aarch64__)
-  asm volatile("yield" ::: "memory");
+WaitValue64 wait_value = nullptr;
+WriteValue64 write_value = nullptr;
+
+// Returned when the driver has no entry point of that name (then
+// kNoEntry + the query's result).
+constexpr int kNoEntry = 1000;
+
+template <class F>
+int entry(const char* name, F* fn) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  cudaError_t rc = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                    cudaEnableDefault, &found);
+#else
+  cudaError_t rc = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault,
+                                           &found);
 #endif
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (found != cudaDriverEntryPointSuccess || p == nullptr)
+    return kNoEntry + static_cast<int>(found);
+  *fn = reinterpret_cast<F>(p);
+  return 0;
 }
-
-// gen's low 32 bits (little-endian: the word at gen's address).
-inline int* gen_word(const int64_t* cell) {
-  return reinterpret_cast<int*>(const_cast<int64_t*>(cell));
-}
-
-constexpr double kSpinS = 20e-6;    // spin this long before sleeping
-constexpr long kSliceNs = 10000000;  // a sleep lasts at most this long
 
 }  // namespace
 
-// Publish (seq, slot, bytes) in `cell`: the values first, then gen + 1
-// with release ordering, then wake the waiter.  Returns the new gen.
-extern "C" int64_t mailbox_post(int64_t* cell, int64_t seq, int64_t slot,
-                                int64_t nbytes) {
-  __atomic_store_n(&cell[1], seq, __ATOMIC_RELAXED);
-  __atomic_store_n(&cell[2], slot, __ATOMIC_RELAXED);
-  __atomic_store_n(&cell[3], nbytes, __ATOMIC_RELAXED);
-  const int64_t gen = __atomic_load_n(&cell[0], __ATOMIC_RELAXED) + 1;
-  __atomic_store_n(&cell[0], gen, __ATOMIC_RELEASE);
-  syscall(SYS_futex, gen_word(cell), FUTEX_WAKE, INT_MAX, nullptr, nullptr,
-          0);
-  return gen;
+// Resolve the driver's functions and read, for `device`, the attribute
+// CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS into `*support`.
+// Returns 0, a cudaError_t, kNoEntry + a query result, or a CUresult.
+extern "C" int ipc_open(int device, int* support) {
+  DeviceGet get = nullptr;
+  DeviceGetAttribute attribute = nullptr;
+  int rc;
+  if ((rc = entry("cuDeviceGet", &get)) != 0) return rc;
+  if ((rc = entry("cuDeviceGetAttribute", &attribute)) != 0) return rc;
+  if ((rc = entry("cuStreamWaitValue64", &wait_value)) != 0) return rc;
+  if ((rc = entry("cuStreamWriteValue64", &write_value)) != 0) return rc;
+  CUdevice dev;
+  if ((rc = static_cast<int>(get(&dev, device))) != 0) return rc;
+  return static_cast<int>(attribute(
+      support, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, dev));
 }
 
-// Wait until `cell`'s gen is at least `want`, then copy (gen, seq, slot,
-// bytes) into `out`.  Returns 0, or 1 after `timeout_s` with `out[0]` the
-// gen last read.
-extern "C" int mailbox_wait(const int64_t* cell, int64_t want,
-                            double timeout_s, int64_t* out) {
-  const double t0 = now_s();
-  int64_t gen;
-  unsigned n = 0;
-  while ((gen = __atomic_load_n(&cell[0], __ATOMIC_ACQUIRE)) < want) {
-    const double t = (++n & 15u) == 0 ? now_s() - t0 : 0.0;
-    if (t > timeout_s) {
-      out[0] = gen;
-      return 1;
-    }
-    if (t < kSpinS) {
-      cpu_relax();
-      continue;
-    }
-    // Sleep while the word still holds what was read; a post in between
-    // changes it, and the futex then returns at once.
-    double left = timeout_s - t;
-    long ns = left * 1e9 < kSliceNs ? static_cast<long>(left * 1e9) : kSliceNs;
-    timespec slice = {0, ns > 0 ? ns : 1};
-    syscall(SYS_futex, gen_word(cell), FUTEX_WAIT, static_cast<int>(gen),
-            &slice, nullptr, 0);
-    n |= 15u;                          // read the clock after every sleep
+// `stream` waits on the card until the counter at `addr` is >= `value`,
+// then writes `count` into `done` (mapped host memory: the host reads
+// which of its waits have passed without a call into CUDA, which could
+// queue behind the blocked stream).
+extern "C" int ipc_wait(void* stream, uint64_t addr, uint64_t value,
+                        uint64_t done, uint64_t count) {
+  const CUstream s = static_cast<CUstream>(stream);
+  CUresult rc = wait_value(s, static_cast<CUdeviceptr>(addr), value,
+                           CU_STREAM_WAIT_VALUE_GEQ);
+  if (rc != CUDA_SUCCESS) return static_cast<int>(rc);
+  return static_cast<int>(write_value(s, static_cast<CUdeviceptr>(done),
+                                      count,
+                                      CU_STREAM_WRITE_VALUE_DEFAULT));
+}
+
+// `n` int64 cells of pinned host memory mapped for the card, zeroed: the
+// host's address in `*host`, the card's in `*dev` (the stream memory
+// operations write host memory allocated mapped).
+extern "C" int ipc_host_cells(int n, uint64_t* host, uint64_t* dev) {
+  void* p = nullptr;
+  cudaError_t rc = cudaHostAlloc(&p, n * sizeof(int64_t),
+                                 cudaHostAllocMapped | cudaHostAllocPortable);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  memset(p, 0, n * sizeof(int64_t));
+  void* d = nullptr;
+  rc = cudaHostGetDevicePointer(&d, p, 0);
+  *host = reinterpret_cast<uint64_t>(p);
+  *dev = reinterpret_cast<uint64_t>(d);
+  return static_cast<int>(rc);
+}
+
+// Store (seq, bytes) into `log` (two int64 in shared host memory; none
+// when null) with release ordering, then enqueue on `stream` the write of
+// `value` into the counter at `addr`, after a memory barrier.
+extern "C" int ipc_signal(void* stream, int64_t* log, int64_t seq,
+                          int64_t nbytes, uint64_t addr, uint64_t value) {
+  if (log != nullptr) {
+    __atomic_store_n(&log[1], nbytes, __ATOMIC_RELAXED);
+    __atomic_store_n(&log[0], seq, __ATOMIC_RELEASE);
   }
-  out[0] = gen;
-  out[1] = __atomic_load_n(&cell[1], __ATOMIC_RELAXED);
-  out[2] = __atomic_load_n(&cell[2], __ATOMIC_RELAXED);
-  out[3] = __atomic_load_n(&cell[3], __ATOMIC_RELAXED);
-  return 0;
+  return static_cast<int>(write_value(static_cast<CUstream>(stream),
+                                      static_cast<CUdeviceptr>(addr), value,
+                                      CU_STREAM_WRITE_VALUE_DEFAULT));
 }

@@ -61,6 +61,12 @@ def parser() -> argparse.ArgumentParser:
                     help="full (not reduced) architecture")
     ap.add_argument("--dtype", default=None,
                     help="compute dtype (default: the spec's, bfloat16)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth cut: the first N layers (default: the "
+                         "spec's)")
+    ap.add_argument("--mlstm-chunk", type=int, default=None,
+                    help="xLSTM: the chunkwise mLSTM's chunk (default: the "
+                         "spec's)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="checkpoints")
@@ -101,7 +107,8 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
     to the world group).  ``spec``, when
     given, is the model's :class:`~repro_torch.models.common.ModelSpec` as it is
     (a depth-cut or otherwise altered spec), in place of ``args.arch``,
-    ``args.full`` and ``args.dtype``; ``aggregator``, an
+    ``args.full``, ``args.dtype``, ``args.layers`` and
+    ``args.mlstm_chunk``; ``aggregator``, an
     :class:`~repro_torch.core.AggregatorConfig` in place of
     :func:`aggregator_config`'s (``overlap=True``, for one); ``model``,
     a :class:`~repro_torch.models.ModelApi` in place of the spec's (its
@@ -122,6 +129,10 @@ def build_trainer(args, verbose: bool = True, spec=None, aggregator=None,
             spec = spec.reduced()
         if args.dtype:
             spec = dataclasses.replace(spec, dtype=args.dtype)
+        if getattr(args, "layers", None):
+            spec = dataclasses.replace(spec, num_layers=args.layers)
+        if getattr(args, "mlstm_chunk", None):
+            spec = dataclasses.replace(spec, mlstm_chunk=args.mlstm_chunk)
     data = SyntheticText(spec.vocab_size, batch=args.batch,
                          seq_len=args.seq, seed=args.seed)
     extras = extra_inputs(spec, args.batch, seed=args.seed)

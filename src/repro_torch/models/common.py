@@ -8,6 +8,7 @@ parameters as an ``nn.Module`` under the reference's names.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -300,10 +301,20 @@ def rope_frequencies(dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_frequencies_on(dim: int, theta: float, device: torch.device):
+    """:func:`rope_frequencies` on ``device``, copied there once: a copy
+    from pageable host memory waits for the device's stream, so one per
+    attention layer would hold the host at every layer (and, behind a
+    ``cuda_ipc`` wait on the card, past the channel's deadline)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(rope_frequencies(dim, theta)).to(device)
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq)."""
     dim = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(dim, theta)).to(x.device)
+    freqs = _rope_frequencies_on(dim, theta, x.device)
     angles = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..core import dist as dist_mod
 from ..kernels.backend import resolve_device
 from ..launch.mesh import DP_AXES
 from ..models import ModelApi
@@ -41,6 +42,15 @@ def _split(root: torch.Generator, device) -> torch.Generator:
     """A new generator on ``device`` seeded from one draw of ``root``."""
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=root))
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host.  On the card the process's ``cuda_ipc``
+    channels sync first: their waits on the card have no timeout of
+    their own, and a peer that never posts raises there, naming it."""
+    if t.is_cuda:
+        dist_mod.sync_channels()
+    return t.cpu()
 
 
 class ServeEngine:
@@ -132,7 +142,7 @@ class ServeEngine:
         out = []
         finished = torch.zeros((b,), dtype=torch.bool) \
             if cfg.eos_id >= 0 else None
-        host = cur.cpu()
+        host = _to_host(cur)
         self.timing = {"prefill_s": time.perf_counter() - t0,
                        "decode_s": []}
         for t in range(cfg.max_new_tokens):
@@ -161,7 +171,7 @@ class ServeEngine:
                     "serve_decode_s",
                     help="host-timed per-token decode latency (s)"
                 ).observe(sp.t1 - sp.t0)
-            host = cur.cpu()
+            host = _to_host(cur)
             self.timing["decode_s"].append(time.perf_counter() - t1)
         return np.stack(out, axis=1)
 

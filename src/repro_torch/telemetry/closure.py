@@ -97,7 +97,13 @@ def _stage_callable(st, group):
 
 
 def _sync(device: torch.device) -> None:
+    """The host's wait for ``device``.  On the card the process's
+    ``cuda_ipc`` channels sync first: their waits on the card have no
+    timeout of their own, and a peer that never posts raises there,
+    naming it."""
     if device.type == "cuda":
+        from ..core import dist as dist_mod
+        dist_mod.sync_channels()
         torch.cuda.synchronize(device)
 
 

@@ -297,7 +297,10 @@ def from_json(rec: dict) -> List[Span]:
 
 def sync_devices(out) -> None:
     """Wait for every CUDA device a tensor of ``out`` (nested dicts,
-    lists and tuples) lives on; tensors on the CPU need no wait."""
+    lists and tuples) lives on; tensors on the CPU need no wait.  The
+    process's ``cuda_ipc`` channels sync first: their waits on the card
+    have no timeout of their own, and a peer that never posts raises
+    there, naming it."""
     devices = set()
     stack = [out]
     while stack:
@@ -309,6 +312,9 @@ def sync_devices(out) -> None:
             stack.extend(node.values())
         elif isinstance(node, (list, tuple)):
             stack.extend(node)
+    if devices:
+        from ..core import dist as dist_mod
+        dist_mod.sync_channels()
     for device in devices:
         torch.cuda.synchronize(device)
 

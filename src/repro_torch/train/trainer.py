@@ -12,6 +12,7 @@ import torch.distributed as dist
 
 from .. import checkpoint
 from .. import tree as tree_mod
+from ..core import dist as dist_mod
 from ..core import manual as manual_mod
 from ..kernels.backend import resolve_device
 from ..models import ModelApi
@@ -90,7 +91,11 @@ class Trainer:
             checkpoint.save(self.cfg.ckpt_dir, step, state)
 
     def _sync(self):
+        """The step's end on the card: the channels first, whose waits
+        on the card have no timeout of their own (a peer that never
+        posts raises, naming it), then the device."""
         if self.device.type == "cuda":
+            dist_mod.sync_channels()
             torch.cuda.synchronize(self.device)
 
     def _align(self):

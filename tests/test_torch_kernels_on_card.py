@@ -407,3 +407,180 @@ def test_flash_kernels_with_a_query_offset_match_plain_on_card(
     pgrads = fla.flash_bwd_plain(q, k, v, pout, plse, do, **kw)
     for g, p, name in zip(grads, pgrads, ("dq", "dk", "dv")):
         torch.testing.assert_close(g.float(), p.float(), msg=name, **bwd)
+
+
+# ---------------------------------------------------------------------------
+# The cuda_ipc channel's waits on the card (csrc/mailbox.cu): 2 ranks
+# spawned once for the channel's tests (~20 s: the spawn, then one test
+# wait of IPC_TIMEOUT_S for the peer that never posts), and 2 more for
+# serving's (~40 s: the reduced smollm-360m served on a model axis of 2,
+# then one test wait).
+# ---------------------------------------------------------------------------
+
+IPC_SLOT = 1 << 16
+IPC_TIMEOUT_S = 5.0
+IPC_HOPS = 7                   # back to back, more than SLOTS
+
+
+def _raised(fn) -> str | None:
+    try:
+        fn()
+    except (RuntimeError, TimeoutError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _ipc_hops(x, group, ring):
+    """A round trip (there and back), then IPC_HOPS hops of mixed sizes
+    back to back, as numpy."""
+    from repro_torch.core import dist
+    there = dist.ppermute(x, group, ring)
+    back = dist.ppermute(there, group, ring)
+    hops = [dist.ppermute(x[:1 + (977 * i) % x.numel()] + i, group, ring)
+            for i in range(IPC_HOPS)]
+    return [t.cpu().numpy() for t in (there, back, *hops)]
+
+
+def _ipc_rank(rank, world):
+    import time
+
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    x = torch.randn(3000, generator=torch.Generator(device=dev)
+                    .manual_seed(rank), device=dev)
+    ring = [(0, 1), (1, 0)]
+    out = {"gloo": _ipc_hops(x, dist.Group(transport="gloo"), ring)}
+    timeout, dist.MAILBOX_TIMEOUT_S = dist.MAILBOX_TIMEOUT_S, IPC_TIMEOUT_S
+    try:
+        ch = dist.IpcChannel(dist.Group(), IPC_SLOT, dev)
+    finally:
+        dist.MAILBOX_TIMEOUT_S = timeout
+    with ch:
+        out["ipc"] = _ipc_hops(x, ch.group, ring)
+        ch.sync()
+        out["waits"] = ch.waits
+        # Rank 1 never posts until rank 0's sync has timed out; then it
+        # posts what it owes, and rank 0's stream runs on.
+        tdist.barrier()
+        if rank == 0:
+            ch.take(1, [x[:3]], dist._clone_all)
+            t0 = time.monotonic()
+            out["late"] = _raised(ch.sync)
+            out["late_s"] = time.monotonic() - t0
+        tdist.barrier()
+        if rank == 1:
+            ch.post(0, [x[:3]])
+        out["recovered"] = _raised(ch.sync)
+        # A payload of 8 bytes where rank 0 expects 12.
+        tdist.barrier()
+        if rank == 1:
+            ch.post(0, [x[:2]])
+        else:
+            ch.take(1, [x[:3]], dist._clone_all)
+            out["wrong"] = _raised(ch.sync)
+        out["name"] = ch.name
+    return out
+
+
+def _ipc_serve(rank, world):
+    """The serving path's channels (the model axis's gather boundary,
+    ``serve/step.py``): the reduced smollm-360m served on a model axis of
+    2, then served again on rank 0 alone, its peer staying out until rank
+    0's readback of the first token has timed out; then the peer runs
+    the prefill it owes and rank 0's channels sync."""
+    import time
+
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    from repro_torch.launch import serve
+    torch.cuda.set_device(0)
+    args = serve.parser().parse_args(
+        ["--arch", "smollm-360m", "--mesh", "1x2", "--batch", "2",
+         "--prompt-len", "16", "--new-tokens", "4", "--device", "cuda"])
+    engine, batch = serve.build_engine(args)
+    # The first generation opens the channels (and builds the kernels it
+    # launches, on each rank in its own time, so at the default timeout).
+    out = {"served": engine.generate(batch)}
+    for ch in dist._open_channels:
+        ch.timeout_s = IPC_TIMEOUT_S
+    tdist.barrier()
+    if rank == 0:
+        t0 = time.monotonic()
+        out["serve_late"] = _raised(lambda: engine.generate(batch))
+        out["serve_late_s"] = time.monotonic() - t0
+    tdist.barrier()
+    if rank == 1:
+        engine._prefill(engine.params, batch)
+    out["serve_recovered"] = _raised(dist.sync_channels)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ipc_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import tempfile
+    from repro_torch.core import dist
+    with tempfile.TemporaryDirectory() as rdv:
+        return dist.run_ranks(_ipc_rank, 2, backend="cuda_ipc",
+                              rendezvous_dir=rdv, timeout_s=300)
+
+
+def test_device_waited_hops_match_gloo_on_card(ipc_ranks):
+    """A round trip and more than SLOTS hops back to back through the
+    waits on the card, bit for bit the gloo transport's; every hop
+    enqueued its waits."""
+    for r in ipc_ranks:
+        assert len(r["ipc"]) == len(r["gloo"]) == 2 + IPC_HOPS
+        for got, want in zip(r["ipc"], r["gloo"]):
+            assert got.dtype == want.dtype and np.array_equal(
+                got.view(np.uint8), want.view(np.uint8))
+        # a notify per hop, and a slot wait from the third post on
+        assert r["waits"] == 2 * (2 + IPC_HOPS) - 2
+
+
+def test_a_peer_that_never_posts_times_out_naming_it_on_card(ipc_ranks):
+    r = ipc_ranks[0]
+    assert r["late"] is not None and r["late"].startswith("TimeoutError")
+    assert "no notify from rank 1 (global rank 1)" in r["late"], r["late"]
+    assert r["name"] in r["late"] and "expected seq 9" in r["late"]
+    assert IPC_TIMEOUT_S <= r["late_s"] < IPC_TIMEOUT_S + 30
+    assert r["recovered"] is None and ipc_ranks[1]["recovered"] is None
+
+
+def test_a_wrong_byte_count_raises_on_card(ipc_ranks):
+    msg = ipc_ranks[0]["wrong"]
+    assert msg is not None and msg.startswith("RuntimeError"), msg
+    assert "rank 1 sent the notify [10, 0, 8]" in msg, msg
+    assert "expected (seq, slot, bytes) [10, 0, 12]" in msg, msg
+
+
+@pytest.fixture(scope="module")
+def serve_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import tempfile
+    from repro_torch.core import dist
+    with tempfile.TemporaryDirectory() as rdv:
+        return dist.run_ranks(_ipc_serve, 2, backend="cuda_ipc",
+                              rendezvous_dir=rdv, timeout_s=300)
+
+
+def test_a_serving_peer_that_never_posts_times_out_naming_it_on_card(
+        serve_ranks):
+    """Serving's channels have no executor that syncs them: the engine's
+    readback of a token syncs them first, so a peer that never posts
+    ends in the channel's ``TimeoutError``, not a hang in the device
+    sync."""
+    assert np.array_equal(serve_ranks[0]["served"],
+                          serve_ranks[1]["served"])
+    r = serve_ranks[0]
+    assert r["serve_late"] is not None, "the second generation returned"
+    assert r["serve_late"].startswith("TimeoutError: cuda_ipc channel ")
+    assert "no notify from rank 1 (global rank 1)" in r["serve_late"]
+    assert "expected seq " in r["serve_late"]
+    assert IPC_TIMEOUT_S <= r["serve_late_s"] < IPC_TIMEOUT_S + 30
+    assert r["serve_recovered"] is None
+    assert serve_ranks[1]["serve_recovered"] is None

@@ -12,19 +12,24 @@ so every run prints, per rank and step, HL002's witness (buckets whose
 hops all ended before that rank's backward did, of those with hops),
 the backward's host time, when it began after the first rank's (where
 the tree records it), and when the first bucket's hops ended, in ms
-from the start of backward, and the split of the buckets' hop
-host time: issue (the copy, the event record and the control message
-sent), waiting for the peer's notify (``cuda_ipc.notify_wait``) and for
-its acknowledgement (``cuda_ipc.ack_wait``), summed over the step's
-buckets and for its slowest bucket.  The split reads the ranks' trace
-spans; a tree whose transport opens no trace span around its waits gets
-them from this script, which wraps the tree's ``dist._span`` in the
-ranks.  HL002 holds on a step when the witness is at least 1.  Two trees
-run one after the other in one call compare on the same card (parent,
-change, change, parent).  The last line is one JSON object: the tree,
-the card, and per run the rank-steps that failed HL002 and each
-rank-step's split (ms: issue, notify wait, ack wait, and the slowest
-bucket's hop time).  It exits non-zero without a card.
+from the start of backward, and the split of the buckets' hop host
+time: issue, waiting on the host for the peer's notify
+(``cuda_ipc.notify_wait``) and for its acknowledgement
+(``cuda_ipc.ack_wait``; a tree whose hops wait on the card has neither),
+summed over the step's buckets and for its slowest bucket, and the
+host's wait for the channel at the backward's join (``cuda_ipc.sync``).
+The split reads the ranks' trace spans; a tree whose transport opens no
+trace span around its waits gets them from this script, which wraps the
+tree's ``dist._span`` in the ranks.  Where the tree records the card's
+clock (``OverlapRecord.device_backward_s``) each rank-step also prints
+the buckets that ended on the card before the backward's last kernel
+and the device overlap fraction.  HL002 holds on a step when the witness
+is at least 1.  Two trees run one after the other in one call compare
+on the same card (parent, change, change, parent).  The last line is
+one JSON object: the tree, the card, and per run the rank-steps that failed HL002 and each
+rank-step's split (ms: issue, notify wait, ack wait, the slowest
+bucket's hop time, the join's wait; then the card's witness and overlap
+fraction, or None).  It exits non-zero without a card.
 """
 import argparse
 import contextlib
@@ -74,6 +79,15 @@ def _traced_rank(rank, world, *args):
     out["hop_split"] = [[_split(b) for b in roots[i * n:(i + 1) * n]]
                         for i in range(steps)]
     return out
+
+
+def _card(step):
+    """``(buckets ended before the backward's last kernel, device overlap
+    fraction)`` on the card's clock, or None where the tree records no
+    card clock."""
+    if step.get("device_witness") is None:
+        return None
+    return step["device_witness"], round(step["device_overlap"], 4)
 
 
 def main():
@@ -127,8 +141,11 @@ def main():
                 sp = r["hop_split"][s_ - 1]
                 tot = [sum(b[i] for b in sp) * 1e3 for i in range(3)]
                 worst = max(sp, key=lambda b: b[3])
+                join = step.get("join_wait_s", 0.0) * 1e3
+                card = _card(step)
                 splits.append([r["rank"], s_] + [round(x, 3) for x in tot]
-                              + [round(worst[3] * 1e3, 3)])
+                              + [round(worst[3] * 1e3, 3), round(join, 3),
+                                 card])
                 cs.log(f"  run {run} rank {r['rank']} step {s_}: HL002 "
                        f"witness {step['lint']['witness']}, backward "
                        f"{step['backward_s'] * 1e3:.2f} ms begun {begun} "
@@ -138,8 +155,12 @@ def main():
                        f"wait {tot[1]:.2f}, ack wait {tot[2]:.2f} ms; "
                        f"slowest bucket {worst[3] * 1e3:.2f} ms (issue "
                        f"{worst[0] * 1e3:.2f}, notify {worst[1] * 1e3:.2f}"
-                       f", ack {worst[2] * 1e3:.2f}); channel thread nice "
-                       f"{step.get('channel_nice')}")
+                       f", ack {worst[2] * 1e3:.2f}); the join's wait "
+                       f"{join:.2f} ms; channel thread nice "
+                       f"{step.get('channel_nice', 'not set')}; on the card: "
+                       + ("not recorded" if card is None else
+                          f"{card[0]} buckets ended before the backward's "
+                          f"last kernel, overlap fraction {card[1]}"))
         failed = [f for f in lint_failures[n0:]
                   if f[0] == "ResNet-50 overlapped"
                   and all("HL002" in d for d in f[3])]
