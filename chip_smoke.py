@@ -10,9 +10,14 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    kernel's registers and spills from ptxas; for K7/K8 also the shared
    memory, and the HGMMA (wgmma) and HMMA instructions in its SASS where
    cuobjdump exists: the bf16 kernels must hold HGMMA, the f32 ones none
-   (head widths 16, 32, 64, 96, 128 and 256).  The bf16 backward at
-   head_dim 256 (``flash_dq_wide_tc``, ``flash_dkv_wide_tc``) must report
-   no spill bytes and no ptxas "Performance Loss" line.
+   (head widths 16, 32, 64, 96, 128 and 256).  The bf16 kernels with a
+   design of their own at one width (``SPILL_FREE_KERNELS``: the forward
+   at head_dim 256, ``flash_fwd_wide_tc``; the backward at 256,
+   ``flash_dq_wide_tc`` and ``flash_dkv_wide_tc``, and at 96,
+   ``flash_dq_full_tc`` and ``flash_dkv_full_tc``), in both builds, must
+   report no spill bytes and no ptxas "Performance Loss" line.  The
+   flash source compiles while phase 2 checks K1-K5 and phases 3 and 5
+   train (neither runs a flash kernel).
 2. Hold each kernel against its plain torch version on the card.  K1–K3
    at a 1 Mi-element bucket, a ragged n, phase 3's largest hop (16, 960,
    2560) and phase 6's (393,216,000 elements, the first RHD hop of
@@ -36,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    causal at phase 4's (1, 4096, 15, 64) and phase 6's (1, 4096, 16, 256)
    in f32 and bf16, plus window 100, non-causal and other head widths at
    ragged S (dh 256 at S = 64, 333 and 513, and window 1024 at 4096), at
-   the reference's tolerances; each bf16 case twice, bit for bit.
+   the reference's tolerances; each bf16 case twice, bit for bit.  K8's
+   ``rowsum(dO*O)`` kernel against ``_delta`` per row within
+   dh·2⁻²⁴·Σ|dO∘O| at every head width in f32 and bf16, S 333 and 4096,
+   on aligned views and on f32 views off a 16-byte boundary.
    Times each kernel, its plain version
    and, where one exists, one PyTorch call computing the same function
    (a yardstick the port never calls); K1–K3 take their inputs in turn
@@ -44,10 +52,10 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    pass alone; K1–K3 (int8) and K5 also at phase 6's hop and leaf
    (``variants``); each kernel in turns with its yardstick; K7/K8 in bf16
    (tensor cores, the main path) and in f32 (CUDA cores, against the
-   f32 peak), at dh 64, 256 and 96 (``variants``), and K8 bf16 at dh 256
-   also split into its parts: rowsum(dO*O), the dq pass and the dk/dv
-   pass, each alone; K6 also at (4096, 3072) and (4096, 4096) (zamba2's
-   shared block).
+   f32 peak), at dh 64, 256 and 96 (``variants``), and K8 bf16 at dh 96
+   and 256 also split into its parts: the rowsum(dO*O) kernel (at dh 64
+   too, beside ``_delta``), the dq pass and the dk/dv pass, each alone;
+   K6 also at (4096, 3072) and (4096, 4096) (zamba2's shared block).
 3. Train full-width smollm-360m (32 layers, d_model 960, ~362 M
    parameters, bf16 compute) on 4 ranks sharing this card over gloo,
    batch 2 per rank, seq 512, ``rhd_rsa`` + ``int8`` fused hops and the
@@ -63,7 +71,8 @@ Phases (any failure exits non-zero; nothing is caught and excused):
    have run (K7 and K8 once per layer per step), losses finite and
    parameters bit-identical; then a small float32 model at seq 128 (its
    flash path) on the card and on the host must agree.
-5. The paper's CNNs: full-width ResNet-50 (psum, ring_rsa, rhd_rsa and
+5. (Run after phase 3, while the flash source still compiles.)  The
+   paper's CNNs: full-width ResNet-50 (psum, ring_rsa, rhd_rsa and
    ps_gather with fused hops, whose terminal sum is K4) and MobileNet-v1
    (rhd_rsa and fused ps_gather) at 224x224, 1000 classes, bf16 compute,
    on 4 ranks sharing the card over gloo, global batch 128 (32 per
@@ -543,10 +552,15 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 OFFSET_KERNELS = {"flash_attention_fwd[q_offset]": "flash_attention_fwd",
                   "flash_attention_bwd[q_offset]": "flash_attention_bwd"}
 MAX_ERR = {k: 0.0 for k in (*KERNELS, *OFFSET_KERNELS)}
-# K8's bf16 kernels at head_dim 256, which must build without spills or a
-# serialising ptxas "Performance Loss".
-WIDE_KERNELS = ("flash_dq_wide_tc<256>", "flash_dkv_wide_tc<256>",
-                "flash_dq_wide_tc<256, q_off>", "flash_dkv_wide_tc<256, q_off>")
+# The bf16 kernels with a design of their own at one head width (K7 at
+# 256, K8 at 96 and 256), in both builds, which must build without
+# spills or a serialising ptxas "Performance Loss".
+SPILL_FREE_KERNELS = tuple(
+    f"{name}{build}>" for name in (
+        "flash_fwd_wide_tc<256", "flash_dq_wide_tc<256",
+        "flash_dkv_wide_tc<256", "flash_dq_full_tc<96",
+        "flash_dkv_full_tc<96")
+    for build in ("", ", q_off"))
 
 
 def agree(key, a, b, what):
@@ -562,15 +576,17 @@ def agree(key, a, b, what):
 # ---------------------------------------------------------------------------
 
 def _kernel_name(mangled):
-    """``flash_dkv_tc<64>`` / ``flash_fwd_kernel<float, 64, 64>`` (head
-    width, tile rows) from a mangled name; the build that takes a query
-    offset (``Sq != Sk`` or ``q_off > 0``) ends in ``, q_off>``."""
+    """``flash_dkv_tc<64>`` / ``flash_fwd_kernel<float, 64, 64>`` /
+    ``flash_delta_kernel<bf16, 96>`` (type, head width, tile rows) from a
+    mangled name; the build that takes a query offset (``Sq != Sk`` or
+    ``q_off > 0``) ends in ``, q_off>``."""
     import re
-    m = re.search(r"(flash_[a-z_]+)I(f?)Li(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
-                  mangled)
+    m = re.search(r"(flash_[a-z_]+)I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?"
+                  r"(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
-    return (f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}"
+    kind = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
+    return (f"{m[1]}<{kind}{m[3]}"
             f"{f', {m[4]}' if m[4] else ''}"
             f"{', q_off' if m[5] == '1' else ''}>")
 
@@ -633,7 +649,9 @@ def report_build(source, text):
     names = dict(zip(mangled, [_kernel_name(m) for m in mangled] if flash
                      else _demangle(mangled)))
     smem_kind = {"flash_fwd_tc": 0, "flash_dq_tc": 1, "flash_dkv_tc": 2,
-                 "flash_dq_wide_tc": 1, "flash_dkv_wide_tc": 2}
+                 "flash_fwd_wide_tc": 0, "flash_dq_wide_tc": 1,
+                 "flash_dkv_wide_tc": 2, "flash_dq_full_tc": 1,
+                 "flash_dkv_full_tc": 2}
     entry, props, spill = None, None, ""
     spills, losses = {}, set()
     for line in text.splitlines():
@@ -663,13 +681,14 @@ def report_build(source, text):
             entry = None
     if not flash:
         return
-    for name in WIDE_KERNELS:
+    for name in SPILL_FREE_KERNELS:
         require(name in spills, f"ptxas reported nothing for {name}")
         require("0 bytes spill stores, 0 bytes spill loads" in spills[name],
                 f"{name} spills: {spills[name]}")
         require(name not in losses, f"ptxas reports a Performance Loss for "
                                     f"{name}")
-    log(f"  {' and '.join(WIDE_KERNELS)}: no spills, no Performance Loss")
+    log(f"  {', '.join(SPILL_FREE_KERNELS)}: no spills, no Performance "
+        f"Loss")
     counts = _sass_counts(backend.library_path("flash_attention"))
     if counts is None:
         log("  cuobjdump not found: SASS not counted")
@@ -1086,6 +1105,46 @@ def check_flash(gen):
     torch.cuda.empty_cache()
 
 
+def check_delta(gen):
+    """K8's ``rowsum(dO∘O)`` kernel against ``_delta`` per row within
+    dh·2⁻²⁴·Σ|dO∘O| (the f32 summation bound; the two sum in different
+    orders) at every head width in f32 and bf16, S 333 and 4096, and on
+    f32 views one element off a 16-byte boundary (element loads); two
+    calls give the same bits."""
+    import torch
+    from repro_torch.kernels import flash_attention as fla
+    cuda = torch.device("cuda")
+    worst = 0.0
+    for dh in fla.HEAD_DIMS:
+        for s_, dtype in itertools.product((333, LONG_SEQ),
+                                           (torch.float32, torch.bfloat16)):
+            shape = (2, s_, 3, dh) if s_ == 333 else (1, s_, 16, dh)
+            views = [torch.randn(shape, generator=gen, device=cuda)
+                     .to(dtype) for _ in range(2)]
+            if dtype == torch.float32 and s_ == 333:
+                n = math.prod(shape)
+                flat = torch.randn(2 * n + 2, generator=gen, device=cuda)
+                views += [flat[1:n + 1].view(shape), flat[n + 2:].view(shape)]
+            for out, do in zip(views[::2], views[1::2]):
+                got = fla._delta_launch(out, do)
+                want = fla._delta(out, do)
+                tol = fla.delta_tolerance(out, do)
+                excess = float(((got - want).abs() - tol).max())
+                worst = max(worst, float(((got - want).abs()
+                                          / tol.clamp_min(1e-30)).max()))
+                MAX_ERR["flash_attention_bwd"] = max(
+                    MAX_ERR["flash_attention_bwd"], max_abs(got, want))
+                what = (f"{shape} {str(dtype)[6:]}"
+                        f"{'' if out.data_ptr() % 16 == 0 else ' (off 16 B)'}")
+                require(excess <= 0.0, f"K8's delta kernel != _delta at "
+                                       f"{what}: {excess} past the bound")
+                require(bits_equal(got, fla._delta_launch(out, do)),
+                        f"K8's delta kernel not deterministic at {what}")
+    log(f"  K8's delta kernel within dh 2^-24 sum|dO*O| of _delta per row "
+        f"at head widths {fla.HEAD_DIMS}, f32 and bf16, S 333 and "
+        f"{LONG_SEQ}, aligned and not (largest |diff| / bound {worst:.4f})")
+
+
 def measure(gen):
     """Per-kernel times at the main path's largest shapes (phase 6's hop
     and leaf as ``variants`` of K1–K3 and K5).  Each row:
@@ -1298,23 +1357,29 @@ def measure(gen):
                 8 * elems * size + 4 * b * h * s_, 8 * causal_pairs * dh,
                 f"causal {shape} (delta + dq pass + dk/dv pass), {unit}",
                 tensor_cores=name == "bf16")
-            if name == "bf16" and dh == 256:
-                # The parts alone: rowsum(dO*O) (plain torch), then each
-                # pass of the kernel (three products, then four).
-                delta = fla._delta(out, do)
+            if name == "bf16":
+                # The parts alone: rowsum(dO*O) (the kernel, against
+                # _delta, its plain version and the one PyTorch call for
+                # it), then at dh 96 and 256 each pass of the kernel
+                # (three products, then four).
+                delta = fla._delta_launch(out, do)
                 io = 5 * elems * size + 8 * b * h * s_
-                for part, fn, n_bytes, n_flops, tc in (
-                        ("delta", lambda: fla._delta(out, do),
-                         2 * elems * size + 4 * b * h * s_, 2 * elems,
-                         False),
+                parts = [("delta", lambda: fla._delta_launch(out, do),
+                          lambda: fla._delta(out, do),
+                          2 * elems * size + 4 * b * h * s_, 2 * elems,
+                          False)]
+                if dh != 64:
+                    parts += [
                         ("dq pass", lambda: fla._bwd_launch(
                             q, k, v, do, lse, delta, True, 0, passes=1),
-                         io, 6 * causal_pairs * dh, True),
+                         None, io, 6 * causal_pairs * dh, True),
                         ("dk/dv pass", lambda: fla._bwd_launch(
                             q, k, v, do, lse, delta, True, 0, passes=2),
-                         io + elems * size, 8 * causal_pairs * dh, True)):
-                    bwd_rows[f"bf16 dh256 {part}"] = row(
-                        f"flash_attention_bwd[{part}]", fn, None, None,
+                         None, io + elems * size, 8 * causal_pairs * dh,
+                         True)]
+                for part, fn, plain, n_bytes, n_flops, tc in parts:
+                    bwd_rows[f"bf16{tag or ' dh64'} {part}"] = row(
+                        f"flash_attention_bwd[{part}]", fn, plain, plain,
                         n_bytes, n_flops, f"causal {shape} {part} alone",
                         tensor_cores=tc)
                 del delta
@@ -6336,7 +6401,7 @@ def main(argv=None):
         f"python {sys.version.split()[0]}")
 
     phase("phase 1: build (the flash kernels' nvcc runs on while phase 2 "
-          "checks K1-K5 and phase 3 trains)")
+          "checks K1-K5 and phases 3 and 5 train)")
     t0 = time.perf_counter()
     # The flash source takes the longest to compile; nothing before
     # check_flash loads it (phase 3's seq 512 and small model's 32 stay
@@ -6366,6 +6431,12 @@ def main(argv=None):
                  "adamw_update", "fused_rmsnorm")
     phase3 = run_phase(TRAIN_WORLD, args, small, main_path)
 
+    # Phase 5 runs no flash kernel: it trains while the flash source
+    # still compiles.
+    phase("phase 5: the paper's CNNs, full-width ResNet-50 and MobileNet-v1 "
+          f"at {CNN_IMAGE}x{CNN_IMAGE}")
+    phase5 = run_cnn_phase()
+
     phase("phase 2: K6 fused_rmsnorm and K7/K8 flash attention")
     reports = flash.result()
     pool.shutdown()
@@ -6375,6 +6446,7 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.1f} s from the start of phase 1")
     check_rmsnorm(gen)
     check_flash(gen)
+    check_delta(gen)
     rows = measure(gen)
     phase("phase 2: K7/K8 with a query offset (phase 17's sequence chunks)")
     rows.update(offset_flash_rows(gen))
@@ -6399,10 +6471,6 @@ def main(argv=None):
     log(f"  attention kernels (K7+K8 at phase 2's per-layer times x "
         f"{LAYERS} layers) {attn_s:.3f} s of the {fb:.3f} s "
         f"forward+backward of one rank alone: {attn_s / fb:.1%}")
-
-    phase("phase 5: the paper's CNNs, full-width ResNet-50 and MobileNet-v1 "
-          f"at {CNN_IMAGE}x{CNN_IMAGE}")
-    phase5 = run_cnn_phase()
 
     phase(f"phase 6: long context, full-width gemma-7b at seq {LONG_SEQ}")
     phase6 = run_gemma_phase(rows)

@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
 // _flash_fwd_kernel (flash_attention_fwd, K7), _flash_dq_kernel and
-// _flash_dkv_kernel (flash_attention_bwd, K8).
+// _flash_dkv_kernel (flash_attention_bwd, K8), and the einsum for
+// rowsum(dO∘O) that flash_attention_bwd runs before them (K8's delta
+// kernel, flash_delta_kernel, below).
 //
 // Layout: q, out, dout, dq are (B, Sq, H, D) and k, v, dk, dv (B, Sk, H, D),
 // row-major, with the kv heads already repeated to H; lse and delta are
@@ -47,9 +49,14 @@
 // arrive as zeros. The wrapper checks that every pointer is 16-byte
 // aligned (TMA's rule; the row stride H*D*2 always is).
 //
-// At D = 256 (gemma-7b) the forward keeps this design (64 KiB of Q and a
-// 128 KiB ring: 193 KiB of the 227 KiB a block may have).  The backward
-// has a design of its own there (flash_dq_wide_tc, flash_dkv_wide_tc):
+// At D = 256 (gemma-7b) the forward has a design of its own
+// (flash_fwd_wide_tc: 64 KiB of Q and a 128 KiB ring whose K and V have
+// slots and barriers of their own, P V at N = 256), and so has the
+// backward at D = 96 (phi-3-vision; flash_dq_full_tc, flash_dkv_full_tc:
+// each accumulating product one m64n96k16 instruction, lse and delta of
+// the streamed tile in shared memory); both compute what the design
+// above computes, in the same order.  The backward at D = 256 has a
+// design of its own (flash_dq_wide_tc, flash_dkv_wide_tc):
 // 128 own rows would take 128 KiB beside the ring, and the dk/dv pass
 // would hold dK and dV in 2 x 128 f32 registers a thread.  A block owns
 // 64 rows, streams the other side in 64-row tiles, and its two consumer
@@ -552,6 +559,90 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K8's rowsum(dO∘O): delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d]
+// ---------------------------------------------------------------------------
+//
+// Replaces the einsum that src/repro/kernels/flash_attention.py:220 runs
+// before K8's two pallas_calls (in the port: _delta, two f32 copies of O
+// and dO written and read back).  Bound: bytes, 2*B*S*H*D*size read and
+// 4*B*H*S written (0.015 ms at phi-3-vision's (1, 4096, 32, 96) bf16 over
+// 3.35 TB/s).  Design: LPR lanes a row, each reading every LPR-th 16-byte
+// vector of it (dh 96 bf16: 12 vectors, 4 lanes of 3), the products and
+// the sum in f32 in a fixed order (a lane's vectors, then its elements;
+// then a butterfly over the row's lanes), so two calls give the same bits.
+// A block's rows are consecutive positions of one (b, h), so its f32
+// writes coalesce.  vec 0 reads element by element (an f32 view off a
+// 16-byte boundary), in the same order.
+
+template <typename T, int D>
+struct DeltaGeo {
+  static constexpr int VE = 16 / sizeof(T);    // elements of a vector
+  static constexpr int NV = D / VE;            // vectors of a row
+  static constexpr int LPR = NV < 4 ? NV : 4;  // lanes of a row
+  static constexpr int PER = NV / LPR;         // vectors of a lane
+  static constexpr int ROWS = kThreads / LPR;  // rows of a block
+  static_assert(NV % LPR == 0 && 32 % LPR == 0, "a row splits over lanes");
+};
+
+// The 16 bytes at p as f32: four floats, or eight bf16 widened exactly.
+__device__ __forceinline__ void load16(float (&f)[4], const float* p,
+                                       int vec) {
+  if (vec) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __ldg(p + e);
+  }
+}
+__device__ __forceinline__ void load16(float (&f)[8],
+                                       const __nv_bfloat16* p, int vec) {
+  uint32_t w[4];
+  if (vec) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = __ldg(h + 2 * i) | (static_cast<uint32_t>(__ldg(h + 2 * i + 1))
+                                 << 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, int S, int H, int vec) {
+  using G = DeltaGeo<T, D>;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int lane = threadIdx.x % G::LPR;
+  const int s = blockIdx.y * G::ROWS + threadIdx.x / G::LPR;
+  float acc = 0.0f;
+  if (s < S) {
+    const long long row = ((static_cast<long long>(b) * S + s) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < G::PER; ++i) {
+      const int c = (lane + i * G::LPR) * G::VE;
+      float o[G::VE], g[G::VE];
+      load16(o, out + row + c, vec);
+      load16(g, dout + row + c, vec);
+#pragma unroll
+      for (int e = 0; e < G::VE; ++e) acc += g[e] * o[e];
+    }
+  }
+#pragma unroll
+  for (int off = G::LPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (s < S && lane == 0) delta[static_cast<long long>(bh) * S + s] = acc;
+}
+
+// ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores: wgmma, TMA and mbarriers (sm_90a)
 // ---------------------------------------------------------------------------
 
@@ -624,13 +715,41 @@ struct WideSmem {
   static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;
 };
 
+// The bf16 forward at head_dim 256 (flash_fwd_wide_tc): Smem<D, 1, kOwn,
+// kTile>'s tiles, its ring's K and V slots each with barriers of their
+// own (two rings of kStages).
+template <int D>
+struct FwdWideSmem {
+  using S = Smem<D, 1, kOwn, kTile>;
+  static constexpr uint32_t bars = S::bars;
+  static constexpr uint32_t bytes = bars + 8 * (1 + 4 * kStages) + 1024;
+};
+
+// The bf16 backward at head_dim 96 (the "full" kernels: each product's N
+// spans the whole head width).  The dk/dv pass keeps, after Smem<D, 2,
+// kOwn, kTile>'s tiles, each consumer warpgroup's lse (base 2) and delta
+// of the streamed query tile, double-buffered: 2 x 2 x 2 x 64 f32.
+template <int D>
+constexpr bool kFull = D == 96;
+
+template <int D>
+struct FullSmem {
+  using S = Smem<D, 2, kOwn, kTile>;
+  static constexpr uint32_t rows = S::bars;
+  static constexpr uint32_t bars = rows + 2 * 2 * 2 * kTile * 4;
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
 template <int D>
 struct TcSmem {
-  static constexpr uint32_t fwd = Smem<D, 1, kOwn, kTile>::bytes;
+  static constexpr uint32_t fwd =
+      kWide<D> ? FwdWideSmem<D>::bytes : Smem<D, 1, kOwn, kTile>::bytes;
   static constexpr uint32_t dq =
       kWide<D> ? WideSmem<D, 2>::bytes : Smem<D, 2, kOwn, kTile>::bytes;
   static constexpr uint32_t dkv =
-      kWide<D> ? WideSmem<D, 4>::bytes : Smem<D, 2, kOwn, kTile>::bytes;
+      kWide<D> ? WideSmem<D, 4>::bytes
+               : (kFull<D> ? FullSmem<D>::bytes
+                           : Smem<D, 2, kOwn, kTile>::bytes);
   static_assert(fwd <= kSmemLimit && dq <= kSmemLimit && dkv <= kSmemLimit,
                 "a tensor-core kernel's tiles exceed the shared memory");
 };
@@ -639,11 +758,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) {
-  return bars + 8 * (1 + s);
+// After the own tiles' barrier, each ring r (one in most kernels; K and V
+// apart in flash_fwd_wide_tc) has kStages full barriers, then kStages
+// empty ones.
+__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s,
+                                             int r = 0) {
+  return bars + 8 * (1 + 2 * kStages * r + s);
 }
-__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
-  return bars + 8 * (1 + kStages + s);
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s,
+                                              int r = 0) {
+  return full_bar(bars, s, r) + 8 * kStages;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -745,11 +869,12 @@ __device__ __forceinline__ uint64_t desc_n(uint32_t tile, int rows, int ks,
                    G::SWZ);
 }
 
-// N-major operand two boxes wide (N = 2 CW): as desc_n from box nb, with
-// box nb + 1 one leading byte offset (rows * ROWB) further along N.
+// N-major operand several boxes wide (N a multiple of CW: as many boxes
+// as the product's N spans): as desc_n from box nb, each next box one
+// leading byte offset (rows * ROWB) further along N.
 template <int D>
-__device__ __forceinline__ uint64_t desc_n2(uint32_t tile, int rows, int ks,
-                                            int nb) {
+__device__ __forceinline__ uint64_t desc_nx(uint32_t tile, int rows, int ks,
+                                            int nb = 0) {
   using G = Geo<D>;
   const uint64_t lbo = static_cast<uint64_t>((rows * G::ROWB) >> 4) << 16;
   return (desc_n<D>(tile, rows, ks, nb) & ~(0x3FFFull << 16)) | lbo;
@@ -794,7 +919,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 }
 
 // D (64xN, f32) += A (64x16, registers) * B (16xN, smem, N-major:
-// the transpose bit set).  N is the width of one swizzle box.
+// the transpose bit set).  N is the width of one swizzle box (16, 32,
+// 64), or of the whole row (96, 256).
 __device__ __forceinline__ void wgmma_rs(float (&d)[8],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -843,6 +969,94 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// N = 96 and 256: one instruction over three or four swizzle boxes (the
+// B descriptor from desc_nx).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -919,20 +1133,22 @@ __device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk,
          (window <= 0 || q0 + L.qoff + nq - 1 - k0 < window);
 }
 
-// Barriers, then the roles split for good: the producer warp returns when
-// its copies are issued; the consumers never meet it at a __syncthreads.
+// Barriers (of `rings` rings), then the roles split for good: the
+// producer warp returns when its copies are issued; the consumers never
+// meet it at a __syncthreads.
 __device__ __forceinline__ uint32_t setup(unsigned char* raw,
                                           uint32_t bar_off,
-                                          uint32_t* base) {
+                                          uint32_t* base, int rings = 1) {
   const uint32_t b0 = smem_u32(raw);
   *base = (b0 + 1023u) & ~1023u;
   const uint32_t bars = *base + bar_off;
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full_bar(bars, s), 1);
-      mbar_init(empty_bar(bars, s), kConsumers);
-    }
+    for (int r = 0; r < rings; ++r)
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full_bar(bars, s, r), 1);
+        mbar_init(empty_bar(bars, s, r), kConsumers);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1031,9 +1247,9 @@ __device__ __forceinline__ void store_half(__nv_bfloat16* __restrict__ dst,
   }
 }
 
-// K7 on the tensor cores.  Grid (B*H, query tiles of kOwn rows, last
-// first); warpgroup wg owns queries q0 + 64 wg .. + 63.  At every D the
-// keys stream in 64-row tiles (at 256: 64 KiB of Q, a 128 KiB ring).
+// K7 on the tensor cores up to head_dim 128.  Grid (B*H, query tiles of
+// kOwn rows, last first); warpgroup wg owns queries q0 + 64 wg .. + 63.
+// The keys stream in 64-row tiles.
 template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
@@ -1042,6 +1258,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  Seqs seqs, int H, float scale_log2, int causal, int window) {
   const Seqs L = rows_of<OFF>(seqs);
+  static_assert(!kWide<D>, "head_dim 256 takes flash_fwd_wide_tc");
   using G = Geo<D>;
   using M = Smem<D, 1, kOwn, kTile>;
   extern __shared__ unsigned char smem_raw[];
@@ -1154,7 +1371,182 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             m[hf] * kLn2 + logf(l_safe[hf]);
 }
 
-// K8, dq pass on the tensor cores up to head_dim 128: grid as the
+// The producer of flash_fwd_wide_tc (one thread): the block's Q tile of
+// kOwn rows, then key tiles lo..hi-1, K and V into slots of their own,
+// each slot with its own full and empty barrier (ring 0: K, ring 1: V).
+template <int D>
+__device__ __forceinline__ void produce_split(uint32_t base, uint32_t bars,
+                                              const CUtensorMap* tq,
+                                              const CUtensorMap* tk,
+                                              const CUtensorMap* tv, int h,
+                                              int b, int q0, int lo,
+                                              int hi) {
+  using G = Geo<D>;
+  using L = Smem<D, 1, kOwn, kTile>;
+  mbar_expect_tx(bars, L::own);
+  for (int nb = 0; nb < G::NB; ++nb)
+    tma_load(base + nb * kOwn * G::ROWB, tq, bars, nb * G::CW, h, q0, b);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const uint32_t par = ((i / kStages) & 1) ^ 1;
+    const uint32_t k_s = base + L::stream + s * 2 * L::tile;
+    for (int r = 0; r < 2; ++r) {
+      mbar_wait<true>(empty_bar(bars, s, r), par);
+      mbar_expect_tx(full_bar(bars, s, r), L::tile);
+      for (int nb = 0; nb < G::NB; ++nb)
+        tma_load(k_s + r * L::tile + nb * kTile * G::ROWB, r ? tv : tk,
+                 full_bar(bars, s, r), nb * G::CW, h, j * kTile, b);
+    }
+  }
+}
+
+// K7 on the tensor cores at head_dim 256 (gemma-7b), in place of
+// flash_fwd_tc's design there.  Replaces the Pallas _flash_fwd_kernel
+// (src/repro/kernels/flash_attention.py:73).  Bound: tensor-core
+// operations, 4*B*H*S^2*D/2 causal (0.139 ms at (1, 4096, 16, 256) on
+// 989 TFLOP/s).  flash_fwd_tc's design, at 256, spilled (528 B) and
+// had ptxas serialize its wgmma for want of registers; S = Q K^T waited
+// for V's copy too, since K and V of a stage shared one barrier (and the
+// stage freed only after P V); and P V took 16 m64n64k16 products a
+// tile, re-feeding P from registers four times.  Here K and V have slots
+// of their own in the same 128 KiB ring (four slots of 32 KiB), each
+// with its own full and empty barrier: S_j waits for K_j alone, V_j
+// streams in under S_j and the softmax, and K_j's slot frees as soon as
+// S_j is done.  P V is four m64n256k16 products a tile, V read N-major
+// over its four 128-byte boxes (desc_nx), into one 128-float fragment;
+// the waits fault instead of trapping (kFault); each product's issue and
+// wait stay in one branch.  It builds with no spill and no serialized
+// wgmma.  FlashAttention-3's turns between the two consumer warpgroups
+// (named barriers ordering their products) measured 2% slower and went
+// (PERF.md).  The arithmetic and its order are flash_fwd_tc's:
+// the same bits.  Grid (B*H, query tiles of kOwn rows, last first);
+// warpgroup wg owns queries q0 + 64 wg .. + 63.
+template <int D, bool OFF>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_wide_tc(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, Seqs seqs, int H,
+                      float scale_log2, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
+  static_assert(kWide<D>, "the forward at head_dim 256");
+  using G = Geo<D>;
+  using M = Smem<D, 1, kOwn, kTile>;
+  constexpr int NO = G::NB * G::CW / 2;  // output accumulators (m64nD)
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, FwdWideSmem<D>::bars, &base, 2);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  int lo, hi;
+  keys_for(q0, kOwn, kTile, L, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce_split<D>(base, bars, &tq, &tk, &tv, h, b, q0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int qw = q0 + wg * kTile;
+  const int row = qw + wi * 16 + g;  // and row + 8
+  int wlo, whi;
+  keys_for(qw, kTile, kTile, L, causal, window, &wlo, &whi);
+  float o[NO];
+#pragma unroll
+  for (int e = 0; e < NO; ++e) o[e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  mbar_wait<true>(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const uint32_t par = (i / kStages) & 1;
+    const uint32_t k_s = base + M::stream + s * 2 * M::tile;
+    const uint32_t v_s = k_s + M::tile;
+    mbar_wait<true>(full_bar(bars, s, 0), par);
+    if (j >= wlo && j < whi) {
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks)
+        wgmma_ss(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                 desc_k<D>(k_s, kTile, 0, ks), 1);
+      wg_commit();
+      wg_wait0();
+      mbar_arrive(empty_bar(bars, s, 0));  // K_j's slot: S_j is done
+      const int k0 = j * kTile;
+      const bool mask = !all_visible(qw, kTile, k0, kTile, L, causal, window);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int hf = (e >> 1) & 1;
+        float x = __fmul_rn(sc[e], scale_log2);
+        if (mask && !visible(row + 8 * hf, k0 + 8 * (e >> 2) + 2 * t + (e & 1),
+                             L, causal, window))
+          x = kNegInf;
+        sc[e] = x;
+        mx[hf] = fmaxf(mx[hf], x);
+      }
+      float corr[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+        const float m_new = fmaxf(m[hf], mx[hf]);
+        corr[hf] = exp2f(m[hf] - m_new);
+        m[hf] = m_new;
+        l[hf] *= corr[hf];
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hf = (e >> 1) & 1;
+        const float p0 = exp2f(sc[e] - m[hf]);
+        const float p1 = exp2f(sc[e + 1] - m[hf]);
+        l[hf] += p0 + p1;
+        pa[e >> 3][(e >> 1) & 3] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int e = 0; e < NO; ++e) o[e] *= corr[(e >> 1) & 1];
+      mbar_wait<true>(full_bar(bars, s, 1), par);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o, pa[kk], desc_nx<D>(v_s, kTile, kk));
+      wg_commit();
+      wg_wait0();
+    } else {  // the slots are freed only after their copies arrived
+      mbar_arrive(empty_bar(bars, s, 0));
+      mbar_wait<true>(full_bar(bars, s, 1), par);
+    }
+    mbar_arrive(empty_bar(bars, s, 1));  // V_j's slot: P_j V_j is done
+  }
+  float l_safe[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lt = l[hf];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    l_safe[hf] = fmaxf(lt, 1e-30f);
+  }
+  const long long row_stride = static_cast<long long>(H) * D;
+  // o[32 nb + e] is element e of box nb's accumulator: store_rows's layout
+  store_rows<D>(out, (static_cast<long long>(b) * L.sq * H + h) * D,
+                row_stride, row, L.sq,
+                reinterpret_cast<const float(&)[G::NB][G::CW / 2]>(o),
+                l_safe);
+  if (t == 0)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (row + 8 * hf < L.sq)
+        lse[static_cast<long long>(bh) * L.sq + row + 8 * hf] =
+            m[hf] * kLn2 + logf(l_safe[hf]);
+}
+
+// K8, dq pass on the tensor cores up to head_dim 128 (but 96): grid as the
 // forward's; Q and dO are the block's own tiles, K and V stream in
 // TN-row tiles.
 template <int D, bool OFF>
@@ -1167,7 +1559,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                 __nv_bfloat16* __restrict__ dq, Seqs seqs, int H, float scale,
                 float scale_log2, int causal, int window) {
   const Seqs L = rows_of<OFF>(seqs);
-  static_assert(!kWide<D>, "head_dim 256 takes flash_dq_wide_tc");
+  static_assert(!kWide<D> && !kFull<D>,
+                "head_dim 256 takes flash_dq_wide_tc, 96 flash_dq_full_tc");
   using G = Geo<D>;
   constexpr int TN = kTile;
   constexpr int NS = TN / 2;   // accumulators of a 64 x TN score tile
@@ -1262,11 +1655,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                 static_cast<long long>(H) * D, row, L.sq, acc, one);
 }
 
-// K8, dk/dv pass on the tensor cores up to head_dim 128: grid (B*H, key
-// tiles of kOwn rows, first first); K and V are the block's own tiles, Q
-// and dO stream.  The products run transposed (S^T = K Q^T, dP^T = V
-// dO^T), so P^T and dS^T come out as the A fragments of dV += P^T dO and
-// dK += dS^T Q.
+// K8, dk/dv pass on the tensor cores up to head_dim 128 (but 96): grid
+// (B*H, key tiles of kOwn rows, first first); K and V are the block's
+// own tiles, Q and dO stream.  The products run transposed (S^T = K
+// Q^T, dP^T = V dO^T), so P^T and dS^T come out as the A fragments of dV
+// += P^T dO and dK += dS^T Q.
 template <int D, bool OFF>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dkv_tc(const __grid_constant__ CUtensorMap tk,
@@ -1279,6 +1672,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  __nv_bfloat16* __restrict__ dv, Seqs seqs, int H, float scale,
                  float scale_log2, int causal, int window) {
   const Seqs L = rows_of<OFF>(seqs);
+  static_assert(!kWide<D> && !kFull<D>,
+                "head_dim 256 takes flash_dkv_wide_tc, 96 flash_dkv_full_tc");
   using G = Geo<D>;
   using M = Smem<D, 2, kOwn, kTile>;
   extern __shared__ unsigned char smem_raw[];
@@ -1380,6 +1775,258 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   store_rows<D>(dv, obase, row_stride, row, L.sk, acc_v, one);
 }
 
+// K8 at head_dim 96 (phi-3-vision): flash_dq_full_tc and
+// flash_dkv_full_tc, in place of flash_dq_tc's and flash_dkv_tc's design
+// there.  They replace the Pallas _flash_dq_kernel and _flash_dkv_kernel
+// (src/repro/kernels/flash_attention.py:202).  Bound: tensor-core
+// operations, 8*B*H*S^2*D/2 causal for the backward's four products (the
+// two passes do seven: 0.209 ms at (1, 4096, 32, 96) on 989 TFLOP/s).
+// The design at 64 cut every product at 96 into three m64n32k16 ones, a
+// 64-byte box each, re-feeding the same A fragment from registers; kept
+// the lse and delta of its 16 query columns in 32 registers of each lane
+// of the dk/dv pass, whose ~224 live values spilled under setmaxnreg's
+// 240 (a __trap() on the waits' time-out path makes ptxas spill bodies
+// that fit), and ptxas serialized its wgmma for want of registers.
+// Here every product that accumulates over the head width is one
+// m64n96k16 instruction, B read N-major over the row's three boxes
+// (desc_nx), into one 48-float fragment; the dk/dv pass's lse and delta
+// of the streamed tile sit in shared memory (FullSmem), loaded once a
+// tile by each consumer warpgroup (the next tile's fetched into one
+// register while this one computes); the waits fault instead of trapping
+// (kFault).  Both passes build with no spill and no serialized wgmma.
+// FlashAttention-3's turns between the two consumer warpgroups measured
+// 1-6% slower here and went (PERF.md).  The arithmetic and its
+// order are the earlier kernels': the same bits.
+
+// K8, dq pass at head_dim 96: grid as the forward's; Q and dO are the
+// block's own tiles, K and V stream in 64-row tiles.
+template <int D, bool OFF>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dq_full_tc(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, Seqs seqs, int H,
+                     float scale, float scale_log2, int causal, int window) {
+  const Seqs L = rows_of<OFF>(seqs);
+  static_assert(kFull<D>, "a full kernel");
+  using G = Geo<D>;
+  constexpr int NA = G::NB * G::CW / 2;  // accumulators of a 64 x D tile
+  using M = Smem<D, 2, kOwn, kTile>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;
+  int lo, hi;
+  keys_for(q0, kOwn, kTile, L, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 2, kOwn, kTile, true>(base, bars, &tq, &tdo, &tk, &tv, h,
+                                       b, q0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int qw = q0 + wg * kTile;
+  const int row = qw + wi * 16 + g;  // and row + 8
+  int wlo, whi;
+  keys_for(qw, kTile, kTile, L, causal, window, &wlo, &whi);
+  const long long rbase = static_cast<long long>(bh) * L.sq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    lse2[hf] = r < L.sq ? __fmul_rn(lse[rbase + r], kLog2e) : 0.0f;
+    dl[hf] = r < L.sq ? delta[rbase + r] : 0.0f;
+  }
+  float acc[NA];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) acc[e] = 0.0f;
+  const uint32_t do_own = base + M::own;
+  mbar_wait<true>(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const uint32_t k_s = base + M::stream + s * 2 * M::tile;
+    const uint32_t v_s = k_s + M::tile;
+    mbar_wait<true>(full_bar(bars, s), (i / kStages) & 1);
+    if (j >= wlo && j < whi) {
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks) {
+        wgmma_ss(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                 desc_k<D>(k_s, kTile, 0, ks), 1);
+        wgmma_ss(dp, desc_k<D>(do_own, kOwn, wg * kTile, ks),
+                 desc_k<D>(v_s, kTile, 0, ks), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      const int k0 = j * kTile;
+      const bool mask = !all_visible(qw, kTile, k0, kTile, L, causal, window);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hf = (e >> 1) & 1;
+        float ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int x = e + u;
+          float p = 0.0f;
+          if (!mask || visible(row + 8 * hf, k0 + 8 * (x >> 2) + 2 * t + u, L,
+                               causal, window))
+            p = exp2f(__fmul_rn(sc[x], scale_log2) - lse2[hf]);
+          ds[u] = __fmul_rn(__fmul_rn(p, dp[x] - dl[hf]), scale);
+        }
+        da[e >> 3][(e >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, da[kk], desc_nx<D>(k_s, kTile, kk));
+      wg_commit();
+      wg_wait0();
+    }
+    mbar_arrive(empty_bar(bars, s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<D>(dq, (static_cast<long long>(b) * L.sq * H + h) * D,
+                static_cast<long long>(H) * D, row, L.sq,
+                reinterpret_cast<const float(&)[G::NB][G::CW / 2]>(acc), one);
+}
+
+// K8, dk/dv pass at head_dim 96: grid (B*H, key tiles of kOwn rows, first
+// first); K and V are the block's own tiles, Q and dO stream.  The
+// products run transposed (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T
+// come out as the A fragments of dV += P^T dO and dK += dS^T Q.
+template <int D, bool OFF>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dkv_full_tc(const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, Seqs seqs, int H,
+                      float scale, float scale_log2, int causal,
+                      int window) {
+  const Seqs L = rows_of<OFF>(seqs);
+  static_assert(kFull<D>, "a full kernel");
+  using G = Geo<D>;
+  constexpr int NA = G::NB * G::CW / 2;  // accumulators of a 64 x D tile
+  using M = FullSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t base;
+  const uint32_t bars = setup(smem_raw, M::bars, &base);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kOwn;
+  int lo, hi;
+  queries_for(k0, kOwn, kTile, L, causal, window, &lo, &hi);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x == kConsumers)
+      produce<D, 2, kOwn, kTile, true>(base, bars, &tk, &tv, &tq, &tdo, h,
+                                       b, k0, lo, hi);
+    return;
+  }
+  consumer_regs();
+  const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int wt = threadIdx.x % 128;
+  const int kw = k0 + wg * kTile;
+  const int row = kw + wi * 16 + g;  // keys row and row + 8
+  int wlo, whi;
+  queries_for(kw, kTile, kTile, L, causal, window, &wlo, &whi);
+  const long long rbase = static_cast<long long>(bh) * L.sq;
+  // This warpgroup's two buffers of a streamed tile's 64 lse (base 2)
+  // then 64 delta; thread wt fills entry wt of one.
+  float* const rows_s = reinterpret_cast<float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + M::rows) + wg * 2 * 2 * kTile;
+  const auto fetch = [&](int j) {
+    const int q = j * kTile + wt % kTile;
+    if (q >= L.sq) return 0.0f;
+    return wt < kTile ? __fmul_rn(lse[rbase + q], kLog2e) : delta[rbase + q];
+  };
+  float next = wlo < whi ? fetch(wlo) : 0.0f;
+  float acc_k[NA], acc_v[NA];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) acc_k[e] = acc_v[e] = 0.0f;
+  const uint32_t v_own = base + Smem<D, 2, kOwn, kTile>::own;
+  mbar_wait<true>(bars, 0);
+  for (int j = lo, i = 0; j < hi; ++j, ++i) {
+    const int s = i % kStages;
+    const int q0 = j * kTile;
+    const uint32_t q_s = base + M::S::stream + s * 2 * M::S::tile;
+    const uint32_t do_s = q_s + M::S::tile;
+    float* const lq = rows_s + (j & 1) * 2 * kTile;  // lse, then delta
+    const bool active = j >= wlo && j < whi;
+    if (active) {
+      lq[wt] = next;
+      asm volatile("bar.sync %0, 128;\n" ::"r"(4 + wg) : "memory");
+      if (j + 1 < whi) next = fetch(j + 1);
+    }
+    mbar_wait<true>(full_bar(bars, s), (i / kStages) & 1);
+    if (active) {
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < G::KSTEPS; ++ks) {
+        wgmma_ss(sc, desc_k<D>(base, kOwn, wg * kTile, ks),
+                 desc_k<D>(q_s, kTile, 0, ks), 1);
+        wgmma_ss(dp, desc_k<D>(v_own, kOwn, wg * kTile, ks),
+                 desc_k<D>(do_s, kTile, 0, ks), 1);
+      }
+      wg_commit();
+      wg_wait0();
+      const bool mask = !all_visible(q0, kTile, kw, kTile, L, causal, window);
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hf = (e >> 1) & 1;
+        float p[2], ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int x = e + u;
+          const int c = 8 * (x >> 2) + 2 * t + u;  // the query's column
+          p[u] = 0.0f;
+          if (!mask || visible(q0 + c, row + 8 * hf, L, causal, window))
+            p[u] = exp2f(__fmul_rn(sc[x], scale_log2) - lq[c]);
+          ds[u] = __fmul_rn(__fmul_rn(p[u], dp[x] - lq[kTile + c]), scale);
+        }
+        pa[e >> 3][(e >> 1) & 3] = pack_bf16(p[0], p[1]);
+        da[e >> 3][(e >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(acc_v, pa[kk], desc_nx<D>(do_s, kTile, kk));
+        wgmma_rs(acc_k, da[kk], desc_nx<D>(q_s, kTile, kk));
+      }
+      wg_commit();
+      wg_wait0();
+    }
+    mbar_arrive(empty_bar(bars, s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  const long long obase = (static_cast<long long>(b) * L.sk * H + h) * D;
+  const long long row_stride = static_cast<long long>(H) * D;
+  store_rows<D>(dk, obase, row_stride, row, L.sk,
+                reinterpret_cast<const float(&)[G::NB][G::CW / 2]>(acc_k),
+                one);
+  store_rows<D>(dv, obase, row_stride, row, L.sk,
+                reinterpret_cast<const float(&)[G::NB][G::CW / 2]>(acc_v),
+                one);
+}
+
 // The wide kernels' score products for one streamed tile: sc += A0 B0^T
 // and dp += A1 B1^T over the head dimension, A0 and A1 the block's own
 // 64-row tiles, B0 and B1 the 32 rows from col0 of the streamed ones
@@ -1409,7 +2056,7 @@ template <int D>
 __device__ __forceinline__ void wide_half(float (&acc)[64], uint32_t x,
                                           uint32_t b, int wg, int kk) {
   wgmma_ss_n(acc, desc_k<64>(x, kTile, 0, kk),
-             desc_n2<D>(b, kTile, kk, 2 * wg));
+             desc_nx<D>(b, kTile, kk, 2 * wg));
 }
 
 // What a consumer thread of a wide kernel keeps in f32 registers while
@@ -1694,6 +2341,17 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   return rc;
 }
 
+template <typename T, int D>
+int delta_launch(const void* out, const void* dout, float* delta, int B,
+                 int S, int H, int vec, cudaStream_t stream) {
+  using G = DeltaGeo<T, D>;
+  const dim3 grid(B * H, (S + G::ROWS - 1) / G::ROWS);
+  flash_delta_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, S, H,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // cuTensorMapEncodeTiled from the driver library the process already has
 // loaded (through the CUDA runtime), so the build needs no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1758,12 +2416,19 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out,
   if (rc == 0) rc = make_map<D>(&mv, v, B, L.sk, H, kTile);
   if (rc != 0) return rc;
   constexpr uint32_t smem = TcSmem<D>::fwd;
-  rc = prepare(flash_fwd_tc<D, OFF>, smem);
-  if (rc != 0) return rc;
   const dim3 grid(B * H, (L.sq + kOwn - 1) / kOwn);
-  flash_fwd_tc<D, OFF><<<grid, kTcThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, L, H,
-      scale * kLog2e, causal, window);
+  __nv_bfloat16* out_ = static_cast<__nv_bfloat16*>(out);
+  if constexpr (kWide<D>) {
+    rc = prepare(flash_fwd_wide_tc<D, OFF>, smem);
+    if (rc != 0) return rc;
+    flash_fwd_wide_tc<D, OFF><<<grid, kTcThreads, smem, stream>>>(
+        mq, mk, mv, out_, lse, L, H, scale * kLog2e, causal, window);
+  } else {
+    rc = prepare(flash_fwd_tc<D, OFF>, smem);
+    if (rc != 0) return rc;
+    flash_fwd_tc<D, OFF><<<grid, kTcThreads, smem, stream>>>(
+        mq, mk, mv, out_, lse, L, H, scale * kLog2e, causal, window);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1798,6 +2463,12 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
       flash_dq_wide_tc<D, OFF><<<grid_q, kTcThreads, smem_dq, stream>>>(
           q_own, do_own, k_str, v_str, lse, delta, dq_, L, H, scale,
           scale_log2, causal, window);
+    } else if constexpr (kFull<D>) {
+      rc = prepare(flash_dq_full_tc<D, OFF>, smem_dq);
+      if (rc != 0) return rc;
+      flash_dq_full_tc<D, OFF><<<grid_q, kTcThreads, smem_dq, stream>>>(
+          q_own, do_own, k_str, v_str, lse, delta, dq_, L, H, scale,
+          scale_log2, causal, window);
     } else {
       rc = prepare(flash_dq_tc<D, OFF>, smem_dq);
       if (rc != 0) return rc;
@@ -1813,6 +2484,12 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* dout,
       rc = prepare(flash_dkv_wide_tc<D, OFF>, smem_dkv);
       if (rc != 0) return rc;
       flash_dkv_wide_tc<D, OFF><<<grid_k, kTcThreads, smem_dkv, stream>>>(
+          k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, L, H, scale,
+          scale_log2, causal, window);
+    } else if constexpr (kFull<D>) {
+      rc = prepare(flash_dkv_full_tc<D, OFF>, smem_dkv);
+      if (rc != 0) return rc;
+      flash_dkv_full_tc<D, OFF><<<grid_k, kTcThreads, smem_dkv, stream>>>(
           k_own, v_own, q_str, do_str, lse, delta, dk_, dv_, L, H, scale,
           scale_log2, causal, window);
     } else {
@@ -1916,5 +2593,25 @@ extern "C" int flash_attention_bwd(int dtype, int head_dim, const void* q,
 #undef BWD_F32
 #undef BWD_BF16
 #undef BWD_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K8's rowsum(dO∘O) into delta (B, H, S) f32, from out and dout (B, S,
+// H, head_dim) of dtype (0 float32, 1 bfloat16); vec 1 reads 16-byte
+// vectors (both pointers 16-byte aligned), 0 elements.
+extern "C" int flash_attention_delta(int dtype, int head_dim,
+                                     const void* out, const void* dout,
+                                     float* delta, int B, int S, int H,
+                                     int vec, void* stream) {
+  if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DELTA_ARGS out, dout, delta, B, S, H, vec, st
+#define DELTA_F32(D) delta_launch<float, D>(DELTA_ARGS)
+#define DELTA_BF16(D) delta_launch<__nv_bfloat16, D>(DELTA_ARGS)
+  FLASH_DISPATCH(DELTA_F32, DELTA_BF16)
+#undef DELTA_F32
+#undef DELTA_BF16
+#undef DELTA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,7 +14,10 @@ diagonal or outside the window are skipped.
 bfloat16 runs on the tensor cores: ``wgmma`` with bf16 operands and f32
 accumulators, P and dS fed from registers rounded to bf16, K/V (Q/dO in
 the dk/dv pass) streamed by TMA through a two-stage ring by one thread
-of a producer warpgroup, two consumer warpgroups of 64 rows per block.
+of a producer warpgroup, two consumer warpgroups of 64 rows per block
+(at ``dh`` 96, and in the forward at 256, each product that accumulates
+over the head width is one ``wgmma`` across it, and the forward streams
+K and V into slots of their own).
 TMA needs every pointer 16-byte aligned, which the wrapper checks.  The
 head widths are ``HEAD_DIMS``; TMA and ``wgmma`` read a bf16 row in
 swizzle boxes of 64, 32 or 16 columns, the widest that divides it (three
@@ -49,9 +52,14 @@ wrappers take the plain versions only for CPU tensors; for CUDA tensors
 they launch the kernels or raise.  :class:`FlashAttnFn` joins forward
 and backward for autograd.
 
+On CUDA ``rowsum(dO∘O)`` is a kernel too (:func:`_delta_launch`; the
+reference's einsum before its two ``pallas_call``s, 16-byte vector
+loads, products and sums in f32), which moves K8's outputs in the last
+bits against the plain einsum's :func:`_delta`.
+
 ``flash_attention_fwd.launches`` counts K7 launches;
 ``flash_attention_bwd.launches`` counts K8 calls (one per call, though
-each call launches its two kernels); ``.offset_launches`` counts, of
+each call launches its three kernels); ``.offset_launches`` counts, of
 those, the ones with a query offset or ``Sq != Sk`` (the kernels' other
 build).
 """
@@ -141,10 +149,19 @@ def flash_fwd_plain(q, k, v, causal: bool = True, window: int = 0,
 
 
 def _delta(out, dout) -> torch.Tensor:
-    """``rowsum(dO∘O)`` as ``(B, H, S)`` f32 (outside the kernels, as in
-    the reference)."""
+    """``rowsum(dO∘O)`` as ``(B, H, S)`` f32, the reference's einsum:
+    the plain version of K8's delta kernel (:func:`_delta_launch`)."""
     return torch.einsum("bshd,bshd->bhs", dout.to(torch.float32),
                         out.to(torch.float32)).contiguous()
+
+
+def delta_tolerance(out, dout) -> torch.Tensor:
+    """``dh·2⁻²⁴·Σ|dO∘O|`` per row as ``(B, H, S)`` f32: the f32
+    summation bound within which ``rowsum(dO∘O)`` summed in any order
+    (the kernel's, ``_delta``'s) lies of the exact sum."""
+    return torch.einsum("bshd,bshd->bhs", dout.to(torch.float32).abs(),
+                        out.to(torch.float32).abs()) * (out.shape[-1]
+                                                        * 2.0 ** -24)
 
 
 def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
@@ -219,6 +236,9 @@ def _lib():
         lib.flash_attention_bwd.restype = ctypes.c_int
         lib.flash_attention_tc_smem.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_tc_smem.restype = ctypes.c_int
+        lib.flash_attention_delta.argtypes = [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.flash_attention_delta.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -317,16 +337,31 @@ def _bwd_launch(q, k, v, dout, lse, delta, causal, window, passes=3,
     return dq, dk, dv
 
 
+def _delta_launch(out, dout) -> torch.Tensor:
+    """``rowsum(dO∘O)`` as ``(B, H, S)`` f32 by K8's delta kernel, on
+    checked CUDA inputs (:func:`_delta` is its plain version).  Counts
+    nothing."""
+    b, s, h, dh = out.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=out.device)
+    backend.check(_lib().flash_attention_delta(
+        _DTYPE_CODE[out.dtype], dh, *(backend.ptr(t) for t in (out, dout,
+                                                                delta)),
+        b, s, h, int(backend.vector_aligned(out, dout)),
+        backend.stream_ptr()), "flash_attention_delta")
+    return delta
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int = 0, chunk: int = 64, q_offset: int = 0):
-    """``(dq, dk, dv)`` in the inputs' dtype."""
+    """``(dq, dk, dv)`` in the inputs' dtype.  On CUDA three kernels:
+    ``rowsum(dO∘O)``, the dq pass and the dk/dv pass."""
     q_offset = _offset(q_offset)
     if _on_cpu("flash_attention_bwd", q, k, v, out, lse, dout):
         return flash_bwd_plain(q, k, v, out, lse, dout, causal, window,
                                chunk, q_offset)
-    delta = _delta(out, dout)
-    _check_kernel_inputs("flash_attention_bwd", q, out, dout,
-                         f32=(lse, delta), keys=(k, v))
+    _check_kernel_inputs("flash_attention_bwd", q, out, dout, f32=(lse,),
+                         keys=(k, v))
+    delta = _delta_launch(out, dout)
     grads = _bwd_launch(q, k, v, dout, lse, delta, causal, window,
                         q_offset=q_offset)
     flash_attention_bwd.launches += 1

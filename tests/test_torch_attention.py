@@ -303,7 +303,9 @@ def _tc_emulate(q, k, v, do, causal, window, tile=64):
     At head_dim 256 the backward's own kernels stage P and dS in shared
     memory between its two consumer warpgroups, rounded to bf16 at the
     same points (P and dS are elementwise, from the forward's lse), so
-    this emulation holds there too.
+    this emulation holds there too; so it does for the forward at 256
+    and the backward at 96, whose products span the whole head width
+    (the same sums in the same order as three or four box-wide ones).
     Takes and returns (B, S, H, dh) bf16; lse (B, H, S) f32."""
     b, s, h, dh = q.shape
     n = -(-s // tile) * tile
@@ -353,7 +355,7 @@ def _close(got, want, name):
 
 
 @pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32),
-                                   (1, 128, 2, 256)])
+                                   (1, 128, 2, 256), (1, 128, 2, 96)])
 @pytest.mark.parametrize("causal,window", TC_MODES)
 def test_tensor_core_rounding_matches_pallas_interpreter(shape, causal,
                                                          window):
@@ -377,7 +379,7 @@ def test_tensor_core_rounding_matches_pallas_interpreter(shape, causal,
 
 
 @pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 96, 3, 32),
-                                   (1, 128, 2, 256)])
+                                   (1, 128, 2, 256), (1, 128, 2, 96)])
 @pytest.mark.parametrize("causal,window", TC_MODES)
 def test_tensor_core_rounding_matches_sdpa_chunked(shape, causal, window):
     """The emulated bf16 kernel arithmetic against the reference model's
@@ -393,3 +395,26 @@ def test_tensor_core_rounding_matches_sdpa_chunked(shape, causal, window):
     jgrads = vjp(jnp.asarray(do.float().numpy(), jnp.bfloat16))
     for g, w, name in zip(grads, jgrads, ("dq", "dk", "dv")):
         _close(g, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96, 256])
+def test_delta_is_within_the_summation_bound_of_the_exact_rowsum(dh, dtype):
+    """``_delta`` (the plain version of K8's rowsum(dO∘O) kernel) against
+    the float64 rowsum of the same inputs per row, within
+    ``delta_tolerance``: dh·2⁻²⁴·Σ|dO∘O|, the f32 summation bound that
+    the kernel is held to against ``_delta`` on the card.  A ragged S."""
+    rng = np.random.default_rng(dh)
+    shape = (2, 77, 3, dh)
+    out, do = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(dtype)
+               for _ in range(2))
+    got = fa._delta(out, do)
+    o64, d64 = (t.float().numpy().astype(np.float64) for t in (out, do))
+    exact = np.einsum("bshd,bshd->bhs", d64, o64)
+    bound = np.einsum("bshd,bshd->bhs", np.abs(d64), np.abs(o64)) \
+        * dh * 2.0 ** -24
+    tol = fa.delta_tolerance(out, do)
+    assert got.shape == tol.shape == (2, 3, 77) and got.dtype == torch.float32
+    np.testing.assert_allclose(tol.numpy(), bound, rtol=1e-5)
+    assert (np.abs(got.numpy() - exact) <= bound).all()

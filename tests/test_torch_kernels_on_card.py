@@ -321,7 +321,8 @@ def test_flash_kernels_match_plain_on_card(cuda, s, dh, causal, window,
     (4096, 64, True, 0), (300, 64, True, 100), (257, 32, False, 0),
     (130, 16, True, 0), (333, 128, True, 0), (4096, 256, True, 0),
     (333, 256, True, 100), (64, 256, True, 0), (4096, 256, True, 1024),
-    (513, 256, False, 0), (4096, 96, True, 0), (300, 96, True, 100)])
+    (513, 256, False, 0), (4096, 96, True, 0), (300, 96, True, 100),
+    (257, 96, False, 0), (77, 256, False, 0)])
 def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
                                                       window):
     """Two bf16 calls of K7 and of K8 give the same bits: every output
@@ -339,22 +340,63 @@ def test_bf16_flash_kernels_are_deterministic_on_card(cuda, s, dh, causal,
         assert torch.equal(g, g2)
 
 
-@pytest.mark.parametrize("dh", [64, 256])
+@pytest.mark.parametrize("dh", [64, 96, 256])
 def test_flash_bwd_passes_apart_match_the_whole_call_on_card(cuda, dh):
-    """The dq pass alone and the dk/dv pass alone (how chip_smoke times
-    them) write the same bits as the whole backward, and count no
-    launch."""
+    """The delta kernel, the dq pass alone and the dk/dv pass alone (how
+    chip_smoke times them) write the same bits as the whole backward, and
+    count no launch."""
     q, k, v, do = _attn_inputs((2, 333, 3, dh), torch.bfloat16, cuda,
                                seed=dh)
     out, lse = fla.flash_attention_fwd(q, k, v)
     whole = fla.flash_attention_bwd(q, k, v, out, lse, do)
-    delta = fla._delta(out, do)
+    delta = fla._delta_launch(out, do)
     n8 = fla.flash_attention_bwd.launches
     dq, _, _ = fla._bwd_launch(q, k, v, do, lse, delta, True, 0, passes=1)
     _, dk, dv = fla._bwd_launch(q, k, v, do, lse, delta, True, 0, passes=2)
     assert fla.flash_attention_bwd.launches == n8
     for a, b in zip((dq, dk, dv), whole):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [333, 4096])
+@pytest.mark.parametrize("dh", fla.HEAD_DIMS)
+def test_delta_kernel_matches_plain_on_card(cuda, dh, s, dtype):
+    """K8's rowsum(dO∘O) kernel against ``_delta`` per row within
+    dh·2⁻²⁴·Σ|dO∘O| (both sum in f32, in different orders), and two
+    calls give the same bits; at S 333 also through element loads (f32
+    views off a 16-byte boundary)."""
+    shape = (2, s, 3, dh)
+    out, do = _attn_inputs(shape, dtype, cuda, seed=s + dh)[:2]
+    pairs = [(out, do)]
+    if dtype == torch.float32 and s == 333:
+        n = int(np.prod(shape))
+        flat = _normal(2 * n + 2, seed=dh).to(cuda)
+        pairs.append((flat[1:n + 1].view(shape), flat[n + 2:].view(shape)))
+        assert pairs[-1][0].data_ptr() % 16
+    for o, g in pairs:
+        got = fla._delta_launch(o, g)
+        assert torch.equal(got, fla._delta_launch(o, g))
+        assert ((got - fla._delta(o, g)).abs()
+                <= fla.delta_tolerance(o, g)).all()
+
+
+@pytest.mark.parametrize("sq,sk,off,dh", [(2048, 4096, 2048, 96),
+                                          (2048, 4096, 2048, 256),
+                                          (300, 513, 100, 96)])
+def test_bf16_flash_kernels_with_a_query_offset_are_deterministic_on_card(
+        cuda, sq, sk, off, dh):
+    """Two bf16 calls of K7 and K8's offset build give the same bits."""
+    q, _, _, do = _attn_inputs((1, sq, 8, dh), torch.bfloat16, cuda, seed=sq)
+    _, k, v, _ = _attn_inputs((1, sk, 8, dh), torch.bfloat16, cuda, seed=sk)
+    kw = dict(q_offset=off)
+    out, lse = fla.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = fla.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    grads = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    grads2 = fla.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for g, g2 in zip(grads, grads2):
+        assert torch.equal(g, g2)
 
 
 def test_bf16_flash_kernels_refuse_unaligned_views_on_card(cuda):
@@ -380,7 +422,9 @@ def test_bf16_flash_kernels_refuse_unaligned_views_on_card(cuda):
 @pytest.mark.parametrize("sq,sk,off,dh,causal,window", [
     (150, 300, 150, 64, True, 0), (100, 333, 233, 256, True, 100),
     (130, 257, 127, 96, True, 0), (64, 200, 0, 32, False, 0),
-    (200, 200, 48, 16, True, 50), (77, 333, 90, 128, True, 0)])
+    (200, 200, 48, 16, True, 50), (77, 333, 90, 128, True, 0),
+    (2048, 4096, 2048, 96, True, 0), (2048, 4096, 2048, 256, True, 0),
+    (300, 513, 100, 96, False, 0), (333, 400, 67, 256, True, 100)])
 def test_flash_kernels_with_a_query_offset_match_plain_on_card(
         cuda, dtype, sq, sk, off, dh, causal, window):
     """K7/K8's offset build (queries at positions ``off ..`` against keys

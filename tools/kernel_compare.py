@@ -13,19 +13,25 @@ are built with the port's ``backend.NVCC_FLAGS`` into
 1. prints, per tree, each tensor-core kernel's registers, spills and
    ptxas "Performance Loss" lines;
 2. with two trees or more, holds every tree's outputs against the first
-   tree's on the same inputs: K7 at every head width in f32 and bf16,
-   K8 at every width in f32 and at head_dim <= 128 in bf16 must be
-   bit-identical; K8 bf16 at 256 is held against the plain version at
-   3e-2 and its difference from the first tree is printed; K6 at the
-   registered widths in both dtypes against ``rmsnorm_plain`` (rtol 1e-5
-   or one bf16 ulp);
-3. splits K8 at gemma-7b's shape, (1, 4096, 16, 256) causal bf16, into
-   its device kernels with ``torch.profiler`` (CUDA activity), per tree,
-   beside the whole call and ``rowsum(dO*O)`` timed with CUDA events;
-4. times K7/K8 bf16 at phase 4's and phase 6's shapes and K6 bf16 at
-   (4096, 960) and (4096, 3072) with every tree in turns (first, second,
-   ..., ..., second, first; 50 calls a turn), beside SDPA and
-   ``F.rms_norm``.
+   tree's on the same inputs: K7 at every head width in f32 and bf16
+   and K8's passes at every width in both dtypes, fed the same
+   ``delta`` (``_delta``), must be bit-identical, except the bf16 K7 at
+   256 and K8 at 96, which are held against the plain version at 3e-2
+   with their difference from the first tree printed; a tree's
+   ``rowsum(dO*O)`` kernel (``flash_attention_delta``, where it has one)
+   is held against ``_delta`` per row within dh 2^-24 sum|dO*O|; K6 at
+   the registered widths in both dtypes against ``rmsnorm_plain`` (rtol
+   1e-5 or one bf16 ulp);
+3. splits K8 at gemma-7b's shape, (1, 4096, 16, 256), and at
+   phi-3-vision's, (1, 4096, 32, 96), causal bf16, into its device
+   kernels with ``torch.profiler`` (CUDA activity), per tree, beside the
+   whole call and ``rowsum(dO*O)`` timed with CUDA events;
+4. times K7/K8 bf16 at phase 4's, phase 6's and phi-3-vision's shapes
+   and K6 bf16 at (4096, 960) and (4096, 3072) with every tree in turns
+   (first, second, ..., ..., second, first; 50 calls a turn), beside
+   SDPA and ``F.rms_norm``.  A tree's K8 call is its whole backward:
+   its own ``rowsum(dO*O)`` (the kernel where it has one, else
+   ``_delta``) and both passes.
 
 ``--probe`` compiles a kernel with 384 threads under
 ``__launch_bounds__(384, 1)`` whose 256 consumer threads keep N floats
@@ -56,6 +62,7 @@ from chip_smoke import (bf16_ulp, bits_equal, gpu_line, log,  # noqa: E402
 
 GEMMA_ATTN = (1, 4096, 16, 256)
 SMOL_ATTN = (1, 4096, 15, 64)
+PHI3_ATTN = (1, 4096, 32, 96)
 NORM_WIDTHS = (960, 2048, 3072, 4096)
 
 PROBE_SRC = r"""
@@ -191,6 +198,9 @@ class Tree:
         # and (Sq, Sk, q_off) in place of S from the tree that split the
         # sequence over the model ranks on.
         self.seqs = "int q_off" in flash
+        # rowsum(dO*O) as a kernel from the tree that moved it out of
+        # plain torch on.
+        self.has_delta = "flash_attention_delta(" in flash
 
     def jobs(self):
         return {(self.name, n): (os.path.join(self.csrc, f"{n}.cu"),
@@ -206,6 +216,9 @@ class Tree:
         self.fa.flash_attention_bwd.argtypes = [ci] * 2 + [vp] * 9 + \
             [ci] * n + [cf] + [ci] * 2 + ([ci] if self.bwd_passes else []) \
             + [vp]
+        if self.has_delta:
+            self.fa.flash_attention_delta.argtypes = [ci] * 2 + [vp] * 3 + \
+                [ci] * 4 + [vp]
         self.rn = ctypes.CDLL(os.path.join(self.out, "libfused_rmsnorm.so"))
         self.rn.rmsnorm_fwd.argtypes = [ci] + [vp] * 4 + \
             [ctypes.c_longlong, ci, cf] + ([ci] if self.norm_vec else []) \
@@ -233,12 +246,29 @@ class Tree:
             torch.cuda.current_stream().cuda_stream), "fwd")
         return out, lse
 
+    def delta(self, out, do):
+        """rowsum(dO*O): this tree's kernel, or ``_delta`` where it has
+        none."""
+        import torch
+        from repro_torch.kernels import backend
+        from repro_torch.kernels import flash_attention as fla
+        if not self.has_delta:
+            return fla._delta(out, do)
+        b, s, h, dh = out.shape
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=out.device)
+        self._check(self.fa.flash_attention_delta(
+            fla._DTYPE_CODE[out.dtype], dh,
+            *(t.data_ptr() for t in (out, do, delta)), b, s, h,
+            int(backend.vector_aligned(out, do)),
+            torch.cuda.current_stream().cuda_stream), "delta")
+        return delta
+
     def bwd(self, q, k, v, out, lse, do, causal=True, window=0, delta=None):
         import torch
         from repro_torch.kernels import flash_attention as fla
         b, s, h, dh = q.shape
         if delta is None:
-            delta = fla._delta(out, do)
+            delta = self.delta(out, do)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         extra = [3] if self.bwd_passes else []
         self._check(self.fa.flash_attention_bwd(
@@ -301,7 +331,7 @@ def guard_probe(tree, build_dir):
         log(f"[{tree.name}] has no kFault guard: nothing to probe")
         return
     trap = src.replace("mbar_wait<true>(", "mbar_wait<false>(").replace(
-        "kTile, kTile, true>(", "kTile, kTile, false>(")
+        "kTile, true>(", "kTile, false>(")
     fault = src.replace("bool kFault = false", "bool kFault = true")
     variants = {"as built": src, "trap everywhere": trap,
                 "fault everywhere": fault}
@@ -337,8 +367,9 @@ def guard_probe(tree, build_dir):
 
 
 def profile_split(tree, q, k, v, out, lse, do, reps=20):
-    """Device microseconds per call of each kernel of K8 (delta included)
-    from torch.profiler, and the whole call and delta from events."""
+    """Device microseconds per call of each kernel of K8 (its delta
+    included) from torch.profiler, and the whole call and the tree's
+    delta from events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fla
@@ -358,10 +389,12 @@ def profile_split(tree, q, k, v, out, lse, do, reps=20):
             rows.append((total / reps, evt.count // reps, evt.key))
     rows.sort(reverse=True)
     whole = time_ms(lambda: tree.bwd(q, k, v, out, lse, do), reps=50)
-    delta = time_ms(lambda: fla._delta(out, do), reps=50)
-    log(f"  [{tree.name}] K8 bf16 {GEMMA_ATTN} causal: whole call "
-        f"{whole:.4f} ms (events), rowsum(dO*O) alone {delta:.4f} ms; "
-        f"profiler, device us per call:")
+    delta = time_ms(lambda: tree.delta(out, do), reps=50)
+    plain = time_ms(lambda: fla._delta(out, do), reps=50)
+    log(f"  [{tree.name}] K8 bf16 {tuple(q.shape)} causal: whole call "
+        f"{whole:.4f} ms (events), rowsum(dO*O) alone {delta:.4f} ms "
+        f"({'kernel' if tree.has_delta else '_delta'}; _delta {plain:.4f} "
+        f"ms); profiler, device us per call:")
     for us, count, key in rows:
         log(f"    {us:10.2f} us  x{count}  {key[:110]}")
     if not rows:
@@ -374,47 +407,62 @@ def compare_bits(trees, gen):
     from repro_torch.kernels import fused_rmsnorm as frn
     cuda = torch.device("cuda")
     cases = [(dh, s, causal, window)
-             for dh in (16, 32, 64, 128, 256)
+             for dh in (16, 32, 64, 96, 128, 256)
              for s, causal, window in ((333, True, 0), (200, True, 50),
                                        (257, False, 0))]
-    cases += [(64, 4096, True, 0), (256, 4096, True, 0)]
+    cases += [(64, 4096, True, 0), (96, 4096, True, 0), (256, 4096, True, 0)]
+    # the bf16 kernels redesigned at one width: held to the plain
+    # versions, their difference from the first tree printed
+    redesigned = {("K7", 256), ("K8", 96)}
     first = trees[0]
     for dh, s, causal, window in cases:
-        shape = (1, s, 15 if dh == 64 and s == 4096 else
-                 (16 if s == 4096 else 3), dh)
+        heads = {64: 15, 96: 32, 256: 16}[dh] if s == 4096 else 3
+        shape = (1, s, heads, dh)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
                            .to(dtype) for _ in range(4))
             kw = dict(causal=causal, window=window)
             ref_f = first.fwd(q, k, v, **kw)
-            ref_b = first.bwd(q, k, v, *ref_f, do, **kw)
+            delta = fla._delta(ref_f[0], do)
+            ref_b = first.bwd(q, k, v, *ref_f, do, delta=delta, **kw)
+            plain = None
             what = f"{shape} {str(dtype)[6:]} causal={causal} window={window}"
             for t in trees[1:]:
                 f = t.fwd(q, k, v, **kw)
-                require(all(bits_equal(a, b) for a, b in zip(f, ref_f)),
-                        f"K7 [{t.name}] != [{first.name}] at {what}")
-                g = t.bwd(q, k, v, *ref_f, do, **kw)
-                same = all(bits_equal(a, b) for a, b in zip(g, ref_b))
-                if dtype == torch.bfloat16 and dh == 256:
-                    pg = fla.flash_bwd_plain(q, k, v, *ref_f, do, chunk=64,
-                                             **kw)
+                g = t.bwd(q, k, v, *ref_f, do, delta=delta, **kw)
+                for kern, got, ref in (("K7", f, ref_f), ("K8", g, ref_b)):
+                    same = all(bits_equal(a, b) for a, b in zip(got, ref))
+                    if dtype != torch.bfloat16 or (kern, dh) not in redesigned:
+                        require(same, f"{kern} [{t.name}] != [{first.name}] "
+                                      f"at {what}")
+                        continue
+                    if plain is None:
+                        pf = fla.flash_fwd_plain(q, k, v, chunk=64, **kw)
+                        plain = {"K7": pf, "K8": fla.flash_bwd_plain(
+                            q, k, v, *ref_f, do, chunk=64, **kw)}
                     ex = max(float(((a.float() - p.float()).abs()
                                     - 3e-2 * p.float().abs()).max()) / 3e-2
-                             for a, p in zip(g, pg))
+                             for a, p in zip(got, plain[kern]))
                     diff = max(float((a.float() - b.float()).abs().max())
-                               for a, b in zip(g, ref_b))
-                    log(f"  K8 [{t.name}] {what}: max err/tol vs plain "
+                               for a, b in zip(got, ref))
+                    log(f"  {kern} [{t.name}] {what}: max err/tol vs plain "
                         f"{ex:.3f}, max |diff| vs [{first.name}] {diff:.4g}, "
                         f"bit-identical {same}")
-                    require(ex <= 1.0, f"K8 [{t.name}] != plain at {what}")
-                    again = t.bwd(q, k, v, *ref_f, do, **kw)
-                    require(all(bits_equal(a, b) for a, b in zip(g, again)),
-                            f"K8 [{t.name}] not deterministic at {what}")
-                else:
-                    require(same, f"K8 [{t.name}] != [{first.name}] at {what}")
-        log(f"  K7 (f32, bf16) and K8 (f32{', bf16' if dh <= 128 else ''}) "
+                    require(ex <= 1.0, f"{kern} [{t.name}] != plain at {what}")
+                    again = t.fwd(q, k, v, **kw) if kern == "K7" else \
+                        t.bwd(q, k, v, *ref_f, do, delta=delta, **kw)
+                    require(all(bits_equal(a, b) for a, b in zip(got, again)),
+                            f"{kern} [{t.name}] not deterministic at {what}")
+            for t in trees:
+                if t.has_delta:
+                    err = float((t.delta(ref_f[0], do) - delta).abs().sub(
+                        fla.delta_tolerance(ref_f[0], do)).max())
+                    require(err <= 0.0, f"[{t.name}] rowsum(dO*O) kernel "
+                                        f"!= _delta at {what}: {err}")
+        log(f"  K7 and K8's passes (f32, bf16; on the same delta) "
             f"bit-identical across trees at dh {dh} S {s} causal={causal} "
-            f"window={window}")
+            f"window={window}, but for the redesigned bf16 kernels above; "
+            f"each tree's rowsum(dO*O) kernel within its bound of _delta")
     for d in NORM_WIDTHS + (1000, 7):
         for rows, dtype in itertools.product((4096, 1),
                                              (torch.float32, torch.bfloat16)):
@@ -458,7 +506,7 @@ def timings(trees, gen):
     import torch
     import torch.nn.functional as F
     cuda = torch.device("cuda")
-    for shape in (SMOL_ATTN, GEMMA_ATTN):
+    for shape in (SMOL_ATTN, PHI3_ATTN, GEMMA_ATTN):
         q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
                        .to(torch.bfloat16) for _ in range(4))
         out, lse = trees[0].fwd(q, k, v)
@@ -532,13 +580,14 @@ def main():
     if len(trees) > 1 and not args.no_bits:
         log("outputs across trees")
         compare_bits(trees, gen)
-    q, k, v, do = (torch.randn(GEMMA_ATTN, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    out, lse = trees[0].fwd(q, k, v)
     log("K8 split into its kernels")
-    for t in trees:
-        profile_split(t, q, k, v, out, lse, do)
-    del q, k, v, do, out, lse
+    for shape in (GEMMA_ATTN, PHI3_ATTN):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = trees[0].fwd(q, k, v)
+        for t in trees:
+            profile_split(t, q, k, v, out, lse, do)
+        del q, k, v, do, out, lse
     log("times in turns")
     timings(trees, gen)
     log(gpu)
